@@ -1,0 +1,115 @@
+"""Model zoo entry point: ``build_forward`` (the port of ``models/__init__.py``).
+
+``build_forward(spec, params, dtype, fast, device)`` returns a module
+``f(images) -> float32 logits``: uint8 NHWC batches straight off the wire
+are normalized on the device (``ops.preprocess.normalize``); float batches
+are taken as already normalized.  ``fast`` picks the fused-kernel path
+(``models.xception_fast``) or the exact graph (``models.xception``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """A missing GPU is an error, never a silent move to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def create_model(spec: ModelSpec, dtype: torch.dtype = torch.float32):
+    """The exact-graph module for a spec (dtype = compute dtype)."""
+    if spec.family == "xception":
+        from kubernetes_deep_learning_tpu_torch.models.xception import Xception
+
+        return Xception(spec.num_classes, head_hidden=spec.head_hidden, dtype=dtype)
+    raise KeyError(f"model family {spec.family!r} is not ported yet")
+
+
+def init_variables(spec: ModelSpec, seed: int = 0) -> dict:
+    """Random variables in the flax tree layout (numpy), made from ``seed``:
+    kernels N(0, 1/fan_in), BN scale U(0.8, 1.2), shift and mean N(0, 0.05),
+    var U(0.5, 1.5) -- for tests, smoke runs and benchmarks."""
+    from kubernetes_deep_learning_tpu_torch.weights import to_jax_variables
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for key, t in sorted(create_model(spec).state_dict().items()):
+        shape = tuple(t.shape)
+        if key.endswith("running_var"):
+            arr = rng.uniform(0.5, 1.5, shape)
+        elif key.endswith("weight") and t.dim() == 1:  # BN scale
+            arr = rng.uniform(0.8, 1.2, shape)
+        elif key.endswith("weight"):
+            arr = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[1:])), shape)
+        else:  # biases, BN shift, running_mean
+            arr = rng.normal(0.0, 0.05, shape)
+        params[key] = torch.from_numpy(arr.astype(np.float32))
+    return to_jax_variables(params)
+
+
+def has_fast_forward(spec: ModelSpec) -> bool:
+    """Whether a fused-kernel fast path exists for this family."""
+    return spec.family == "xception"
+
+
+def resolve_fast(spec: ModelSpec, dtype: torch.dtype, fast: bool | str,
+                 device: str | torch.device) -> bool:
+    """"auto" = the fused path when the family has one, the compute dtype is
+    bfloat16 and the device is a GPU; True/False force it on/off."""
+    if fast == "auto":
+        return (
+            has_fast_forward(spec)
+            and dtype == torch.bfloat16
+            and torch.device(device).type == "cuda"
+        )
+    return bool(fast) and has_fast_forward(spec)
+
+
+class Forward(nn.Module):
+    """uint8 or normalized-float NHWC images -> float32 logits."""
+
+    def __init__(self, spec: ModelSpec, inner: nn.Module, fast: bool):
+        super().__init__()
+        self.spec = spec
+        self.inner = inner
+        self.fast = fast
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        if images.dtype == torch.uint8:
+            x = normalize(images, self.spec.preprocessing)
+        else:
+            x = images.to(torch.float32)
+        return self.inner(x).to(torch.float32)
+
+
+def build_forward(spec: ModelSpec, params: dict, dtype: torch.dtype = torch.bfloat16,
+                  fast: bool | str = "auto", device: str | torch.device = "cuda") -> Forward:
+    """The forward module over ``params`` (``weights.from_jax_variables``)
+    on ``device``, in eval mode."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        # cuDNN runs float32 convolutions in TF32 by default, which keeps ~3
+        # decimal digits and breaks the exact float32 graph's parity; the
+        # bf16 path is unaffected.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    use_fast = resolve_fast(spec, dtype, fast, device)
+    model = create_model(spec, dtype=dtype)
+    model.load_state_dict(params)
+    model = model.to(device).eval()
+    if use_fast:
+        from kubernetes_deep_learning_tpu_torch.models.xception_fast import XceptionFast
+
+        inner = XceptionFast(model, dtype=dtype)
+    else:
+        inner = model
+    return Forward(spec, inner, use_fast).eval()

@@ -1,0 +1,104 @@
+"""Shared building blocks, on NHWC tensors as in the JAX package.
+
+Convolutions go through ``torch.nn.functional.conv2d`` on an NCHW view of
+the NHWC tensor (a channels-last layout, which cuDNN takes as is).  Layers
+hold float32 parameters and compute in the dtype they are called with,
+as flax modules with ``dtype=`` do: operands are cast to the compute dtype,
+except BatchNorm, which flax evaluates in float32 (its float32 statistics
+promote the input) and casts back to the compute dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kubernetes_deep_learning_tpu_torch.weights import KERAS_BN_EPS
+
+
+def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
+    """TF/XLA "SAME" padding (before, after) along one dim: the extra pixel
+    of an odd total goes AFTER, e.g. (0, 1) for a 3x3/2 window on 74."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_nchw(x, k: int, s: int, value: float = 0.0):
+    top, bottom = same_pads(x.shape[2], k, s)
+    left, right = same_pads(x.shape[3], k, s)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=value)
+    return x
+
+
+def conv2d_nhwc(x, weight, stride: int = 1, padding: str = "VALID", groups: int = 1):
+    """NHWC conv with an OIHW weight; ``padding`` "VALID" or TF "SAME"."""
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        xc = _pad_nchw(xc, weight.shape[-1], stride)
+    elif padding != "VALID":
+        raise ValueError(f"unknown padding {padding!r}")
+    return F.conv2d(xc, weight, None, stride, 0, 1, groups).permute(0, 2, 3, 1)
+
+
+def max_pool_same(x, k: int = 3, s: int = 2):
+    """NHWC 3x3/2 max-pool with TF "SAME" padding, padded with -inf
+    (torch's symmetric ``padding=1`` puts the window in the wrong place on
+    even sides)."""
+    xc = _pad_nchw(x.permute(0, 3, 1, 2), k, s, value=float("-inf"))
+    return F.max_pool2d(xc, k, s).permute(0, 2, 3, 1)
+
+
+class SeparableConv2D(nn.Module):
+    """Depthwise 3x3 SAME + pointwise 1x1, both bias-free (Keras SeparableConv2D)."""
+
+    def __init__(self, c_in: int, features: int):
+        super().__init__()
+        self.depthwise = nn.Conv2d(c_in, c_in, 3, groups=c_in, bias=False)
+        self.pointwise = nn.Conv2d(c_in, features, 1, bias=False)
+
+    def forward(self, x):
+        dt = x.dtype
+        x = conv2d_nhwc(
+            x, self.depthwise.weight.to(dt), padding="SAME", groups=x.shape[-1]
+        )
+        return conv2d_nhwc(x, self.pointwise.weight.to(dt))
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over the last axis (Keras epsilon), computed in
+    float32 and returned in the input's dtype (flax ``BatchNorm`` semantics)."""
+
+    def __init__(self, c: int, eps: float = KERAS_BN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x):
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+
+
+class ClassifierHead(nn.Module):
+    """Global-average-pool head: hidden Dense+relu layers, then logits."""
+
+    def __init__(self, c_in: int, num_classes: int, hidden: tuple[int, ...] = ()):
+        super().__init__()
+        widths = (c_in, *hidden)
+        for i, width in enumerate(hidden):
+            self.add_module(f"hidden_{i}", nn.Linear(widths[i], width))
+        self.logits = nn.Linear(widths[-1], num_classes)
+        self.n_hidden = len(hidden)
+
+    def forward(self, x):
+        dt = x.dtype
+        x = x.mean(dim=(1, 2))
+        for i in range(self.n_hidden):
+            layer = self._modules[f"hidden_{i}"]
+            x = torch.relu(F.linear(x, layer.weight.to(dt), layer.bias.to(dt)))
+        return F.linear(x, self.logits.weight.to(dt), self.logits.bias.to(dt))

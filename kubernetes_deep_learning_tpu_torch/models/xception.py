@@ -1,0 +1,102 @@
+"""Xception, the exact graph: the port of ``models/xception.py``.
+
+The same architecture as keras.applications.xception and the flax module,
+with the same module names (block1_conv1, block4_sepconv2_bn, ...), so the
+flax variable tree maps onto it leaf for leaf (``weights.from_jax_variables``).
+Input is normalized float NHWC; the compute dtype is a constructor argument
+(float32 for exact parity, bfloat16 for serving); parameters stay float32.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from kubernetes_deep_learning_tpu_torch.models.layers import (
+    BatchNorm,
+    ClassifierHead,
+    SeparableConv2D,
+    conv2d_nhwc,
+    max_pool_same,
+)
+
+# Entry-flow residual block widths; block index -> features.
+ENTRY_BLOCKS = ((2, 128), (3, 256), (4, 728))
+MIDDLE_BLOCKS = tuple(range(5, 13))  # blocks 5..12, 728 features each
+
+
+class Xception(nn.Module):
+    def __init__(self, num_classes: int, head_hidden: tuple[int, ...] = (),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        add = self.add_module
+
+        def conv(name, c_in, c_out, k):
+            add(name, nn.Conv2d(c_in, c_out, k, bias=False))
+            add(f"{name}_bn", BatchNorm(c_out))
+
+        def sep(name, c_in, c_out):
+            add(name, SeparableConv2D(c_in, c_out))
+            add(f"{name}_bn", BatchNorm(c_out))
+
+        conv("block1_conv1", 3, 32, 3)
+        conv("block1_conv2", 32, 64, 3)
+        c = 64
+        for idx, feat in ENTRY_BLOCKS:
+            add(f"block{idx}_res_conv", nn.Conv2d(c, feat, 1, bias=False))
+            add(f"block{idx}_res_bn", BatchNorm(feat))
+            sep(f"block{idx}_sepconv1", c, feat)
+            sep(f"block{idx}_sepconv2", feat, feat)
+            c = feat
+        for idx in MIDDLE_BLOCKS:
+            for j in (1, 2, 3):
+                sep(f"block{idx}_sepconv{j}", 728, 728)
+        add("block13_res_conv", nn.Conv2d(728, 1024, 1, bias=False))
+        add("block13_res_bn", BatchNorm(1024))
+        sep("block13_sepconv1", 728, 728)
+        sep("block13_sepconv2", 728, 1024)
+        sep("block14_sepconv1", 1024, 1536)
+        sep("block14_sepconv2", 1536, 2048)
+        self.head = ClassifierHead(2048, num_classes, head_hidden)
+
+    def forward(self, x):
+        m = self._modules
+        dt = self.dtype
+
+        def conv(name, x, stride=1, padding="VALID"):
+            return conv2d_nhwc(x, m[name].weight.to(dt), stride, padding)
+
+        x = x.to(dt)
+        # --- Entry flow ---
+        x = torch.relu(m["block1_conv1_bn"](conv("block1_conv1", x, stride=2)))
+        x = torch.relu(m["block1_conv2_bn"](conv("block1_conv2", x)))
+        for idx, _feat in ENTRY_BLOCKS:
+            residual = conv(f"block{idx}_res_conv", x, stride=2, padding="SAME")
+            residual = m[f"block{idx}_res_bn"](residual)
+            if idx > 2:  # block2 has no leading activation (Keras quirk)
+                x = torch.relu(x)
+            x = m[f"block{idx}_sepconv1_bn"](m[f"block{idx}_sepconv1"](x))
+            x = torch.relu(x)
+            x = m[f"block{idx}_sepconv2_bn"](m[f"block{idx}_sepconv2"](x))
+            x = max_pool_same(x) + residual
+
+        # --- Middle flow: 8 residual blocks of 3 separable convs ---
+        for idx in MIDDLE_BLOCKS:
+            residual = x
+            for j in (1, 2, 3):
+                x = torch.relu(x)
+                x = m[f"block{idx}_sepconv{j}_bn"](m[f"block{idx}_sepconv{j}"](x))
+            x = x + residual
+
+        # --- Exit flow ---
+        residual = m["block13_res_bn"](conv("block13_res_conv", x, stride=2, padding="SAME"))
+        x = torch.relu(x)
+        x = m["block13_sepconv1_bn"](m["block13_sepconv1"](x))
+        x = torch.relu(x)
+        x = m["block13_sepconv2_bn"](m["block13_sepconv2"](x))
+        x = max_pool_same(x) + residual
+
+        x = torch.relu(m["block14_sepconv1_bn"](m["block14_sepconv1"](x)))
+        x = torch.relu(m["block14_sepconv2_bn"](m["block14_sepconv2"](x)))
+        return self.head(x)

@@ -1,0 +1,141 @@
+"""Xception fast path: the port of ``models/xception_fast.py``.
+
+The exact graph's entry flow on library convolutions (the JAX package
+leaves it to XLA), the 8 middle blocks on ``ops.fused_sepconv.
+fused_sepconv_block`` and the exit flow's two sepconv chains (block13
+728->728->1024, block14 1024->1536->2048) on ``fused_sepconv_chain``: the
+hand-written CUDA kernel on the card, its plain PyTorch version on the
+CPU.  Numerics follow the JAX fast path op for op: bf16 compute, BN in bf16
+in the entry flow, BN folded to an f32 affine inside the kernels, the
+residual 1x1/2 conv of block13 as a bf16 matmul with an f32 affine.
+
+The kernel-ready weights are derived once, when the module is built, from
+the exact graph's parameters.  The JAX path's TPU-only schedule rules
+(batch padded to a multiple of 8, 16-image chunking) have no counterpart.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from kubernetes_deep_learning_tpu_torch.models.layers import conv2d_nhwc, max_pool_same
+from kubernetes_deep_learning_tpu_torch.models.xception import (
+    ENTRY_BLOCKS,
+    MIDDLE_BLOCKS,
+    Xception,
+)
+from kubernetes_deep_learning_tpu_torch.ops.fused_sepconv import (
+    fused_sepconv_block,
+    fused_sepconv_chain,
+)
+from kubernetes_deep_learning_tpu_torch.weights import (
+    KERAS_BN_EPS,
+    fold_bn,
+    middle_block_weights,
+    sepconv_stage_weights,
+)
+
+
+class XceptionFast(nn.Module):
+    """``f(normalized NHWC float images) -> bf16 logits`` over ``model``'s
+    parameters (read once, at construction)."""
+
+    def __init__(self, model: Xception, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if dtype != torch.bfloat16:
+            raise ValueError("the fused sepconv kernels compute in bfloat16 only")
+        self.dtype = dtype
+        p = {k: v.detach() for k, v in model.state_dict().items()}
+        # Entry flow and head run on library ops in the compute dtype.
+        entry = tuple(f"block{i}_" for i in range(1, 5)) + ("head.",)
+        cast = {k: v.to(dtype) for k, v in p.items() if k.startswith(entry)}
+        self._w = {k: v for k, v in cast.items() if ".running_" not in k}
+        # Entry-flow BN in the compute dtype, as the JAX fast path's bn():
+        # (x - mean) * rsqrt(var + eps) * scale + bias, every operand bf16.
+        self._bn = {}
+        for k in cast:
+            if k.endswith(".running_mean"):
+                name = k.removesuffix(".running_mean")
+                eps = torch.tensor(KERAS_BN_EPS, dtype=dtype, device=cast[k].device)
+                self._bn[name] = (
+                    cast[f"{name}.running_mean"],
+                    torch.rsqrt(cast[f"{name}.running_var"] + eps),
+                    cast[f"{name}.weight"],
+                    cast[f"{name}.bias"],
+                )
+        self._middle = [middle_block_weights(p, f"block{i}") for i in MIDDLE_BLOCKS]
+        res_scale, res_shift = fold_bn(p, "block13_res_bn")
+        self._block13_res = (
+            p["block13_res_conv.weight"][:, :, 0, 0].t().to(dtype).contiguous(),
+            res_scale,
+            res_shift,
+        )
+        self._block13 = [
+            sepconv_stage_weights(p, f"block13_sepconv{j}", f"block13_sepconv{j}_bn",
+                                  pre_relu=True, post_relu=False)
+            for j in (1, 2)
+        ]
+        self._block14 = [
+            sepconv_stage_weights(p, f"block14_sepconv{j}", f"block14_sepconv{j}_bn",
+                                  pre_relu=False, post_relu=True)
+            for j in (1, 2)
+        ]
+        self._n_hidden = model.head.n_hidden
+
+    def _bn_apply(self, x, name):
+        mean, inv, scale, bias = self._bn[name]
+        return (x - mean) * inv * scale + bias
+
+    def _conv(self, x, name, stride=1, padding="VALID"):
+        return conv2d_nhwc(x, self._w[f"{name}.weight"], stride, padding)
+
+    def _sepconv(self, x, name):
+        x = conv2d_nhwc(x, self._w[f"{name}.depthwise.weight"], padding="SAME",
+                        groups=x.shape[-1])
+        return conv2d_nhwc(x, self._w[f"{name}.pointwise.weight"])
+
+    def forward(self, x):
+        bn = self._bn_apply
+        x = x.to(self.dtype)
+        # --- entry flow: library convolutions ---
+        x = torch.relu(bn(self._conv(x, "block1_conv1", stride=2), "block1_conv1_bn"))
+        x = torch.relu(bn(self._conv(x, "block1_conv2"), "block1_conv2_bn"))
+        for idx, _feat in ENTRY_BLOCKS:
+            residual = bn(
+                self._conv(x, f"block{idx}_res_conv", stride=2, padding="SAME"),
+                f"block{idx}_res_bn",
+            )
+            if idx > 2:
+                x = torch.relu(x)
+            x = bn(self._sepconv(x, f"block{idx}_sepconv1"), f"block{idx}_sepconv1_bn")
+            x = torch.relu(x)
+            x = bn(self._sepconv(x, f"block{idx}_sepconv2"), f"block{idx}_sepconv2_bn")
+            x = max_pool_same(x) + residual
+
+        # --- middle flow: 8 fused blocks, NHWC contiguous for the kernel ---
+        x = x.contiguous()
+        for dw, pw, scale, shift in self._middle:
+            x = fused_sepconv_block(x, dw, pw, scale, shift)
+
+        # --- block13: residual 1x1/2 (matmul) + fused chain + pool ---
+        w_res, res_scale, res_shift = self._block13_res
+        res = x[:, ::2, ::2] @ w_res
+        res = (res.float() * res_scale + res_shift).to(self.dtype)
+        y = fused_sepconv_chain(x, self._block13)
+        x = (max_pool_same(y) + res).contiguous()
+
+        # --- block14: fused chain (sep -> bn -> relu, twice) ---
+        x = fused_sepconv_chain(x, self._block14)
+
+        # --- head (ClassifierHead semantics) ---
+        x = x.mean(dim=(1, 2))
+        for i in range(self._n_hidden):
+            x = torch.relu(
+                torch.nn.functional.linear(
+                    x, self._w[f"head.hidden_{i}.weight"], self._w[f"head.hidden_{i}.bias"]
+                )
+            )
+        return torch.nn.functional.linear(
+            x, self._w["head.logits.weight"], self._w["head.logits.bias"]
+        )

@@ -1,0 +1,92 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``.
+
+The kernels have a plain C interface and are bound with ``ctypes``: no
+PyTorch headers, so a build takes seconds.  The shared library is built at
+first use from the package's own sources into a build directory (default
+``ops/build/`` beside this file, listed in ``.gitignore``; override with
+``$KDLT_TORCH_BUILD_DIR``), named by a hash of the source and the flags so
+an edited source never loads a stale library.  A failed build raises: there
+is no fallback to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCE = os.path.join(CSRC_DIR, "fused_sepconv.cu")
+BUILD_DIR_ENV = "KDLT_TORCH_BUILD_DIR"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log: str = ""  # nvcc's output of the last build (ptxas registers/spills)
+
+
+def build_dir() -> str:
+    return os.environ.get(BUILD_DIR_ENV) or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"
+    )
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def _library_path() -> str:
+    h = hashlib.sha256()
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(build_dir(), f"fused_sepconv-{h.hexdigest()[:16]}.so")
+
+
+def _compile(target: str) -> str:
+    os.makedirs(os.path.dirname(target), exist_ok=True)
+    tmp = f"{target}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    return log
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib, build_log
+    with _lock:
+        if _lib is None:
+            path = _library_path()
+            if not os.path.exists(path):
+                build_log = _compile(path)
+            lib = ctypes.CDLL(path)
+            ptr = ctypes.c_void_p
+            i32 = ctypes.c_int
+            lib.kdlt_sepconv_stage.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+            lib.kdlt_sepconv_stage.restype = i32
+            lib.kdlt_error_string.argtypes = [i32]
+            lib.kdlt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.kdlt_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")

@@ -1,0 +1,78 @@
+"""Gateway <-> model-server wire protocol (the tensor wire).
+
+The port's own copy of the JAX package's ``serving/protocol.py`` tensor
+wire, byte-compatible with it: msgpack bodies carrying raw little-endian
+tensor bytes (``{"inputs": {"shape", "dtype", "data"}}`` in,
+``{"outputs": ..., "labels": [...]}`` out), or the TF-Serving-style JSON
+fallback (``{"instances": ...}`` in, ``{"predictions": [{label: score}]}``
+out).  msgpack goes through ``msgpack_lite``, so the wire needs no
+third-party package.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any
+
+import numpy as np
+
+from kubernetes_deep_learning_tpu_torch import msgpack_lite
+
+MSGPACK_CONTENT_TYPE = "application/x-msgpack"
+JSON_CONTENT_TYPE = "application/json"
+
+
+def encode_tensor(arr: np.ndarray) -> dict[str, Any]:
+    arr = np.ascontiguousarray(arr)
+    return {"shape": list(arr.shape), "dtype": arr.dtype.name, "data": arr.tobytes()}
+
+
+def decode_tensor(d: dict[str, Any]) -> np.ndarray:
+    arr = np.frombuffer(d["data"], dtype=np.dtype(d["dtype"]))
+    return arr.reshape(d["shape"])
+
+
+def encode_predict_request(images: np.ndarray) -> bytes:
+    """uint8 (N,H,W,C) batch -> msgpack request body."""
+    return msgpack_lite.packb({"inputs": encode_tensor(images)})
+
+
+def decode_predict_request(body: bytes, content_type: str) -> np.ndarray:
+    """Request body -> uint8 pixels or float32 pre-normalized batch.
+    Raises ValueError on a malformed body (the server answers 400)."""
+    if content_type.startswith(MSGPACK_CONTENT_TYPE):
+        try:
+            return decode_tensor(msgpack_lite.unpackb(body)["inputs"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"malformed msgpack request: {e}") from e
+    if content_type.startswith(JSON_CONTENT_TYPE) or not content_type:
+        try:
+            arr = np.asarray(json.loads(body)["instances"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"malformed JSON request: {e}") from e
+        if arr.dtype.kind in "iu":
+            if arr.size and (arr.min() < 0 or arr.max() > 255):
+                raise ValueError(
+                    "integer pixel values must be in [0, 255]; send floats "
+                    "for pre-normalized data"
+                )
+            return arr.astype(np.uint8)
+        return arr.astype(np.float32)
+    raise ValueError(f"unsupported content type {content_type!r}")
+
+
+def encode_predict_response(logits: np.ndarray, labels, content_type: str) -> tuple[bytes, str]:
+    if content_type.startswith(MSGPACK_CONTENT_TYPE):
+        body = msgpack_lite.packb({"outputs": encode_tensor(logits), "labels": list(labels)})
+        return body, MSGPACK_CONTENT_TYPE
+    scores = [dict(zip(labels, map(float, row))) for row in logits]
+    return json.dumps({"predictions": scores}).encode(), JSON_CONTENT_TYPE
+
+
+def decode_predict_response(body: bytes, content_type: str) -> tuple[np.ndarray, list[str]]:
+    if content_type.startswith(MSGPACK_CONTENT_TYPE):
+        msg = msgpack_lite.unpackb(body)
+        return decode_tensor(msg["outputs"]), list(msg["labels"])
+    preds = json.loads(body)["predictions"]
+    labels = list(preds[0].keys())
+    return np.asarray([[p[k] for k in labels] for p in preds], np.float32), labels

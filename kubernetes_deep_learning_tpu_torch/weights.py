@@ -1,0 +1,146 @@
+"""Carry weights across: the flax variable tree <-> the port's parameters.
+
+The JAX package stores ``{"params": ..., "batch_stats": ...}`` with flax's
+layouts; the port holds a flat ``state_dict``-style mapping of float32
+torch tensors keyed by the flax module path joined with dots:
+
+==============================  ==============================  ===========
+flax leaf                       port key                        layout
+==============================  ==============================  ===========
+params/<conv>/kernel  (HWIO)    <conv>.weight                   OIHW
+params/<sep>/depthwise/kernel   <sep>.depthwise.weight          (C,1,3,3)
+  (3,3,1,C)
+params/<dense>/kernel (in,out)  <dense>.weight                  (out,in)
+params/<x>/bias                 <x>.bias
+params/<bn>/scale               <bn>.weight
+batch_stats/<bn>/mean, var      <bn>.running_mean, running_var
+==============================  ==============================  ===========
+
+Also the kernel-ready forms of ``ops/fused_sepconv.py`` in the JAX package
+(``fold_bn``, ``middle_block_weights``, ``sepconv_stage_weights``), with the
+same math: BN folded with the Keras epsilon into an f32 scale/shift,
+depthwise taps (3,3,C) f32, pointwise (C_in,C_out) bf16.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+# Keras BatchNormalization default epsilon (TF 2.3), needed for logit parity.
+KERAS_BN_EPS = 1e-3
+
+_STAT_KEYS = {"mean": "running_mean", "var": "running_var"}
+_PARAM_KEYS = {"bias": "bias", "scale": "weight"}
+
+
+def _flatten(tree: dict, prefix: tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
+    """Flax variable tree (numpy leaves) -> port params (f32 CPU tensors)."""
+    out: dict[str, torch.Tensor] = {}
+    for collection, tree in variables.items():
+        if collection not in ("params", "batch_stats"):
+            raise ValueError(f"unknown variable collection {collection!r}")
+        for path, leaf in _flatten(tree):
+            *module, name = path
+            arr = np.array(leaf, np.float32)  # a writable copy
+            if collection == "batch_stats":
+                suffix = _STAT_KEYS.get(name)
+            elif name == "kernel":
+                suffix = "weight"
+                if arr.ndim == 4:  # HWIO (depthwise: (3,3,1,C)) -> OIHW / (C,1,3,3)
+                    arr = arr.transpose(3, 2, 0, 1)
+                elif arr.ndim == 2:  # Dense (in, out) -> (out, in)
+                    arr = arr.T
+                else:
+                    raise ValueError(f"unexpected kernel rank at {'/'.join(path)}")
+            else:
+                suffix = _PARAM_KEYS.get(name)
+            if suffix is None:
+                raise ValueError(f"unknown {collection} leaf {'/'.join(path)}")
+            out[".".join((*module, suffix))] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def to_jax_variables(params: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """Inverse of :func:`from_jax_variables` (numpy f32 leaves)."""
+    tree: dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, t in params.items():
+        *module, suffix = key.split(".")
+        arr = t.detach().cpu().float().numpy()
+        if suffix in ("running_mean", "running_var"):
+            collection, name = "batch_stats", suffix.removeprefix("running_")
+        elif suffix == "weight" and arr.ndim in (2, 4):
+            collection, name = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        elif suffix == "weight":
+            collection, name = "params", "scale"
+        elif suffix == "bias":
+            collection, name = "params", "bias"
+        else:
+            raise ValueError(f"unknown parameter {key!r}")
+        node = tree[collection]
+        for m in module:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    return tree
+
+
+def fold_bn(params: dict, name: str, eps: float = KERAS_BN_EPS):
+    """Inference BN ``name`` -> (scale, shift), f32: y = x * scale + shift."""
+    gamma = params[f"{name}.weight"].float()
+    beta = params[f"{name}.bias"].float()
+    mean = params[f"{name}.running_mean"].float()
+    var = params[f"{name}.running_var"].float()
+    scale = gamma * torch.rsqrt(var + eps)
+    return scale, beta - mean * scale
+
+
+def _depthwise_taps(params: dict, sep: str) -> torch.Tensor:
+    return params[f"{sep}.depthwise.weight"].float()[:, 0].permute(1, 2, 0)  # (3,3,C)
+
+
+def _pointwise(params: dict, sep: str) -> torch.Tensor:
+    return params[f"{sep}.pointwise.weight"].float()[:, :, 0, 0].t()  # (C_in, C_out)
+
+
+def middle_block_weights(params: dict, block: str):
+    """One middle block's 3 sepconvs stacked for ``fused_sepconv_block``:
+    (dw (3,3,3,C) f32, pw (3,C,C) bf16, scale (3,C) f32, shift (3,C) f32)."""
+    dws, pws, scales, shifts = [], [], [], []
+    for j in (1, 2, 3):
+        sep = f"{block}_sepconv{j}"
+        scale, shift = fold_bn(params, f"{sep}_bn")
+        dws.append(_depthwise_taps(params, sep))
+        pws.append(_pointwise(params, sep))
+        scales.append(scale)
+        shifts.append(shift)
+    return (
+        torch.stack(dws).contiguous(),
+        torch.stack(pws).to(torch.bfloat16).contiguous(),
+        torch.stack(scales).contiguous(),
+        torch.stack(shifts).contiguous(),
+    )
+
+
+def sepconv_stage_weights(params: dict, sep_name: str, bn_name: str,
+                          pre_relu: bool, post_relu: bool) -> dict:
+    """One ``fused_sepconv_chain`` stage (see middle_block_weights)."""
+    scale, shift = fold_bn(params, bn_name)
+    return {
+        "dw": _depthwise_taps(params, sep_name).contiguous(),
+        "pw": _pointwise(params, sep_name).to(torch.bfloat16).contiguous(),
+        "scale": scale.contiguous(),
+        "shift": shift.contiguous(),
+        "pre_relu": pre_relu,
+        "post_relu": post_relu,
+    }
