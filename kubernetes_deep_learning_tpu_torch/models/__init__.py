@@ -3,8 +3,10 @@
 ``build_forward(spec, params, dtype, fast, device)`` returns a module
 ``f(images) -> float32 logits``: uint8 NHWC batches straight off the wire
 are normalized on the device (``ops.preprocess.normalize``); float batches
-are taken as already normalized.  ``fast`` picks the fused-kernel path
-(``models.xception_fast``) or the exact graph (``models.xception``).
+are taken as already normalized.  Families: ``xception``, whose ``fast``
+flag picks the fused-kernel path (``models.xception_fast``) or the exact
+graph (``models.xception``), and ``vit-*`` (``models.vit``), whose kernel
+sits inside its attention, so it has no separate fast path.
 """
 
 from __future__ import annotations
@@ -31,13 +33,18 @@ def create_model(spec: ModelSpec, dtype: torch.dtype = torch.float32):
         from kubernetes_deep_learning_tpu_torch.models.xception import Xception
 
         return Xception(spec.num_classes, head_hidden=spec.head_hidden, dtype=dtype)
+    from kubernetes_deep_learning_tpu_torch.models.vit import VIT_CONFIGS, ViT
+
+    if spec.family in VIT_CONFIGS:
+        return ViT(spec.num_classes, VIT_CONFIGS[spec.family], spec.input_shape, dtype=dtype)
     raise KeyError(f"model family {spec.family!r} is not ported yet")
 
 
 def init_variables(spec: ModelSpec, seed: int = 0) -> dict:
     """Random variables in the flax tree layout (numpy), made from ``seed``:
-    kernels N(0, 1/fan_in), BN scale U(0.8, 1.2), shift and mean N(0, 0.05),
-    var U(0.5, 1.5) -- for tests, smoke runs and benchmarks."""
+    kernels N(0, 1/fan_in), BN/LayerNorm scale U(0.8, 1.2), shift and mean
+    N(0, 0.05), var U(0.5, 1.5), ``pos_embed`` N(0, 0.02) as flax inits it
+    -- for tests, smoke runs and benchmarks."""
     from kubernetes_deep_learning_tpu_torch.weights import to_jax_variables
 
     rng = np.random.default_rng(seed)
@@ -46,7 +53,13 @@ def init_variables(spec: ModelSpec, seed: int = 0) -> dict:
         shape = tuple(t.shape)
         if key.endswith("running_var"):
             arr = rng.uniform(0.5, 1.5, shape)
-        elif key.endswith("weight") and t.dim() == 1:  # BN scale
+        elif key == "pos_embed":
+            arr = rng.normal(0.0, 0.02, shape)
+        elif key.endswith("kernel"):
+            # DenseGeneral, flax layout (C, H, D) or (H, D, C) with H*D = C:
+            # the fan-in is C, the square root of the size.
+            arr = rng.normal(0.0, np.prod(shape) ** -0.25, shape)
+        elif key.endswith("weight") and t.dim() == 1:  # BN / LayerNorm scale
             arr = rng.uniform(0.8, 1.2, shape)
         elif key.endswith("weight"):
             arr = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[1:])), shape)

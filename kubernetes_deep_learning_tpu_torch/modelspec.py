@@ -99,3 +99,19 @@ CLOTHING_MODEL = register_spec(
         compat_output_name="dense_7",
     )
 )
+
+_IMAGENET_LABELS = tuple(f"class_{i}" for i in range(1000))
+
+# ViT-B/16 ImageNet classifier, 256x256 in: 16x16 patches give 256 tokens,
+# so serving attention takes the einsum route.  The same spec as the JAX
+# package's, so an artifact of either package loads in the other.
+VIT_B16_IMAGENET = register_spec(
+    ModelSpec(
+        name="vit-b16-imagenet",
+        family="vit-b16",
+        input_shape=(256, 256, 3),
+        labels=_IMAGENET_LABELS,
+        preprocessing="tf",
+        description="ViT-B/16 ImageNet classifier (Pallas flash attention)",
+    )
+)

@@ -1,17 +1,20 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``.
 
 The kernels have a plain C interface and are bound with ``ctypes``: no
-PyTorch headers, so a build takes seconds.  The shared library is built at
-first use from the package's own sources into a build directory (default
-``ops/build/`` beside this file, listed in ``.gitignore``; override with
-``$KDLT_TORCH_BUILD_DIR``), named by a hash of the source and the flags so
-an edited source never loads a stale library.  A failed build raises: there
-is no fallback to another implementation.
+PyTorch headers, so a build takes seconds.  Every ``csrc/*.cu`` is compiled
+to an object by its own ``nvcc``, all started together, and the objects are
+linked into one shared library.  It is built at first use from the
+package's own sources into a build directory (default ``ops/build/`` beside
+this file, listed in ``.gitignore``; override with
+``$KDLT_TORCH_BUILD_DIR``), named by a hash of every source and the flags
+so an edited source never loads a stale library.  A failed build raises:
+there is no fallback to another implementation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -19,16 +22,19 @@ import subprocess
 import threading
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCE = os.path.join(CSRC_DIR, "fused_sepconv.cu")
 BUILD_DIR_ENV = "KDLT_TORCH_BUILD_DIR"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output of the last build (ptxas registers/spills)
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
 def build_dir() -> str:
@@ -49,20 +55,49 @@ def _nvcc() -> str:
 
 def _library_path() -> str:
     h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(build_dir(), f"fused_sepconv-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"kdlt_kernels-{h.hexdigest()[:16]}.so")
+
+
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every process; raise on the first that failed, after
+    stopping the others."""
+    logs = []
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            logs.append(out)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return "".join(logs)
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def _compile(target: str) -> str:
     os.makedirs(os.path.dirname(target), exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    nvcc = _nvcc()
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    try:
+        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src])
+                    for src, obj in zip(sources(), objects)])
+        log += _run([_start([nvcc, "-shared", "-o", tmp, *objects])])
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
     return log
 
@@ -78,8 +113,13 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             ptr = ctypes.c_void_p
             i32 = ctypes.c_int
+            i64 = ctypes.c_longlong
             lib.kdlt_sepconv_stage.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
             lib.kdlt_sepconv_stage.restype = i32
+            lib.kdlt_flash_attention.argtypes = (
+                [ptr] * 4 + [i32] * 5 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
+            )
+            lib.kdlt_flash_attention.restype = i32
             lib.kdlt_error_string.argtypes = [i32]
             lib.kdlt_error_string.restype = ctypes.c_char_p
             _lib = lib

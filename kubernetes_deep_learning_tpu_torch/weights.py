@@ -14,7 +14,15 @@ params/<dense>/kernel (in,out)  <dense>.weight                  (out,in)
 params/<x>/bias                 <x>.bias
 params/<bn>/scale               <bn>.weight
 batch_stats/<bn>/mean, var      <bn>.running_mean, running_var
+params/<dg>/kernel (3-D)        <dg>.kernel                     unchanged
+params/pos_embed                pos_embed                       unchanged
 ==============================  ==============================  ===========
+
+``<dg>`` is a ``DenseGeneral`` (ViT's attention projections): its kernel
+keeps flax's layout, (C, heads, head_dim) for query/key/value and
+(heads, head_dim, C) for out, so the round trip needs no head count.
+LayerNorm's scale and bias map like BatchNorm's.  A tree without
+``batch_stats`` (ViT) comes back without it.
 
 Also the kernel-ready forms of ``ops/fused_sepconv.py`` in the JAX package
 (``fold_bn``, ``middle_block_weights``, ``sepconv_stage_weights``), with the
@@ -33,7 +41,7 @@ import torch
 KERAS_BN_EPS = 1e-3
 
 _STAT_KEYS = {"mean": "running_mean", "var": "running_var"}
-_PARAM_KEYS = {"bias": "bias", "scale": "weight"}
+_PARAM_KEYS = {"bias": "bias", "scale": "weight", "pos_embed": "pos_embed"}
 
 
 def _flatten(tree: dict, prefix: tuple[str, ...] = ()):
@@ -55,6 +63,8 @@ def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
             arr = np.array(leaf, np.float32)  # a writable copy
             if collection == "batch_stats":
                 suffix = _STAT_KEYS.get(name)
+            elif name == "kernel" and arr.ndim == 3:  # DenseGeneral: flax layout
+                suffix = "kernel"
             elif name == "kernel":
                 suffix = "weight"
                 if arr.ndim == 4:  # HWIO (depthwise: (3,3,1,C)) -> OIHW / (C,1,3,3)
@@ -84,15 +94,15 @@ def to_jax_variables(params: dict[str, torch.Tensor]) -> dict[str, Any]:
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         elif suffix == "weight":
             collection, name = "params", "scale"
-        elif suffix == "bias":
-            collection, name = "params", "bias"
+        elif suffix in ("bias", "kernel", "pos_embed"):
+            collection, name = "params", suffix
         else:
             raise ValueError(f"unknown parameter {key!r}")
         node = tree[collection]
         for m in module:
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(arr)
-    return tree
+    return {k: v for k, v in tree.items() if v}
 
 
 def fold_bn(params: dict, name: str, eps: float = KERAS_BN_EPS):

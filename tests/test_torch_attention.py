@@ -1,0 +1,127 @@
+"""The port's serving attention (plain versions) against the JAX package.
+
+Inputs are made with numpy from a seed and handed to both frameworks.  JAX
+runs its Pallas flash kernel in interpret mode.  Tolerances: f32 within
+1e-5 absolute (the same f32 arithmetic summed in another order); bf16
+within 2e-2 relative to the largest output (p is rounded to bf16 against a
+running max in the kernel and against the final max in the plain version).
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubernetes_deep_learning_tpu.ops import attention as jax_attn
+from kubernetes_deep_learning_tpu_torch.ops import attention as attn
+
+_DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _qkv(seed: int, sq: int, sk: int, dtype: str, d: int = 32):
+    """(jax q, k, v), (torch q, k, v): the same bf16/f32 values in both."""
+    rng = np.random.default_rng(seed)
+    jdt, tdt = _DTYPES[dtype]
+    arrs = [rng.normal(0, 1, (2, 2, s, d)).astype(np.float32) for s in (sq, sk, sk)]
+    jx = [jnp.asarray(a, jdt) for a in arrs]
+    tx = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt) for a in jx]
+    return jx, tx
+
+
+def _check(got: torch.Tensor, want, dtype: str) -> None:
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    else:
+        rel = np.abs(got - want).max() / (np.abs(want).max() + 1e-6)
+        assert rel < 2e-2, rel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seq", [64, 128])
+@pytest.mark.parametrize("causal,k_offset", [(False, 0), (True, 0), (True, -64)])
+def test_flash_reference_matches_jax_flash(dtype, seq, causal, k_offset):
+    (jq, jk, jv), (q, k, v) = _qkv(seq, seq, seq, dtype)
+    block = jax_attn.pick_block(seq)
+    want = jax_attn.flash_attention(jq, jk, jv, causal=causal, k_offset=k_offset,
+                                    block_q=block, block_k=block, interpret=True)
+    got = attn.flash_attention(q, k, v, causal=causal, k_offset=k_offset)
+    assert got.dtype == q.dtype
+    _check(got, want, dtype)
+    _check(attn.flash_attention_reference(q, k, v, causal=causal, k_offset=k_offset), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fully_masked_rows_are_exactly_zero(dtype):
+    """k_offset pushes every key into the causal future: 0, not mean(v)."""
+    (jq, jk, jv), (q, k, v) = _qkv(7, 64, 64, dtype)
+    want = np.asarray(jax_attn.flash_attention(jq, jk, jv, causal=True, k_offset=10_000,
+                                               block_q=64, block_k=64, interpret=True),
+                      np.float32)
+    got = attn.flash_attention(q, k, v, causal=True, k_offset=10_000)
+    assert not want.any()
+    assert not got.float().numpy().any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ragged_length_matches_jax_padded(dtype, causal):
+    """S = 200 has no 8-aligned divisor <= 256: JAX pads to 256 and masks
+    the pad keys with kv_len; the port masks by bounds."""
+    (jq, jk, jv), (q, k, v) = _qkv(200, 200, 200, dtype)
+    want = jax_attn.flash_attention_padded(jq, jk, jv, causal=causal, interpret=True)
+    _check(attn.flash_attention_padded(q, k, v, causal=causal), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_len_masks_keys_like_jax(dtype):
+    """Sq != Sk, with the last keys masked by kv_len."""
+    (jq, jk, jv), (q, k, v) = _qkv(3, 64, 128, dtype)
+    want = jax_attn.flash_attention(jq, jk, jv, kv_len=100, block_q=64, block_k=128,
+                                    interpret=True)
+    _check(attn.flash_attention(q, k, v, kv_len=100), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,k_offset", [(False, 0), (True, 0), (True, 16)])
+def test_mha_reference_matches_jax(dtype, causal, k_offset):
+    (jq, jk, jv), (q, k, v) = _qkv(11, 48, 48, dtype)
+    want = jax_attn.mha_reference(jq, jk, jv, causal=causal, k_offset=k_offset)
+    got = attn.mha_reference(q, k, v, causal=causal, k_offset=k_offset)
+    assert got.dtype == q.dtype
+    _check(got, want, dtype)
+
+
+def test_routing_rule_and_tiling_match_jax():
+    assert attn.EINSUM_MAX_SEQ == jax_attn.EINSUM_MAX_SEQ == 512
+    assert attn.NEG_INF == jax_attn.NEG_INF
+    for sq, sk in ((512, 512), (520, 520), (512, 520), (16, 1024), (576, 576)):
+        assert attn.use_einsum_attention(sq, sk) == jax_attn.use_einsum_attention(sq, sk)
+    assert attn.use_einsum_attention(512, 512) and not attn.use_einsum_attention(520, 520)
+    assert [attn.pick_block(s) for s in range(1, 600)] == [
+        jax_attn.pick_block(s) for s in range(1, 600)]
+
+
+@pytest.mark.parametrize("seq", [64, 520])
+def test_attention_serving_matches_jax_on_both_routes(seq):
+    """Einsum route at 64 tokens, flash route (plain version on the CPU)
+    at 520; the CPU path launches no kernel."""
+    (jq, jk, jv), (q, k, v) = _qkv(seq, seq, seq, "bfloat16")
+    attn.reset_launch_counts()
+    got = attn.attention_serving(q, k, v)
+    assert attn.launch_counts() == {"flash_attention": 0}
+    _check(got, jax_attn.attention_serving(jq, jk, jv), "bfloat16")
+
+
+def test_flash_attention_rejects_bad_operands():
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        attn.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="disagree"):
+        attn.flash_attention(q, torch.zeros(1, 3, 8, 32), torch.zeros(1, 3, 8, 32))
+    with pytest.raises(ValueError, match="kv_len"):
+        attn.flash_attention(q, q, q, kv_len=-1)

@@ -3,8 +3,9 @@
 Marked ``cuda``: these skip where there is no GPU (a CUDA kernel has no CPU
 mode).  The file imports no JAX, so it also runs on a GPU machine without
 it:  ``python -m pytest tests/test_torch_cuda.py -q``.  Tolerance: relative
-max error < 2e-2 (bf16 roundings of the same values, summed in another
-order).
+max error < 2e-2 for bf16 (bf16 roundings of the same values, summed in
+another order), < 1e-4 for the f32 flash-attention kernel (f32 sums in
+another order, a fast exponential).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from kubernetes_deep_learning_tpu_torch.ops import attention
 from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv as ops
 
 
@@ -71,3 +73,75 @@ def test_cuda_kernel_ragged_shapes():
     got = ops.fused_sepconv_chain(x, stages)
     torch.cuda.synchronize()
     assert _rel(got, ops.sepconv_chain_reference(x, stages)) < 2e-2
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("sq,sk,causal,k_offset,kv_len", [
+    (576, 576, False, 0, None),     # ViT-B/16 at 384 px
+    (200, 200, False, 0, None),     # ragged, one partial tile
+    (100, 300, True, -64, None),    # Sq != Sk, causal with earlier keys
+    (128, 256, False, 0, 190),      # pad keys masked by kv_len
+    (64, 64, True, 10_000, None),   # every key in the causal future: all 0
+])
+def test_cuda_flash_attention_matches_plain_version(dtype, d, sq, sk, causal, k_offset, kv_len):
+    _need_cuda()
+    rng = np.random.default_rng(sq + sk + d)
+    q = _t(rng, (2, 3, sq, d), dtype=dtype)
+    k, v = (_t(rng, (2, 3, sk, d), dtype=dtype) for _ in range(2))
+    kw = dict(causal=causal, k_offset=k_offset, kv_len=kv_len)
+    attention.reset_launch_counts()
+    got = attention.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attention.launch_counts()["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == (2, 3, sq, d)
+    want = attention.flash_attention_reference(q, k, v, **kw)
+    if k_offset == 10_000:
+        assert not got.any() and not want.any()
+    else:
+        assert _rel(got, want) < (2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_views_and_rejects_head_dims():
+    """(B, S, H, D) projections transposed to (B, H, S, D) views are read in
+    place; a head dim the kernel has no instantiation for raises."""
+    _need_cuda()
+    rng = np.random.default_rng(9)
+    q, k, v = (_t(rng, (2, 576, 12, 64), dtype=torch.bfloat16).transpose(1, 2) for _ in range(3))
+    got = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _rel(got, attention.flash_attention_reference(q, k, v)) < 2e-2
+    bad = _t(rng, (1, 2, 600, 48), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        attention.flash_attention(bad, bad, bad)
+
+
+@pytest.mark.cuda
+def test_cuda_vit_forward_launches_the_kernel_once_per_block():
+    """vit-tiny at 256 px (1024 tokens, depth 2) on the card: 2 launches per
+    forward, and the bf16 logits near the exact f32 graph."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.models import build_forward, init_variables
+    from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables
+
+    spec = ModelSpec(name="tiny-vit-long", family="vit-tiny", input_shape=(256, 256, 3),
+                     labels=("a", "b"), preprocessing="tf")
+    params = from_jax_variables(init_variables(spec, seed=0))
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 256, 256, 3), np.uint8))
+    attention.reset_launch_counts()
+    with torch.inference_mode():
+        fast = build_forward(spec, params, torch.bfloat16, "auto", "cuda")(imgs.cuda())
+        torch.cuda.synchronize()
+        assert attention.launch_counts()["flash_attention"] == 2
+        exact = build_forward(spec, params, torch.float32, "auto", "cuda")(imgs.cuda())
+    assert torch.isfinite(fast).all()
+    assert _rel(fast, exact) < 5e-2
