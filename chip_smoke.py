@@ -36,9 +36,34 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    with the exact f32 graph (relative < 5e-2); then img/s and p50;
 7. routing: one predict of the registered ``vit-b16-imagenet`` (256 px,
    256 tokens) must take the einsum route: zero K3 launches;
-8. with ``--profile``: a ``torch.profiler`` trace of a few bucket-16
-   forwards of each model, printed as device time by kernel and the
-   device's busy share.
+8. partials kernel: K3P at the training shape (32, 12, 256, 64) in f32
+   (``fit``'s) and bf16, and at small ragged, causal, ``kv_len``,
+   no-visible-key and other head-dim cases, against its plain version on
+   the rows with a visible key (relative < 1e-4 f32, < 2e-2 bf16; the
+   other rows exactly (0, NEG_INF, 0)); times kernel, plain version, the
+   kernel with its finalisation to (out, lse), and the aten attention op
+   that returns (out, logsumexp) (the yardstick, used nowhere in the
+   port); prints the bound;
+9. gradients: ``attention_trainable`` (K3P forward, blockwise torch
+   backward) against autograd through plain f32 attention at the training
+   shape (relative < 1e-4), and the time of its forward and backward;
+10. training: ``fit()`` on ``vit-b16-imagenet`` (ViT-B/16 at full width
+   and depth), f32, batch 32, Adam, 10 steps on one repeated
+   ``synthetic_batches`` batch, checkpointing every 5 steps.  The loss
+   must fall; the first step's loss must equal the eval-mode (einsum
+   route) loss of the same weights (relative < 1e-4); the run must launch
+   K3P 12 times per step and K3 never (its final eval pass included).
+   Then step-ms p50 and img/s over further steps, peak device memory, and
+   3 steps of ``build_train_step(dtype=torch.bfloat16)`` (bf16 K3P: 12
+   launches per step);
+11. checkpoint and serve: the step-10 checkpoint restored into a fresh
+   state (bit-equal parameters), a resumed ``fit`` to step 12,
+   ``fit_and_export`` into a temporary root (resumed at 12: no new step),
+   and the artifact served by the port's engine on ``cuda``: its bf16 and
+   exact f32 logits must match the trained parameters' eval forward;
+12. with ``--profile``: a ``torch.profiler`` trace of a few bucket-16
+   forwards of each served model and of a few f32 and bf16 training steps,
+   printed as device time by kernel and the device's busy share.
 
 The last two lines are a JSON ``kernels`` record and the device record.
 """
@@ -47,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -72,11 +98,17 @@ MODEL_TOL = 5e-2   # relative max error, bf16 serving path vs exact f32 graph
 BUCKETS = (1, 4, 16)
 REQUESTS = (1, 3, 16)
 ITERS = 20  # timed repetitions per kernel and per bucket
+TRAIN_BATCH = 32
+TRAIN_STEPS = 10  # fit() steps; checkpoints every TRAIN_STEPS // 2
+TIMED_STEPS = 5   # further f32 steps timed one by one (device-synced)
+BF16_STEPS = 3
+TRAIN_LR = 1e-4
 _CSRC = "kubernetes_deep_learning_tpu_torch/ops/csrc/"
 SOURCES = {
     "fused_sepconv_block": _CSRC + "fused_sepconv.cu",
     "fused_sepconv_chain": _CSRC + "fused_sepconv.cu",
     "flash_attention": _CSRC + "flash_attention.cu",
+    "flash_attention_partials": _CSRC + "flash_attention.cu",
 }
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
@@ -212,11 +244,12 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / (want.float().abs().max().item() + 1e-6)
 
 
-def _attention_bound(bh: int, sq: int, sk: int, d: int, elem: int, peak_flops: float,
+def _attention_bound(bh: int, sq: int, sk: int, d: int, nbytes: int, peak_flops: float,
                      exp_rate: float) -> tuple[float, str, dict]:
-    """Least time (ms) for one non-causal call: q, k, v read once and o
-    written once; QK^T and PV products; one exponential per score."""
-    t = {"bytes": elem * bh * d * (2 * sq + 2 * sk) / PEAK_BYTES,
+    """Least time (ms) for one non-causal call: ``nbytes`` (each input
+    read once, each output written once); QK^T and PV products; one
+    exponential per score."""
+    t = {"bytes": nbytes / PEAK_BYTES,
          "products": 4 * bh * sq * sk * d / peak_flops,
          "exp": bh * sq * sk / exp_rate}
     top = max(t, key=t.get)
@@ -268,8 +301,8 @@ def _attention_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
         t = dict(shape, max_abs_err=err, max_rel_err=rel, tol_rel=tol)
         if timed:
             peak = PEAK_BF16 if dtype == bf16 else PEAK_F32
-            b_ms, b_by, terms = _attention_bound(b * h, sq, sk, d, q.element_size(), peak,
-                                                 exp_rate)
+            nbytes = q.element_size() * b * h * d * (2 * sq + 2 * sk)  # q, k, v, o
+            b_ms, b_by, terms = _attention_bound(b * h, sq, sk, d, nbytes, peak, exp_rate)
             t.update(ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
                      library_ms=_time_ms(lambda q=q, k=k, v=v: sdpa(q, k, v), iters),
                      bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms)
@@ -300,22 +333,23 @@ def _post(url: str, images: np.ndarray, wire: str) -> tuple[np.ndarray, list, fl
     return logits, labels, ms
 
 
-def _profile(model: str, engine, imgs: np.ndarray, steps: int = 5) -> None:
-    """Device time by kernel over ``steps`` engine predicts of ``imgs``."""
+def _profile(model: str, fn, batch: int, steps: int = 5) -> None:
+    """Device time by kernel over ``steps`` calls of ``fn`` (each ending
+    in a device sync): engine predicts or training steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.predict(imgs)
+            fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (the CPU ops' totals would count each kernel twice).
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print("profile:", json.dumps({
-        "model": model, "batch": len(imgs), "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "model": model, "batch": batch, "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": device_ms / steps,
         "device_busy_share": device_ms / wall_ms if wall_ms else None,
     }), flush=True)
@@ -358,8 +392,9 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
             replies = [_post(url, imgs, wire) for imgs in batches]
             launches = counter.launch_counts()
 
-            want = {name: n * len(REQUESTS) for name, n in per_forward.items()}
-            if launches != want:
+            # Every other kernel of ``counter`` must not launch at all.
+            want = {name: per_forward.get(name, 0) * len(REQUESTS) for name in launches}
+            if launches != want or not set(per_forward) <= set(launches):
                 _fail(f"{spec.name}: kernel launches {launches} != {want} "
                       f"for {len(REQUESTS)} forwards")
             worst = 0.0
@@ -388,7 +423,7 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
                 buckets.append(dict(model=spec.name, bucket=b, p50_ms=float(np.median(lat)),
                                     img_per_s=b * len(lat) / (sum(lat) / 1e3)))
             if profile:
-                _profile(spec.name, engine, imgs)
+                _profile(spec.name, functools.partial(engine.predict, imgs), len(imgs))
         finally:
             server.shutdown()
     summary = dict(model=spec.name, wire=wire, fast=fast, warmup_s=warm_s, launches=launches,
@@ -414,14 +449,288 @@ def _routing_phase(seed: int) -> dict:
     imgs = np.random.default_rng(seed + 2).integers(0, 256, (1, *spec.input_shape), np.uint8)
     attn.reset_launch_counts()
     logits = engine.predict(imgs)
-    launches = attn.launch_counts()["flash_attention"]
+    counts = attn.launch_counts()
+    launches = counts["flash_attention"]
     if logits.shape != (1, spec.num_classes) or not np.isfinite(logits).all():
         _fail(f"{spec.name}: bad logits {logits.shape}")
-    if launches != 0:
-        _fail(f"{spec.name} (256 tokens) launched flash attention {launches} times, expected 0")
+    if any(counts.values()):
+        _fail(f"{spec.name} (256 tokens) launched attention kernels {counts}, expected none")
     patch = VIT_CONFIGS[spec.family].patch
     return dict(model=spec.name, tokens=(spec.input_shape[0] // patch) ** 2,
                 flash_attention_launches=launches)
+
+
+def _partials_rel(got, want) -> tuple[float, float, int]:
+    """(max abs error, max relative error over acc, m and l, rows without a
+    visible key) on the rows with one; those rows must be exactly
+    (0, NEG_INF, 0) in ``got``."""
+    from kubernetes_deep_learning_tpu_torch.ops.attention import NEG_INF
+
+    live = want[1] > NEG_INF * 0.5
+    acc, m, l = (t[~live] for t in got)
+    if acc.any() or l.any() or not bool((m == NEG_INF).all()):
+        _fail("flash_attention_partials: a row without a visible key is not (0, NEG_INF, 0)")
+    errs = [_rel(g[live], w[live]) for g, w in zip(got, want)]
+    return max(e[0] for e in errs), max(e[1] for e in errs), int((~live).sum())
+
+
+def _library_lse(q, k, v):
+    """(out, logsumexp) from one aten attention op: the yardstick for K3P
+    plus its finalisation, used nowhere in the port."""
+    if q.dtype == torch.bfloat16:
+        return torch.ops.aten._scaled_dot_product_flash_attention(q, k, v)[:2]
+    return torch.ops.aten._scaled_dot_product_efficient_attention(q, k, v, None, True)[:2]
+
+
+def _partials_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
+    """K3P against its plain version; the record for the ``kernels`` line
+    (times of the f32 form, ``fit``'s, with the bf16 form beside them)."""
+    from kubernetes_deep_learning_tpu_torch.ops import attention as attn
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = (TRAIN_BATCH, 12, 256, 256, 64)  # ViT-B/16 at 256 px, the training batch
+    cases = [  # (B, H, Sq, Sk, D), dtype, flash_attention keywords, timed
+        (main, f32, {}, True),
+        (main, bf16, {}, True),
+        ((2, 3, 200, 330, 64), bf16, dict(causal=True, k_offset=-64), False),
+        ((2, 3, 128, 128, 64), f32, dict(causal=True, k_offset=64), False),  # 64 rows see no key
+        ((2, 3, 128, 128, 64), bf16, dict(causal=True, k_offset=64), False),
+        ((1, 4, 300, 300, 32), bf16, dict(causal=True), False),
+        ((1, 2, 257, 257, 128), bf16, dict(kv_len=200), False),
+        ((1, 2, 250, 190, 32), f32, dict(kv_len=150), False),
+        ((1, 2, 192, 192, 128), f32, dict(causal=True), False),
+    ]
+    rec = dict(name="flash_attention_partials", route="cuda",
+               source=SOURCES["flash_attention_partials"],
+               replaces="kubernetes_deep_learning_tpu/ops/attention.py:316",
+               max_abs_err=0.0, max_rel_err=0.0, tol_rel=F32_KERNEL_TOL, bf16_tol_rel=KERNEL_TOL,
+               per=f"one call at {main[:3] + main[4:]} f32 (fit's); errors: max over the "
+                   "checked cases; bf16: the same call in bf16")
+    for (b, h, sq, sk, d), dtype, kw, timed in cases:
+        q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        kernel = functools.partial(attn.flash_attention, q, k, v, return_partials=True, **kw)
+        plain = functools.partial(attn.flash_attention_partials_reference, q, k, v, **kw)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        shape = dict(q=[b, h, sq, d], sk=sk, dtype=str(dtype).removeprefix("torch."), **kw)
+        if not all(torch.isfinite(t).all() for t in got):
+            _fail(f"flash_attention_partials {shape}: non-finite output")
+        err, rel, dead = _partials_rel(got, want)
+        tol = KERNEL_TOL if dtype == bf16 else F32_KERNEL_TOL
+        if rel > tol:
+            _fail(f"flash_attention_partials {shape}: relative error {rel:.3e} > {tol}")
+        t = dict(shape, max_abs_err=err, max_rel_err=rel, tol_rel=tol, rows_without_key=dead)
+        if timed:
+            peak = PEAK_BF16 if dtype == bf16 else PEAK_F32
+            nbytes = (q.element_size() * b * h * d * (sq + 2 * sk)  # q, k, v
+                      + 4 * b * h * sq * (d + 2))                   # acc, m, l in f32
+            b_ms, b_by, terms = _attention_bound(b * h, sq, sk, d, nbytes, peak, exp_rate)
+            out, lse = attn._forward_with_lse(q, k, v, False)
+            lib_out, lib_lse = _library_lse(q, k, v)
+            t.update(ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
+                     finalized_ms=_time_ms(lambda: attn._forward_with_lse(q, k, v, False), iters),
+                     library_ms=_time_ms(lambda: _library_lse(q, k, v), iters),
+                     library_vs_finalized_rel=max(_rel(out, lib_out)[1], _rel(lse, lib_lse)[1]),
+                     bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms)
+            keys = ("ms", "plain_ms", "finalized_ms", "library_ms", "bound_ms", "bound_by")
+            if dtype == f32:
+                rec.update({key: t[key] for key in keys})
+            else:
+                rec["bf16"] = {key: t[key] for key in keys}
+        print("kernel-check flash_attention_partials", json.dumps(t), flush=True)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+    return rec
+
+
+def _grads_phase(gen: torch.Generator, iters: int) -> dict:
+    """attention_trainable (K3P forward, blockwise torch backward) against
+    autograd through plain f32 attention at the training shape, given as
+    (B, S, H, D) projections viewed as (B, H, S, D), as the ViT does; and
+    the time of its forward and backward per block, f32 and bf16."""
+    from kubernetes_deep_learning_tpu_torch.ops import attention as attn
+
+    b, s, h, d = TRAIN_BATCH, 256, 12, 64
+    leaves = [torch.randn((b, s, h, d), generator=gen, device="cuda").requires_grad_()
+              for _ in range(3)]
+    cot = torch.randn((b, h, s, d), generator=gen, device="cuda")
+    results = []
+    for fn in (attn.attention_trainable, attn.mha_reference):
+        out = fn(*(t.transpose(1, 2) for t in leaves))
+        results.append((out.detach(), torch.autograd.grad((out * cot).sum(), leaves)))
+    torch.cuda.synchronize()
+    (out, grads), (want, want_grads) = results
+    rel = {"out": _rel(out, want)[1]}
+    rel.update({f"d{n}": _rel(g, w)[1] for n, g, w in zip("qkv", grads, want_grads)})
+    for name, r in rel.items():
+        if not r < F32_KERNEL_TOL:
+            _fail(f"attention_trainable {name}: relative error {r:.3e} > {F32_KERNEL_TOL}")
+    summary = dict(shape=[b, h, s, d], rel_err=rel, tol_rel=F32_KERNEL_TOL)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.detach().to(dtype).transpose(1, 2) for t in leaves)
+        o, lse = attn._forward_with_lse(q, k, v, False)
+        dout = cot.to(dtype)
+        summary[str(dtype).removeprefix("torch.")] = dict(
+            forward_ms=_time_ms(lambda: attn._forward_with_lse(q, k, v, False), iters),
+            backward_ms=_time_ms(lambda: attn._attn_bwd(False, q, k, v, o, lse, dout), iters))
+    return summary
+
+
+def _train_batches(spec, seed: int):
+    """One ``synthetic_batches`` batch of TRAIN_BATCH, repeated: the loss
+    must fall on it."""
+    from kubernetes_deep_learning_tpu_torch.training import synthetic_batches
+
+    batch = next(synthetic_batches(spec, TRAIN_BATCH, seed=seed))
+    return batch, (lambda n: itertools.repeat(batch, n))
+
+
+def _training_phase(seed: int, profile: bool, grads: dict, smi: str) -> tuple[dict, dict]:
+    """fit() on ViT-B/16 at 256 px, then checkpoint, resume, export and
+    serve.  Returns (summary, K3P launches of the fit run)."""
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.modelspec import VIT_B16_IMAGENET as spec
+    from kubernetes_deep_learning_tpu_torch.models import build_forward
+    from kubernetes_deep_learning_tpu_torch.models.vit import VIT_CONFIGS
+    from kubernetes_deep_learning_tpu_torch.ops import attention as attn
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+    from kubernetes_deep_learning_tpu_torch.training import (
+        Checkpointer,
+        build_eval_step,
+        build_train_step,
+        create_train_state,
+        fit,
+        fit_and_export,
+    )
+
+    depth = VIT_CONFIGS[spec.family].depth
+    tx = functools.partial(torch.optim.Adam, lr=TRAIN_LR, eps=1e-8)
+    batch, repeat = _train_batches(spec, seed)
+    state = create_train_state(spec, tx, seed=seed, device="cuda")
+
+    # The eval step (train=False) at 256 tokens takes the einsum route.
+    attn.reset_launch_counts()
+    m = build_eval_step(spec)(state, *batch)
+    eval_loss = float(m["loss_sum"]) / float(m["count"])
+    if any(attn.launch_counts().values()):
+        _fail(f"{spec.name} eval step launched attention kernels: {attn.launch_counts()}")
+
+    summary = dict(model=spec.name, batch=TRAIN_BATCH, dtype="float32", optimizer="adam",
+                   lr=TRAIN_LR, card=smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir, root = f"{tmp}/ckpt", f"{tmp}/models"
+        logs: list[str] = []
+        # --- the main path: fit() -> train_step -> attention_trainable -> K3P ---
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        attn.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = fit(spec, tx, repeat(TRAIN_STEPS), TRAIN_STEPS, state=state,
+                          ckpt_dir=ckpt_dir, ckpt_every=TRAIN_STEPS // 2, log_every=1,
+                          log_fn=logs.append, eval_batches=lambda: [batch])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = attn.launch_counts()
+        want = {"flash_attention": 0, "flash_attention_partials": depth * TRAIN_STEPS}
+        if launches != want:
+            _fail(f"{spec.name} fit: kernel launches {launches} != {want} for {TRAIN_STEPS} "
+                  "steps and a final eval pass")
+        losses = [loss for _, loss in hist]
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+            _fail(f"{spec.name} fit: losses {losses}")
+        if not losses[-1] < losses[0]:
+            _fail(f"{spec.name} fit: the loss did not fall: {losses}")
+        first_rel = abs(losses[0] - eval_loss) / abs(eval_loss)
+        if not first_rel < F32_KERNEL_TOL:
+            _fail(f"{spec.name}: first train-step loss {losses[0]} vs eval-mode loss "
+                  f"{eval_loss}: relative {first_rel:.3e} > {F32_KERNEL_TOL}")
+        summary.update(steps=TRAIN_STEPS, fit_s=fit_s, losses=losses, eval_loss_step0=eval_loss,
+                       first_step_vs_eval_rel=first_rel, launches=launches,
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       final_eval=[line for line in logs if line.startswith("eval")])
+
+        # --- checkpoint: restore into a fresh state, resume, export, serve ---
+        fresh = create_train_state(spec, tx, seed=seed + 1, device="cuda")
+        with Checkpointer(ckpt_dir) as ckpt:
+            restored = ckpt.restore(fresh)
+        if restored is None or fresh.step != TRAIN_STEPS:
+            _fail(f"checkpoint restore: step {fresh.step}, expected {TRAIN_STEPS}")
+        if not all(torch.equal(fresh.params[k], t) for k, t in state.params.items()):
+            _fail("checkpoint restore: parameters differ from the trained state's")
+        logs.clear()
+        fresh, _ = fit(spec, tx, repeat(2), TRAIN_STEPS + 2, state=fresh, ckpt_dir=ckpt_dir,
+                       log_fn=logs.append)
+        if fresh.step != TRAIN_STEPS + 2 or not any("resumed" in x for x in logs):
+            _fail(f"resume: step {fresh.step}, log {logs}")
+        del fresh
+        d = fit_and_export(spec, tx, repeat(0), TRAIN_STEPS + 2, root, ckpt_dir=ckpt_dir,
+                           seed=seed + 2, log_fn=logs.append)
+        resumed = create_train_state(spec, tx, seed=seed + 3, device="cuda")
+        with Checkpointer(ckpt_dir) as ckpt:
+            ckpt.restore(resumed)
+            ckpt_steps = ckpt.all_steps()
+        params = {k: t.detach() for k, t in resumed.params.items()}
+        del resumed
+        engine = InferenceEngine(art.load_artifact(d), buckets=(8,), device="cuda")
+        imgs = np.random.default_rng(seed + 3).integers(0, 256, (8, *spec.input_shape),
+                                                         np.uint8)
+        served = {}
+        with torch.inference_mode():
+            for dtype, x in ((torch.bfloat16, imgs),
+                             (torch.float32, (imgs / 127.5 - 1.0).astype(np.float32))):
+                want_logits = build_forward(spec, params, dtype, "auto", "cuda")(
+                    torch.from_numpy(x).cuda()).cpu().numpy()
+                got = engine.predict(x)
+                if got.shape != (8, spec.num_classes) or not np.isfinite(got).all():
+                    _fail(f"served trained artifact: bad logits {got.shape}")
+                rel = float(np.abs(got - want_logits).max() / (np.abs(want_logits).max() + 1e-6))
+                if not rel < F32_KERNEL_TOL:
+                    _fail(f"served trained artifact ({dtype}): relative {rel:.3e} against the "
+                          "trained parameters' eval forward")
+                served[str(dtype).removeprefix("torch.")] = rel
+        del engine, params
+        summary.update(checkpoint_steps=ckpt_steps,
+                       resumed_to=TRAIN_STEPS + 2, exported=d.removeprefix(tmp),
+                       served_vs_eval_forward_rel=served)
+
+    # --- step time: further f32 steps, each synced; then bf16 steps ---
+    step = build_train_step(spec)
+    batch = tuple(torch.as_tensor(a, device="cuda") for a in batch)  # time the step, not the H2D
+    lat = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        float(m["loss"])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(lat))
+    summary.update(step_ms=lat, step_ms_p50=p50, img_per_s=TRAIN_BATCH / (p50 / 1e3))
+    k3p_ms = depth * grads["float32"]["forward_ms"]
+    bwd_ms = depth * grads["float32"]["backward_ms"]
+    summary.update(k3p_share_of_step=k3p_ms / p50, attention_backward_share_of_step=bwd_ms / p50)
+    if profile:
+        _profile(f"{spec.name}-train-f32", lambda: float(step(state, *batch)[1]["loss"]),
+                 TRAIN_BATCH, steps=3)
+
+    step_bf16 = build_train_step(spec, dtype=torch.bfloat16)
+    attn.reset_launch_counts()
+    lat, losses = [], []
+    for _ in range(BF16_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_bf16(state, *batch)
+        losses.append(float(m["loss"]))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches_bf16 = attn.launch_counts()
+    want = {"flash_attention": 0, "flash_attention_partials": depth * BF16_STEPS}
+    if launches_bf16 != want or not np.isfinite(losses).all():
+        _fail(f"bf16 train steps: launches {launches_bf16} != {want}, losses {losses}")
+    summary["bf16"] = dict(steps=BF16_STEPS, losses=losses, step_ms=lat, launches=launches_bf16)
+    if profile:
+        _profile(f"{spec.name}-train-bf16", lambda: float(step_bf16(state, *batch)[1]["loss"]),
+                 TRAIN_BATCH, steps=3)
+    return summary, launches["flash_attention_partials"]
 
 
 def _card(query: str, fmt: str = "csv,noheader") -> str:
@@ -501,6 +810,14 @@ def main(argv=None) -> int:
     for b in buckets:
         print("bucket:", json.dumps({**b, "card": smi}), flush=True)
     print("routing:", json.dumps(_routing_phase(args.seed)), flush=True)
+
+    # --- ViT-B/16 training at 256 px: K3P, gradients, fit, checkpoint, serve ---
+    k3p = _partials_phase(ITERS, gen, exp_rate)
+    grads = _grads_phase(gen, ITERS)
+    print("grads:", json.dumps(grads), flush=True)
+    train, k3p["launches"] = _training_phase(args.seed, args.profile, grads, smi)
+    kernels.append(k3p)
+    print("train:", json.dumps(train), flush=True)
 
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

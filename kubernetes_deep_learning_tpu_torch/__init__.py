@@ -4,9 +4,11 @@ A package of its own beside ``kubernetes_deep_learning_tpu`` (the JAX
 reference): it imports torch, numpy and the standard library only, reads
 the same artifact directories, speaks the same wire protocol, and runs on
 hand-written CUDA kernels for Hopper: the Xception middle and exit flows
-(``ops/csrc/fused_sepconv.cu``) and ViT attention past 512 tokens
-(``ops/csrc/flash_attention.cu``).  Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+(``ops/csrc/fused_sepconv.cu``), ViT serving attention past 512 tokens
+and ViT training attention (``ops/csrc/flash_attention.cu``, the fused
+and the partials form).  ``training`` fits a ViT, checkpoints and resumes
+it, and exports the result as a served version.  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from kubernetes_deep_learning_tpu_torch.modelspec import (

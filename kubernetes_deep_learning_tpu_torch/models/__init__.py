@@ -27,8 +27,20 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+def exact_float32(device: torch.device) -> None:
+    """On CUDA, turn TF32 off for matmuls and convolutions: cuDNN runs
+    float32 convolutions in TF32 by default, which keeps ~3 decimal digits
+    and breaks the exact float32 graph's parity (serving and training); the
+    bf16 path is unaffected."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def create_model(spec: ModelSpec, dtype: torch.dtype = torch.float32):
-    """The exact-graph module for a spec (dtype = compute dtype)."""
+    """The exact-graph module for a spec (dtype = compute dtype).  A ViT
+    trains through ``forward(x, train=True)``; the BatchNorm families have
+    no train mode in the port yet."""
     if spec.family == "xception":
         from kubernetes_deep_learning_tpu_torch.models.xception import Xception
 
@@ -109,12 +121,7 @@ def build_forward(spec: ModelSpec, params: dict, dtype: torch.dtype = torch.bflo
     """The forward module over ``params`` (``weights.from_jax_variables``)
     on ``device``, in eval mode."""
     device = resolve_device(device)
-    if device.type == "cuda":
-        # cuDNN runs float32 convolutions in TF32 by default, which keeps ~3
-        # decimal digits and breaks the exact float32 graph's parity; the
-        # bf16 path is unaffected.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    exact_float32(device)
     use_fast = resolve_fast(spec, dtype, fast, device)
     model = create_model(spec, dtype=dtype)
     model.load_state_dict(params)

@@ -13,10 +13,13 @@ Dense head.  Numerics follow flax:
 - the final LayerNorm, token mean and head run in f32 (the head has no
   compute dtype).
 
-Attention goes through ``ops.attention.attention_serving``: the einsum
-route up to 512 tokens, flash attention (kernel K3 on CUDA) past it.
-``pos_embed``'s length is the token count, so the module is built for one
-input size.
+``forward(x, train=False)`` threads ``train`` down to the attention, as
+flax's ``ViT.apply(..., train=...)`` does: ``train=False`` goes through
+``ops.attention.attention_serving`` (the einsum route up to 512 tokens,
+flash attention, kernel K3 on CUDA, past it); ``train=True`` through
+``ops.attention.attention_trainable`` (the partials kernel K3P on CUDA,
+with the blockwise-recompute backward).  ``pos_embed``'s length is the
+token count, so the module is built for one input size.
 """
 
 from __future__ import annotations
@@ -101,10 +104,13 @@ class SelfAttention(nn.Module):
             self.add_module(name, DenseGeneral((width,), (heads, head_dim)))
         self.out = DenseGeneral((heads, head_dim), (width,))
 
-    def forward(self, x):
-        # (B, S, H, D) -> (B, H, S, D) views: the kernel reads them in place.
+    def forward(self, x, train: bool = False):
+        # (B, S, H, D) -> (B, H, S, D) views: the kernels read them in place.
         q, k, v = (self._modules[n](x).transpose(1, 2) for n in ("query", "key", "value"))
-        o = attention.attention_serving(q, k, v)
+        if train:
+            o = attention.attention_trainable(q, k, v)
+        else:
+            o = attention.attention_serving(q, k, v)
         return self.out(o.transpose(1, 2))
 
 
@@ -119,8 +125,8 @@ class TransformerBlock(nn.Module):
         self.mlp_in = nn.Linear(width, width * mlp_ratio)
         self.mlp_out = nn.Linear(width * mlp_ratio, width)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_attn(x).to(x.dtype))
+    def forward(self, x, train: bool = False):
+        x = x + self.attn(self.ln_attn(x).to(x.dtype), train=train)
         y = self.ln_mlp(x).to(x.dtype)
         y = F.gelu(_dense(self.mlp_in, y), approximate="tanh")  # flax nn.gelu
         return x + _dense(self.mlp_out, y)
@@ -145,7 +151,7 @@ class ViT(nn.Module):
         self.ln_final = LayerNorm(config.width)
         self.head = nn.Linear(config.width, num_classes)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt, cfg = self.dtype, self.config
         x = conv2d_nhwc(x.to(dt), self.patch_embed.weight.to(dt), stride=cfg.patch)
         x = x + self.patch_embed.bias.to(dt)
@@ -154,6 +160,6 @@ class ViT(nn.Module):
                              f"the model was built for {self.grid}")
         x = x.reshape(x.shape[0], -1, cfg.width) + self.pos_embed.to(dt)
         for i in range(cfg.depth):
-            x = self._modules[f"block_{i}"](x)
+            x = self._modules[f"block_{i}"](x, train=train)
         x = self.ln_final(x).mean(dim=1)  # f32 from here on
         return F.linear(x, self.head.weight, self.head.bias)

@@ -120,6 +120,10 @@ def load() -> ctypes.CDLL:
                 [ptr] * 4 + [i32] * 5 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
             )
             lib.kdlt_flash_attention.restype = i32
+            lib.kdlt_flash_attention_partials.argtypes = (
+                [ptr] * 6 + [i32] * 5 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
+            )
+            lib.kdlt_flash_attention_partials.restype = i32
             lib.kdlt_error_string.argtypes = [i32]
             lib.kdlt_error_string.restype = ctypes.c_char_p
             _lib = lib

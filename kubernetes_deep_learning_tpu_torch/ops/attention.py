@@ -1,8 +1,9 @@
-"""Serving attention: flash attention on a hand-written CUDA kernel (K3),
-and the einsum route for short sequences.
+"""Attention: flash attention on hand-written CUDA kernels (K3 and its
+partials form K3P), the einsum route for short sequences, and a
+differentiable attention for training.
 
-The port of the serving half of ``kubernetes_deep_learning_tpu/ops/attention.py``,
-on (B, H, S, D) tensors as there:
+The port of ``kubernetes_deep_learning_tpu/ops/attention.py``, on
+(B, H, S, D) tensors as there:
 
 - ``mha_reference``: plain softmax attention that rounds like the JAX
   einsum route (scores from a matmul in the input dtype, then cast to f32
@@ -13,14 +14,28 @@ on (B, H, S, D) tensors as there:
   tensor it computes the plain version, ``flash_attention_reference``,
   which rounds at the kernel's points: f32 scores of input-dtype operands,
   f32 softmax statistics, p in the input dtype, f32 accumulation, and 0
-  for a row that no key is visible to;
+  for a row that no key is visible to.  With ``return_partials=True`` it
+  returns the unnormalised f32 ``(acc, m, l)`` instead: K3P on CUDA
+  (counted as ``flash_attention_partials``),
+  ``flash_attention_partials_reference`` on the CPU;
 - ``flash_attention_padded``: the JAX name for ragged lengths.  The kernel
   masks by bounds, so nothing is padded here;
 - ``attention_serving``: the einsum route while both sequences are at most
-  ``EINSUM_MAX_SEQ`` long, flash attention past it.
+  ``EINSUM_MAX_SEQ`` long, flash attention past it;
+- ``attend_block``, ``combine_partials``, ``finalize_partials``: the
+  partials of one KV block, their log-sum-exp merge and normalisation;
+- ``attention_trainable``: differentiable attention (a
+  ``torch.autograd.Function``).  Its forward is the partials form where
+  ``pick_block`` tiles both sequences (``attend_block`` elsewhere), and it
+  saves the log-sum-exp; its backward is the FlashAttention-2
+  recomputation over KV blocks in f32 torch matmuls, as the JAX custom
+  VJP does in ``jnp``.
 
-The partials form (``attend_block``, ``combine_partials``,
-``finalize_partials``) and ``attention_trainable`` are not ported yet.
+A row with no visible key has the partials ``(0, NEG_INF, 0)`` here
+(JAX's kernel leaves ``l`` counting the masked keys of the tiles it
+visited, which depends on its tile size): ``finalize_partials`` gives 0
+for it and ``combine_partials`` of it with any real partial returns that
+partial.
 """
 
 from __future__ import annotations
@@ -41,7 +56,7 @@ EINSUM_MAX_SEQ = 512
 KERNEL_HEAD_DIMS = (32, 64, 128)  # head dims K3 is instantiated for
 
 _counts_lock = threading.Lock()
-_launches = {"flash_attention": 0}
+_launches = {"flash_attention": 0, "flash_attention_partials": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -118,6 +133,57 @@ def flash_attention_reference(q, k, v, *, causal: bool = False, k_offset: int = 
     return out.to(q.dtype)
 
 
+def flash_attention_partials_reference(q, k, v, *, causal: bool = False, k_offset: int = 0,
+                                       kv_len: int | None = None):
+    """The plain version of ``flash_attention(..., return_partials=True)``:
+    f32 ``(acc (B,H,Sq,D), m (B,H,Sq), l (B,H,Sq))``, rounded as
+    ``flash_attention_reference`` (l sums the f32 p, acc the input-dtype
+    p); a row with no visible key is ``(0, NEG_INF, 0)``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    vis = _visible(q.shape[-2], k.shape[-2], causal, k_offset, kv_len, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.matmul(p.to(q.dtype).float(), v.float())
+    dead = m <= NEG_INF * 0.5
+    return (acc.masked_fill(dead[..., None], 0.0), m.masked_fill(dead, NEG_INF),
+            l.masked_fill(dead, 0.0))
+
+
+def attend_block(q, k, v, *, causal: bool = False, k_offset: int = 0):
+    """Unnormalised attention partials of q against one KV block, as the
+    JAX einsum form computes them: ``(acc (..., Sq, D), m (..., Sq),
+    l (..., Sq))``, all f32; scores from a matmul in the input dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    vis = _visible(q.shape[-2], k.shape[-2], causal, k_offset, None, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return torch.matmul(p, v.float()), m, p.sum(dim=-1)
+
+
+def combine_partials(a, b):
+    """Merge two ``(acc, m, l)`` partials (log-sum-exp over the KV axis)."""
+    acc_a, m_a, l_a = a
+    acc_b, m_b, l_b = b
+    m = torch.maximum(m_a, m_b)
+    alpha = torch.exp(m_a - m)
+    beta = torch.exp(m_b - m)
+    return acc_a * alpha[..., None] + acc_b * beta[..., None], m, l_a * alpha + l_b * beta
+
+
+def finalize_partials(partial):
+    """``(acc, m, l)`` -> normalised output; a row with ``l == 0`` is 0."""
+    acc, _, l = partial
+    empty = (l == 0.0)[..., None]
+    return torch.where(empty, 0.0, acc / torch.where(empty, 1.0, l[..., None]))
+
+
 # --- kernel wrapper -----------------------------------------------------------
 
 
@@ -131,31 +197,40 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(q, k, v, causal: bool, k_offset: int, kv_len: int):
+def _launch(q, k, v, causal: bool, k_offset: int, kv_len: int, partials: bool):
+    """K3 (-> out) or K3P (-> (acc, m, l)) on q's current stream."""
     from kubernetes_deep_learning_tpu_torch.ops import _build
 
     lib = _build.load()
     b, h, sq, d = q.shape
     sk = k.shape[2]
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    args = (b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), k_offset, kv_len, int(q.dtype == torch.bfloat16),
+            ctypes.c_float(1.0 / math.sqrt(d)), torch.cuda.current_stream(q.device).cuda_stream)
+    if partials:
+        acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+        m, l = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device) for _ in range(2))
+        code = lib.kdlt_flash_attention_partials(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), m.data_ptr(),
+            l.data_ptr(), *args)
+        _build.check(lib, code, "flash attention partials")
+        return acc, m, l
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.kdlt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), k_offset, kv_len, int(q.dtype == torch.bfloat16),
-        ctypes.c_float(1.0 / math.sqrt(d)), stream,
-    )
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args)
     _build.check(lib, code, "flash attention")
     return out
 
 
 def flash_attention(q, k, v, *, causal: bool = False, k_offset: int = 0,
-                    kv_len: int | None = None):
+                    kv_len: int | None = None, return_partials: bool = False):
     """Flash attention, q (B, H, Sq, D), k and v (B, H, Sk, D) -> (B, H, Sq, D).
 
     ``kv_len``: keys at or past it are masked (valid rows of a padded KV);
     ``k_offset``: global position of k[0] relative to q[0] under ``causal``.
+    ``return_partials``: return the f32 ``(acc, m, l)`` of the online
+    softmax (``attend_block``'s layout) instead of the normalised output.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q, k, v must be (B,H,S,D), got {tuple(q.shape)} "
@@ -170,14 +245,16 @@ def flash_attention(q, k, v, *, causal: bool = False, k_offset: int = 0,
     if kv_len is not None and kv_len < 0:
         raise ValueError(f"kv_len must be >= 0, got {kv_len}")
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, k_offset=k_offset, kv_len=kv_len)
+        plain = flash_attention_partials_reference if return_partials else flash_attention_reference
+        return plain(q, k, v, causal=causal, k_offset=k_offset, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.shape[3] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, got {q.shape[3]}")
     sk = k.shape[2]
-    out = _launch(q, k, v, causal, k_offset, sk if kv_len is None else min(kv_len, sk))
-    _count("flash_attention")
+    out = _launch(q, k, v, causal, k_offset, sk if kv_len is None else min(kv_len, sk),
+                  return_partials)
+    _count("flash_attention_partials" if return_partials else "flash_attention")
     return out
 
 
@@ -196,3 +273,98 @@ def attention_serving(q, k, v, *, causal: bool = False):
     if use_einsum_attention(q.shape[2], k.shape[2]):
         return mha_reference(q, k, v, causal=causal)
     return flash_attention_padded(q, k, v, causal=causal)
+
+
+# --- trainable attention --------------------------------------------------------
+
+
+def _finalize_with_lse(partials, dtype):
+    """``(acc, m, l)`` -> (normalised out in ``dtype``, lse = m + log l)."""
+    _, m, l = partials
+    out = finalize_partials(partials).to(dtype)
+    return out, m + torch.log(torch.where(l == 0.0, 1.0, l))
+
+
+def _forward_with_lse(q, k, v, causal: bool):
+    """(out, lse): the partials form (K3P on CUDA) where ``pick_block``
+    tiles both sequences, else ``attend_block`` -- JAX's routing rule."""
+    if pick_block(q.shape[2]) is None or pick_block(k.shape[2]) is None:
+        partials = attend_block(q, k, v, causal=causal)
+    else:
+        partials = flash_attention(q, k, v, causal=causal, return_partials=True)
+    return _finalize_with_lse(partials, q.dtype)
+
+
+def block_grads(q32, k32, v32, lse_q, delta_q, do32_q, scale: float, mask=None):
+    """One (q block, kv block) pair of the FlashAttention-2 backward from
+    the saved log-sum-exp; all f32, ``mask`` an optional (sq, sk) bool
+    visibility mask."""
+    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - lse_q[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), do32_q)
+    dp = torch.matmul(do32_q, v32.transpose(-1, -2))
+    ds = p * (dp - delta_q[..., None])
+    dq = torch.matmul(ds, k32) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q32) * scale
+    return dq, dk, dv
+
+
+def _attn_bwd(causal: bool, q, k, v, out, lse, dout):
+    """dq, dk, dv: a scan over KV blocks of ``pick_block(sk) or sk`` keys,
+    2-D tiled and skipping the pairs above the diagonal under ``causal``."""
+    d = q.shape[-1]
+    sq, sk = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    block = pick_block(sk) or sk
+    # One contiguous f32 copy each: q, k and v may be strided (B, S, H, D)
+    # views of the projections.
+    q32, k32, v32, do32 = (t.float().contiguous() for t in (q, k, v, dout))
+    delta = (do32 * out.float()).sum(dim=-1)  # D_i = sum_d dO_i O_i
+    dq = torch.zeros_like(q32)
+    dk, dv = torch.empty_like(k32), torch.empty_like(v32)
+    block_q = (pick_block(sq) or sq) if causal else sq
+    for j in range(0, sk, block):
+        kj, vj = k32[:, :, j:j + block], v32[:, :, j:j + block]
+        dk_j = torch.zeros_like(kj)
+        dv_j = torch.zeros_like(vj)
+        for i in range(0, sq, block_q):
+            # Under causal, query block i sees key block j only if its last
+            # row reaches the block's first key.
+            if causal and i + block_q <= j:
+                continue
+            mask = None
+            if causal:
+                rows = torch.arange(i, i + block_q, device=q.device)[:, None]
+                mask = rows >= torch.arange(j, j + block, device=q.device)[None, :]
+            rq = slice(i, i + block_q)
+            dq_i, dk_i, dv_i = block_grads(q32[:, :, rq], kj, vj, lse[:, :, rq],
+                                           delta[:, :, rq], do32[:, :, rq], scale, mask)
+            dq[:, :, rq] += dq_i
+            dk_j += dk_i
+            dv_j += dv_i
+        dk[:, :, j:j + block], dv[:, :, j:j + block] = dk_j, dv_j
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _AttentionTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = _forward_with_lse(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _attn_bwd(ctx.causal, q, k, v, out, lse, dout)
+        return dq, dk, dv, None
+
+
+def attention_trainable(q, k, v, causal: bool = False):
+    """Differentiable attention, (B, H, S, D).  Forward: the partials form
+    (K3P on CUDA) and its log-sum-exp; backward: score blocks recomputed
+    from (q, k, lse), so no (S, S) matrix is kept between the passes."""
+    return _AttentionTrainable.apply(q, k, v, causal)

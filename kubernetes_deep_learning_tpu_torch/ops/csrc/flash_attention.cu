@@ -1,17 +1,26 @@
-// Flash-attention forward for Hopper (sm_90a): K3.
+// Flash-attention forward for Hopper (sm_90a): K3, and its partials form K3P.
 //
-// Replaces the TPU kernel _flash_kernel of
+// K3 replaces the TPU kernel _flash_kernel of
 // kubernetes_deep_learning_tpu/ops/attention.py (pallas_call at :342; loop
-// _flash_body :127-196, epilogue :199-212).  The Python wrapper is
-// flash_attention in ../attention.py; its plain PyTorch version,
-// flash_attention_reference, defines what this kernel computes, rounding
-// point for rounding point:
+// _flash_body :127-196, epilogue :199-212).  K3P replaces
+// _flash_kernel_partials (pallas_call at :316, epilogue :215-226): the same
+// loop, but the epilogue writes the raw f32 (acc, m, l) of the online
+// softmax for a log-sum-exp merge instead of the normalised output.  The
+// Python wrapper of both is flash_attention in ../attention.py
+// (return_partials picks K3P); their plain PyTorch versions,
+// flash_attention_reference and flash_attention_partials_reference, define
+// what they compute, rounding point for rounding point:
 //   S = Q.K^T with input-dtype operands and f32 accumulation, then * scale
 //   in f32; keys at or past kv_len, and under `causal` keys with
 //   q_row < k_col + k_offset, get NEG_INF; online max / sum / rescale in
 //   f32; P cast to the input dtype for P.V, accumulated in f32; a row whose
 //   max stays <= NEG_INF/2 (no visible key) outputs 0; the output is cast
-//   to the input dtype.
+//   to the input dtype.  K3P writes acc (f32, unnormalised), m and l (f32,
+//   l summed from the f32 p before its cast); a row with no visible key
+//   writes (0, NEG_INF, 0), so that finalize_partials gives 0 for it and a
+//   log-sum-exp merge with any real partial returns that partial.  (The
+//   TPU kernel leaves l there counting the masked keys of the tiles it
+//   visited, a value that depends on its tile size.)
 //
 // What bounds it on the card: at ViT-B/16-384, batch 16 (B*H = 192,
 // S = 576, D = 64) one call moves 56.6 MB (q, k, v, o in bf16) and does
@@ -38,8 +47,13 @@
 // Known costs left for later work: K/V loads are not pipelined (no
 // cp.async / TMA double buffering), mma.sync instead of wgmma, V's B
 // fragments are gathered 16 bits at a time instead of with ldmatrix.trans.
-// Room for the partials form (B5): the epilogue is the only part that
-// differs; it becomes a template flag that writes (acc, m, l).
+// K3P is a template flag on the epilogue (PARTIALS), so both forms share
+// the loop and its numerics.  On the ViT-B/16 training path (batch 32:
+// B*H = 384, S = 256, D = 64) one f32 call reads 75.5 MB of q, k, v and
+// writes 25.2 MB of acc and 0.8 MB of m and l (~30 us of HBM traffic),
+// but its 6.4 GFLOP of products take ~96 us at the 67 TFLOP/s FMA rate:
+// the f32 form is bound by operations, the bf16 form (63.7 MB, ~19 us) by
+// bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +68,9 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  void* o;                                   // (B, H, Sq, D) contiguous
+  void* o;                                   // (B, H, Sq, D) contiguous; K3P: acc, f32
+  float* m;                                  // K3P only: (B, H, Sq) f32 row max
+  float* l;                                  // K3P only: (B, H, Sq) f32 row sum
   long long q_sb, q_sh, q_ss;                // element strides of batch, head, seq
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -122,7 +138,7 @@ __device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bf
   }
 }
 
-template <int D>
+template <int D, bool PARTIALS>
 __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Params p) {
   constexpr int LD = D + 8;  // padded rows: fragment loads hit 32 distinct banks
   static_assert(BF_BQ == BF_BK, "the Q tile is staged through the K buffer");
@@ -229,21 +245,37 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Params p) {
     }
   }
 
-  // Normalise; a row that saw no visible key is 0 (_flash_kernel :206-212).
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + (long long)blockIdx.y * p.Sq * D;
+  const long long row0 = (long long)blockIdx.y * p.Sq;  // this (batch, head)'s first row
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(FULL, l[r], 1);
     l[r] += __shfl_xor_sync(FULL, l[r], 2);
     if (row[r] >= p.Sq) continue;
     const bool dead = m[r] <= NEG_INF * 0.5f;
-    const float denom = dead ? 1.f : l[r];
-    uint32_t* orow = reinterpret_cast<uint32_t*>(og + (long long)row[r] * D + 2 * t);
+    if constexpr (PARTIALS) {
+      // Raw (acc, m, l) in f32 (_flash_kernel_partials :224-226); a row
+      // that saw no visible key is (0, NEG_INF, 0).
+      float2* arow = reinterpret_cast<float2*>(static_cast<float*>(p.o) +
+                                               (row0 + row[r]) * D + 2 * t);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const float a0 = dead ? 0.f : acc[n][2 * r] / denom;
-      const float a1 = dead ? 0.f : acc[n][2 * r + 1] / denom;
-      orow[n * 4] = pack_f32(a0, a1);
+      for (int n = 0; n < D / 8; ++n)
+        arow[n * 4] = dead ? make_float2(0.f, 0.f)
+                           : make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      if (t == 0) {
+        p.m[row0 + row[r]] = dead ? NEG_INF : m[r];
+        p.l[row0 + row[r]] = dead ? 0.f : l[r];
+      }
+    } else {
+      // Normalise; a row that saw no visible key is 0 (_flash_kernel :206-212).
+      const float denom = dead ? 1.f : l[r];
+      uint32_t* orow = reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.o) +
+                                                   (row0 + row[r]) * D + 2 * t);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const float a0 = dead ? 0.f : acc[n][2 * r] / denom;
+        const float a1 = dead ? 0.f : acc[n][2 * r + 1] / denom;
+        orow[n * 4] = pack_f32(a0, a1);
+      }
     }
   }
 }
@@ -255,7 +287,7 @@ constexpr int F_ROWS = 4;        // query rows per warp
 constexpr int F_BQ = 4 * F_ROWS;
 constexpr int F_BK = 32;         // one key per lane
 
-template <int D>
+template <int D, bool PARTIALS>
 __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
   constexpr int C = D / 32;  // head-dim columns per lane in the P.V product
   __shared__ __align__(16) float Qs[F_BQ][D];
@@ -335,7 +367,8 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
     }
   }
 
-  float* og = static_cast<float*>(p.o) + (long long)blockIdx.y * p.Sq * D;
+  const long long row0 = (long long)blockIdx.y * p.Sq;
+  float* og = static_cast<float*>(p.o) + row0 * D;
 #pragma unroll
   for (int i = 0; i < F_ROWS; ++i) {
     const int row = q0 + warp * F_ROWS + i;
@@ -343,20 +376,39 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
     const bool dead = m[i] <= NEG_INF * 0.5f;
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      og[(long long)row * D + c * 32 + lane] = dead ? 0.f : acc[i][c] / l[i];
+      og[(long long)row * D + c * 32 + lane] =
+          dead ? 0.f : (PARTIALS ? acc[i][c] : acc[i][c] / l[i]);
+    if (PARTIALS && lane == 0) {
+      p.m[row0 + row] = dead ? NEG_INF : m[i];
+      p.l[row0 + row] = dead ? 0.f : l[i];
+    }
   }
 }
 
-template <int D>
+template <int D, bool PARTIALS>
 cudaError_t launch(const Params& p, int BH, bool bf16, cudaStream_t stream) {
   if (bf16) {
     dim3 grid((p.Sq + BF_BQ - 1) / BF_BQ, BH);
-    flash_fwd_bf16<D><<<grid, BF_THREADS, 0, stream>>>(p);
+    flash_fwd_bf16<D, PARTIALS><<<grid, BF_THREADS, 0, stream>>>(p);
   } else {
     dim3 grid((p.Sq + F_BQ - 1) / F_BQ, BH);
-    flash_fwd_f32<D><<<grid, F_THREADS, 0, stream>>>(p);
+    flash_fwd_f32<D, PARTIALS><<<grid, F_THREADS, 0, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <bool PARTIALS>
+int dispatch(const Params& p, int B, int H, int Sq, int Sk, int D, int kv_len, int is_bf16,
+             void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || kv_len < 0 || kv_len > Sk || B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return (int)launch<32, PARTIALS>(p, B * H, is_bf16 != 0, s);
+    case 64: return (int)launch<64, PARTIALS>(p, B * H, is_bf16 != 0, s);
+    case 128: return (int)launch<128, PARTIALS>(p, B * H, is_bf16 != 0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -372,15 +424,22 @@ extern "C" int kdlt_flash_attention(const void* q, const void* k, const void* v,
                                     long long v_sb, long long v_sh, long long v_ss,
                                     int causal, int k_offset, int kv_len, int is_bf16,
                                     float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || kv_len < 0 || kv_len > Sk || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+  Params p{q, k, v, o, nullptr, nullptr, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            H, Sq, Sk, kv_len, causal, k_offset, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return (int)launch<32>(p, B * H, is_bf16 != 0, s);
-    case 64: return (int)launch<64>(p, B * H, is_bf16 != 0, s);
-    case 128: return (int)launch<128>(p, B * H, is_bf16 != 0, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(p, B, H, Sq, Sk, D, kv_len, is_bf16, stream);
+}
+
+// K3P: as kdlt_flash_attention, but writes acc (B, H, Sq, D), m and l
+// (B, H, Sq), all f32 and contiguous, for either input dtype.
+extern "C" int kdlt_flash_attention_partials(const void* q, const void* k, const void* v,
+                                             float* acc, float* m, float* l,
+                                             int B, int H, int Sq, int Sk, int D,
+                                             long long q_sb, long long q_sh, long long q_ss,
+                                             long long k_sb, long long k_sh, long long k_ss,
+                                             long long v_sb, long long v_sh, long long v_ss,
+                                             int causal, int k_offset, int kv_len, int is_bf16,
+                                             float scale, void* stream) {
+  Params p{q, k, v, acc, m, l, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+           H, Sq, Sk, kv_len, causal, k_offset, scale};
+  return dispatch<true>(p, B, H, Sq, Sk, D, kv_len, is_bf16, stream);
 }

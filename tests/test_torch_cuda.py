@@ -4,8 +4,9 @@ Marked ``cuda``: these skip where there is no GPU (a CUDA kernel has no CPU
 mode).  The file imports no JAX, so it also runs on a GPU machine without
 it:  ``python -m pytest tests/test_torch_cuda.py -q``.  Tolerance: relative
 max error < 2e-2 for bf16 (bf16 roundings of the same values, summed in
-another order), < 1e-4 for the f32 flash-attention kernel (f32 sums in
-another order, a fast exponential).
+another order), < 1e-4 for the f32 flash-attention kernels, fused (K3)
+and partials (K3P), and for the differentiable attention built on K3P
+(f32 sums in another order, a fast exponential).
 """
 
 from __future__ import annotations
@@ -145,3 +146,60 @@ def test_cuda_vit_forward_launches_the_kernel_once_per_block():
         exact = build_forward(spec, params, torch.float32, "auto", "cuda")(imgs.cuda())
     assert torch.isfinite(fast).all()
     assert _rel(fast, exact) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("sq,sk,causal,k_offset,kv_len", [
+    (256, 256, False, 0, None),     # ViT-B/16 at 256 px: the training path
+    (200, 200, False, 0, None),     # ragged, one partial tile
+    (100, 300, True, -64, None),    # Sq != Sk, causal with earlier keys
+    (128, 256, False, 0, 190),      # pad keys masked by kv_len
+    (64, 64, True, 32, None),       # rows 0..31 see no key: (0, NEG_INF, 0)
+])
+def test_cuda_flash_attention_partials_match_plain_version(dtype, d, sq, sk, causal, k_offset,
+                                                           kv_len):
+    """K3P's (acc, m, l) against its plain version on the rows with a
+    visible key (relative to the largest value: < 2e-2 bf16, < 1e-4 f32);
+    the rows without one exactly (0, NEG_INF, 0)."""
+    _need_cuda()
+    rng = np.random.default_rng(sq + sk + d + 1)
+    q = _t(rng, (2, 3, sq, d), dtype=dtype)
+    k, v = (_t(rng, (2, 3, sk, d), dtype=dtype) for _ in range(2))
+    kw = dict(causal=causal, k_offset=k_offset, kv_len=kv_len)
+    attention.reset_launch_counts()
+    got = attention.flash_attention(q, k, v, return_partials=True, **kw)
+    torch.cuda.synchronize()
+    assert attention.launch_counts() == {"flash_attention": 0, "flash_attention_partials": 1}
+    want = attention.flash_attention_partials_reference(q, k, v, **kw)
+    live = want[1] > attention.NEG_INF * 0.5
+    assert bool(live.any())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g[live], w[live]) < (2e-2 if dtype == torch.bfloat16 else 1e-4)
+    acc, m, l = (t[~live] for t in got)
+    assert not acc.any() and not l.any() and bool((m == attention.NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_attention_trainable_matches_plain_autograd(causal):
+    """attention_trainable with K3P's forward against torch autograd
+    through plain f32 attention, on strided (B, S, H, D) views at the
+    ViT-B/16 training shape (relative < 1e-4)."""
+    _need_cuda()
+    rng = np.random.default_rng(31)
+    leaves = [_t(rng, (2, 256, 12, 64)).requires_grad_() for _ in range(3)]
+    cot = _t(rng, (2, 12, 256, 64))
+    results = []
+    attention.reset_launch_counts()
+    for fn in (attention.attention_trainable, attention.mha_reference):
+        out = fn(*(t.transpose(1, 2) for t in leaves), causal=causal)
+        results.append((out.detach(), torch.autograd.grad((out * cot).sum(), leaves)))
+    torch.cuda.synchronize()
+    assert attention.launch_counts()["flash_attention_partials"] == 1
+    (out, grads), (want, want_grads) = results
+    assert _rel(out, want) < 1e-4
+    for g, w in zip(grads, want_grads):
+        assert _rel(g, w) < 1e-4

@@ -323,9 +323,10 @@ def test_model_server_routes(stack):
 
 
 def test_port_imports_no_jax_flax_or_jax_package():
-    """Every port module (and chip_smoke.py) imports without jax, flax or
-    the JAX package.  The port's own name starts with the JAX package's,
-    so match the package name exactly or with a trailing dot."""
+    """Every port module (and chip_smoke.py) imports without jax, flax,
+    optax, orbax, msgpack, PIL or the JAX package: none of them is on the
+    GPU machine.  The port's own name starts with the JAX package's, so
+    match the package name exactly or with a trailing dot."""
     code = """
 import importlib, pkgutil, sys
 import kubernetes_deep_learning_tpu_torch as pkg
@@ -334,9 +335,13 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 bad = sorted(
     k for k in sys.modules
-    for root in ("jax", "flax", "kubernetes_deep_learning_tpu")
+    for root in ("jax", "flax", "optax", "orbax", "msgpack", "PIL",
+                 "kubernetes_deep_learning_tpu")
     if k == root or k.startswith(root + ".")
 )
+training = {"kubernetes_deep_learning_tpu_torch.training." + m
+            for m in ("trainer", "loop", "data", "checkpoint")}
+assert training <= set(sys.modules), training - set(sys.modules)
 print(len([k for k in sys.modules if k.startswith("kubernetes_deep_learning_tpu_torch.")]))
 assert not bad, bad
 """
@@ -345,7 +350,7 @@ assert not bad, bad
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was really imported
+    assert int(out.stdout.strip()) >= 22  # every module was really imported
 
 
 def test_model_server_gates_on_warmup(exported):
