@@ -61,9 +61,24 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    ``fit_and_export`` into a temporary root (resumed at 12: no new step),
    and the artifact served by the port's engine on ``cuda``: its bf16 and
    exact f32 logits must match the trained parameters' eval forward;
-12. with ``--profile``: a ``torch.profiler`` trace of a few bucket-16
-   forwards of each served model and of a few f32 and bf16 training steps,
-   printed as device time by kernel and the device's busy share.
+12. MBConv kernel: K4 at the 7 shapes of EfficientNet-B3's 18 fused
+   blocks (300 px, batch 16), taken with their own weights from a seeded
+   B3, plus a batch-3 case and an EfficientNet-B0 case (56 x 56, S = 6),
+   against its plain version (relative max error < 2e-2); times kernel,
+   plain version, a library yardstick (cuBLAS ``matmul`` for expand and
+   project, cuDNN depthwise ``conv2d``, torch elementwise ops for BN,
+   silu and the squeeze-excite: used nowhere in the port) and the bound,
+   each summed over the 18 calls of one bucket-16 forward;
+13. EfficientNet-B3 server: ``efficientnet-b3-imagenet`` (300 px, torch
+   normalization) served the same way over the msgpack wire, on the fused
+   route: 18 K4 launches per forward, logits near the exact f32 graph;
+   then the same requests on a ``fast=False`` bf16 engine (the exact
+   graph: no K4 launch, the fused route within 2e-2 relative of it) and
+   its bucket-16 p50, so the default route can be chosen on this card;
+14. with ``--profile``: a ``torch.profiler`` trace of a few bucket-16
+   forwards of each served model (and of B3's ``fast=False`` engine) and
+   of a few f32 and bf16 training steps, printed as device time by kernel
+   and the device's busy share.
 
 The last two lines are a JSON ``kernels`` record and the device record.
 """
@@ -109,7 +124,9 @@ SOURCES = {
     "fused_sepconv_chain": _CSRC + "fused_sepconv.cu",
     "flash_attention": _CSRC + "flash_attention.cu",
     "flash_attention_partials": _CSRC + "flash_attention.cu",
+    "fused_mbconv_block": _CSRC + "fused_mbconv.cu",
 }
+B3_FUSED_PER_FORWARD = 18  # EfficientNet-B3's blocks on K4 at 300 px
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
                   preprocessing="tf",
@@ -361,20 +378,63 @@ def _profile(model: str, fn, batch: int, steps: int = 5) -> None:
         }), flush=True)
 
 
+def _bucket_times(engine, name: str, b: int, imgs: np.ndarray, iters: int) -> dict:
+    """p50 and img/s of ``engine.predict`` on one bucket-sized batch."""
+    for _ in range(2):
+        engine.predict(imgs)
+    lat = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        engine.predict(imgs)  # ends in a device sync (event + copy)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return dict(model=name, bucket=b, p50_ms=float(np.median(lat)),
+                img_per_s=b * len(lat) / (sum(lat) / 1e3))
+
+
+def _unfused_check(spec, vdir: str, batches, replies, counter, iters: int, profile: bool) -> dict:
+    """The same requests on a ``fast=False`` bf16 engine (the exact graph):
+    no kernel of ``counter`` may launch, the fused route's logits must be
+    within KERNEL_TOL of it; then its largest bucket's p50."""
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    engine = InferenceEngine(art.load_artifact(vdir), buckets=BUCKETS, device="cuda", fast=False)
+    if engine.fast:
+        _fail(f"{spec.name}: a fast=False engine took the fused path")
+    engine.warmup()
+    counter.reset_launch_counts()
+    worst = 0.0
+    for imgs, (got, _, _) in zip(batches, replies):
+        want = engine.predict(imgs)
+        worst = max(worst, float(np.abs(got - want).max() / (np.abs(want).max() + 1e-6)))
+    if any(counter.launch_counts().values()):
+        _fail(f"{spec.name}: the fast=False engine launched {counter.launch_counts()}")
+    if worst > KERNEL_TOL:
+        _fail(f"{spec.name}: fused route vs fast=False bf16: relative error {worst:.3e} "
+              f"> {KERNEL_TOL}")
+    b = BUCKETS[-1]
+    imgs = np.random.default_rng(b).integers(0, 256, (b, *spec.input_shape), np.uint8)
+    times = _bucket_times(engine, f"{spec.name}-unfused", b, imgs, iters)
+    if profile:
+        _profile(f"{spec.name}-unfused", functools.partial(engine.predict, imgs), b)
+    return dict(fused_vs_unfused_bf16_rel=worst, tol_rel=KERNEL_TOL, **times)
+
+
 def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, counter,
-                  per_forward: dict, fast: bool, wire: str) -> tuple[dict, list[dict]]:
+                  per_forward: dict, fast: bool, wire: str,
+                  unfused: bool = False) -> tuple[dict, list[dict]]:
     """Serve ``spec`` through the port's model server on the card; the
     requests must launch ``per_forward`` kernels (``counter``'s counts) per
-    forward, and the engine must (not) take the fused fast path."""
+    forward, and the engine must (not) take the fused fast path.  With
+    ``unfused``, also hold the replies against a ``fast=False`` engine."""
     from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
     from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
 
-    if spec.preprocessing != "tf":
-        _fail(f"the exact-path check normalizes in 'tf' mode, not {spec.preprocessing!r}")
     rng = np.random.default_rng(seed + 1)
     with tempfile.TemporaryDirectory() as root:
-        art.save_artifact(art.version_dir(root, spec.name, 1), spec, variables,
-                          {"compute_dtype": "bfloat16"})
+        vdir = art.version_dir(root, spec.name, 1)
+        art.save_artifact(vdir, spec, variables, {"compute_dtype": "bfloat16"})
         server = ModelServer(root, port=0, buckets=BUCKETS, device="cuda")
         try:
             server.start()
@@ -403,7 +463,7 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
                     _fail(f"{spec.name}: logits shape {got.shape} for a batch of {len(imgs)}")
                 if not np.isfinite(got).all():
                     _fail(f"{spec.name}: non-finite logits")
-                exact = engine.predict((imgs.astype(np.float32) / 127.5 - 1.0).astype(np.float32))
+                exact = engine.predict(normalize(torch.from_numpy(imgs), spec.preprocessing).numpy())
                 rel = float(np.abs(got - exact).max() / (np.abs(exact).max() + 1e-6))
                 worst = max(worst, rel)
             if worst > MODEL_TOL:
@@ -413,22 +473,17 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
             buckets = []
             for b in BUCKETS:
                 imgs = rng.integers(0, 256, (b, *spec.input_shape), np.uint8)
-                for _ in range(2):
-                    engine.predict(imgs)
-                lat = []
-                for _ in range(iters):
-                    t0 = time.perf_counter()
-                    engine.predict(imgs)  # ends in a device sync (event + copy)
-                    lat.append((time.perf_counter() - t0) * 1e3)
-                buckets.append(dict(model=spec.name, bucket=b, p50_ms=float(np.median(lat)),
-                                    img_per_s=b * len(lat) / (sum(lat) / 1e3)))
+                buckets.append(_bucket_times(engine, spec.name, b, imgs, iters))
             if profile:
                 _profile(spec.name, functools.partial(engine.predict, imgs), len(imgs))
         finally:
             server.shutdown()
-    summary = dict(model=spec.name, wire=wire, fast=fast, warmup_s=warm_s, launches=launches,
-                   bf16_vs_exact_rel=worst, tol_rel=MODEL_TOL,
-                   request_ms={str(len(i)): ms for i, (_, _, ms) in zip(batches, replies)})
+        summary = dict(model=spec.name, wire=wire, fast=fast, warmup_s=warm_s, launches=launches,
+                       bf16_vs_exact_rel=worst, tol_rel=MODEL_TOL,
+                       request_ms={str(len(i)): ms for i, (_, _, ms) in zip(batches, replies)})
+        if unfused:
+            summary["unfused"] = _unfused_check(spec, vdir, batches, replies, counter, iters,
+                                                profile)
     return summary, buckets
 
 
@@ -733,6 +788,121 @@ def _training_phase(seed: int, profile: bool, grads: dict, smi: str) -> tuple[di
     return summary, launches["flash_attention_partials"]
 
 
+def _mbconv_bound(b: int, h: int, c_in: int, c_mid: int, c_out: int, s: int, k: int,
+                  exp_rate: float) -> tuple[float, str, dict]:
+    """Least time (ms) for one MBConv call: the block's input, output and
+    weights moved once; bf16 GEMMs (expand, project, the two SE products)
+    on the tensor cores plus the f32 depthwise taps on the CUDA cores; one
+    exponential per silu and sigmoid."""
+    m = b * h * h
+    gemm = 2 * m * c_mid * (c_in + c_out) + 4 * b * c_mid * s
+    dw = 2 * k * k * m * c_mid
+    wbytes = (2 * (c_in * c_mid + 2 * c_mid * s + c_mid * c_out)
+              + 4 * (k * k * c_mid + 5 * c_mid + s + 2 * c_out))
+    t = {"bytes": (2 * m * (c_in + c_out) + wbytes) / PEAK_BYTES,
+         "products": gemm / PEAK_BF16 + dw / PEAK_F32,
+         "exp": (2 * m * c_mid + b * (s + c_mid)) / exp_rate}
+    top = max(t, key=t.get)
+    return t[top] * 1e3, ("bytes" if top == "bytes" else "operations"), {
+        key: v * 1e3 for key, v in t.items()}
+
+
+def _library_mbconv(x, w, dw_oihw, residual: bool):
+    """cuBLAS matmuls, a cuDNN depthwise conv2d and torch elementwise ops:
+    the yardstick for K4, not the port."""
+    F, bf = torch.nn.functional, torch.bfloat16
+    y = F.silu(torch.matmul(x, w["expand_w"]).float() * w["expand_s"] + w["expand_b"]).to(bf)
+    k = dw_oihw.shape[-1]
+    d = F.conv2d(y.permute(0, 3, 1, 2), dw_oihw, None, 1, k // 2, 1, y.shape[-1])
+    y = F.silu(d.permute(0, 2, 3, 1).float() * w["dw_s"] + w["dw_b"]).to(bf)
+    m = y.float().mean(dim=(1, 2)).to(bf)
+    r = F.silu(torch.matmul(m, w["se_r_w"]).float() + w["se_r_b"]).to(bf)
+    g = torch.sigmoid(torch.matmul(r, w["se_e_w"]).float() + w["se_e_b"])
+    y = (y.float() * g[:, None, None, :]).to(bf)
+    z = (torch.matmul(y, w["proj_w"]).float() * w["proj_s"] + w["proj_b"]).to(bf)
+    return x + z if residual else z
+
+
+def _mbconv_phase(b3_params, seed: int, iters: int, gen: torch.Generator,
+                  exp_rate: float) -> dict:
+    """K4 at every fused block shape of a bucket-16 EfficientNet-B3 forward
+    (each with the weights of its first block), at batch 3, and at B0's
+    first fused block (S = 6), against its plain version; the record for
+    the ``kernels`` line sums the 18 calls of one forward."""
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.models.efficientnet import block_plan, round_filters
+    from kubernetes_deep_learning_tpu_torch.models.efficientnet_fast import block_routes
+    from kubernetes_deep_learning_tpu_torch.ops import fused_mbconv as ops
+    from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables, mbconv_block_weights
+
+    def fused_blocks(width, depth, px):
+        stem = -(-px // 2)
+        return [r for r in block_routes(block_plan(width, depth), stem, stem,
+                                        round_filters(32, width)) if r.fused]
+
+    b3 = fused_blocks(1.2, 1.4, 300)
+    if len(b3) != B3_FUSED_PER_FORWARD:
+        _fail(f"EfficientNet-B3 at 300 px fuses {len(b3)} blocks, expected {B3_FUSED_PER_FORWARD}")
+    groups: dict[tuple, list] = {}
+    for r in b3:
+        groups.setdefault((r.h, r.c_in, r.c_in * r.expand, r.features, r.kernel, r.residual),
+                          []).append(r.name)
+    b0_spec = ModelSpec(name="efficientnet-b0-224", family="efficientnet-b0",
+                        input_shape=(224, 224, 3), labels=("a", "b"), preprocessing="torch")
+    b0_params = from_jax_variables(init_variables(b0_spec, seed=seed))
+    b0_first = fused_blocks(1.0, 1.0, 224)[0]
+    b0_shape = (b0_first.h, b0_first.c_in, b0_first.c_in * b0_first.expand, b0_first.features,
+                b0_first.kernel, b0_first.residual)
+    cases = [  # (batch, shape, params, block, calls per B3 forward)
+        *((16, shape, b3_params, names[0], len(names)) for shape, names in groups.items()),
+        (3, (19, 136, 816, 136, 5, True), b3_params, groups[(19, 136, 816, 136, 5, True)][0], 0),
+        (2, b0_shape, b0_params, b0_first.name, 0),
+    ]
+    rec = dict(name="fused_mbconv_block", route="cuda", source=SOURCES["fused_mbconv_block"],
+               replaces="kubernetes_deep_learning_tpu/ops/fused_mbconv.py:244",
+               max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, tol_rel=KERNEL_TOL,
+               per=f"the {B3_FUSED_PER_FORWARD} calls of one bucket-16 forward of "
+                   "efficientnet-b3-imagenet (300 px), summed; errors: max over the checked cases")
+    bound_t = {"bytes": 0.0, "operations": 0.0}
+    for batch, (h, c_in, c_mid, c_out, k, residual), params, name, calls in cases:
+        w = {key: t.to("cuda") for key, t in mbconv_block_weights(params, name).items()}
+        s = w["se_r_w"].shape[1]
+        x = torch.randn((batch, h, h, c_in), generator=gen, device="cuda").to(torch.bfloat16)
+        kernel = functools.partial(ops.fused_mbconv_block, x, w, residual)
+        plain = functools.partial(ops.mbconv_block_reference, x, w, residual)
+        dw_oihw = w["dw"].permute(2, 0, 1).unsqueeze(1).to(torch.bfloat16).contiguous()
+        library = functools.partial(_library_mbconv, x, w, dw_oihw, residual)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        shape = dict(block=name, batch=batch, hw=h, widths=[c_in, c_mid, c_out], se=s, k=k,
+                     residual=residual, calls_per_forward=calls)
+        if not torch.isfinite(got.float()).all():
+            _fail(f"fused_mbconv_block {shape}: non-finite output")
+        if not torch.equal(got, kernel()):
+            _fail(f"fused_mbconv_block {shape}: two calls on the same input differ")
+        err, rel = _rel(got, want)
+        if rel > KERNEL_TOL:
+            _fail(f"fused_mbconv_block {shape}: relative error {rel:.3e} > {KERNEL_TOL}")
+        t = dict(shape, max_abs_err=err, max_rel_err=rel, tol_rel=KERNEL_TOL)
+        if calls:
+            b_ms, b_by, terms = _mbconv_bound(batch, h, c_in, c_mid, c_out, s, k, exp_rate)
+            t.update(ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
+                     library_ms=_time_ms(library, iters),
+                     library_vs_plain_rel=_rel(library(), want)[1],
+                     bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                rec[key] += calls * t[key]
+            bound_t[b_by] += calls * b_ms
+        print("kernel-check fused_mbconv_block", json.dumps(t), flush=True)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+    rec["bound_by"] = max(bound_t, key=bound_t.get)
+    return rec
+
+
 def _card(query: str, fmt: str = "csv,noheader") -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
@@ -752,6 +922,7 @@ def main(argv=None) -> int:
         return 2
     from kubernetes_deep_learning_tpu_torch.modelspec import (
         CLOTHING_MODEL,
+        EFFICIENTNET_B3_IMAGENET,
         VIT_B16_IMAGENET,
         ModelSpec,
     )
@@ -759,7 +930,7 @@ def main(argv=None) -> int:
     from kubernetes_deep_learning_tpu_torch.models.vit import VIT_CONFIGS
     from kubernetes_deep_learning_tpu_torch.ops import _build
     from kubernetes_deep_learning_tpu_torch.ops import attention as attn
-    from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv
+    from kubernetes_deep_learning_tpu_torch.ops import fused_mbconv, fused_sepconv
     from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables
 
     smi = _card("name,power.limit")
@@ -818,6 +989,20 @@ def main(argv=None) -> int:
     train, k3p["launches"] = _training_phase(args.seed, args.profile, grads, smi)
     kernels.append(k3p)
     print("train:", json.dumps(train), flush=True)
+
+    # --- EfficientNet-B3 at 300 px: K4 and its server, fused and fast=False ---
+    variables = init_variables(EFFICIENTNET_B3_IMAGENET, seed=args.seed)
+    k4 = _mbconv_phase(from_jax_variables(variables), args.seed, ITERS, gen, exp_rate)
+    summary, buckets = _server_phase(
+        EFFICIENTNET_B3_IMAGENET, variables, args.seed, ITERS, args.profile, counter=fused_mbconv,
+        per_forward={"fused_mbconv_block": B3_FUSED_PER_FORWARD}, fast=True, wire="msgpack",
+        unfused=True)
+    del variables
+    k4["launches"] = summary["launches"]["fused_mbconv_block"]
+    kernels.append(k4)
+    print("server:", json.dumps(summary), flush=True)
+    for b in [*buckets, summary["unfused"]]:
+        print("bucket:", json.dumps({**b, "card": smi}), flush=True)
 
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@ A package of its own beside ``kubernetes_deep_learning_tpu`` (the JAX
 reference): it imports torch, numpy and the standard library only, reads
 the same artifact directories, speaks the same wire protocol, and runs on
 hand-written CUDA kernels for Hopper: the Xception middle and exit flows
-(``ops/csrc/fused_sepconv.cu``), ViT serving attention past 512 tokens
+(``ops/csrc/fused_sepconv.cu``), EfficientNet's stride-1 MBConv blocks
+(``ops/csrc/fused_mbconv.cu``), ViT serving attention past 512 tokens
 and ViT training attention (``ops/csrc/flash_attention.cu``, the fused
 and the partials form).  ``training`` fits a ViT, checkpoints and resumes
 it, and exports the result as a served version.  Entry points run on
@@ -13,6 +14,7 @@ it, and exports the result as a served version.  Entry points run on
 
 from kubernetes_deep_learning_tpu_torch.modelspec import (
     CLOTHING_MODEL,
+    EFFICIENTNET_B3_IMAGENET,
     VIT_B16_IMAGENET,
     ModelSpec,
     get_spec,
@@ -22,6 +24,7 @@ from kubernetes_deep_learning_tpu_torch.modelspec import (
 
 __all__ = [
     "CLOTHING_MODEL",
+    "EFFICIENTNET_B3_IMAGENET",
     "VIT_B16_IMAGENET",
     "ModelSpec",
     "get_spec",

@@ -3,10 +3,12 @@
 ``build_forward(spec, params, dtype, fast, device)`` returns a module
 ``f(images) -> float32 logits``: uint8 NHWC batches straight off the wire
 are normalized on the device (``ops.preprocess.normalize``); float batches
-are taken as already normalized.  Families: ``xception``, whose ``fast``
-flag picks the fused-kernel path (``models.xception_fast``) or the exact
-graph (``models.xception``), and ``vit-*`` (``models.vit``), whose kernel
-sits inside its attention, so it has no separate fast path.
+are taken as already normalized.  Families: ``xception`` and
+``efficientnet-*``, whose ``fast`` flag picks the fused-kernel path
+(``models.xception_fast``, ``models.efficientnet_fast``) or the exact
+graph (``models.xception``, ``models.efficientnet``), and ``vit-*``
+(``models.vit``), whose kernel sits inside its attention, so it has no
+separate fast path.
 """
 
 from __future__ import annotations
@@ -45,6 +47,11 @@ def create_model(spec: ModelSpec, dtype: torch.dtype = torch.float32):
         from kubernetes_deep_learning_tpu_torch.models.xception import Xception
 
         return Xception(spec.num_classes, head_hidden=spec.head_hidden, dtype=dtype)
+    if spec.family.startswith("efficientnet-"):
+        from kubernetes_deep_learning_tpu_torch.models.efficientnet import build_efficientnet
+
+        return build_efficientnet(spec.family.removeprefix("efficientnet-"), spec.num_classes,
+                                  dtype=dtype, head_hidden=spec.head_hidden)
     from kubernetes_deep_learning_tpu_torch.models.vit import VIT_CONFIGS, ViT
 
     if spec.family in VIT_CONFIGS:
@@ -82,8 +89,14 @@ def init_variables(spec: ModelSpec, seed: int = 0) -> dict:
 
 
 def has_fast_forward(spec: ModelSpec) -> bool:
-    """Whether a fused-kernel fast path exists for this family."""
-    return spec.family == "xception"
+    """Whether a fused-kernel fast path exists for this family.
+
+    Unlike the JAX package, which keeps EfficientNet on the exact graph
+    (its fused MBConv kernel measured slower than XLA on a TPU), the port
+    serves bf16 EfficientNet through its MBConv kernel on CUDA: no TPU
+    measurement carries over to the card, and the kernel must be on a path
+    the card runs.  ``fast=False`` keeps the exact graph for any caller."""
+    return spec.family == "xception" or spec.family.startswith("efficientnet-")
 
 
 def resolve_fast(spec: ModelSpec, dtype: torch.dtype, fast: bool | str,
@@ -126,10 +139,14 @@ def build_forward(spec: ModelSpec, params: dict, dtype: torch.dtype = torch.bflo
     model = create_model(spec, dtype=dtype)
     model.load_state_dict(params)
     model = model.to(device).eval()
-    if use_fast:
+    if use_fast and spec.family == "xception":
         from kubernetes_deep_learning_tpu_torch.models.xception_fast import XceptionFast
 
         inner = XceptionFast(model, dtype=dtype)
+    elif use_fast:
+        from kubernetes_deep_learning_tpu_torch.models.efficientnet_fast import EfficientNetFast
+
+        inner = EfficientNetFast(model, dtype=dtype)
     else:
         inner = model
     return Forward(spec, inner, use_fast).eval()

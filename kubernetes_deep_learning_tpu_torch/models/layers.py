@@ -84,6 +84,30 @@ class BatchNorm(nn.Module):
         return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
 
 
+def lowp_batchnorms(cast: dict, dtype: torch.dtype) -> dict[str, tuple]:
+    """Every BatchNorm in ``cast`` (parameters already in ``dtype``) as
+    (mean, rsqrt(var + eps), scale, bias), all in ``dtype``: the JAX fast
+    paths' BN, which computes in the compute dtype, not in float32."""
+    out = {}
+    for k in cast:
+        if k.endswith(".running_mean"):
+            name = k.removesuffix(".running_mean")
+            eps = torch.tensor(KERAS_BN_EPS, dtype=dtype, device=cast[k].device)
+            out[name] = (
+                cast[f"{name}.running_mean"],
+                torch.rsqrt(cast[f"{name}.running_var"] + eps),
+                cast[f"{name}.weight"],
+                cast[f"{name}.bias"],
+            )
+    return out
+
+
+def lowp_bn(x, stats: tuple):
+    """(x - mean) * rsqrt(var + eps) * scale + bias in x's dtype."""
+    mean, inv, scale, bias = stats
+    return (x - mean) * inv * scale + bias
+
+
 class ClassifierHead(nn.Module):
     """Global-average-pool head: hidden Dense+relu layers, then logits."""
 

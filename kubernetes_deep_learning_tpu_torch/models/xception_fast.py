@@ -19,7 +19,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from kubernetes_deep_learning_tpu_torch.models.layers import conv2d_nhwc, max_pool_same
+from kubernetes_deep_learning_tpu_torch.models.layers import (
+    conv2d_nhwc,
+    lowp_batchnorms,
+    lowp_bn,
+    max_pool_same,
+)
 from kubernetes_deep_learning_tpu_torch.models.xception import (
     ENTRY_BLOCKS,
     MIDDLE_BLOCKS,
@@ -30,7 +35,6 @@ from kubernetes_deep_learning_tpu_torch.ops.fused_sepconv import (
     fused_sepconv_chain,
 )
 from kubernetes_deep_learning_tpu_torch.weights import (
-    KERAS_BN_EPS,
     fold_bn,
     middle_block_weights,
     sepconv_stage_weights,
@@ -51,19 +55,8 @@ class XceptionFast(nn.Module):
         entry = tuple(f"block{i}_" for i in range(1, 5)) + ("head.",)
         cast = {k: v.to(dtype) for k, v in p.items() if k.startswith(entry)}
         self._w = {k: v for k, v in cast.items() if ".running_" not in k}
-        # Entry-flow BN in the compute dtype, as the JAX fast path's bn():
-        # (x - mean) * rsqrt(var + eps) * scale + bias, every operand bf16.
-        self._bn = {}
-        for k in cast:
-            if k.endswith(".running_mean"):
-                name = k.removesuffix(".running_mean")
-                eps = torch.tensor(KERAS_BN_EPS, dtype=dtype, device=cast[k].device)
-                self._bn[name] = (
-                    cast[f"{name}.running_mean"],
-                    torch.rsqrt(cast[f"{name}.running_var"] + eps),
-                    cast[f"{name}.weight"],
-                    cast[f"{name}.bias"],
-                )
+        # Entry-flow BN in the compute dtype, as the JAX fast path's bn().
+        self._bn = lowp_batchnorms(cast, dtype)
         self._middle = [middle_block_weights(p, f"block{i}") for i in MIDDLE_BLOCKS]
         res_scale, res_shift = fold_bn(p, "block13_res_bn")
         self._block13_res = (
@@ -84,8 +77,7 @@ class XceptionFast(nn.Module):
         self._n_hidden = model.head.n_hidden
 
     def _bn_apply(self, x, name):
-        mean, inv, scale, bias = self._bn[name]
-        return (x - mean) * inv * scale + bias
+        return lowp_bn(x, self._bn[name])
 
     def _conv(self, x, name, stride=1, padding="VALID"):
         return conv2d_nhwc(x, self._w[f"{name}.weight"], stride, padding)

@@ -102,6 +102,20 @@ CLOTHING_MODEL = register_spec(
 
 _IMAGENET_LABELS = tuple(f"class_{i}" for i in range(1000))
 
+# EfficientNet-B3 ImageNet classifier at its native 300x300, torchvision
+# normalization.  The same spec as the JAX package's, so an artifact of
+# either package loads in the other.
+EFFICIENTNET_B3_IMAGENET = register_spec(
+    ModelSpec(
+        name="efficientnet-b3-imagenet",
+        family="efficientnet-b3",
+        input_shape=(300, 300, 3),
+        labels=_IMAGENET_LABELS,
+        preprocessing="torch",
+        description="EfficientNet-B3 ImageNet classifier",
+    )
+)
+
 # ViT-B/16 ImageNet classifier, 256x256 in: 16x16 patches give 256 tokens,
 # so serving attention takes the einsum route.  The same spec as the JAX
 # package's, so an artifact of either package loads in the other.

@@ -24,10 +24,12 @@ keeps flax's layout, (C, heads, head_dim) for query/key/value and
 LayerNorm's scale and bias map like BatchNorm's.  A tree without
 ``batch_stats`` (ViT) comes back without it.
 
-Also the kernel-ready forms of ``ops/fused_sepconv.py`` in the JAX package
-(``fold_bn``, ``middle_block_weights``, ``sepconv_stage_weights``), with the
-same math: BN folded with the Keras epsilon into an f32 scale/shift,
-depthwise taps (3,3,C) f32, pointwise (C_in,C_out) bf16.
+Also the kernel-ready forms of ``ops/fused_sepconv.py`` and
+``ops/fused_mbconv.py`` in the JAX package (``fold_bn``,
+``middle_block_weights``, ``sepconv_stage_weights``,
+``mbconv_block_weights``), with the same math: BN folded with the Keras
+epsilon into an f32 scale/shift, depthwise taps (k,k,C) f32, 1x1 kernels
+(C_in,C_out) bf16.
 """
 
 from __future__ import annotations
@@ -115,12 +117,14 @@ def fold_bn(params: dict, name: str, eps: float = KERAS_BN_EPS):
     return scale, beta - mean * scale
 
 
-def _depthwise_taps(params: dict, sep: str) -> torch.Tensor:
-    return params[f"{sep}.depthwise.weight"].float()[:, 0].permute(1, 2, 0)  # (3,3,C)
+def _depthwise_taps(params: dict, conv: str) -> torch.Tensor:
+    """A depthwise conv's (C,1,k,k) weight as (k,k,C) f32 taps."""
+    return params[f"{conv}.weight"].float()[:, 0].permute(1, 2, 0)
 
 
-def _pointwise(params: dict, sep: str) -> torch.Tensor:
-    return params[f"{sep}.pointwise.weight"].float()[:, :, 0, 0].t()  # (C_in, C_out)
+def _matrix(params: dict, conv: str) -> torch.Tensor:
+    """A 1x1 conv's OIHW weight as a (C_in, C_out) f32 GEMM operand."""
+    return params[f"{conv}.weight"].float()[:, :, 0, 0].t()
 
 
 def middle_block_weights(params: dict, block: str):
@@ -130,8 +134,8 @@ def middle_block_weights(params: dict, block: str):
     for j in (1, 2, 3):
         sep = f"{block}_sepconv{j}"
         scale, shift = fold_bn(params, f"{sep}_bn")
-        dws.append(_depthwise_taps(params, sep))
-        pws.append(_pointwise(params, sep))
+        dws.append(_depthwise_taps(params, f"{sep}.depthwise"))
+        pws.append(_matrix(params, f"{sep}.pointwise"))
         scales.append(scale)
         shifts.append(shift)
     return (
@@ -147,10 +151,38 @@ def sepconv_stage_weights(params: dict, sep_name: str, bn_name: str,
     """One ``fused_sepconv_chain`` stage (see middle_block_weights)."""
     scale, shift = fold_bn(params, bn_name)
     return {
-        "dw": _depthwise_taps(params, sep_name).contiguous(),
-        "pw": _pointwise(params, sep_name).to(torch.bfloat16).contiguous(),
+        "dw": _depthwise_taps(params, f"{sep_name}.depthwise").contiguous(),
+        "pw": _matrix(params, f"{sep_name}.pointwise").to(torch.bfloat16).contiguous(),
         "scale": scale.contiguous(),
         "shift": shift.contiguous(),
         "pre_relu": pre_relu,
         "post_relu": post_relu,
     }
+
+
+def mbconv_block_weights(params: dict, block: str) -> dict[str, torch.Tensor]:
+    """One stride-1 MBConv block (``models.efficientnet.MBConvBlock``) for
+    ``fused_mbconv_block``: expand_w (C_in,C_mid), se_r_w (C_mid,S), se_e_w
+    (S,C_mid), proj_w (C_mid,C_out) bf16; dw (k,k,C_mid) f32; the folded BN
+    scale/shift pairs expand_s/_b, dw_s/_b, proj_s/_b and the SE biases
+    se_r_b, se_e_b in f32."""
+    exp_s, exp_b = fold_bn(params, f"{block}.expand_bn")
+    dw_s, dw_b = fold_bn(params, f"{block}.dw_bn")
+    pr_s, pr_b = fold_bn(params, f"{block}.project_bn")
+    bf16 = torch.bfloat16
+    w = {
+        "expand_w": _matrix(params, f"{block}.expand_conv").to(bf16),
+        "expand_s": exp_s,
+        "expand_b": exp_b,
+        "dw": _depthwise_taps(params, f"{block}.dwconv"),
+        "dw_s": dw_s,
+        "dw_b": dw_b,
+        "se_r_w": _matrix(params, f"{block}.se.reduce").to(bf16),
+        "se_r_b": params[f"{block}.se.reduce.bias"].float(),
+        "se_e_w": _matrix(params, f"{block}.se.expand").to(bf16),
+        "se_e_b": params[f"{block}.se.expand.bias"].float(),
+        "proj_w": _matrix(params, f"{block}.project_conv").to(bf16),
+        "proj_s": pr_s,
+        "proj_b": pr_b,
+    }
+    return {k: v.contiguous() for k, v in w.items()}

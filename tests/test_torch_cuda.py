@@ -6,7 +6,9 @@ it:  ``python -m pytest tests/test_torch_cuda.py -q``.  Tolerance: relative
 max error < 2e-2 for bf16 (bf16 roundings of the same values, summed in
 another order), < 1e-4 for the f32 flash-attention kernels, fused (K3)
 and partials (K3P), and for the differentiable attention built on K3P
-(f32 sums in another order, a fast exponential).
+(f32 sums in another order, a fast exponential).  The MBConv kernel is
+held at 2e-2 at every fused block shape of EfficientNet-B3 (300 px) and
+B0 (224 px).
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from kubernetes_deep_learning_tpu_torch.ops import attention
+from kubernetes_deep_learning_tpu_torch.models.efficientnet import block_plan, se_features
+from kubernetes_deep_learning_tpu_torch.models.efficientnet_fast import block_routes
+from kubernetes_deep_learning_tpu_torch.ops import attention, fused_mbconv
 from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv as ops
 
 
@@ -203,3 +207,73 @@ def test_cuda_attention_trainable_matches_plain_autograd(causal):
     assert _rel(out, want) < 1e-4
     for g, w in zip(grads, want_grads):
         assert _rel(g, w) < 1e-4
+
+
+def _fused_shapes(width: float, depth: float, stem_hw: int, stem_c: int) -> list[tuple]:
+    """(h, c_in, c_mid, c_out, k, residual) of every fused block shape."""
+    routes = block_routes(block_plan(width, depth), stem_hw, stem_hw, stem_c)
+    return sorted({(b.h, b.c_in, b.c_in * b.expand, b.features, b.kernel, b.residual)
+                   for b in routes if b.fused})
+
+
+_MBCONV_CASES = (
+    [(batch, shape) for shape in _fused_shapes(1.2, 1.4, 150, 40) for batch in (1, 3, 16)]
+    + [(2, shape) for shape in _fused_shapes(1.0, 1.0, 112, 32)]
+)
+
+
+def _mbconv_weights(rng, c_in, c_mid, c_out, k, s):
+    bf = torch.bfloat16
+    return dict(
+        expand_w=_t(rng, (c_in, c_mid), c_in ** -0.5, bf), expand_s=_t(rng, (c_mid,), 0.1) + 1.0,
+        expand_b=_t(rng, (c_mid,), 0.1), dw=_t(rng, (k, k, c_mid), 1.0 / k),
+        dw_s=_t(rng, (c_mid,), 0.1) + 1.0, dw_b=_t(rng, (c_mid,), 0.1),
+        se_r_w=_t(rng, (c_mid, s), c_mid ** -0.5, bf), se_r_b=_t(rng, (s,), 0.1),
+        se_e_w=_t(rng, (s, c_mid), s ** -0.5, bf), se_e_b=_t(rng, (c_mid,), 0.1),
+        proj_w=_t(rng, (c_mid, c_out), c_mid ** -0.5, bf), proj_s=_t(rng, (c_out,), 0.1) + 1.0,
+        proj_b=_t(rng, (c_out,), 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,shape", _MBCONV_CASES, ids=str)
+def test_cuda_mbconv_matches_plain_version(batch, shape):
+    """The four-launch MBConv kernel against its plain version, and the
+    same bits on a second call (the squeeze-excite sums are deterministic)."""
+    _need_cuda()
+    h, c_in, c_mid, c_out, k, residual = shape
+    rng = np.random.default_rng(h + c_in + c_out + batch)
+    x = _t(rng, (batch, h, h, c_in), dtype=torch.bfloat16)
+    w = _mbconv_weights(rng, c_in, c_mid, c_out, k, se_features(c_in))
+    fused_mbconv.reset_launch_counts()
+    got = fused_mbconv.fused_mbconv_block(x, w, residual)
+    again = fused_mbconv.fused_mbconv_block(x, w, residual)
+    torch.cuda.synchronize()
+    assert fused_mbconv.launch_counts()["fused_mbconv_block"] == 2
+    assert got.shape == (batch, h, h, c_out) and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    assert _rel(got, fused_mbconv.mbconv_block_reference(x, w, residual)) < 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_efficientnet_fast_forward_launches_per_fused_block():
+    """efficientnet-b0 at 64 px on the card: one launch per fused block (11
+    per forward), and the fused route near the bf16 exact graph."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.models import build_forward, init_variables
+    from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables
+
+    spec = ModelSpec(name="tiny-effnet", family="efficientnet-b0", input_shape=(64, 64, 3),
+                     labels=("a", "b", "c"), preprocessing="torch")
+    params = from_jax_variables(init_variables(spec, seed=0))
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (5, 64, 64, 3), np.uint8))
+    with torch.inference_mode():
+        fwd = build_forward(spec, params, torch.bfloat16, "auto", "cuda")
+        assert fwd.fast
+        fused_mbconv.reset_launch_counts()
+        fast = fwd(imgs.cuda())
+        torch.cuda.synchronize()
+        assert fused_mbconv.launch_counts()["fused_mbconv_block"] == 11
+        exact = build_forward(spec, params, torch.bfloat16, False, "cuda")(imgs.cuda())
+    assert torch.isfinite(fast).all()
+    assert _rel(fast, exact) < 2e-2
