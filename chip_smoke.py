@@ -23,20 +23,37 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    graph, that the engine took the fused fast path, and that the requests
    went through the kernels (8 K1 and 2 K2 launches per forward); then
    img/s and p50 per bucket;
-5. attention kernel: K3 at ViT-B/16-384's shape (16, 12, 576, 64) in bf16
+5. Xception entry-kernel path: K5 (conv2 + block2) at 149x149x32 ->
+   74x74x128, batches 1, 3 and 16, with the clothing model's weights, and
+   K2 at blocks 3 and 4 of that path (74x74 128->256->256, 37x37
+   256->728->728, batch 16), against their plain versions (< 2e-2); times
+   kernel, plain version, a library yardstick (cuDNN ``conv2d`` for conv2
+   and the depthwise, cuBLAS ``matmul`` for the 1x1s, torch elementwise
+   and max-pool: used nowhere in the port) and the bound.  Then the
+   entry-kernel forward (``XceptionFast(entry_kernel=True)``): 1 K5, 8 K1
+   and 4 K2 launches per forward for batches 1, 3, 16, logits within 2e-2
+   of the default fused route and of the exact f32 graph, p50 and img/s of
+   both routes at buckets 1, 4, 16 in turns (with ``--profile``: both
+   traced, and K5's share of device time);
+6. attention kernel: K3 at ViT-B/16-384's shape (16, 12, 576, 64) in bf16
    and in f32 (the exact graph's), and at small ragged, causal, fully
    masked (all 0) and other head-dim cases, against its plain version
    (relative max error < 2e-2 bf16, < 1e-4 f32); times kernel, plain
    version and ``scaled_dot_product_attention`` (the yardstick, used
    nowhere in the port) and prints the bound;
-6. ViT server: a ``vit-b16-384`` artifact (ViT-B/16 at 384 px: 576 tokens,
+7. ViT server: a ``vit-b16-384`` artifact (ViT-B/16 at 384 px: 576 tokens,
    the flash route) served the same way over the msgpack wire.  ViT has no
    fused fast path (its kernel sits inside its attention); the requests
    must launch K3 12 times per forward, and the bf16 logits must agree
    with the exact f32 graph (relative < 5e-2); then img/s and p50;
-7. routing: one predict of the registered ``vit-b16-imagenet`` (256 px,
+8. routing: one predict of the registered ``vit-b16-imagenet`` (256 px,
    256 tokens) must take the einsum route: zero K3 launches;
-8. partials kernel: K3P at the training shape (32, 12, 256, 64) in f32
+9. folded attention: K3G (``flash_gfold``, E5's port), one call for each
+   g in (1, 4, 8) at E5's shape (32, 12, 256, 64) bf16 (the launches
+   counted), then each g against the plain version at that shape and at
+   ViT-B/16-384's (16, 12, 576, 64) (< 2e-2), timed beside K3 and
+   ``scaled_dot_product_attention`` (the yardstick), with the bound;
+10. partials kernel: K3P at the training shape (32, 12, 256, 64) in f32
    (``fit``'s) and bf16, and at small ragged, causal, ``kv_len``,
    no-visible-key and other head-dim cases, against its plain version on
    the rows with a visible key (relative < 1e-4 f32, < 2e-2 bf16; the
@@ -44,10 +61,10 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    kernel with its finalisation to (out, lse), and the aten attention op
    that returns (out, logsumexp) (the yardstick, used nowhere in the
    port); prints the bound;
-9. gradients: ``attention_trainable`` (K3P forward, blockwise torch
+11. gradients: ``attention_trainable`` (K3P forward, blockwise torch
    backward) against autograd through plain f32 attention at the training
    shape (relative < 1e-4), and the time of its forward and backward;
-10. training: ``fit()`` on ``vit-b16-imagenet`` (ViT-B/16 at full width
+12. training: ``fit()`` on ``vit-b16-imagenet`` (ViT-B/16 at full width
    and depth), f32, batch 32, Adam, 10 steps on one repeated
    ``synthetic_batches`` batch, checkpointing every 5 steps.  The loss
    must fall; the first step's loss must equal the eval-mode (einsum
@@ -56,12 +73,12 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    Then step-ms p50 and img/s over further steps, peak device memory, and
    3 steps of ``build_train_step(dtype=torch.bfloat16)`` (bf16 K3P: 12
    launches per step);
-11. checkpoint and serve: the step-10 checkpoint restored into a fresh
+13. checkpoint and serve: the step-10 checkpoint restored into a fresh
    state (bit-equal parameters), a resumed ``fit`` to step 12,
    ``fit_and_export`` into a temporary root (resumed at 12: no new step),
    and the artifact served by the port's engine on ``cuda``: its bf16 and
    exact f32 logits must match the trained parameters' eval forward;
-12. MBConv kernel: K4 at the 7 shapes of EfficientNet-B3's 18 fused
+14. MBConv kernel: K4 at the 7 shapes of EfficientNet-B3's 18 fused
    blocks (300 px, batch 16), taken with their own weights from a seeded
    B3, plus a batch-3 case and an EfficientNet-B0 case (56 x 56, S = 6),
    against its plain version (relative max error < 2e-2); times kernel,
@@ -69,16 +86,17 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    project, cuDNN depthwise ``conv2d``, torch elementwise ops for BN,
    silu and the squeeze-excite: used nowhere in the port) and the bound,
    each summed over the 18 calls of one bucket-16 forward;
-13. EfficientNet-B3 server: ``efficientnet-b3-imagenet`` (300 px, torch
+15. EfficientNet-B3 server: ``efficientnet-b3-imagenet`` (300 px, torch
    normalization) served the same way over the msgpack wire, on the fused
    route: 18 K4 launches per forward, logits near the exact f32 graph;
    then the same requests on a ``fast=False`` bf16 engine (the exact
    graph: no K4 launch, the fused route within 2e-2 relative of it) and
    its bucket-16 p50, so the default route can be chosen on this card;
-14. with ``--profile``: a ``torch.profiler`` trace of a few bucket-16
-   forwards of each served model (and of B3's ``fast=False`` engine) and
-   of a few f32 and bf16 training steps, printed as device time by kernel
-   and the device's busy share.
+16. with ``--profile``: a ``torch.profiler`` trace of a few bucket-16
+   forwards of each served model (and of B3's ``fast=False`` engine, and
+   of the Xception entry-kernel and default forwards) and of a few f32 and
+   bf16 training steps, printed as device time by kernel and the device's
+   busy share.
 
 The last two lines are a JSON ``kernels`` record and the device record.
 """
@@ -125,7 +143,14 @@ SOURCES = {
     "flash_attention": _CSRC + "flash_attention.cu",
     "flash_attention_partials": _CSRC + "flash_attention.cu",
     "fused_mbconv_block": _CSRC + "fused_mbconv.cu",
+    "fused_entry_block": _CSRC + "fused_entry.cu",
+    "flash_gfold": _CSRC + "flash_attention.cu",
 }
+ENTRY_PER_FORWARD = {"fused_entry_block": 1, "fused_sepconv_block": 8, "fused_sepconv_chain": 4}
+ENTRY_BATCHES = (1, 3, 16)  # K5 checks; also the entry-kernel forward's requests
+GFOLD = (1, 4, 8)           # (batch, head) pairs per block for K3G
+# E5's own shape (exp/vit_attn_variants.py) and ViT-B/16-384's, bf16.
+GFOLD_SHAPES = ((32, 12, 256, 64), (16, 12, 576, 64))
 B3_FUSED_PER_FORWARD = 18  # EfficientNet-B3's blocks on K4 at 300 px
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
@@ -350,9 +375,10 @@ def _post(url: str, images: np.ndarray, wire: str) -> tuple[np.ndarray, list, fl
     return logits, labels, ms
 
 
-def _profile(model: str, fn, batch: int, steps: int = 5) -> None:
+def _profile(model: str, fn, batch: int, steps: int = 5) -> float:
     """Device time by kernel over ``steps`` calls of ``fn`` (each ending
-    in a device sync): engine predicts or training steps."""
+    in a device sync): engine predicts or training steps.  Returns the
+    device ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -376,6 +402,7 @@ def _profile(model: str, fn, batch: int, steps: int = 5) -> None:
             "device_ms_per_step": e.self_device_time_total / 1e3 / steps,
             "share": e.self_device_time_total / 1e3 / device_ms if device_ms else None,
         }), flush=True)
+    return device_ms / steps
 
 
 def _bucket_times(engine, name: str, b: int, imgs: np.ndarray, iters: int) -> dict:
@@ -689,7 +716,8 @@ def _training_phase(seed: int, profile: bool, grads: dict, smi: str) -> tuple[di
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = attn.launch_counts()
-        want = {"flash_attention": 0, "flash_attention_partials": depth * TRAIN_STEPS}
+        want = {"flash_attention": 0, "flash_attention_partials": depth * TRAIN_STEPS,
+                "flash_gfold": 0}
         if launches != want:
             _fail(f"{spec.name} fit: kernel launches {launches} != {want} for {TRAIN_STEPS} "
                   "steps and a final eval pass")
@@ -778,7 +806,8 @@ def _training_phase(seed: int, profile: bool, grads: dict, smi: str) -> tuple[di
         losses.append(float(m["loss"]))
         lat.append((time.perf_counter() - t0) * 1e3)
     launches_bf16 = attn.launch_counts()
-    want = {"flash_attention": 0, "flash_attention_partials": depth * BF16_STEPS}
+    want = {"flash_attention": 0, "flash_attention_partials": depth * BF16_STEPS,
+            "flash_gfold": 0}
     if launches_bf16 != want or not np.isfinite(losses).all():
         _fail(f"bf16 train steps: launches {launches_bf16} != {want}, losses {losses}")
     summary["bf16"] = dict(steps=BF16_STEPS, losses=losses, step_ms=lat, launches=launches_bf16)
@@ -903,6 +932,254 @@ def _mbconv_phase(b3_params, seed: int, iters: int, gen: torch.Generator,
     return rec
 
 
+def _entry_bound(b: int, h: int, c_in: int, c_b: int, c_out: int) -> tuple[float, str, dict]:
+    """Least time (ms) for one K5 call: x read once, the output written
+    once, weights once; bf16 GEMMs (conv2, res, pw1, pw2) on the tensor
+    cores plus the f32 depthwise taps on the CUDA cores."""
+    h_b, h_o = h - 2, (h - 1) // 2
+    m_b, m_o = b * h_b * h_b, b * h_o * h_o
+    gemm = 2 * m_b * (9 * c_in * c_b + c_b * c_out + c_out * c_out) + 2 * m_o * c_b * c_out
+    dw = 2 * 9 * m_b * (c_b + c_out)
+    wbytes = 2 * (9 * c_in * c_b + 2 * c_b * c_out + c_out * c_out) + 4 * (
+        9 * (c_b + c_out) + 2 * c_b + 6 * c_out)
+    t = {"bytes": (2 * b * h * h * c_in + 2 * m_o * c_out + wbytes) / PEAK_BYTES,
+         "operations": gemm / PEAK_BF16 + dw / PEAK_F32}
+    top = max(t, key=t.get)
+    return t[top] * 1e3, top, {"gemm_gflop": gemm / 1e9, "dw_gflop": dw / 1e9,
+                               **{k: v * 1e3 for k, v in t.items()}}
+
+
+def _library_entry(x, w, conv2_oihw):
+    """cuDNN conv2d (conv2 and the depthwise), cuBLAS matmul (the 1x1s),
+    torch elementwise and max-pool: the yardstick for K5, not the port."""
+    from kubernetes_deep_learning_tpu_torch.models.layers import max_pool_same
+
+    bf = torch.bfloat16
+    b = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), conv2_oihw).permute(0, 2, 3, 1)
+    b = torch.relu(b.float() * w["conv2_s"] + w["conv2_b"]).to(bf)
+    r = (torch.matmul(b[:, ::2, ::2], w["res"]).float() * w["res_s"] + w["res_b"]).to(bf)
+    c = _library_stage(b, dict(dw=w["dw1"], pw=w["pw1"], scale=w["bn1_s"], shift=w["bn1_b"],
+                               pre_relu=False, post_relu=True))
+    d = _library_stage(c, dict(dw=w["dw2"], pw=w["pw2"], scale=w["bn2_s"], shift=w["bn2_b"],
+                               pre_relu=False, post_relu=False))
+    return max_pool_same(d) + r
+
+
+def _entry_kernel_phase(params, iters: int, gen: torch.Generator) -> tuple[dict, dict]:
+    """K5 at Xception's entry geometry (batches 1, 3, 16) with the
+    clothing model's conv2 + block2 weights, and K2 at the entry path's
+    block 3 and 4 shapes (batch 16), against their plain versions; times
+    at batch 16.  Returns (K5's record, K2's entry-path shapes)."""
+    from kubernetes_deep_learning_tpu_torch import weights
+    from kubernetes_deep_learning_tpu_torch.ops import fused_entry
+    from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv as ops
+
+    p = {k: v.to("cuda") for k, v in params.items()}
+    w = weights.entry_block_weights(p)
+    c_in, c_b, c_out = w["conv2"].shape[0] // 9, w["conv2"].shape[1], w["pw1"].shape[1]
+    conv2_oihw = w["conv2"].reshape(3, 3, c_in, c_b).permute(3, 2, 0, 1).contiguous()
+    rec = dict(name="fused_entry_block", route="cuda", source=SOURCES["fused_entry_block"],
+               replaces="kubernetes_deep_learning_tpu/ops/fused_entry.py:283",
+               also_replaces="exp/fused_entry.py:257", max_abs_err=0.0, max_rel_err=0.0,
+               tol_rel=KERNEL_TOL, per="one call at (16, 149, 149, 32) -> (16, 74, 74, 128); "
+               "errors: max over batches 1, 3, 16")
+    for batch in ENTRY_BATCHES:
+        x = torch.randn((batch, 149, 149, c_in), generator=gen, device="cuda").to(torch.bfloat16)
+        kernel = functools.partial(fused_entry.fused_entry_block, x, w)
+        plain = functools.partial(fused_entry.entry_block_reference, x, w)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        if got.shape != want.shape or not torch.isfinite(got.float()).all():
+            _fail(f"fused_entry_block at batch {batch}: shape {tuple(got.shape)} or non-finite")
+        err, rel = _rel(got, want)
+        if rel > KERNEL_TOL:
+            _fail(f"fused_entry_block at batch {batch}: relative error {rel:.3e} > {KERNEL_TOL}")
+        t = dict(batch=batch, max_abs_err=err, max_rel_err=rel, tol_rel=KERNEL_TOL)
+        if batch == ENTRY_BATCHES[-1]:
+            library = functools.partial(_library_entry, x, w, conv2_oihw)
+            b_ms, b_by, terms = _entry_bound(batch, 149, c_in, c_b, c_out)
+            t.update(ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
+                     library_ms=_time_ms(library, iters),
+                     library_vs_plain_rel=_rel(library(), want)[1],
+                     bound_ms=b_ms, bound_by=b_by, bound_terms=terms)
+            rec.update({k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        print("kernel-check fused_entry_block", json.dumps(t), flush=True)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+
+    chain = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_rel_err=0.0,
+                 per="blocks 3 and 4 of one bucket-16 entry-kernel forward, summed")
+    for block, hw in ((3, 74), (4, 37)):
+        stages = [weights.sepconv_stage_weights(p, f"block{block}_sepconv{j}",
+                                                f"block{block}_sepconv{j}_bn", True, False)
+                  for j in (1, 2)]
+        widths = [(s["pw"].shape[0], s["pw"].shape[1]) for s in stages]
+        x = torch.randn((16, hw, hw, widths[0][0]), generator=gen, device="cuda").to(torch.bfloat16)
+        kernel = functools.partial(ops.fused_sepconv_chain, x, stages)
+        plain = functools.partial(ops.sepconv_chain_reference, x, stages)
+
+        def library(x=x, stages=stages):
+            y = x
+            for s in stages:
+                y = _library_stage(y, s)
+            return y
+        got = kernel()
+        torch.cuda.synchronize()
+        err, rel = _rel(got, plain())
+        if rel > KERNEL_TOL:
+            _fail(f"fused_sepconv_chain at {hw}x{hw} {widths}: relative error {rel:.3e}")
+        b_ms, b_by = _bound(16 * hw * hw, widths)
+        t = dict(block=block, shape=[16, hw, hw], widths=widths, max_abs_err=err, max_rel_err=rel,
+                 ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
+                 library_ms=_time_ms(library, iters), bound_ms=b_ms, bound_by=b_by)
+        print("kernel-check fused_sepconv_chain", json.dumps(t), flush=True)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            chain[key] += t[key]
+        chain["max_rel_err"] = max(chain["max_rel_err"], rel)
+    return rec, chain
+
+
+def _forward_ms(fwd, x, iters: int) -> list[float]:
+    """Host-clock ms of device-synced forwards on a device-resident batch."""
+    with torch.inference_mode():
+        for _ in range(2):
+            fwd(x)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fwd(x)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return lat
+
+
+def _entry_path_phase(spec, variables, seed: int, iters: int, profile: bool,
+                      k5_ms: float) -> dict:
+    """The entry-kernel forward (``XceptionFast(entry_kernel=True)``, the
+    port of exp/model_fused_entry.py's A/B) on the clothing model's
+    weights: 1 K5, 8 K1 and 4 K2 launches per forward; logits against the
+    default fused route and the exact f32 graph at batches 1, 3, 16; p50
+    and img/s of both routes at buckets 1, 4, 16, in turns."""
+    from kubernetes_deep_learning_tpu_torch.models import Forward, build_forward, create_model
+    from kubernetes_deep_learning_tpu_torch.models.xception_fast import XceptionFast
+    from kubernetes_deep_learning_tpu_torch.ops import fused_entry, fused_sepconv
+    from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
+    from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables
+
+    params = from_jax_variables(variables)
+    model = create_model(spec, torch.bfloat16)
+    model.load_state_dict(params)
+    entry = Forward(spec, XceptionFast(model.to("cuda").eval(), entry_kernel=True), True).eval()
+    default = build_forward(spec, params, torch.bfloat16, "auto", "cuda")
+    exact = build_forward(spec, params, torch.float32, False, "cuda")
+    rng = np.random.default_rng(seed + 5)
+    batches = [torch.from_numpy(rng.integers(0, 256, (n, *spec.input_shape), np.uint8)).cuda()
+               for n in ENTRY_BATCHES]
+
+    def counts():
+        return {**fused_entry.launch_counts(), **fused_sepconv.launch_counts()}
+
+    with torch.inference_mode():
+        # --- the main path: entry-kernel forward -> K5, K2, K1 ---
+        fused_entry.reset_launch_counts()
+        fused_sepconv.reset_launch_counts()
+        outs = [entry(x) for x in batches]
+        torch.cuda.synchronize()
+        launches = counts()
+        want = {k: v * len(batches) for k, v in ENTRY_PER_FORWARD.items()}
+        if launches != want:
+            _fail(f"entry-kernel forward: launches {launches} != {want} "
+                  f"for {len(batches)} forwards")
+        fused_entry.reset_launch_counts()
+        fused_sepconv.reset_launch_counts()
+        default(batches[0])
+        if counts() != {"fused_entry_block": 0, "fused_sepconv_block": 8, "fused_sepconv_chain": 2}:
+            _fail(f"default fused route: launches {counts()} per forward")
+        rel_default = rel_exact = 0.0
+        for x, got in zip(batches, outs):
+            if got.shape != (len(x), spec.num_classes) or not torch.isfinite(got).all():
+                _fail(f"entry-kernel forward: logits {tuple(got.shape)} or non-finite")
+            rel_default = max(rel_default, _rel(got, default(x))[1])
+            rel_exact = max(rel_exact, _rel(got, exact(normalize(x, spec.preprocessing)))[1])
+    if rel_default > KERNEL_TOL or rel_exact > KERNEL_TOL:
+        _fail(f"entry-kernel forward: relative error {rel_default:.3e} against the default "
+              f"route, {rel_exact:.3e} against exact f32 (tolerance {KERNEL_TOL})")
+    summary = dict(model=spec.name, launches=launches, per_forward=ENTRY_PER_FORWARD,
+                   vs_default_rel=rel_default, vs_exact_f32_rel=rel_exact, tol_rel=KERNEL_TOL,
+                   buckets=[])
+    for b in BUCKETS:
+        x = torch.from_numpy(rng.integers(0, 256, (b, *spec.input_shape), np.uint8)).cuda()
+        lat = {"default": [], "entry_kernel": []}
+        for name in ("default", "entry_kernel", "entry_kernel", "default"):  # in turns
+            lat[name] += _forward_ms(default if name == "default" else entry, x, iters // 2)
+        summary["buckets"].append({
+            f"{name}_{key}": val for name, ms in lat.items() for key, val in (
+                ("p50_ms", float(np.median(ms))), ("img_per_s", b * len(ms) / (sum(ms) / 1e3)))
+        } | {"bucket": b})
+    if profile:
+        with torch.inference_mode():
+            dev_ms, default_ms = (
+                _profile(f"{spec.name}-{name}", lambda f=f: (f(x), torch.cuda.synchronize()), b)
+                for name, f in (("entry-kernel", entry), ("default", default)))
+        summary.update(device_ms_per_forward=dev_ms, default_device_ms_per_forward=default_ms,
+                       k5_share_of_device=k5_ms / dev_ms)
+    return summary
+
+
+def _gfold_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
+    """K3G (the port of exp/vit_attn_variants.py's flash_gfold A/B): one
+    call per fold at E5's shape is the path whose launches are counted;
+    then each fold against the plain version at E5's and ViT-B/16-384's
+    shapes, timed beside K3 and SDPA."""
+    from kubernetes_deep_learning_tpu_torch.ops import attention as attn
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    qkv = {shape: [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3)] for shape in GFOLD_SHAPES}
+    # --- the main path: the A/B's folded variants, one call each ---
+    attn.reset_launch_counts()
+    for g in GFOLD:
+        attn.flash_gfold(*qkv[GFOLD_SHAPES[0]], g=g)
+    torch.cuda.synchronize()
+    launches = attn.launch_counts()
+    if launches != {"flash_attention": 0, "flash_attention_partials": 0, "flash_gfold": len(GFOLD)}:
+        _fail(f"flash_gfold A/B: launches {launches}")
+    rec = dict(name="flash_gfold", route="cuda", source=SOURCES["flash_gfold"],
+               replaces="exp/vit_attn_variants.py:121", launches=launches["flash_gfold"],
+               max_abs_err=0.0, max_rel_err=0.0, tol_rel=KERNEL_TOL,
+               per=f"one call at {GFOLD_SHAPES[0]} bf16, g = {GFOLD[-1]}; errors: max over "
+                   "both shapes and every g", shapes=[])
+    for shape in GFOLD_SHAPES:
+        q, k, v = qkv[shape]
+        b, h, s, d = shape
+        want = attn.flash_attention_reference(q, k, v)
+        b_ms, b_by, terms = _attention_bound(b * h, s, s, d, 2 * 4 * b * h * s * d, PEAK_BF16,
+                                             exp_rate)
+        t = dict(shape=list(shape), bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms,
+                 plain_ms=_time_ms(lambda: attn.flash_attention_reference(q, k, v),
+                                   max(3, iters // 4)),
+                 library_ms=_time_ms(lambda: sdpa(q, k, v), iters),
+                 k3_ms=_time_ms(lambda: attn.flash_attention(q, k, v), iters), by_g={})
+        for g in GFOLD:
+            kernel = functools.partial(attn.flash_gfold, q, k, v, g=g)
+            got = kernel()
+            torch.cuda.synchronize()
+            err, rel = _rel(got, want)
+            if not torch.isfinite(got.float()).all() or rel > KERNEL_TOL:
+                _fail(f"flash_gfold {shape} g={g}: relative error {rel:.3e} > {KERNEL_TOL}")
+            t["by_g"][g] = dict(ms=_time_ms(kernel, iters), max_abs_err=err, max_rel_err=rel)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+        print("kernel-check flash_gfold", json.dumps(t), flush=True)
+        rec["shapes"].append(t)
+    main = rec["shapes"][0]
+    rec.update(ms=main["by_g"][GFOLD[-1]]["ms"],
+               **{k: main[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
+    return rec
+
+
 def _card(query: str, fmt: str = "csv,noheader") -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
@@ -961,12 +1238,21 @@ def main(argv=None) -> int:
     summary, buckets = _server_phase(
         CLOTHING_MODEL, variables, args.seed, ITERS, args.profile, counter=fused_sepconv,
         per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2}, fast=True, wire="json")
-    del variables
     for k in kernels:
         k["launches"] = summary["launches"][k["name"]]
     print("server:", json.dumps(summary), flush=True)
     for b in buckets:
         print("bucket:", json.dumps({**b, "card": smi}), flush=True)
+
+    # --- Xception's entry-kernel path: K5, K2 at blocks 3/4, the forward A/B ---
+    k5, k2_entry = _entry_kernel_phase(from_jax_variables(variables), ITERS, gen)
+    kernels[1]["entry_path"] = k2_entry
+    entry_path = _entry_path_phase(CLOTHING_MODEL, variables, args.seed, ITERS, args.profile,
+                                   k5["ms"])
+    del variables
+    k5["launches"] = entry_path["launches"]["fused_entry_block"]
+    kernels[1]["entry_path"]["launches"] = entry_path["launches"]["fused_sepconv_chain"]
+    print("entry-path:", json.dumps({**entry_path, "card": smi}), flush=True)
 
     # --- ViT-B/16 at 384 px: K3 and its server; the 256-px routing check ---
     k3 = _attention_phase(ITERS, gen, exp_rate)
@@ -981,6 +1267,7 @@ def main(argv=None) -> int:
     for b in buckets:
         print("bucket:", json.dumps({**b, "card": smi}), flush=True)
     print("routing:", json.dumps(_routing_phase(args.seed)), flush=True)
+    k3g = _gfold_phase(ITERS, gen, exp_rate)
 
     # --- ViT-B/16 training at 256 px: K3P, gradients, fit, checkpoint, serve ---
     k3p = _partials_phase(ITERS, gen, exp_rate)
@@ -999,7 +1286,7 @@ def main(argv=None) -> int:
         unfused=True)
     del variables
     k4["launches"] = summary["launches"]["fused_mbconv_block"]
-    kernels.append(k4)
+    kernels += [k4, k5, k3g]
     print("server:", json.dumps(summary), flush=True)
     for b in [*buckets, summary["unfused"]]:
         print("bucket:", json.dumps({**b, "card": smi}), flush=True)

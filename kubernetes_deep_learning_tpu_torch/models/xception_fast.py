@@ -9,9 +9,19 @@ CPU.  Numerics follow the JAX fast path op for op: bf16 compute, BN in bf16
 in the entry flow, BN folded to an f32 affine inside the kernels, the
 residual 1x1/2 conv of block13 as a bf16 matmul with an f32 affine.
 
+``entry_kernel=True`` is the port of ``build_fast_forward(entry_kernel=
+True)``: after conv1 (library ops, as above), conv2 + block2 run on
+``ops.fused_entry.fused_entry_block`` and blocks 3 and 4 on
+``fused_sepconv_chain`` (74x74 128->256->256, 37x37 256->728->728), each
+with its residual and pool as block13's.  ``models.build_forward`` never
+sets it, as JAX's does not: whether it pays on the card is a measurement
+(``chip_smoke.py``).
+
 The kernel-ready weights are derived once, when the module is built, from
 the exact graph's parameters.  The JAX path's TPU-only schedule rules
-(batch padded to a multiple of 8, 16-image chunking) have no counterpart.
+(batch padded to a multiple of 8, 16-image chunking) have no counterpart,
+nor has ``conv1_t``: it computes conv1 in the TPU kernels' (H, W, B, C)
+layout to spare a transpose, and the port is NHWC end to end.
 """
 
 from __future__ import annotations
@@ -30,11 +40,13 @@ from kubernetes_deep_learning_tpu_torch.models.xception import (
     MIDDLE_BLOCKS,
     Xception,
 )
+from kubernetes_deep_learning_tpu_torch.ops.fused_entry import fused_entry_block
 from kubernetes_deep_learning_tpu_torch.ops.fused_sepconv import (
     fused_sepconv_block,
     fused_sepconv_chain,
 )
 from kubernetes_deep_learning_tpu_torch.weights import (
+    entry_block_weights,
     fold_bn,
     middle_block_weights,
     sepconv_stage_weights,
@@ -45,11 +57,13 @@ class XceptionFast(nn.Module):
     """``f(normalized NHWC float images) -> bf16 logits`` over ``model``'s
     parameters (read once, at construction)."""
 
-    def __init__(self, model: Xception, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, model: Xception, dtype: torch.dtype = torch.bfloat16,
+                 entry_kernel: bool = False):
         super().__init__()
         if dtype != torch.bfloat16:
             raise ValueError("the fused sepconv kernels compute in bfloat16 only")
         self.dtype = dtype
+        self.entry_kernel = entry_kernel
         p = {k: v.detach() for k, v in model.state_dict().items()}
         # Entry flow and head run on library ops in the compute dtype.
         entry = tuple(f"block{i}_" for i in range(1, 5)) + ("head.",)
@@ -58,23 +72,33 @@ class XceptionFast(nn.Module):
         # Entry-flow BN in the compute dtype, as the JAX fast path's bn().
         self._bn = lowp_batchnorms(cast, dtype)
         self._middle = [middle_block_weights(p, f"block{i}") for i in MIDDLE_BLOCKS]
-        res_scale, res_shift = fold_bn(p, "block13_res_bn")
-        self._block13_res = (
-            p["block13_res_conv.weight"][:, :, 0, 0].t().to(dtype).contiguous(),
-            res_scale,
-            res_shift,
-        )
-        self._block13 = [
-            sepconv_stage_weights(p, f"block13_sepconv{j}", f"block13_sepconv{j}_bn",
-                                  pre_relu=True, post_relu=False)
-            for j in (1, 2)
-        ]
+        self._down = {i: self._downsample_weights(p, f"block{i}")
+                      for i in ((3, 4, 13) if entry_kernel else (13,))}
+        self._entry = entry_block_weights(p) if entry_kernel else None
         self._block14 = [
             sepconv_stage_weights(p, f"block14_sepconv{j}", f"block14_sepconv{j}_bn",
                                   pre_relu=False, post_relu=True)
             for j in (1, 2)
         ]
         self._n_hidden = model.head.n_hidden
+
+    def _downsample_weights(self, p, block):
+        """Residual 1x1/2 (bf16 matrix, f32 affine) and the two relu-first
+        sepconv stages of a downsampling block (3, 4, 13)."""
+        res_scale, res_shift = fold_bn(p, f"{block}_res_bn")
+        res = p[f"{block}_res_conv.weight"][:, :, 0, 0].t().to(self.dtype).contiguous()
+        stages = [sepconv_stage_weights(p, f"{block}_sepconv{j}", f"{block}_sepconv{j}_bn",
+                                        pre_relu=True, post_relu=False) for j in (1, 2)]
+        return res, res_scale, res_shift, stages
+
+    def _downsample(self, x, block: int):
+        """``downsample_t``: residual 1x1/2 as a bf16 matmul with an f32
+        affine, the fused two-stage chain, max-pool + residual."""
+        w_res, res_scale, res_shift, stages = self._down[block]
+        res = x[:, ::2, ::2] @ w_res
+        res = (res.float() * res_scale + res_shift).to(self.dtype)
+        y = fused_sepconv_chain(x, stages)
+        return (max_pool_same(y) + res).contiguous()
 
     def _bn_apply(self, x, name):
         return lowp_bn(x, self._bn[name])
@@ -92,18 +116,12 @@ class XceptionFast(nn.Module):
         x = x.to(self.dtype)
         # --- entry flow: library convolutions ---
         x = torch.relu(bn(self._conv(x, "block1_conv1", stride=2), "block1_conv1_bn"))
-        x = torch.relu(bn(self._conv(x, "block1_conv2"), "block1_conv2_bn"))
-        for idx, _feat in ENTRY_BLOCKS:
-            residual = bn(
-                self._conv(x, f"block{idx}_res_conv", stride=2, padding="SAME"),
-                f"block{idx}_res_bn",
-            )
-            if idx > 2:
-                x = torch.relu(x)
-            x = bn(self._sepconv(x, f"block{idx}_sepconv1"), f"block{idx}_sepconv1_bn")
-            x = torch.relu(x)
-            x = bn(self._sepconv(x, f"block{idx}_sepconv2"), f"block{idx}_sepconv2_bn")
-            x = max_pool_same(x) + residual
+        if self.entry_kernel:
+            # --- conv2 + block2 fused, blocks 3 and 4 as fused chains ---
+            x = fused_entry_block(x.contiguous(), self._entry)
+            x = self._downsample(self._downsample(x, 3), 4)
+        else:
+            x = self._entry_flow(x)
 
         # --- middle flow: 8 fused blocks, NHWC contiguous for the kernel ---
         x = x.contiguous()
@@ -111,11 +129,7 @@ class XceptionFast(nn.Module):
             x = fused_sepconv_block(x, dw, pw, scale, shift)
 
         # --- block13: residual 1x1/2 (matmul) + fused chain + pool ---
-        w_res, res_scale, res_shift = self._block13_res
-        res = x[:, ::2, ::2] @ w_res
-        res = (res.float() * res_scale + res_shift).to(self.dtype)
-        y = fused_sepconv_chain(x, self._block13)
-        x = (max_pool_same(y) + res).contiguous()
+        x = self._downsample(x, 13)
 
         # --- block14: fused chain (sep -> bn -> relu, twice) ---
         x = fused_sepconv_chain(x, self._block14)
@@ -131,3 +145,20 @@ class XceptionFast(nn.Module):
         return torch.nn.functional.linear(
             x, self._w["head.logits.weight"], self._w["head.logits.bias"]
         )
+
+    def _entry_flow(self, x):
+        """conv2 and blocks 2-4 on library ops (the exact graph's, bf16 BN)."""
+        bn = self._bn_apply
+        x = torch.relu(bn(self._conv(x, "block1_conv2"), "block1_conv2_bn"))
+        for idx, _feat in ENTRY_BLOCKS:
+            residual = bn(
+                self._conv(x, f"block{idx}_res_conv", stride=2, padding="SAME"),
+                f"block{idx}_res_bn",
+            )
+            if idx > 2:
+                x = torch.relu(x)
+            x = bn(self._sepconv(x, f"block{idx}_sepconv1"), f"block{idx}_sepconv1_bn")
+            x = torch.relu(x)
+            x = bn(self._sepconv(x, f"block{idx}_sepconv2"), f"block{idx}_sepconv2_bn")
+            x = max_pool_same(x) + residual
+        return x

@@ -126,6 +126,12 @@ def load() -> ctypes.CDLL:
                 [ptr] * 6 + [i32] * 5 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]
             )
             lib.kdlt_flash_attention_partials.restype = i32
+            lib.kdlt_flash_attention_gfold.argtypes = (
+                [ptr] * 4 + [i32] * 5 + [i64] * 9 + [i32] * 2 + [ctypes.c_float, ptr]
+            )
+            lib.kdlt_flash_attention_gfold.restype = i32
+            lib.kdlt_entry_block.argtypes = [ptr] * 19 + [i32] * 6 + [ptr]
+            lib.kdlt_entry_block.restype = i32
             lib.kdlt_error_string.argtypes = [i32]
             lib.kdlt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -18,6 +18,11 @@ The port of ``kubernetes_deep_learning_tpu/ops/attention.py``, on
   returns the unnormalised f32 ``(acc, m, l)`` instead: K3P on CUDA
   (counted as ``flash_attention_partials``),
   ``flash_attention_partials_reference`` on the CPU;
+- ``flash_gfold``: non-causal flash attention with ``g`` (batch, head)
+  pairs per thread block, the port of ``exp/vit_attn_variants.py``'s
+  ``flash_gfold`` (an experiment: on no serving route, as in JAX).  K3G
+  on CUDA (counted as ``flash_gfold``), ``flash_attention_reference`` on
+  the CPU;
 - ``flash_attention_padded``: the JAX name for ragged lengths.  The kernel
   masks by bounds, so nothing is padded here;
 - ``attention_serving``: the einsum route while both sequences are at most
@@ -56,7 +61,7 @@ EINSUM_MAX_SEQ = 512
 KERNEL_HEAD_DIMS = (32, 64, 128)  # head dims K3 is instantiated for
 
 _counts_lock = threading.Lock()
-_launches = {"flash_attention": 0, "flash_attention_partials": 0}
+_launches = {"flash_attention": 0, "flash_attention_partials": 0, "flash_gfold": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -197,17 +202,27 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(q, k, v, causal: bool, k_offset: int, kv_len: int, partials: bool):
-    """K3 (-> out) or K3P (-> (acc, m, l)) on q's current stream."""
+def _launch(q, k, v, causal: bool, k_offset: int, kv_len: int, partials: bool,
+            pairs: int | None = None):
+    """K3 (-> out), K3P (-> (acc, m, l)) or, given ``pairs``, K3G on q's
+    current stream."""
     from kubernetes_deep_learning_tpu_torch.ops import _build
 
     lib = _build.load()
     b, h, sq, d = q.shape
     sk = k.shape[2]
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
-    args = (b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), k_offset, kv_len, int(q.dtype == torch.bfloat16),
-            ctypes.c_float(1.0 / math.sqrt(d)), torch.cuda.current_stream(q.device).cuda_stream)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    tail = (int(q.dtype == torch.bfloat16), ctypes.c_float(1.0 / math.sqrt(d)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    args = (b, h, sq, sk, d, *strides, int(causal), k_offset, kv_len, *tail)
+    if pairs is not None:
+        out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+        code = lib.kdlt_flash_attention_gfold(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, sk, d,
+            *strides, pairs, *tail)
+        _build.check(lib, code, "flash attention gfold")
+        return out
     if partials:
         acc = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
         m, l = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device) for _ in range(2))
@@ -232,6 +247,36 @@ def flash_attention(q, k, v, *, causal: bool = False, k_offset: int = 0,
     ``return_partials``: return the f32 ``(acc, m, l)`` of the online
     softmax (``attend_block``'s layout) instead of the normalised output.
     """
+    _check_qkv(q, k, v)
+    if kv_len is not None and kv_len < 0:
+        raise ValueError(f"kv_len must be >= 0, got {kv_len}")
+    if q.device.type == "cpu":
+        plain = flash_attention_partials_reference if return_partials else flash_attention_reference
+        return plain(q, k, v, causal=causal, k_offset=k_offset, kv_len=kv_len)
+    sk = k.shape[2]
+    out = _launch(q, k, v, causal, k_offset, sk if kv_len is None else min(kv_len, sk),
+                  return_partials)
+    _count("flash_attention_partials" if return_partials else "flash_attention")
+    return out
+
+
+def flash_gfold(q, k, v, *, g: int):
+    """Non-causal flash attention with ``g`` (batch, head) pairs per block
+    (K3G), q (B, H, Sq, D), k and v (B, H, Sk, D); ``g`` must divide B*H.
+    Unlike the JAX experiment, Sq and Sk need not be tile multiples: the
+    kernel masks ragged tiles by bounds."""
+    _check_qkv(q, k, v)
+    if g < 1 or (q.shape[0] * q.shape[1]) % g:
+        raise ValueError(f"g must divide B*H = {q.shape[0] * q.shape[1]}, got {g}")
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    out = _launch(q, k, v, False, 0, k.shape[2], False, pairs=g)
+    _count("flash_gfold")
+    return out
+
+
+def _check_qkv(q, k, v) -> None:
+    """Shapes, dtypes and devices the kernels take; raises otherwise."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q, k, v must be (B,H,S,D), got {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
@@ -242,20 +287,10 @@ def flash_attention(q, k, v, *, causal: bool = False, k_offset: int = 0,
             f"q, k, v must all be bfloat16 or float32, got {q.dtype} {k.dtype} {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
-    if kv_len is not None and kv_len < 0:
-        raise ValueError(f"kv_len must be >= 0, got {kv_len}")
-    if q.device.type == "cpu":
-        plain = flash_attention_partials_reference if return_partials else flash_attention_reference
-        return plain(q, k, v, causal=causal, k_offset=k_offset, kv_len=kv_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    if q.shape[3] not in KERNEL_HEAD_DIMS:
+    if q.device.type == "cuda" and q.shape[3] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head dims {KERNEL_HEAD_DIMS}, got {q.shape[3]}")
-    sk = k.shape[2]
-    out = _launch(q, k, v, causal, k_offset, sk if kv_len is None else min(kv_len, sk),
-                  return_partials)
-    _count("flash_attention_partials" if return_partials else "flash_attention")
-    return out
 
 
 def flash_attention_padded(q, k, v, *, causal: bool = False):

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): K3, and its partials form K3P.
+// Flash-attention forward for Hopper (sm_90a): K3, its partials form K3P,
+// and K3G, K3 with several (batch, head) pairs per block.
 //
 // K3 replaces the TPU kernel _flash_kernel of
 // kubernetes_deep_learning_tpu/ops/attention.py (pallas_call at :342; loop
@@ -54,6 +55,16 @@
 // but its 6.4 GFLOP of products take ~96 us at the 67 TFLOP/s FMA rate:
 // the f32 form is bound by operations, the bf16 form (63.7 MB, ~19 us) by
 // bytes.
+//
+// K3G replaces flash_gfold of exp/vit_attn_variants.py (pallas_call at
+// :121): non-causal attention with g (batch, head) pairs per grid step,
+// which cut the TPU's fixed per-step cost g-fold at D = 64.  Here it is
+// K3's loop run for `pairs` pairs in turn by one block, over a grid of
+// (q-tiles, B*H / pairs); same numerics, same plain version
+// (flash_attention_reference), wrapper flash_gfold in ../attention.py.
+// A block is cheap to schedule on the card, so folding only cuts the
+// blocks in flight: on an H100 at E5's shape (32, 12, 256, 64) bf16,
+// g = 4 takes ~1.15x and g = 8 ~1.8x the time of g = 1 (chip_smoke.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +87,7 @@ struct Params {
   long long v_sb, v_sh, v_ss;
   int H, Sq, Sk, kv_len, causal, k_offset;   // kv_len <= Sk
   float scale;
+  int pairs;                                 // (batch, head) pairs per block (K3G; else 1)
 };
 
 __device__ __forceinline__ int floor_div(int a, int b) {
@@ -138,14 +150,15 @@ __device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst, const __nv_bf
   }
 }
 
+// One (batch, head) pair `bh` for the query tile of blockIdx.x.
 template <int D, bool PARTIALS>
-__global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Params p) {
+__device__ __forceinline__ void flash_pair_bf16(const Params& p, int bh) {
   constexpr int LD = D + 8;  // padded rows: fragment loads hit 32 distinct banks
   static_assert(BF_BQ == BF_BK, "the Q tile is staged through the K buffer");
   __shared__ __align__(16) __nv_bfloat16 Ks[BF_BK * LD];
   __shared__ __align__(16) __nv_bfloat16 Vs[BF_BK * LD];
 
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x * BF_BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
@@ -245,7 +258,7 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Params p) {
     }
   }
 
-  const long long row0 = (long long)blockIdx.y * p.Sq;  // this (batch, head)'s first row
+  const long long row0 = (long long)bh * p.Sq;  // this (batch, head)'s first row
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(FULL, l[r], 1);
@@ -288,13 +301,13 @@ constexpr int F_BQ = 4 * F_ROWS;
 constexpr int F_BK = 32;         // one key per lane
 
 template <int D, bool PARTIALS>
-__global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
+__device__ __forceinline__ void flash_pair_f32(const Params& p, int bh) {
   constexpr int C = D / 32;  // head-dim columns per lane in the P.V product
   __shared__ __align__(16) float Qs[F_BQ][D];
   __shared__ __align__(16) float Ks[F_BK][D + 1];  // padded: lane j reads row j
   __shared__ __align__(16) float Vs[F_BK][D];
 
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x * F_BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -367,7 +380,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
     }
   }
 
-  const long long row0 = (long long)blockIdx.y * p.Sq;
+  const long long row0 = (long long)bh * p.Sq;
   float* og = static_cast<float*>(p.o) + row0 * D;
 #pragma unroll
   for (int i = 0; i < F_ROWS; ++i) {
@@ -385,13 +398,31 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
   }
 }
 
+// K3/K3P (p.pairs == 1) and K3G: each block walks p.pairs (batch, head)
+// pairs for one query tile, so the grid is (q-tiles, B*H / p.pairs).
+template <int D, bool PARTIALS>
+__global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Params p) {
+  for (int i = 0; i < p.pairs; ++i) {
+    if (i) __syncthreads();  // every warp is done with the last pair's shared tiles
+    flash_pair_bf16<D, PARTIALS>(p, blockIdx.y * p.pairs + i);
+  }
+}
+
+template <int D, bool PARTIALS>
+__global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
+  for (int i = 0; i < p.pairs; ++i) {
+    if (i) __syncthreads();
+    flash_pair_f32<D, PARTIALS>(p, blockIdx.y * p.pairs + i);
+  }
+}
+
 template <int D, bool PARTIALS>
 cudaError_t launch(const Params& p, int BH, bool bf16, cudaStream_t stream) {
   if (bf16) {
-    dim3 grid((p.Sq + BF_BQ - 1) / BF_BQ, BH);
+    dim3 grid((p.Sq + BF_BQ - 1) / BF_BQ, BH / p.pairs);
     flash_fwd_bf16<D, PARTIALS><<<grid, BF_THREADS, 0, stream>>>(p);
   } else {
-    dim3 grid((p.Sq + F_BQ - 1) / F_BQ, BH);
+    dim3 grid((p.Sq + F_BQ - 1) / F_BQ, BH / p.pairs);
     flash_fwd_f32<D, PARTIALS><<<grid, F_THREADS, 0, stream>>>(p);
   }
   return cudaGetLastError();
@@ -400,7 +431,8 @@ cudaError_t launch(const Params& p, int BH, bool bf16, cudaStream_t stream) {
 template <bool PARTIALS>
 int dispatch(const Params& p, int B, int H, int Sq, int Sk, int D, int kv_len, int is_bf16,
              void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || kv_len < 0 || kv_len > Sk || B * H > 65535)
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || kv_len < 0 || kv_len > Sk || p.pairs <= 0 ||
+      (B * H) % p.pairs || B * H / p.pairs > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -425,7 +457,7 @@ extern "C" int kdlt_flash_attention(const void* q, const void* k, const void* v,
                                     int causal, int k_offset, int kv_len, int is_bf16,
                                     float scale, void* stream) {
   Params p{q, k, v, o, nullptr, nullptr, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-           H, Sq, Sk, kv_len, causal, k_offset, scale};
+           H, Sq, Sk, kv_len, causal, k_offset, scale, 1};
   return dispatch<false>(p, B, H, Sq, Sk, D, kv_len, is_bf16, stream);
 }
 
@@ -440,6 +472,19 @@ extern "C" int kdlt_flash_attention_partials(const void* q, const void* k, const
                                              int causal, int k_offset, int kv_len, int is_bf16,
                                              float scale, void* stream) {
   Params p{q, k, v, acc, m, l, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-           H, Sq, Sk, kv_len, causal, k_offset, scale};
+           H, Sq, Sk, kv_len, causal, k_offset, scale, 1};
   return dispatch<true>(p, B, H, Sq, Sk, D, kv_len, is_bf16, stream);
+}
+
+// K3G: kdlt_flash_attention, non-causal, with `pairs` (batch, head) pairs
+// per block; B*H must be a multiple of `pairs`.
+extern "C" int kdlt_flash_attention_gfold(const void* q, const void* k, const void* v, void* o,
+                                          int B, int H, int Sq, int Sk, int D,
+                                          long long q_sb, long long q_sh, long long q_ss,
+                                          long long k_sb, long long k_sh, long long k_ss,
+                                          long long v_sb, long long v_sh, long long v_ss,
+                                          int pairs, int is_bf16, float scale, void* stream) {
+  Params p{q, k, v, o, nullptr, nullptr, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+           H, Sq, Sk, Sk, 0, 0, scale, pairs};
+  return dispatch<false>(p, B, H, Sq, Sk, D, Sk, is_bf16, stream);
 }

@@ -49,7 +49,8 @@ def _count(name: str) -> None:
 # --- plain PyTorch versions ---------------------------------------------------
 
 
-def _stage_reference(y, dw, pw, scale, shift, pre_relu: bool, post_relu: bool):
+def stage_reference(y, dw, pw, scale, shift, pre_relu: bool, post_relu: bool):
+    """One stage of the stage kernel, plain (NHWC bf16 in and out)."""
     if pre_relu:
         y = torch.relu(y)
     h, w = y.shape[1], y.shape[2]
@@ -71,7 +72,7 @@ def sepconv_block_reference(x, dw, pw, scale, shift):
     """Plain semantics of ``fused_sepconv_block`` (NHWC bf16)."""
     y = x
     for i in range(3):
-        y = _stage_reference(y, dw[i], pw[i], scale[i], shift[i], True, False)
+        y = stage_reference(y, dw[i], pw[i], scale[i], shift[i], True, False)
     return x + y
 
 
@@ -79,7 +80,7 @@ def sepconv_chain_reference(x, stages):
     """Plain semantics of ``fused_sepconv_chain`` (NHWC bf16)."""
     y = x
     for s in stages:
-        y = _stage_reference(
+        y = stage_reference(
             y, s["dw"], s["pw"], s["scale"], s["shift"], s["pre_relu"], s["post_relu"]
         )
     return y

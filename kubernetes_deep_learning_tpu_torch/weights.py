@@ -24,12 +24,12 @@ keeps flax's layout, (C, heads, head_dim) for query/key/value and
 LayerNorm's scale and bias map like BatchNorm's.  A tree without
 ``batch_stats`` (ViT) comes back without it.
 
-Also the kernel-ready forms of ``ops/fused_sepconv.py`` and
-``ops/fused_mbconv.py`` in the JAX package (``fold_bn``,
-``middle_block_weights``, ``sepconv_stage_weights``,
-``mbconv_block_weights``), with the same math: BN folded with the Keras
-epsilon into an f32 scale/shift, depthwise taps (k,k,C) f32, 1x1 kernels
-(C_in,C_out) bf16.
+Also the kernel-ready forms of ``ops/fused_sepconv.py``,
+``ops/fused_entry.py`` and ``ops/fused_mbconv.py`` in the JAX package
+(``fold_bn``, ``middle_block_weights``, ``sepconv_stage_weights``,
+``entry_block_weights``, ``mbconv_block_weights``), with the same math: BN
+folded with the Keras epsilon into an f32 scale/shift, depthwise taps
+(k,k,C) f32, 1x1 kernels (C_in,C_out) bf16.
 """
 
 from __future__ import annotations
@@ -158,6 +158,25 @@ def sepconv_stage_weights(params: dict, sep_name: str, bn_name: str,
         "pre_relu": pre_relu,
         "post_relu": post_relu,
     }
+
+
+def entry_block_weights(params: dict) -> dict[str, torch.Tensor]:
+    """Xception's conv2 + block2 for ``fused_entry_block``: conv2 as a
+    (9*C_in, C_b) bf16 matrix in HWIO order (taps (dh, dw)-major, the TPU
+    kernel's im2col order), res, pw1, pw2 (C_in, C_out) bf16, dw1 and dw2
+    (3,3,C) f32 taps, and the folded BN pairs conv2_s/_b (block1_conv2_bn),
+    res_s/_b, bn1_s/_b, bn2_s/_b (block2's) in f32."""
+    conv2 = params["block1_conv2.weight"].float().permute(2, 3, 1, 0)  # OIHW -> HWIO
+    w = {"conv2": conv2.reshape(-1, conv2.shape[-1]).to(torch.bfloat16)}
+    w["conv2_s"], w["conv2_b"] = fold_bn(params, "block1_conv2_bn")
+    w["res"] = _matrix(params, "block2_res_conv").to(torch.bfloat16)
+    w["res_s"], w["res_b"] = fold_bn(params, "block2_res_bn")
+    for j in (1, 2):
+        sep = f"block2_sepconv{j}"
+        w[f"dw{j}"] = _depthwise_taps(params, f"{sep}.depthwise")
+        w[f"pw{j}"] = _matrix(params, f"{sep}.pointwise").to(torch.bfloat16)
+        w[f"bn{j}_s"], w[f"bn{j}_b"] = fold_bn(params, f"{sep}_bn")
+    return {k: v.contiguous() for k, v in w.items()}
 
 
 def mbconv_block_weights(params: dict, block: str) -> dict[str, torch.Tensor]:

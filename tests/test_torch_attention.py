@@ -113,7 +113,8 @@ def test_attention_serving_matches_jax_on_both_routes(seq):
     (jq, jk, jv), (q, k, v) = _qkv(seq, seq, seq, "bfloat16")
     attn.reset_launch_counts()
     got = attn.attention_serving(q, k, v)
-    assert attn.launch_counts() == {"flash_attention": 0, "flash_attention_partials": 0}
+    assert attn.launch_counts() == {"flash_attention": 0, "flash_attention_partials": 0,
+                                   "flash_gfold": 0}
     _check(got, jax_attn.attention_serving(jq, jk, jv), "bfloat16")
 
 
@@ -125,3 +126,39 @@ def test_flash_attention_rejects_bad_operands():
         attn.flash_attention(q, torch.zeros(1, 3, 8, 32), torch.zeros(1, 3, 8, 32))
     with pytest.raises(ValueError, match="kv_len"):
         attn.flash_attention(q, q, q, kv_len=-1)
+
+
+@pytest.fixture(scope="module")
+def vit_attn_variants():
+    """``exp/vit_attn_variants.py``, which holds E5 (``flash_gfold``)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "exp"))
+    import vit_attn_variants
+
+    return vit_attn_variants
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_flash_gfold_matches_jax_gfold(vit_attn_variants, g):
+    """(2, 4, 48, 32) bf16: the port's K3G wrapper (its plain version on
+    the CPU) against E5 in interpret mode at 16-row tiles; no launch."""
+    rng = np.random.default_rng(g)
+    jx = [jnp.asarray(rng.normal(0, 1, (2, 4, 48, 32)), jnp.bfloat16) for _ in range(3)]
+    q, k, v = (torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16) for a in jx)
+    want = vit_attn_variants.flash_gfold(*jx, g=g, block_q=16, block_k=16)
+    attn.reset_launch_counts()
+    got = attn.flash_gfold(q, k, v, g=g)
+    assert attn.launch_counts()["flash_gfold"] == 0
+    assert got.dtype == torch.bfloat16
+    _check(got, want, "bfloat16")
+
+
+def test_flash_gfold_rejects_a_fold_that_does_not_divide():
+    q = torch.zeros(2, 3, 16, 32, dtype=torch.bfloat16)
+    for g in (0, 4, 5, 12):
+        with pytest.raises(ValueError, match="g must divide B\\*H = 6"):
+            attn.flash_gfold(q, q, q, g=g)
+    assert attn.flash_gfold(q, q, q, g=6).shape == q.shape

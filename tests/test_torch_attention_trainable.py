@@ -77,7 +77,8 @@ def test_partials_reference_matches_jax_partials_kernel(dtype, sq, sk, d, causal
     attn.reset_launch_counts()
     got = attn.flash_attention(q, k, v, causal=causal, k_offset=k_offset, kv_len=kv_len,
                                return_partials=True)
-    assert attn.launch_counts() == {"flash_attention": 0, "flash_attention_partials": 0}
+    assert attn.launch_counts() == {"flash_attention": 0, "flash_attention_partials": 0,
+                                   "flash_gfold": 0}
     assert [t.dtype for t in got] == [torch.float32] * 3
     assert got[0].shape == (2, 2, sq, d) and got[1].shape == got[2].shape == (2, 2, sq)
     live = np.arange(sq) >= k_offset if causal else np.ones(sq, bool)

@@ -8,7 +8,9 @@ another order), < 1e-4 for the f32 flash-attention kernels, fused (K3)
 and partials (K3P), and for the differentiable attention built on K3P
 (f32 sums in another order, a fast exponential).  The MBConv kernel is
 held at 2e-2 at every fused block shape of EfficientNet-B3 (300 px) and
-B0 (224 px).
+B0 (224 px); the entry-segment kernel (K5) at Xception's geometry and a
+small ragged one, the stage kernel at the entry path's block 3 and 4
+shapes, and the (batch, head)-folded flash attention (K3G), all at 2e-2.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from kubernetes_deep_learning_tpu_torch.models.efficientnet import block_plan, se_features
 from kubernetes_deep_learning_tpu_torch.models.efficientnet_fast import block_routes
-from kubernetes_deep_learning_tpu_torch.ops import attention, fused_mbconv
+from kubernetes_deep_learning_tpu_torch.ops import attention, fused_entry, fused_mbconv
 from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv as ops
 
 
@@ -175,7 +177,8 @@ def test_cuda_flash_attention_partials_match_plain_version(dtype, d, sq, sk, cau
     attention.reset_launch_counts()
     got = attention.flash_attention(q, k, v, return_partials=True, **kw)
     torch.cuda.synchronize()
-    assert attention.launch_counts() == {"flash_attention": 0, "flash_attention_partials": 1}
+    assert attention.launch_counts() == {"flash_attention": 0, "flash_attention_partials": 1,
+                                         "flash_gfold": 0}
     want = attention.flash_attention_partials_reference(q, k, v, **kw)
     live = want[1] > attention.NEG_INF * 0.5
     assert bool(live.any())
@@ -277,3 +280,109 @@ def test_cuda_efficientnet_fast_forward_launches_per_fused_block():
         exact = build_forward(spec, params, torch.bfloat16, False, "cuda")(imgs.cuda())
     assert torch.isfinite(fast).all()
     assert _rel(fast, exact) < 2e-2
+
+
+def _entry_weights(rng, c_in, c_b, c_out):
+    bf = torch.bfloat16
+    return dict(
+        conv2=_t(rng, (9 * c_in, c_b), (9 * c_in) ** -0.5, bf), conv2_s=_t(rng, (c_b,), 0.1) + 1.0,
+        conv2_b=_t(rng, (c_b,), 0.1), res=_t(rng, (c_b, c_out), c_b ** -0.5, bf),
+        res_s=_t(rng, (c_out,), 0.1) + 1.0, res_b=_t(rng, (c_out,), 0.1),
+        dw1=_t(rng, (3, 3, c_b), 0.2), pw1=_t(rng, (c_b, c_out), c_b ** -0.5, bf),
+        bn1_s=_t(rng, (c_out,), 0.1) + 1.0, bn1_b=_t(rng, (c_out,), 0.1),
+        dw2=_t(rng, (3, 3, c_out), 0.2), pw2=_t(rng, (c_out, c_out), c_out ** -0.5, bf),
+        bn2_s=_t(rng, (c_out,), 0.1) + 1.0, bn2_b=_t(rng, (c_out,), 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,h,w,c_in,c_b,c_out", [
+    (1, 149, 149, 32, 64, 128),   # Xception's entry segment
+    (3, 149, 149, 32, 64, 128),
+    (16, 149, 149, 32, 64, 128),
+    (3, 24, 19, 16, 24, 40),      # even and odd sides, K and N tails
+], ids=str)
+def test_cuda_entry_block_matches_plain_version(batch, h, w, c_in, c_b, c_out):
+    _need_cuda()
+    rng = np.random.default_rng(batch + h + c_out)
+    x = _t(rng, (batch, h, w, c_in), dtype=torch.bfloat16)
+    wt = _entry_weights(rng, c_in, c_b, c_out)
+    fused_entry.reset_launch_counts()
+    got = fused_entry.fused_entry_block(x, wt)
+    torch.cuda.synchronize()
+    assert fused_entry.launch_counts()["fused_entry_block"] == 1
+    assert got.shape == (batch, (h - 1) // 2, (w - 1) // 2, c_out)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, fused_entry.entry_block_reference(x, wt)) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,widths", [(74, (128, 256, 256)), (37, (256, 728, 728))])
+def test_cuda_chain_at_entry_path_shapes(hw, widths):
+    """The stage kernel at blocks 3 and 4 of the entry-kernel path, batch 16."""
+    _need_cuda()
+    rng = np.random.default_rng(hw)
+    x = _t(rng, (16, hw, hw, widths[0]), dtype=torch.bfloat16)
+    stages = [_stage(rng, a, b, True, False) for a, b in zip(widths, widths[1:])]
+    got = ops.fused_sepconv_chain(x, stages)
+    torch.cuda.synchronize()
+    assert _rel(got, ops.sepconv_chain_reference(x, stages)) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("shape,dtype", [
+    ((32, 12, 256, 64), torch.bfloat16),   # E5's own shape
+    ((2, 4, 200, 64), torch.bfloat16),     # ragged: one partial tile
+    ((2, 4, 100, 32), torch.float32),
+], ids=str)
+def test_cuda_flash_gfold_matches_plain_version(g, shape, dtype):
+    _need_cuda()
+    rng = np.random.default_rng(g + shape[2])
+    q, k, v = (_t(rng, shape, dtype=dtype) for _ in range(3))
+    attention.reset_launch_counts()
+    got = attention.flash_gfold(q, k, v, g=g)
+    torch.cuda.synchronize()
+    assert attention.launch_counts() == {"flash_attention": 0, "flash_attention_partials": 0,
+                                         "flash_gfold": 1}
+    assert got.dtype == dtype and got.shape == shape
+    assert _rel(got, attention.flash_attention_reference(q, k, v)) < (
+        2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_entry_kernel_forward_launches():
+    """The 96-px Xception with ``entry_kernel=True`` on the card: 1 K5, 8 K1
+    and 4 K2 launches per forward (the default fused route: 0, 8, 2), and
+    logits within 2e-2 of the default route."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.models import (
+        Forward,
+        build_forward,
+        create_model,
+        init_variables,
+    )
+    from kubernetes_deep_learning_tpu_torch.models.xception_fast import XceptionFast
+    from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables
+
+    spec = ModelSpec(name="tiny-xception", family="xception", input_shape=(96, 96, 3),
+                     labels=("a", "b", "c"), preprocessing="tf")
+    params = from_jax_variables(init_variables(spec, seed=0))
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (3, 96, 96, 3), np.uint8))
+    with torch.inference_mode():
+        default = build_forward(spec, params, torch.bfloat16, "auto", "cuda")
+        model = create_model(spec, torch.bfloat16)
+        model.load_state_dict(params)
+        entry = Forward(spec, XceptionFast(model.to("cuda").eval(), entry_kernel=True), True)
+        counts = []
+        for fwd in (default, entry):
+            ops.reset_launch_counts()
+            fused_entry.reset_launch_counts()
+            out = fwd(imgs.cuda())
+            torch.cuda.synchronize()
+            counts.append((fused_entry.launch_counts()["fused_entry_block"],
+                           *ops.launch_counts().values()))
+            assert torch.isfinite(out).all()
+        want = default(imgs.cuda())
+    assert counts == [(0, 8, 2), (1, 8, 4)]
+    assert _rel(out, want) < 2e-2

@@ -158,3 +158,34 @@ def test_resolve_fast_and_device_rules(specs):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_forward(spec, {}, device="cuda")
+
+
+@pytest.mark.parametrize("batch", [2, 3])
+def test_entry_kernel_forward_matches_jax_and_flax(specs, variables, batch):
+    """``XceptionFast(entry_kernel=True)`` (plain kernel versions on the
+    CPU; the 96-px spec's conv1 gives 47 -> 45 -> 23 -> 12 -> 6) against
+    ``build_fast_forward(entry_kernel=True, interpret=True)`` and the flax
+    bf16 graph, within 2e-2 relative."""
+    from kubernetes_deep_learning_tpu.models.xception_fast import build_fast_forward
+    from kubernetes_deep_learning_tpu_torch.models import Forward, create_model
+    from kubernetes_deep_learning_tpu_torch.models.xception_fast import XceptionFast
+    from kubernetes_deep_learning_tpu_torch.ops import fused_entry
+
+    jspec, spec = specs
+    images = np.random.default_rng(20 + batch).integers(0, 256, (batch, 96, 96, 3), np.uint8)
+    x = jax_preprocess.normalize(jnp.asarray(images), "tf")
+    jfast = build_fast_forward(jspec, dtype=jnp.bfloat16, interpret=True, entry_kernel=True)
+    want_fast = np.asarray(jax.jit(jfast)(variables, x), np.float32)
+    want_flax = np.asarray(
+        jax.jit(jax_build_forward(jspec, jnp.bfloat16, fast=False))(variables, images))
+    model = create_model(spec, torch.bfloat16)
+    model.load_state_dict(from_jax_variables(variables))
+    fwd = Forward(spec, XceptionFast(model.eval(), entry_kernel=True), True)
+    fused_entry.reset_launch_counts()
+    with torch.inference_mode():
+        got = fwd(torch.from_numpy(images)).numpy()
+    assert fused_entry.launch_counts()["fused_entry_block"] == 0  # CPU: plain version
+    assert got.shape == (batch, 4)
+    for name, want in (("JAX entry-kernel fast path", want_fast), ("flax bf16", want_flax)):
+        rel = np.abs(got - want).max() / (np.abs(want).max() + 1e-6)
+        assert rel < 2e-2, f"entry-kernel forward diverges from {name}: {rel:.2e}"
