@@ -15,6 +15,10 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    kernel, plain version and a library yardstick (depthwise ``conv2d`` +
    ``matmul`` + affine: cuDNN/cuBLAS, used nowhere in the port) with CUDA
    events;
+   Then one ``stage`` line for every shape at which a main path launches
+   the stage kernel (K1, K2 at buckets 16 and 1, the entry path's blocks 3
+   and 4, K5's two stages): one launch against its plain version, its time
+   beside the library stage and the bound, and its GEMM rate;
 4. Xception server: writes a ``clothing-model`` artifact with random
    weights from ``--seed`` (flax layout, the port's own msgpack writer),
    starts the port's model server with buckets (1, 4, 16), warms it and
@@ -22,7 +26,8 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    shapes, finite logits, agreement with the same server's exact float32
    graph, that the engine took the fused fast path, and that the requests
    went through the kernels (8 K1 and 2 K2 launches per forward); then
-   img/s and p50 per bucket;
+   the p50 of a 1-image request on a fresh connection against one kept
+   alive, and img/s and p50 per bucket;
 5. Xception entry-kernel path: K5 (conv2 + block2) at 149x149x32 ->
    74x74x128, batches 1, 3 and 16, with the clothing model's weights, and
    K2 at blocks 3 and 4 of that path (74x74 128->256->256, 37x37
@@ -280,6 +285,54 @@ def _kernel_phase(params, iters: int, gen: torch.Generator) -> list[dict]:
     return records
 
 
+# Every (batch, side, C_in, C_out) at which the main paths launch the stage
+# kernel, with the stage's relus: K1, K2 (and bucket 1), the entry path's
+# blocks 3 and 4, and K5's two stages.
+STAGE_SHAPES = (
+    ("middle (K1)", 16, 19, 728, 728, True, False),
+    ("middle (K1), bucket 1", 1, 19, 728, 728, True, False),
+    ("block13 (K2)", 16, 19, 728, 1024, True, False),
+    ("block14 (K2)", 16, 10, 1024, 1536, False, True),
+    ("block14 (K2)", 16, 10, 1536, 2048, False, True),
+    ("block14 (K2), bucket 1", 1, 10, 1536, 2048, False, True),
+    ("entry block 3 (K2)", 16, 74, 128, 256, True, False),
+    ("entry block 3 (K2)", 16, 74, 256, 256, True, False),
+    ("entry block 4 (K2)", 16, 37, 256, 728, True, False),
+    ("entry block 4 (K2)", 16, 37, 728, 728, True, False),
+    ("K5 sepconv1", 16, 147, 64, 128, False, True),
+    ("K5 sepconv2", 16, 147, 128, 128, False, False),
+)
+
+
+def _stage_phase(iters: int, gen: torch.Generator, smi: str) -> None:
+    """One ``stage`` line per shape of STAGE_SHAPES: a single stage-kernel
+    launch against its plain version (< KERNEL_TOL), its time beside the
+    library stage and the bound, and the GEMM rate it reaches."""
+    from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv as ops
+
+    def t(shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    for name, b, hw, c_in, c_out, pre, post in STAGE_SHAPES:
+        x = t((b, hw, hw, c_in)).to(torch.bfloat16)
+        s = dict(dw=t((3, 3, c_in), 0.2), pw=(t((c_in, c_out), c_in ** -0.5)).to(torch.bfloat16),
+                 scale=t((c_out,), 0.1) + 1.0, shift=t((c_out,), 0.1), pre_relu=pre, post_relu=post)
+        kernel = functools.partial(ops.fused_sepconv_chain, x, [s])
+        got = kernel()
+        torch.cuda.synchronize()
+        err, rel = _rel(got, ops.sepconv_chain_reference(x, [s]))
+        if not torch.isfinite(got.float()).all() or rel > KERNEL_TOL:
+            _fail(f"stage {name} {(b, hw, c_in, c_out)}: relative error {rel:.3e} > {KERNEL_TOL}")
+        m = b * hw * hw
+        ms = _time_ms(kernel, iters)
+        b_ms, b_by = _bound(m, [(c_in, c_out)])
+        print("stage", json.dumps(dict(
+            name=name, m=m, c_in=c_in, c_out=c_out, ms=ms,
+            library_ms=_time_ms(functools.partial(_library_stage, x, s), iters),
+            bound_ms=b_ms, bound_by=b_by, gemm_tflops=2 * m * c_in * c_out / ms / 1e9,
+            max_abs_err=err, max_rel_err=rel, card=smi)), flush=True)
+
+
 def _rel(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max abs error, max abs error / max |want|)."""
     err = (got.float() - want.float()).abs().max().item()
@@ -361,11 +414,7 @@ def _post(url: str, images: np.ndarray, wire: str) -> tuple[np.ndarray, list, fl
     """One ``:predict``; returns (logits, labels, ms)."""
     from kubernetes_deep_learning_tpu_torch.serving import protocol
 
-    if wire == "json":
-        body = json.dumps({"instances": images.tolist()}).encode()
-        ctype = protocol.JSON_CONTENT_TYPE
-    else:
-        body, ctype = protocol.encode_predict_request(images), protocol.MSGPACK_CONTENT_TYPE
+    body, ctype = _encode(images, wire)
     req = urllib.request.Request(url, data=body, method="POST", headers={"Content-Type": ctype})
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=300) as r:
@@ -373,6 +422,39 @@ def _post(url: str, images: np.ndarray, wire: str) -> tuple[np.ndarray, list, fl
     ms = (time.perf_counter() - t0) * 1e3
     logits, labels = protocol.decode_predict_response(reply, reply_type)
     return logits, labels, ms
+
+
+def _encode(images: np.ndarray, wire: str) -> tuple[bytes, str]:
+    from kubernetes_deep_learning_tpu_torch.serving import protocol
+
+    if wire == "json":
+        return json.dumps({"instances": images.tolist()}).encode(), protocol.JSON_CONTENT_TYPE
+    return protocol.encode_predict_request(images), protocol.MSGPACK_CONTENT_TYPE
+
+
+def _one_image_ms(port: int, path: str, image: np.ndarray, wire: str, iters: int) -> dict:
+    """p50 of a 1-image ``:predict``: a fresh connection per request
+    (``_post``) against one kept-alive ``http.client`` connection, in
+    turns.  Their gap is connection set-up and any Nagle/delayed-ACK stall."""
+    import http.client
+
+    body, ctype = _encode(image, wire)
+    fresh, kept = [], []
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        for _ in range(iters):
+            fresh.append(_post(f"http://127.0.0.1:{port}{path}", image, wire)[2])
+            t0 = time.perf_counter()
+            conn.request("POST", path, body, {"Content-Type": ctype})
+            resp = conn.getresponse()
+            resp.read()
+            kept.append((time.perf_counter() - t0) * 1e3)
+            if resp.status != 200:
+                _fail(f"keep-alive :predict answered {resp.status}")
+    finally:
+        conn.close()
+    return dict(fresh_p50_ms=float(np.median(fresh)), keep_alive_p50_ms=float(np.median(kept)),
+                requests=iters)
 
 
 def _profile(model: str, fn, batch: int, steps: int = 5) -> float:
@@ -497,6 +579,8 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
                 _fail(f"{spec.name}: bf16 path vs exact f32 graph: relative error "
                       f"{worst:.3e} > {MODEL_TOL}")
 
+            one_image = _one_image_ms(server.port, f"/v1/models/{spec.name}:predict",
+                                      batches[0], wire, iters)
             buckets = []
             for b in BUCKETS:
                 imgs = rng.integers(0, 256, (b, *spec.input_shape), np.uint8)
@@ -507,7 +591,8 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
             server.shutdown()
         summary = dict(model=spec.name, wire=wire, fast=fast, warmup_s=warm_s, launches=launches,
                        bf16_vs_exact_rel=worst, tol_rel=MODEL_TOL,
-                       request_ms={str(len(i)): ms for i, (_, _, ms) in zip(batches, replies)})
+                       request_ms={str(len(i)): ms for i, (_, _, ms) in zip(batches, replies)},
+                       one_image_request=one_image)
         if unfused:
             summary["unfused"] = _unfused_check(spec, vdir, batches, replies, counter, iters,
                                                 profile)
@@ -1235,6 +1320,7 @@ def main(argv=None) -> int:
     # --- Xception clothing-model: K1, K2 and its server ---
     variables = init_variables(CLOTHING_MODEL, seed=args.seed)
     kernels = _kernel_phase(from_jax_variables(variables), ITERS, gen)
+    _stage_phase(ITERS, gen, smi)
     summary, buckets = _server_phase(
         CLOTHING_MODEL, variables, args.seed, ITERS, args.profile, counter=fused_sepconv,
         per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2}, fast=True, wire="json")

@@ -8,212 +8,605 @@
 //   fused_sepconv_chain_t  (pallas_call at :307) -- the exit-flow chains
 //       (block13 728->728->1024, block14 1024->1536->2048): one launch per
 //       stage.
+// fused_entry.cu launches it twice more for the sepconvs of
+// fused_entry_block_t (kubernetes_deep_learning_tpu/ops/fused_entry.py:283).
 // The Python wrappers are in ../fused_sepconv.py; their plain PyTorch
-// versions (sepconv_block_reference, sepconv_chain_reference) define the
-// arithmetic this kernel must reproduce, rounding point for rounding point:
-//   depthwise taps in f32 over bf16 inputs -> round to bf16 -> GEMM with
-//   bf16 operands and f32 accumulation -> z * scale + shift in f32 (-> relu)
-//   -> round to bf16 (-> + residual in bf16).
+// version (stage_reference) defines the arithmetic this kernel reproduces,
+// rounding point for rounding point:
+//   depthwise taps in f32 over bf16 inputs, summed in the reference's tap
+//   order (an out-of-image tap adds zero) -> round to bf16 -> GEMM with bf16
+//   operands and f32 accumulation -> z * scale + shift in f32 (-> relu) ->
+//   round to bf16 (-> bf16(f32(residual) + f32(o))).
 //
 // What bounds it on the card: at the middle-flow shape (19x19x728, batch 16)
-// one block is 18.4 GFLOP of bf16 GEMM against ~20 MB of activations and
-// weights, i.e. ~900 FLOP/byte -- above the H100's ~295 FLOP/byte ridge, so
-// tensor-core throughput bounds it, not device memory.  The depthwise part
-// (9 f32 multiply-adds per GEMM input element) runs on the CUDA cores.
+// one stage is 6.1 GFLOP of bf16 GEMM against ~17 MB of activations and
+// weights: tensor-core throughput bounds it, not device memory.  The
+// depthwise part (9 f32 multiply-adds per GEMM input element) runs on the
+// CUDA cores.  What sets this design's time is streaming (stage_ablation.py
+// on an NVIDIA H100 80GB HBM3 at 700 W: without its depthwise or without
+// its wgmma a stage takes 78-89% of the whole at 728 channels): a 64-pixel
+// band reads all of pw from L2, and the staged input and output pass
+// through L2 too.
 //
-// What this design does about it (first, simple version):
-//   * the depthwise result never touches device memory: each block computes
-//     the depthwise values of its 64-pixel x 32-channel K-chunk straight into
-//     shared memory as the GEMM's A operand (the prologue), then multiplies
-//     with tensor cores (wmma bf16 16x16x16, f32 accumulate);
-//   * affine, relu, bf16 rounding and the residual are fused into the
-//     epilogue, so each stage reads its input and writes its output once;
-//   * tiles are 64 pixels x 128 output channels, 8 warps of 32x32 each; the
-//     wide N tile keeps the depthwise recomputation (once per N tile) small
-//     against the GEMM work.
-// Known costs left for later work: the depthwise prologue is recomputed by
-// every N tile of a row block, the loads are not pipelined (no cp.async /
-// TMA), wmma instead of wgmma, and the stage intermediates of a block go
-// through device memory (L2-resident at serving batches).
+// The design (one launch per stage; the TPU kernel's whole-image VMEM tile
+// does not fit: one 19x19x728 image is 525 KB against 227 KB of shared
+// memory, so stage outputs go through L2):
+//   * a block owns a band of 64 consecutive output pixels (linear over
+//     (b, h, w): 2-D tiles would waste most of a 19x19 or 10x10 image) and a
+//     group of N tiles of 128 output channels;
+//   * it computes the band's depthwise result for ALL of C_in once, into a
+//     shared-memory panel (64 x C_in bf16, zero past C_in up to a multiple
+//     of 64) laid out as wgmma's 128-byte-swizzled K-major A operand, then
+//     walks its N tiles against that one panel;
+//   * the panel's input comes through shared memory: every 3x3 neighbour of
+//     the band lies in the contiguous pixel range [m0 - W - 1, m0 + 64 + W],
+//     so TMA stages that range 64 channels at a time (2-D tensor map over x,
+//     zero fill outside the tensor) in a ring of up to 4 chunks.  A consumer
+//     thread computes 8 channels (16-byte vectors) of 2 consecutive pixels,
+//     which share their tap rows: 4 shared-memory loads a tap row;
+//     out-of-image taps are masked to zero;
+//   * the launcher splits C_out into N groups, each of which pays for the
+//     panel once: the count with the least waves x (panel + tiles a block)
+//     on this card's SMs (one group for the middle flow at batch 16: 91
+//     blocks in one wave beat 182 in two; six at bucket 1);
+//   * the pointwise weights stream through a ring of 2-4 stages of 64 K x
+//     128 N, filled by TMA (a 2-D tensor map over pw, 128-byte swizzle, zero
+//     fill past C_in and C_out) under mbarriers; one producer thread issues
+//     every copy, the first weight stages while the panel is built where the
+//     staging has room of its own;
+//   * two consumer warpgroups, each on 64 channels of a tile, run wgmma
+//     m64n64k16 (bf16 -> f32) with A (the panel) and B (its 64-channel box
+//     of the stage; pw is C_out-contiguous, an MN-major B, read through
+//     wgmma's transpose bit) from shared memory, one stage's group left in
+//     flight while the next is issued;
+//   * the epilogue works from the accumulator registers: scale/shift as
+//     float2 per column pair, relu, bf16 rounding, residual, 4-byte stores,
+//     masked at the M and N tails; the producer loads the next tile's
+//     stages meanwhile.
+// Shared memory: the panel is 8 KB per 64 input channels (96 KB at 728, 192
+// KB at 1536, where two weight stages still fit and the input staging
+// shares their room); C_in above 1536 is refused.  Every width must be a
+// multiple of 8 and every pointer 16-byte aligned (16-byte vectors, TMA
+// strides); the launcher refuses anything else.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
+#include <stdint.h>
 
-using namespace nvcuda;
+#include <initializer_list>
 
 namespace {
 
-constexpr int BM = 64;        // pixels per block tile
-constexpr int BN = 128;       // output channels per block tile
-constexpr int BK = 32;        // input channels per K step
-constexpr int THREADS = 256;  // 8 warps: 2 along M x 4 along N, 32x32 each
-constexpr int A_LD = BK + 8;  // padded leading dims (bank spread; wmma needs
-constexpr int B_LD = BN + 8;  //   multiples of 8 bf16 / 4 f32)
-constexpr int C_LD = BN + 4;
-constexpr int A_BYTES = BM * A_LD * 2;
-constexpr int B_BYTES = BK * B_LD * 2;
-constexpr int C_BYTES = BM * C_LD * 4;
-constexpr int SMEM_BYTES = (A_BYTES + B_BYTES) > C_BYTES ? (A_BYTES + B_BYTES) : C_BYTES;
-constexpr int ROWS_PER_THREAD = BM * BK / THREADS;  // 8
+constexpr int BM = 64;                    // output pixels per band: one wgmma M
+constexpr int BN = 128;                   // output channels per N tile: wgmma N
+constexpr int BK = 64;                    // input channels per chunk: one 128-byte row
+constexpr int BOX_N = 64;                 // channels per TMA box (the 128-byte swizzle span)
+constexpr int WG_N = 64;                  // output channels per consumer warpgroup a tile
+constexpr int CONSUMERS = 128 * BN / WG_N;  // two warpgroups: depthwise, wgmma and epilogue
+constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
+constexpr int CHUNK_BYTES = BM * 128;     // a 64 x 64 panel chunk: 8 KB
+constexpr int BOX_BYTES = BK * 128;       // a 64 K x 64 N box: 8 KB
+constexpr int STAGE_BYTES = BK * BN * 2;  // 16 KB
+constexpr int MAX_STAGES = 4;             // weight stages
+constexpr int MAX_X_STAGES = 4;           // staged input chunks
+constexpr int X_BOX_ROWS = 256;           // the most pixels one TMA box may hold
+constexpr int PX = 2;                     // consecutive pixels per depthwise item
+constexpr int SMEM_LIMIT = 232448;        // 227 KB: the most one block may use
+constexpr int SM_SMEM = 233472;           // 228 KB on an SM, 1 KB of it reserved a block
+constexpr int ALIGN = 1024;               // a swizzle atom (8 rows x 128 B)
+constexpr int STATIC_SMEM = (2 * MAX_STAGES + MAX_X_STAGES) * 8;  // the mbarriers
+constexpr int BUDGET = SMEM_LIMIT - STATIC_SMEM - ALIGN;          // panel + ring + staging
+constexpr int MAX_C_IN = (BUDGET - 2 * STAGE_BYTES) / CHUNK_BYTES * BK;  // 1536
+// A band's panel costs about as much as 1.6 of its N tiles (64 pixels x 128
+// channels each): stage_ablation.py's panel-free build of this kernel
+// against the whole, at 19x19x728 batch 16 on an NVIDIA H100 80GB HBM3 at
+// 700 W (0.017 ms of panel against 0.010 ms a tile).  Shapes the grid only.
+constexpr double PANEL_TILES = 1.6;
 
-static_assert(THREADS % BK == 0, "prologue maps one channel per lane");
-static_assert(A_BYTES % 32 == 0, "wmma pointers must be 32-byte aligned");
+static_assert(BN % BOX_N == 0 && WG_N == BOX_N, "a warpgroup reads one box of a stage");
+static_assert((BM / PX) * (BK / 8) == CONSUMERS, "one depthwise item per consumer a chunk");
 
-__global__ void __launch_bounds__(THREADS)
-sepconv_stage_kernel(const __nv_bfloat16* __restrict__ x,      // (B,H,W,C_in)
-                     const float* __restrict__ dw,             // (3,3,C_in)
-                     const __nv_bfloat16* __restrict__ pw,     // (C_in,C_out)
-                     const float* __restrict__ scale,          // (C_out,)
-                     const float* __restrict__ shift,          // (C_out,)
-                     const __nv_bfloat16* __restrict__ residual,  // (B,H,W,C_out) or null
-                     __nv_bfloat16* __restrict__ out,          // (B,H,W,C_out)
-                     int B, int H, int W, int C_in, int C_out,
-                     int pre_relu, int post_relu) {
-  // A and B tiles during the K loop; the f32 accumulator tile afterwards.
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + A_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem);
+struct Params {
+  const float* dw;                // (9, C_in)
+  const float* scale;             // (C_out,)
+  const float* shift;             // (C_out,)
+  const __nv_bfloat16* residual;  // (M, C_out) or null
+  __nv_bfloat16* out;             // (M, C_out)
+  int H, W, M, C_in, C_out;
+  int k_chunks;         // ceil(C_in / 64): panel chunks, weight stages per N tile
+  int n_tiles;          // ceil(C_out / 128)
+  int tiles_per_group;  // N tiles one block walks
+  int stages;           // weight ring depth, 2..4
+  int xs_rows;          // pixels per input box
+  int xs_boxes;         // boxes per staged chunk (the range is 64 + 2W + 2 pixels)
+  int x_stages;         // staged chunks in flight, 1..4
+  int xs_offset;        // bytes from the weight ring to the staging; 0: they share it
+  int pre_relu, post_relu;
+};
 
-  const int HW = H * W;
-  const int M = B * HW;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4;  // 0..1
-  const int wn = warp % 4;  // 0..3
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // Prologue mapping: lane -> one input channel of the K chunk (coalesced
-  // NHWC reads), thread group -> rows r0, r0 + 8, ..., r0 + 56 of the tile.
-  const int kc = tid % BK;
-  const int r0 = tid / BK;
-  int pix_base[ROWS_PER_THREAD];  // (b*H + h)*W + w, or -1 past the end
-  int pix_h[ROWS_PER_THREAD];
-  int pix_w[ROWS_PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < ROWS_PER_THREAD; ++j) {
-    const int m = m0 + r0 + 8 * j;
-    if (m < M) {
-      const int hw = m % HW;
-      pix_h[j] = hw / W;
-      pix_w[j] = hw % W;
-      pix_base[j] = m;
-    } else {
-      pix_h[j] = 0;
-      pix_w[j] = 0;
-      pix_base[j] = -1;
-    }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.  A wait that
+// outlasts any real copy or MMA by orders of magnitude traps: a lost arrival
+// becomes a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (tries == (1u << 24)) __trap();
   }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+// TMA: the box at (n, k) of `map` into shared memory at `dst`, completing
+// on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int n, int k,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(n), "r"(k), "r"(bar)
+      : "memory");
+}
 
-  for (int k0 = 0; k0 < C_in; k0 += BK) {
-    // --- A tile: depthwise 3x3 SAME of this K chunk, f32 taps, bf16 out ---
-    const int c = k0 + kc;
-    const bool c_ok = c < C_in;
-    float tap[9];
+// wgmma shared-memory descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) tap[t] = c_ok ? dw[(size_t)t * C_in + c] : 0.0f;
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D(64x64, f32) += A(64x16, K-major) * B(16x64, MN-major), both bf16 from
+// shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int j = 0; j < ROWS_PER_THREAD; ++j) {
-      float s = 0.0f;
-      if (c_ok && pix_base[j] >= 0) {
-        const int h = pix_h[j];
-        const int w = pix_w[j];
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint32_t w[4];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const int hh = h + a - 1;
-          if (hh < 0 || hh >= H) continue;
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One 64-channel chunk of the band's depthwise panel, from the staged input
+// (pixel m0 - W - 1 + s at row s of `xs`, 128 B a row).  Consumer thread t
+// computes channels 8 * (t % 8).. of pixels m0 + 2 * (t / 8) + k, k < 2;
+// neighbour (a, b) of pixel k is staged row 2 * (t / 8) + a * W + k + b, so
+// the two pixels share a tap row's loads (4 for 6 taps).  The result goes to
+// row r of the chunk, 16-byte unit (t % 8) ^ (r % 8) (the 128-byte
+// swizzle).  ph/pw: each pixel's image row and column, ph < 0 for pixels
+// past M, whose taps are all masked.
+__device__ __forceinline__ void panel_chunk(const Params& p, const unsigned char* xs,
+                                            unsigned char* chunk, int kc, const int (&ph)[PX],
+                                            const int (&pw)[PX]) {
+  const int run = threadIdx.x / 8, vv = threadIdx.x % 8;
+  const int c = kc * BK + vv * 8;
+  float acc[PX][8];
 #pragma unroll
-          for (int b = 0; b < 3; ++b) {
-            const int ww = w + b - 1;
-            if (ww < 0 || ww >= W) continue;
-            const size_t src = (size_t)(pix_base[j] + (a - 1) * W + (b - 1)) * C_in + c;
-            float v = __bfloat162float(x[src]);
-            if (pre_relu) v = fmaxf(v, 0.0f);
-            s += v * tap[a * 3 + b];
-          }
+  for (int k = 0; k < PX; ++k)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[k][e] = 0.0f;
+  if (c < p.C_in) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const unsigned char* src = xs + (size_t)(PX * run + a * p.W) * 128 + vv * 16;
+      float xr[PX + 2][8];
+#pragma unroll
+      for (int q = 0; q < PX + 2; ++q) {
+        unpack8(*reinterpret_cast<const uint4*>(src + q * 128), xr[q]);
+        if (p.pre_relu)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) xr[q][e] = fmaxf(xr[q][e], 0.0f);
+      }
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const float* wp = p.dw + (size_t)(a * 3 + b) * p.C_in + c;
+        const float4 w0 = __ldg(reinterpret_cast<const float4*>(wp));
+        const float4 w1 = __ldg(reinterpret_cast<const float4*>(wp + 4));
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int k = 0; k < PX; ++k) {
+          const bool ok = (unsigned)(ph[k] + a - 1) < (unsigned)p.H &&
+                          (unsigned)(pw[k] + b - 1) < (unsigned)p.W;
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            // product and sum rounded apart, in tap order, as the reference computes them
+            acc[k][e] = __fadd_rn(acc[k][e], __fmul_rn(ok ? xr[k + b][e] : 0.0f, wv[e]));
         }
       }
-      As[(r0 + 8 * j) * A_LD + kc] = __float2bfloat16(s);
     }
-    // --- B tile: pointwise weights, zero past C_in / C_out ---
-    for (int idx = tid; idx < BK * BN; idx += THREADS) {
-      const int kr = idx / BN;
-      const int nc = idx % BN;
-      const int k = k0 + kr;
-      const int n = n0 + nc;
-      Bs[kr * B_LD + nc] =
-          (k < C_in && n < C_out) ? pw[(size_t)k * C_out + n] : __float2bfloat16(0.0f);
-    }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < PX; ++k) {
+    const int r = PX * run + k;
+    *reinterpret_cast<uint4*>(chunk + r * 128 + ((vv ^ (r % 8)) * 16)) = pack8(acc[k]);
+  }
+}
 
-    // --- tensor-core GEMM on the chunk ---
+__global__ void __launch_bounds__(THREADS, 1)
+    sepconv_stage_kernel(const __grid_constant__ CUtensorMap pw_map,
+                         const __grid_constant__ CUtensorMap x_map, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[MAX_STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[MAX_STAGES];
+  __shared__ __align__(8) uint64_t x_bar[MAX_X_STAGES];
+
+  unsigned char* panel = smem_raw + ((ALIGN - smem_u32(smem_raw) % ALIGN) % ALIGN);
+  unsigned char* ring = panel + p.k_chunks * CHUNK_BYTES;
+  unsigned char* xs = ring + p.xs_offset;
+  const uint32_t panel_u = smem_u32(panel), ring_u = smem_u32(ring), xs_u = smem_u32(xs);
+  const int xs_bytes = p.xs_boxes * p.xs_rows * 128;
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;
+  const int tile0 = blockIdx.y * p.tiles_per_group;
+  const int tile1 = min(tile0 + p.tiles_per_group, p.n_tiles);
+  const int loads = (tile1 - tile0) * p.k_chunks;  // weight stages this block streams
+  const bool early = p.xs_offset != 0;  // the staging has its own room: weights load meanwhile
+
+  // Weight load i: N tile tile0 + i / k_chunks, K chunk i % k_chunks, into slot i % stages.
+  auto issue = [&](int i) {
+    const int slot = i % p.stages;
+    const int n = (tile0 + i / p.k_chunks) * BN, k = (i % p.k_chunks) * BK;
+    const uint32_t bar = smem_u32(&full_bar[slot]);
+    mbar_expect_tx(bar, STAGE_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm * 32 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+    for (int c = 0; c < BN / BOX_N; ++c)
+      tma_load(ring_u + slot * STAGE_BYTES + c * BOX_BYTES, &pw_map, n + c * BOX_N, k, bar);
+  };
+  // Input chunk kc: channels kc * 64.. of pixels m0 - W - 1.., into buffer kc % x_stages.
+  auto issue_x = [&](int kc) {
+    const int buf = kc % p.x_stages;
+    const uint32_t bar = smem_u32(&x_bar[buf]);
+    mbar_expect_tx(bar, xs_bytes);
+    for (int i = 0; i < p.xs_boxes; ++i)
+      tma_load(xs_u + buf * xs_bytes + i * p.xs_rows * 128, &x_map, kc * BK,
+               m0 - p.W - 1 + i * p.xs_rows, bar);
+  };
+
+  if (tid == CONSUMERS) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(smem_u32(&full_bar[s]), 1);
+      mbar_init(smem_u32(&empty_bar[s]), CONSUMERS / 32);
     }
-    __syncthreads();
+    for (int s = 0; s < p.x_stages; ++s) mbar_init(smem_u32(&x_bar[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int kc = 0; kc < min(p.x_stages, p.k_chunks); ++kc) issue_x(kc);
+    if (early)
+      for (int i = 0; i < min(p.stages, loads); ++i) issue(i);  // the slots start empty
   }
 
-  // --- epilogue: affine (+relu) -> bf16 (+residual), masked store ---
+  // This thread's depthwise pixels: the same in every chunk.
+  const int HW = p.H * p.W;
+  int ph[PX], pw[PX];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16, acc[i][j],
-                              C_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN;
-    const int nc = idx % BN;
-    const int m = m0 + r;
-    const int n = n0 + nc;
-    if (m >= M || n >= C_out) continue;
-    float v = Cs[r * C_LD + nc] * scale[n] + shift[n];
-    if (post_relu) v = fmaxf(v, 0.0f);
-    __nv_bfloat16 o = __float2bfloat16(v);
-    const size_t dst = (size_t)m * C_out + n;
-    if (residual != nullptr) o = __float2bfloat16(__bfloat162float(residual[dst]) + __bfloat162float(o));
-    out[dst] = o;
+  for (int k = 0; k < PX; ++k) {
+    const int m = m0 + PX * (tid / 8) + k;
+    const int hw = m % HW;
+    ph[k] = m < p.M ? hw / p.W : -3;
+    pw[k] = hw % p.W;
   }
+  __syncthreads();  // the barriers are initialised
+
+  for (int kc = 0; kc < p.k_chunks; ++kc) {
+    const int buf = kc % p.x_stages;
+    mbar_wait(smem_u32(&x_bar[buf]), (kc / p.x_stages) & 1);
+    if (tid < CONSUMERS) panel_chunk(p, xs + buf * xs_bytes, panel + kc * CHUNK_BYTES, kc, ph, pw);
+    // Generic-proxy writes and reads before the async proxy's (wgmma, TMA) use.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (tid == CONSUMERS && kc + p.x_stages < p.k_chunks) issue_x(kc + p.x_stages);
+  }
+
+  if (tid >= CONSUMERS) {  // producer warp: keep the weight ring full
+    if (tid == CONSUMERS) {
+      for (int i = early ? min(p.stages, loads) : 0; i < loads; ++i) {
+        if (i >= p.stages) mbar_wait(smem_u32(&empty_bar[i % p.stages]), ((i / p.stages) - 1) & 1);
+        issue(i);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: warpgroup g computes channels g * 64.. of each tile.
+  const int g = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int row0 = m0 + warp * 16 + lane / 4;  // accumulator rows row0, row0 + 8
+  int i = 0;
+  for (int tile = tile0; tile < tile1; ++tile) {
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+    fence_acc(acc);
+    for (int kc = 0; kc < p.k_chunks; ++kc, ++i) {
+      const int slot = i % p.stages;
+      mbar_wait(smem_u32(&full_bar[slot]), (i / p.stages) & 1);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      const uint32_t a = panel_u + kc * CHUNK_BYTES;
+      const uint32_t b = ring_u + slot * STAGE_BYTES + g * BOX_BYTES;
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)
+        // A: rows of 128 B, 8-row groups 1024 B apart, k16 = 32 B along the row.
+        // B: this warpgroup's 64-channel box; k16 = 16 rows of 128 B, 8-row
+        //    groups 1024 B apart (one box wide: the leading offset is unused).
+        wgmma_m64n64k16(acc, smem_desc(a + k * 32, 16, 1024),
+                        smem_desc(b + k * 2048, BOX_BYTES, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      // One group stays in flight; the one before it is done with its slot.
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(acc);
+      if (kc > 0 && lane == 0) mbar_arrive(smem_u32(&empty_bar[(i - 1) % p.stages]));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(smem_u32(&empty_bar[(i - 1) % p.stages]));
+
+    // Epilogue from the registers: acc[4j + 2h + e] is row row0 + 8h,
+    // column tile * 128 + g * 64 + 8j + 2 * (lane % 4) + e.
+    const int n_base = tile * BN + g * WG_N + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < WG_N / 8; ++j) {
+      const int n = n_base + 8 * j;
+      if (n >= p.C_out) continue;  // C_out % 8 == 0: n + 1 is in range with n
+      const float2 sc = __ldg(reinterpret_cast<const float2*>(p.scale + n));
+      const float2 sh = __ldg(reinterpret_cast<const float2*>(p.shift + n));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row0 + 8 * h;
+        if (m >= p.M) continue;
+        float v0 = __fadd_rn(__fmul_rn(acc[4 * j + 2 * h], sc.x), sh.x);
+        float v1 = __fadd_rn(__fmul_rn(acc[4 * j + 2 * h + 1], sc.y), sh.y);
+        if (p.post_relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+        const size_t dst = (size_t)m * p.C_out + n;
+        if (p.residual != nullptr) {
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(p.residual + dst));
+          const float2 f = __bfloat1622float2(o);
+          o = __floats2bfloat162_rn(r.x + f.x, r.y + f.y);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(p.out + dst) = o;
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled comes through the runtime's entry-point lookup, so
+// the library links no libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                      cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? (EncodeTiled)f : nullptr;
+  }();
+  return fn;
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+// A 2-D bf16 tensor map over a row-major (rows, cols) matrix, boxes of
+// (box_rows, 64 columns), zero fill outside it.
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols,
+                int box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Shared memory of a block that walks p.tiles_per_group N tiles: the panel,
+// the weight ring (as many stages as fit, up to 4, and no more than the block
+// streams) and the input staging (a band's pixel range, up to 4 chunks in
+// flight).  The staging either has room of its own beside the ring, so the
+// first weight stages load while the panel is built, or shares the ring's
+// room, which it leaves before they load.  Sharing is taken where it puts
+// more blocks on an SM and `crowded` says the grid has blocks to fill them
+// (many bands of few channels: K5's 147x147 stages).  Fills the ring and
+// staging fields of p; returns the dynamic shared memory, or -1.
+int plan_smem(Params& p, int W, bool crowded) {
+  const int panel_bytes = p.k_chunks * CHUNK_BYTES;
+  const int loads = p.tiles_per_group * p.k_chunks;
+  p.stages = (BUDGET - panel_bytes) / STAGE_BYTES;
+  if (p.stages > MAX_STAGES) p.stages = MAX_STAGES;
+  if (p.stages > loads) p.stages = loads > 2 ? loads : 2;
+  if (p.stages < 2) return -1;
+  const int ring_bytes = p.stages * STAGE_BYTES;
+  const int span = BM + 2 * W + 2;
+  p.xs_boxes = (span + X_BOX_ROWS - 1) / X_BOX_ROWS;
+  p.xs_rows = (span + p.xs_boxes - 1) / p.xs_boxes;
+  const int xs_bytes = p.xs_boxes * p.xs_rows * 128;
+  const int most = p.k_chunks < MAX_X_STAGES ? p.k_chunks : MAX_X_STAGES;
+  const int least = most < 2 ? most : 2;
+  int own = most;  // chunks in flight with room of their own
+  while (own >= least && panel_bytes + ring_bytes + own * xs_bytes > BUDGET) --own;
+  int shared = ring_bytes / xs_bytes;  // chunks in flight in the ring's room
+  shared = shared < 1 ? 1 : (shared > most ? most : shared);
+  const int shared_region = shared * xs_bytes > ring_bytes ? shared * xs_bytes : ring_bytes;
+  const int own_region = ring_bytes + own * xs_bytes;
+  const auto per_sm = [](int bytes) { return SM_SMEM / (bytes + ALIGN + STATIC_SMEM + 1024); };
+  const bool share = own < least || (crowded && per_sm(panel_bytes + shared_region) >
+                                                    per_sm(panel_bytes + own_region));
+  if (share && panel_bytes + shared_region > BUDGET) return -1;
+  p.x_stages = share ? shared : own;
+  p.xs_offset = share ? 0 : ring_bytes;
+  return ALIGN + panel_bytes + (share ? shared_region : own_region);
+}
+
+// Blocks of the kernel that the register file holds on one SM (registers
+// are allocated per warp in units of 256).
+int blocks_by_registers() {
+  static const int n = [] {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, sepconv_stage_kernel) != cudaSuccess) return 0;
+    const int per_warp = (attr.numRegs * 32 + 255) / 256 * 256;
+    return 65536 / (per_warp * (THREADS / 32));
+  }();
+  return n;
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/_build.py).  Pointers are device
-// pointers from tensor.data_ptr(); ``stream`` is a cudaStream_t.  Returns the
-// cudaError_t of the launch (0 on success): a refused launch never runs.
+// pointers from tensor.data_ptr(); ``stream`` is a cudaStream_t.  C_in and
+// C_out must be multiples of 8, C_in at most 1536, and every pointer 16-byte
+// aligned.  Returns the cudaError_t of the launch (0 on success): a refused
+// launch never runs.
 extern "C" int kdlt_sepconv_stage(const void* x, const void* dw, const void* pw,
                                   const void* scale, const void* shift, const void* residual,
                                   void* out, int B, int H, int W, int C_in, int C_out,
                                   int pre_relu, int post_relu, void* stream) {
-  const int M = B * H * W;
-  if (M <= 0 || C_in <= 0 || C_out <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((M + BM - 1) / BM, (C_out + BN - 1) / BN);
-  sepconv_stage_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dw),
-      static_cast<const __nv_bfloat16*>(pw), static_cast<const float*>(scale),
-      static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(residual),
-      static_cast<__nv_bfloat16*>(out), B, H, W, C_in, C_out, pre_relu, post_relu);
+  const long long M = (long long)B * H * W;
+  if (M <= 0 || M > (1LL << 30) || C_in <= 0 || C_out <= 0 || C_in % 8 || C_out % 8 ||
+      C_in > MAX_C_IN)
+    return (int)cudaErrorInvalidValue;
+  for (const void* ptr : {x, dw, pw, scale, shift, (const void*)out})
+    if (ptr == nullptr || !aligned16(ptr)) return (int)cudaErrorInvalidValue;
+  if (residual != nullptr && !aligned16(residual)) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+
+  Params p;
+  p.dw = static_cast<const float*>(dw);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.residual = static_cast<const __nv_bfloat16*>(residual);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.H = H;
+  p.W = W;
+  p.M = (int)M;
+  p.C_in = C_in;
+  p.C_out = C_out;
+  p.k_chunks = (C_in + BK - 1) / BK;
+  p.n_tiles = (C_out + BN - 1) / BN;
+  p.pre_relu = pre_relu;
+  p.post_relu = post_relu;
+
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const int by_regs = blocks_by_registers();
+  if (by_regs <= 0) return (int)cudaErrorInvalidDeviceFunction;
+
+  // Grid: bands x N groups.  A block pays for its band's panel once, then for
+  // each of its N tiles; blocks past what the SMs hold at once run in later
+  // waves.  Take the group count with the least waves x (panel + tiles a
+  // block), the panel counted as PANEL_TILES tiles.
+  const int bands = (int)((M + BM - 1) / BM);
+  int groups = 0, smem = 0;
+  double best = 0.0;
+  for (int tpg = p.n_tiles; tpg >= 1; --tpg) {
+    const int g = (p.n_tiles + tpg - 1) / tpg;
+    if ((p.n_tiles + g - 1) / g != tpg) continue;  // g groups balance better with fewer tiles
+    Params q = p;
+    q.tiles_per_group = tpg;
+    const int bytes = plan_smem(q, W, (long long)bands * g > sms);
+    if (bytes < 0) continue;
+    int per_sm = SM_SMEM / (bytes + STATIC_SMEM + 1024);
+    if (per_sm > by_regs) per_sm = by_regs;
+    if (per_sm < 1) continue;
+    const long long slots = (long long)sms * per_sm;
+    const long long waves = ((long long)bands * g + slots - 1) / slots;
+    const double cost = (double)waves * (PANEL_TILES + tpg);
+    if (groups == 0 || cost < best) {
+      best = cost;
+      groups = g;
+      smem = bytes;
+      p = q;
+    }
+  }
+  if (groups == 0) return (int)cudaErrorInvalidValue;
+
+  // pw (C_in, C_out): boxes of 64 K rows x 64 channels, 128-byte swizzle (wgmma's B).
+  // x (M, C_in): boxes of xs_rows pixels x 64 channels, unswizzled.
+  alignas(64) CUtensorMap pw_map, x_map;
+  if (!encode_map(encode, &pw_map, pw, C_in, C_out, BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map(encode, &x_map, x, p.M, C_in, p.xs_rows, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+
+  e = cudaFuncSetAttribute(sepconv_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return (int)e;
+  sepconv_stage_kernel<<<dim3(bands, groups), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      pw_map, x_map, p);
   return (int)cudaGetLastError();
 }
 

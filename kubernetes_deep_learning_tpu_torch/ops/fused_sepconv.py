@@ -109,9 +109,29 @@ def _check_stage(c_in: int, device, dw, pw, scale, shift) -> int:
     for t in (dw, pw, scale, shift):
         if t.device != device:
             raise ValueError(f"all operands must be on {device}, got one on {t.device}")
-        if device.type == "cuda" and not t.is_contiguous():
-            raise ValueError("the CUDA kernel takes contiguous tensors only")
     return c_out
+
+
+# The kernel's depthwise panel takes 8 KB of shared memory per 64 input
+# channels; past 1536 channels two pointwise-weight stages no longer fit.
+MAX_C_IN = 1536
+
+
+def _check_cuda(x, stages) -> None:
+    """What the CUDA kernel takes on top of ``_check_stage``: widths that
+    are multiples of 8 (16-byte vectors, TMA row strides), C_in <= 1536,
+    and contiguous 16-byte aligned tensors.  Checked before any launch."""
+    tensors = [x]
+    for s in stages:
+        c_in, c_out = s["pw"].shape
+        if c_in % 8 or c_out % 8:
+            raise ValueError(f"the CUDA kernel takes widths that are multiples of 8, got "
+                             f"{c_in}->{c_out}")
+        if c_in > MAX_C_IN:
+            raise ValueError(f"the CUDA kernel takes at most {MAX_C_IN} input channels, got {c_in}")
+        tensors += [s["dw"], s["pw"], s["scale"], s["shift"]]
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors only")
 
 
 def _launch_stage(x, dw, pw, scale, shift, residual, pre_relu: bool, post_relu: bool):
@@ -140,8 +160,7 @@ def fused_sepconv_block(x, dw, pw, scale, shift):
         _check_stage(x.shape[-1], x.device, dw[i], pw[i], scale[i], shift[i])
     if x.device.type == "cpu":
         return sepconv_block_reference(x, dw, pw, scale, shift)
-    if not x.is_contiguous():
-        raise ValueError("the CUDA kernel takes contiguous tensors only")
+    _check_cuda(x, [dict(dw=dw[i], pw=pw[i], scale=scale[i], shift=shift[i]) for i in range(3)])
     y = x
     for i in range(3):
         y = _launch_stage(
@@ -161,8 +180,7 @@ def fused_sepconv_chain(x, stages):
         c = _check_stage(c, x.device, s["dw"], s["pw"], s["scale"], s["shift"])
     if x.device.type == "cpu":
         return sepconv_chain_reference(x, stages)
-    if not x.is_contiguous():
-        raise ValueError("the CUDA kernel takes contiguous tensors only")
+    _check_cuda(x, stages)
     y = x
     for s in stages:
         y = _launch_stage(

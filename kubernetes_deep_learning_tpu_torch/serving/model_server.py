@@ -9,6 +9,7 @@ TF-Serving).  Routes:
   reads to discover the contract; no ingest capability is advertised, so a
   gateway keeps the tensor wire);
 - ``POST /v1/models/<name>:predict``: msgpack or JSON (``serving.protocol``);
+  a batch larger than the largest bucket is served in max-bucket chunks;
 - ``GET /healthz`` (the process is up) and ``GET /readyz`` (every engine
   has warmed).
 
@@ -25,6 +26,8 @@ import signal
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Sequence
+
+import numpy as np
 
 from kubernetes_deep_learning_tpu_torch.export import artifact as art
 from kubernetes_deep_learning_tpu_torch.runtime.engine import DEFAULT_BUCKETS, InferenceEngine
@@ -106,7 +109,7 @@ class ModelServer:
             return 503, b"model is warming up", "text/plain"
         try:
             images = protocol.decode_predict_request(body, content_type)
-            logits = engine.predict(images)
+            logits = _predict_chunked(engine, images)
         except ValueError as e:
             return 400, str(e).encode(), "text/plain"
         out, ctype = protocol.encode_predict_response(logits, engine.spec.labels, content_type)
@@ -117,6 +120,10 @@ class ModelServer:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # The reply goes out in two writes (headers, body); with Nagle on,
+            # the second waits for the client's delayed ACK (~40 ms) on a
+            # keep-alive connection.
+            disable_nagle_algorithm = True
 
             def _reply(self, status: int, body: bytes, ctype: str) -> None:
                 self.send_response(status)
@@ -143,6 +150,17 @@ class ModelServer:
                 log.debug(fmt, *args)
 
         return Handler
+
+
+def _predict_chunked(engine: InferenceEngine, images: np.ndarray) -> np.ndarray:
+    """``engine.predict``, with a batch past the largest bucket served in
+    max-bucket chunks: a client's batch size need not know the buckets."""
+    images = np.asarray(images)
+    step = engine.max_batch
+    if images.ndim == 0 or len(images) <= step:
+        return engine.predict(images)
+    return np.concatenate([engine.predict(images[i : i + step])
+                           for i in range(0, len(images), step)])
 
 
 def main(argv: Sequence[str] | None = None) -> None:

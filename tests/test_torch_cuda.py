@@ -11,6 +11,9 @@ held at 2e-2 at every fused block shape of EfficientNet-B3 (300 px) and
 B0 (224 px); the entry-segment kernel (K5) at Xception's geometry and a
 small ragged one, the stage kernel at the entry path's block 3 and 4
 shapes, and the (batch, head)-folded flash attention (K3G), all at 2e-2.
+The stage kernel is also held at K5's stage shapes, block14's 1536-wide
+panel, bucket 1's N-split grid and an odd batch with the residual, and
+must refuse a width that is not a multiple of 8 and an unaligned input.
 """
 
 from __future__ import annotations
@@ -86,6 +89,67 @@ def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,hw,stages", [
+    (1, 147, ((64, 128, False, True), (128, 128, False, False))),  # K5's two stages
+    (3, 147, ((64, 128, False, True), (128, 128, False, False))),
+    (1, 10, ((1536, 2048, False, True),)),   # block14's second stage: the 192 KB panel
+    (16, 10, ((1536, 2048, False, True),)),
+    (1, 19, ((728, 728, True, False),)),     # bucket 1: 6 bands x 6 N groups
+], ids=str)
+def test_cuda_stage_kernel_shapes(batch, hw, stages):
+    """One stage-kernel launch per stage at the shapes of K5, block14 and
+    bucket 1, against the plain version."""
+    _need_cuda()
+    rng = np.random.default_rng(batch * hw + stages[0][0])
+    x = _t(rng, (batch, hw, hw, stages[0][0]), dtype=torch.bfloat16)
+    st = [_stage(rng, a, b, pre, post) for a, b, pre, post in stages]
+    ops.reset_launch_counts()
+    got = ops.fused_sepconv_chain(x, st)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_sepconv_chain"] == 1
+    assert got.shape == (batch, hw, hw, stages[-1][1]) and torch.isfinite(got.float()).all()
+    assert _rel(got, ops.sepconv_chain_reference(x, st)) < 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_middle_block_odd_batch_with_residual():
+    """The middle block at an odd batch (M = 7 * 361, not a multiple of the
+    64-pixel band): the third stage adds the residual in its epilogue."""
+    _need_cuda()
+    rng = np.random.default_rng(7)
+    x = _t(rng, (7, 19, 19, 728), dtype=torch.bfloat16)
+    st = [_stage(rng, 728, 728, True, False) for _ in range(3)]
+    w = tuple(torch.stack([s[k] for s in st]) for k in ("dw", "pw", "scale", "shift"))
+    got = ops.fused_sepconv_block(x, *w)
+    torch.cuda.synchronize()
+    assert _rel(got, ops.sepconv_block_reference(x, *w)) < 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_stage_kernel_refuses_what_it_cannot_take():
+    """A width that is not a multiple of 8 and an input that is not 16-byte
+    aligned raise before any launch; the plain CPU path takes both."""
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    x = _t(rng, (2, 5, 5, 36), dtype=torch.bfloat16)
+    odd = [_stage(rng, 36, 40, True, False)]
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.fused_sepconv_chain(x, odd)
+    flat = _t(rng, (2 * 5 * 5 * 40 + 1,), dtype=torch.bfloat16)
+    unaligned = flat[1:].view(2, 5, 5, 40)  # contiguous, 2 bytes past an aligned base
+    assert unaligned.is_contiguous() and unaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.fused_sepconv_chain(unaligned, [_stage(rng, 40, 48, True, False)])
+    with pytest.raises(ValueError, match="at most 1536"):
+        ops.fused_sepconv_chain(_t(rng, (1, 2, 2, 2048), dtype=torch.bfloat16),
+                                [_stage(rng, 2048, 8, False, False)])
+    assert ops.launch_counts()["fused_sepconv_chain"] == 0
+    cpu = [{k: v.cpu() if torch.is_tensor(v) else v for k, v in s.items()} for s in odd]
+    assert ops.fused_sepconv_chain(x.cpu(), cpu).shape == (2, 5, 5, 40)
 
 
 @pytest.mark.cuda

@@ -311,12 +311,68 @@ def test_model_server_routes(stack):
                             json.dumps({"instances": imgs[:1].tolist()}).encode(),
                             protocol.JSON_CONTENT_TYPE)
     assert status == 200 and len(json.loads(body)["predictions"]) == 1
-    too_many = np.zeros((5, *spec.input_shape), np.uint8)
-    assert _http("POST", f"{base}/v1/models/{spec.name}:predict",
-                 protocol.encode_predict_request(too_many),
-                 protocol.MSGPACK_CONTENT_TYPE)[0] == 400
+    too_many = np.zeros((5, *spec.input_shape), np.uint8)  # past the largest bucket (4)
+    status, body, ctype = _http("POST", f"{base}/v1/models/{spec.name}:predict",
+                                protocol.encode_predict_request(too_many),
+                                protocol.MSGPACK_CONTENT_TYPE)
+    assert status == 200 and protocol.decode_predict_response(body, ctype)[0].shape == (5, 4)
     assert _http("POST", f"{base}/v1/models/nope:predict", b"{}",
                  protocol.JSON_CONTENT_TYPE)[0] == 404
+
+
+def test_batch_past_the_largest_bucket_is_served_in_chunks(stack):
+    """5 images against buckets (1, 2, 4): 200, served as 4 + 1, and the
+    logits of every image match the JAX forward (the gateway test's 1e-3)."""
+    from kubernetes_deep_learning_tpu.models import build_forward as jax_build_forward
+
+    spec, server, _, _, _, variables = stack
+    imgs = np.random.default_rng(11).integers(0, 256, (5, *spec.input_shape), np.uint8)
+    status, body, ctype = _http("POST", f"http://127.0.0.1:{server.port}/v1/models/"
+                                f"{spec.name}:predict", protocol.encode_predict_request(imgs),
+                                protocol.MSGPACK_CONTENT_TYPE)
+    assert status == 200
+    got, labels = jax_protocol.decode_predict_response(body, ctype)
+    assert labels == list(spec.labels)
+    want = np.asarray(jax.jit(jax_build_forward(spec, dtype=None))(variables, imgs))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_keep_alive_requests_do_not_stall_on_nagle(tmp_path):
+    """30 one-image msgpack :predicts over ONE keep-alive connection: p50
+    under 30 ms.  Without TCP_NODELAY each reply's body write waits for the
+    client's delayed ACK (>= 40 ms on Linux).  The model is a 16-px
+    vit-tiny, whose CPU forward takes a few ms, so the bound measures the
+    server and not the model."""
+    import http.client
+    import time
+
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+
+    spec = ModelSpec(name="torch-nodelay-vit", family="vit-tiny", input_shape=(16, 16, 3),
+                     labels=("a", "b"), preprocessing="tf")
+    art.save_artifact(art.version_dir(str(tmp_path), spec.name, 1), spec,
+                      init_variables(spec, seed=0), {"compute_dtype": "float32"})
+    server = ModelServer(str(tmp_path), port=0, buckets=(1,), device="cpu")
+    server.start()
+    server.warmup()
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+    try:
+        body = protocol.encode_predict_request(np.zeros((1, *spec.input_shape), np.uint8))
+        headers = {"Content-Type": protocol.MSGPACK_CONTENT_TYPE}
+        lat = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            conn.request("POST", f"/v1/models/{spec.name}:predict", body, headers)
+            resp = conn.getresponse()
+            reply = resp.read()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            assert resp.status == 200
+        logits, _ = protocol.decode_predict_response(reply, resp.getheader("Content-Type"))
+        assert logits.shape == (1, 2)
+    finally:
+        conn.close()
+        server.shutdown()
+    assert float(np.median(lat)) < 30.0, sorted(lat)
 
 
 # --- import guard ---------------------------------------------------------------
