@@ -8,7 +8,8 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
 
 1. card: prints ``nvidia-smi``'s name and power limit;
 2. build: compiles the port's CUDA kernels (every ``ops/csrc/*.cu``, one
-   nvcc each, in parallel) from this checkout's sources;
+   nvcc each, in parallel) from this checkout's sources, and prints each
+   kernel's registers and spills (one JSON line for the flash kernels);
 3. Xception kernels: K1 and K2 at the main path's shapes (batch 16 of the
    299-px clothing model) against their plain PyTorch versions (relative
    max error < 2e-2: bf16 rounding, summed in another order); times
@@ -45,7 +46,10 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    masked (all 0) and other head-dim cases, against its plain version
    (relative max error < 2e-2 bf16, < 1e-4 f32); times kernel, plain
    version and ``scaled_dot_product_attention`` (the yardstick, used
-   nowhere in the port) and prints the bound;
+   nowhere in the port), each eagerly and (kernel and yardstick) as
+   device time by CUDA-graph replay, in bf16 and f32; prints the bound
+   (f32 products on the tensor cores as 3xTF32), the q-tile the bf16
+   kernel chose on this card and the host cost of a tensor map;
 7. ViT server: a ``vit-b16-384`` artifact (ViT-B/16 at 384 px: 576 tokens,
    the flash route) served the same way over the msgpack wire.  ViT has no
    fused fast path (its kernel sits inside its attention); the requests
@@ -65,7 +69,7 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    other rows exactly (0, NEG_INF, 0)); times kernel, plain version, the
    kernel with its finalisation to (out, lse), and the aten attention op
    that returns (out, logsumexp) (the yardstick, used nowhere in the
-   port); prints the bound;
+   port), eagerly and by CUDA-graph replay; prints the bound;
 11. gradients: ``attention_trainable`` (K3P forward, blockwise torch
    backward) against autograd through plain f32 attention at the training
    shape (relative < 1e-4), and the time of its forward and backward;
@@ -112,6 +116,7 @@ import argparse
 import functools
 import itertools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -121,9 +126,10 @@ import urllib.request
 import numpy as np
 import torch
 
-# H100 SXM dense peaks (NVIDIA data sheet) for the bound: bf16 tensor cores,
-# f32 on the CUDA cores (the depthwise taps), HBM3.
+# H100 SXM dense peaks (NVIDIA data sheet) for the bound: bf16 and TF32
+# tensor cores, f32 on the CUDA cores (the depthwise taps), HBM3.
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # exp2 on the special-function units: 16 per clock per SM on compute
@@ -339,17 +345,55 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / (want.float().abs().max().item() + 1e-6)
 
 
-def _attention_bound(bh: int, sq: int, sk: int, d: int, nbytes: int, peak_flops: float,
+def _attention_bound(bh: int, sq: int, sk: int, d: int, nbytes: int, dtype: torch.dtype,
                      exp_rate: float) -> tuple[float, str, dict]:
     """Least time (ms) for one non-causal call: ``nbytes`` (each input
-    read once, each output written once); QK^T and PV products; one
-    exponential per score."""
+    read once, each output written once); QK^T and PV products on the
+    tensor cores (bf16, or f32 as 3xTF32: three TF32 products each, the
+    kernel's route); one exponential per score.  For f32 the products'
+    time on the CUDA cores' FMA (``products_fma``) is listed beside them,
+    not counted: the tensor-core route is the faster."""
+    flops = 4 * bh * sq * sk * d
     t = {"bytes": nbytes / PEAK_BYTES,
-         "products": 4 * bh * sq * sk * d / peak_flops,
+         "products": flops / PEAK_BF16 if dtype == torch.bfloat16 else 3 * flops / PEAK_TF32,
          "exp": bh * sq * sk / exp_rate}
     top = max(t, key=t.get)
-    return t[top] * 1e3, ("bytes" if top == "bytes" else "operations"), {
-        k: v * 1e3 for k, v in t.items()}
+    terms = {k: v * 1e3 for k, v in t.items()}
+    if dtype != torch.bfloat16:
+        terms["products_fma"] = flops / PEAK_F32 * 1e3
+    return t[top] * 1e3, ("bytes" if top == "bytes" else "operations"), terms
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph and
+    replayed, so the host's launch cost (the Python wrapper, ctypes) does
+    not enter it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def _flash_plan(shape, pairs: int = 1) -> dict:
+    """The bf16 kernel's q-tile at ``shape`` (B, H, S, D) on this card."""
+    from kubernetes_deep_learning_tpu_torch.ops import _build
+
+    b, h, s, d = shape
+    return {"q_tile_rows": _build.load().kdlt_flash_attention_q_tile(b, h, s, d, pairs)}
 
 
 def _attention_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
@@ -371,7 +415,8 @@ def _attention_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
     rec = dict(name="flash_attention", route="cuda", source=SOURCES["flash_attention"],
                replaces="kubernetes_deep_learning_tpu/ops/attention.py:342",
                max_abs_err=0.0, max_rel_err=0.0, tol_rel=KERNEL_TOL, f32_tol_rel=F32_KERNEL_TOL,
-               per="one call at (16, 12, 576, 64) bf16; errors: max over the checked cases")
+               per="one call at (16, 12, 576, 64) bf16 (f32: the same call in f32); errors: "
+                   "max over the checked cases; graph_ms: device time, CUDA-graph replay")
     for (b, h, sq, sk, d), dtype, kw, timed in cases:
         q = torch.randn((b, h, sq, d), generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn((b, h, sk, d), generator=gen, device="cuda").to(dtype)
@@ -395,18 +440,29 @@ def _attention_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
                 _fail(f"flash_attention {shape}: relative error {rel:.3e} > {tol}")
         t = dict(shape, max_abs_err=err, max_rel_err=rel, tol_rel=tol)
         if timed:
-            peak = PEAK_BF16 if dtype == bf16 else PEAK_F32
             nbytes = q.element_size() * b * h * d * (2 * sq + 2 * sk)  # q, k, v, o
-            b_ms, b_by, terms = _attention_bound(b * h, sq, sk, d, nbytes, peak, exp_rate)
+            b_ms, b_by, terms = _attention_bound(b * h, sq, sk, d, nbytes, dtype, exp_rate)
+            library = lambda q=q, k=k, v=v: sdpa(q, k, v)  # noqa: E731
             t.update(ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
-                     library_ms=_time_ms(lambda q=q, k=k, v=v: sdpa(q, k, v), iters),
+                     library_ms=_time_ms(library, iters), graph_ms=_graph_ms(kernel, iters),
+                     library_graph_ms=_graph_ms(library, iters),
                      bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms)
+            keys = ("ms", "plain_ms", "library_ms", "graph_ms", "library_graph_ms", "bound_ms",
+                    "bound_by")
             if dtype == bf16:
-                rec.update({key: t[key] for key in
-                            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                t.update(_flash_plan((b, h, sq, d)))
+                rec.update({key: t[key] for key in (*keys, "q_tile_rows")})
+            else:
+                rec["f32"] = {key: t[key] for key in keys}
         print("kernel-check flash_attention", json.dumps(t), flush=True)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+    # Host cost of one operand's tensor map (the bf16 kernel encodes three a launch).
+    from kubernetes_deep_learning_tpu_torch.ops import _build
+
+    main = torch.empty((16, 576, 12, 64), dtype=bf16, device="cuda")
+    rec["tensor_map_encode_us"] = _build.load().kdlt_flash_map_encode_us(
+        main.data_ptr(), 16, 576, 12, 64, 1000)
     return rec
 
 
@@ -691,18 +747,20 @@ def _partials_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
             _fail(f"flash_attention_partials {shape}: relative error {rel:.3e} > {tol}")
         t = dict(shape, max_abs_err=err, max_rel_err=rel, tol_rel=tol, rows_without_key=dead)
         if timed:
-            peak = PEAK_BF16 if dtype == bf16 else PEAK_F32
             nbytes = (q.element_size() * b * h * d * (sq + 2 * sk)  # q, k, v
                       + 4 * b * h * sq * (d + 2))                   # acc, m, l in f32
-            b_ms, b_by, terms = _attention_bound(b * h, sq, sk, d, nbytes, peak, exp_rate)
+            b_ms, b_by, terms = _attention_bound(b * h, sq, sk, d, nbytes, dtype, exp_rate)
             out, lse = attn._forward_with_lse(q, k, v, False)
             lib_out, lib_lse = _library_lse(q, k, v)
             t.update(ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
                      finalized_ms=_time_ms(lambda: attn._forward_with_lse(q, k, v, False), iters),
                      library_ms=_time_ms(lambda: _library_lse(q, k, v), iters),
+                     graph_ms=_graph_ms(kernel, iters),
+                     library_graph_ms=_graph_ms(lambda: _library_lse(q, k, v), iters),
                      library_vs_finalized_rel=max(_rel(out, lib_out)[1], _rel(lse, lib_lse)[1]),
                      bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms)
-            keys = ("ms", "plain_ms", "finalized_ms", "library_ms", "bound_ms", "bound_by")
+            keys = ("ms", "plain_ms", "finalized_ms", "library_ms", "graph_ms", "library_graph_ms",
+                    "bound_ms", "bound_by")
             if dtype == f32:
                 rec.update({key: t[key] for key in keys})
             else:
@@ -1240,13 +1298,15 @@ def _gfold_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
         q, k, v = qkv[shape]
         b, h, s, d = shape
         want = attn.flash_attention_reference(q, k, v)
-        b_ms, b_by, terms = _attention_bound(b * h, s, s, d, 2 * 4 * b * h * s * d, PEAK_BF16,
-                                             exp_rate)
+        b_ms, b_by, terms = _attention_bound(b * h, s, s, d, 2 * 4 * b * h * s * d,
+                                             torch.bfloat16, exp_rate)
         t = dict(shape=list(shape), bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms,
                  plain_ms=_time_ms(lambda: attn.flash_attention_reference(q, k, v),
                                    max(3, iters // 4)),
                  library_ms=_time_ms(lambda: sdpa(q, k, v), iters),
-                 k3_ms=_time_ms(lambda: attn.flash_attention(q, k, v), iters), by_g={})
+                 library_graph_ms=_graph_ms(lambda: sdpa(q, k, v), iters),
+                 k3_ms=_time_ms(lambda: attn.flash_attention(q, k, v), iters),
+                 k3_graph_ms=_graph_ms(lambda: attn.flash_attention(q, k, v), iters), by_g={})
         for g in GFOLD:
             kernel = functools.partial(attn.flash_gfold, q, k, v, g=g)
             got = kernel()
@@ -1254,13 +1314,14 @@ def _gfold_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
             err, rel = _rel(got, want)
             if not torch.isfinite(got.float()).all() or rel > KERNEL_TOL:
                 _fail(f"flash_gfold {shape} g={g}: relative error {rel:.3e} > {KERNEL_TOL}")
-            t["by_g"][g] = dict(ms=_time_ms(kernel, iters), max_abs_err=err, max_rel_err=rel)
+            t["by_g"][g] = dict(ms=_time_ms(kernel, iters), graph_ms=_graph_ms(kernel, iters),
+                                max_abs_err=err, max_rel_err=rel, **_flash_plan(shape, g))
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             rec["max_rel_err"] = max(rec["max_rel_err"], rel)
         print("kernel-check flash_gfold", json.dumps(t), flush=True)
         rec["shapes"].append(t)
     main = rec["shapes"][0]
-    rec.update(ms=main["by_g"][GFOLD[-1]]["ms"],
+    rec.update(ms=main["by_g"][GFOLD[-1]]["ms"], graph_ms=main["by_g"][GFOLD[-1]]["graph_ms"],
                **{k: main[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
     return rec
 
@@ -1306,12 +1367,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    entry = ""
+    entry, flash = "", {}
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "registers" in line or "spill stores" in line:
             print(f"build: {entry}: {line.strip()}")
+            if "flash_fwd" in entry:  # registers and spills of each flash kernel
+                kernel = entry[entry.index("flash_fwd"):].split("EEEv")[0]
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("spill_stores", r"(\d+) bytes spill stores")):
+                    found = re.search(pat, line)
+                    if found:
+                        flash.setdefault(kernel, {})[key] = int(found.group(1))
+        elif "serialized" in line:
+            print(f"build: {line.strip()}")
+    print("build: flash kernels:", json.dumps(flash), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

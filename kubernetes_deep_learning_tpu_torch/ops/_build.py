@@ -6,8 +6,9 @@ to an object by its own ``nvcc``, all started together, and the objects are
 linked into one shared library.  It is built at first use from the
 package's own sources into a build directory (default ``ops/build/`` beside
 this file, listed in ``.gitignore``; override with
-``$KDLT_TORCH_BUILD_DIR``), named by a hash of every source and the flags
-so an edited source never loads a stale library.  A failed build raises:
+``$KDLT_TORCH_BUILD_DIR``), named by a hash of every source, every header
+(``csrc/*.cuh``) and the flags, so an edited source or header never loads
+a stale library.  A failed build raises:
 there is no fallback to another implementation.
 """
 
@@ -37,6 +38,11 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers() -> list[str]:
+    """``csrc/*.cuh``: included by the sources, so part of the library's key."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def build_dir() -> str:
     return os.environ.get(BUILD_DIR_ENV) or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"
@@ -55,7 +61,7 @@ def _nvcc() -> str:
 
 def _library_path() -> str:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -130,6 +136,10 @@ def load() -> ctypes.CDLL:
                 [ptr] * 4 + [i32] * 5 + [i64] * 9 + [i32] * 2 + [ctypes.c_float, ptr]
             )
             lib.kdlt_flash_attention_gfold.restype = i32
+            lib.kdlt_flash_attention_q_tile.argtypes = [i32] * 5
+            lib.kdlt_flash_attention_q_tile.restype = i32
+            lib.kdlt_flash_map_encode_us.argtypes = [ptr] + [i32] * 5
+            lib.kdlt_flash_map_encode_us.restype = ctypes.c_double
             lib.kdlt_entry_block.argtypes = [ptr] * 19 + [i32] * 6 + [ptr]
             lib.kdlt_entry_block.restype = i32
             lib.kdlt_error_string.argtypes = [i32]

@@ -9,13 +9,14 @@ The port of ``kubernetes_deep_learning_tpu/ops/attention.py``, on
   einsum route (scores from a matmul in the input dtype, then cast to f32
   and scaled; p cast to v's dtype for the PV product);
 - ``flash_attention``: online-softmax attention.  On a CUDA tensor it
-  launches K3 (``csrc/flash_attention.cu``: bf16 on tensor cores, f32 on
-  FMA; head dims 32, 64, 128) and adds one to its launch count; on a CPU
-  tensor it computes the plain version, ``flash_attention_reference``,
-  which rounds at the kernel's points: f32 scores of input-dtype operands,
-  f32 softmax statistics, p in the input dtype, f32 accumulation, and 0
-  for a row that no key is visible to.  With ``return_partials=True`` it
-  returns the unnormalised f32 ``(acc, m, l)`` instead: K3P on CUDA
+  launches K3 (``csrc/flash_attention.cu``: bf16 on TMA-fed wgmma, f32 as
+  3xTF32 tensor-core products; head dims 32, 64, 128) and adds one to its
+  launch count; on a CPU tensor it computes the plain version,
+  ``flash_attention_reference``, which rounds at the kernel's points: f32
+  scores of input-dtype operands, f32 softmax statistics, p in the input
+  dtype, f32 accumulation, and 0 for a row that no key is visible to.
+  With ``return_partials=True`` it returns the unnormalised f32
+  ``(acc, m, l)`` instead: K3P on CUDA
   (counted as ``flash_attention_partials``),
   ``flash_attention_partials_reference`` on the CPU;
 - ``flash_gfold``: non-causal flash attention with ``g`` (batch, head)

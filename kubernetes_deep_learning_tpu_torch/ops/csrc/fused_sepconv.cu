@@ -69,13 +69,14 @@
 // multiple of 8 and every pointer 16-byte aligned (16-byte vectors, TMA
 // strides); the launcher refuses anything else.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma descriptors and fences, the map encoder
 
 namespace {
 
@@ -125,64 +126,6 @@ struct Params {
   int xs_offset;        // bytes from the weight ring to the staging; 0: they share it
   int pre_relu, post_relu;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed.  A wait that
-// outlasts any real copy or MMA by orders of magnitude traps: a lost arrival
-// becomes a launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (tries == (1u << 24)) __trap();
-  }
-}
-
-// TMA: the box at (n, k) of `map` into shared memory at `dst`, completing
-// on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int n, int k,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(n), "r"(k), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D(64x64, f32) += A(64x16, K-major) * B(16x64, MN-major), both bf16 from
 // shared memory.
@@ -381,7 +324,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int kc = 0; kc < p.k_chunks; ++kc, ++i) {
       const int slot = i % p.stages;
       mbar_wait(smem_u32(&full_bar[slot]), (i / p.stages) & 1);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      wgmma_fence();
       const uint32_t a = panel_u + kc * CHUNK_BYTES;
       const uint32_t b = ring_u + slot * STAGE_BYTES + g * BOX_BYTES;
 #pragma unroll
@@ -391,13 +334,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         //    groups 1024 B apart (one box wide: the leading offset is unused).
         wgmma_m64n64k16(acc, smem_desc(a + k * 32, 16, 1024),
                         smem_desc(b + k * 2048, BOX_BYTES, 1024));
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      wgmma_commit();
       // One group stays in flight; the one before it is done with its slot.
-      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      wgmma_wait<1>();
       fence_acc(acc);
       if (kc > 0 && lane == 0) mbar_arrive(smem_u32(&empty_bar[(i - 1) % p.stages]));
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wgmma_wait<0>();
     fence_acc(acc);
     if (lane == 0) mbar_arrive(smem_u32(&empty_bar[(i - 1) % p.stages]));
 
@@ -432,28 +375,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled comes through the runtime's entry-point lookup, so
-// the library links no libcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                      cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? (EncodeTiled)f : nullptr;
-  }();
-  return fn;
 }
 
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }

@@ -9,6 +9,8 @@ running max in the kernel and against the final max in the plain version).
 
 from __future__ import annotations
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,3 +164,71 @@ def test_flash_gfold_rejects_a_fold_that_does_not_divide():
         with pytest.raises(ValueError, match="g must divide B\\*H = 6"):
             attn.flash_gfold(q, q, q, g=g)
     assert attn.flash_gfold(q, q, q, g=6).shape == q.shape
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> tf32, round to nearest with ties away from zero, on the bit
+    pattern (what ``cvt.rna.tf32.f32`` computes)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 kernel forms it: each operand split into
+    big = tf32(x) and small = tf32(x - big), and small.big + big.small +
+    big.big accumulated in f32 (the small.small term dropped)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small) + torch.matmul(a_big, b_big)
+
+
+def _partials_3xtf32(q, k, v, causal: bool):
+    """The f32 kernel's (acc, m, l): 3xTF32 products, the running max in raw
+    score units, exponentials as exp2(s * c - m * c) with c = scale *
+    log2(e) in f32, l summed from the f32 p."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _matmul_3xtf32(q, k.transpose(-1, -2))
+    if causal:
+        rows = torch.arange(q.shape[-2])[:, None]
+        s = s.masked_fill(rows < torch.arange(k.shape[-2])[None, :], attn.NEG_INF)
+    m = s.amax(dim=-1)
+    c = torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
+    p = torch.exp2(s * c - (m * c)[..., None])
+    return _matmul_3xtf32(p, v), m * torch.tensor(scale, dtype=torch.float32), p.sum(dim=-1)
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-6))
+
+
+@pytest.mark.parametrize("d,causal", [(32, False), (64, False), (128, False), (32, True),
+                                      (128, True)])
+def test_3xtf32_partials_keep_the_f32_contract(d, causal):
+    """The f32 kernel (K3P) forms its products as 3xTF32 on the tensor
+    cores.  Emulated here in torch, its partials at (2, 3, 256, d) stay
+    within 1e-5 relative (a tenth of the kernel's 1e-4 tolerance on the
+    card) of the exact f32 plain version and of JAX's f32 attend_block."""
+    _check_3xtf32(d, causal, std=1.0, tol=1e-5)
+
+
+def test_3xtf32_partials_at_large_scores():
+    """Inputs of std 8 (raw scores ~500): the exponent turns the split's
+    ~2^-22 relative error of a score into ~4e-5 of the partials, so the
+    emulation is held to the kernel's own 1e-4 here."""
+    _check_3xtf32(64, False, std=8.0, tol=1e-4)
+
+
+def _check_3xtf32(d: int, causal: bool, std: float, tol: float) -> None:
+    rng = np.random.default_rng(d + 7 * causal + int(std))
+    arrs = [rng.normal(0, std, (2, 3, 256, d)).astype(np.float32) for _ in range(3)]
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    got = _partials_3xtf32(q, k, v, causal)
+    plain = attn.flash_attention_partials_reference(q, k, v, causal=causal)
+    jax_p = jax_attn.attend_block(*(jnp.asarray(a) for a in arrs), causal=causal)
+    for g, w, j in zip(got, plain, jax_p):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel(g, w) < tol
+        assert _rel(g, j) < tol
+    # One TF32 pass alone would not hold the bound: the split is what does.
+    one_pass = torch.matmul(_tf32(q), _tf32(k).transpose(-1, -2))
+    assert _rel(one_pass, torch.matmul(q, k.transpose(-1, -2))) > 1e-5

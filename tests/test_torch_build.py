@@ -1,6 +1,6 @@
 """The port's kernel build (``ops/_build.py``) on the CPU, with a stand-in
 for ``nvcc``: one compile per ``csrc/*.cu``, one link of all objects, a
-library name keyed on every source, and no process left behind when a
+library name keyed on every source and header, and no process left behind when a
 compile fails.  (The real ``nvcc`` exists only on the GPU machine.)"""
 
 from __future__ import annotations
@@ -62,6 +62,22 @@ def test_library_name_keys_on_every_source(fake_tree):
     second = _build._library_path()
     (csrc / "c.cu").write_text("// c\n")
     assert len({first, second, _build._library_path()}) == 3
+
+
+def test_library_name_keys_on_every_header(fake_tree):
+    """A source's ``#include "x.cuh"`` is part of what it compiles to: an
+    edited or added header names a new library, and is not compiled alone."""
+    csrc, log = fake_tree
+    (csrc / "shared.cuh").write_text("// shared\n")
+    first = _build._library_path()
+    (csrc / "shared.cuh").write_text("// shared, edited\n")
+    second = _build._library_path()
+    (csrc / "more.cuh").write_text("// more\n")
+    third = _build._library_path()
+    assert len({first, second, third}) == 3
+    _build._compile(third)
+    compiled = [c.split()[-1] for c in log.read_text().splitlines() if " -c " in f" {c} "]
+    assert not [c for c in compiled if c.endswith(".cuh")]
 
 
 def test_failed_compile_raises_and_stops_the_others(fake_tree):

@@ -14,6 +14,10 @@ shapes, and the (batch, head)-folded flash attention (K3G), all at 2e-2.
 The stage kernel is also held at K5's stage shapes, block14's 1536-wide
 panel, bucket 1's N-split grid and an odd batch with the residual, and
 must refuse a width that is not a multiple of 8 and an unaligned input.
+The flash kernels (bf16 TMA + wgmma, f32 3xTF32) are held at head dims
+32, 64 and 128, at 1, 192, 576 and 577 query rows (both sides of every
+q-tile), on strided (B, S, H, D) views, and in f32 at inputs of std 8,
+whose large scores stress the 3xTF32 split (still 1e-4).
 """
 
 from __future__ import annotations
@@ -154,13 +158,16 @@ def test_cuda_stage_kernel_refuses_what_it_cannot_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("sq,sk,causal,k_offset,kv_len", [
     (576, 576, False, 0, None),     # ViT-B/16 at 384 px
     (200, 200, False, 0, None),     # ragged, one partial tile
     (100, 300, True, -64, None),    # Sq != Sk, causal with earlier keys
     (128, 256, False, 0, 190),      # pad keys masked by kv_len
     (64, 64, True, 10_000, None),   # every key in the causal future: all 0
+    (1, 300, False, 0, None),       # one query row
+    (577, 577, True, 0, None),      # ragged past 576 (64-, 128- and 192-row q-tiles)
+    (192, 320, False, 0, 250),      # exactly one 192-row q-tile, kv_len mid-tile
 ])
 def test_cuda_flash_attention_matches_plain_version(dtype, d, sq, sk, causal, k_offset, kv_len):
     _need_cuda()
@@ -220,13 +227,16 @@ def test_cuda_vit_forward_launches_the_kernel_once_per_block():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("sq,sk,causal,k_offset,kv_len", [
     (256, 256, False, 0, None),     # ViT-B/16 at 256 px: the training path
     (200, 200, False, 0, None),     # ragged, one partial tile
     (100, 300, True, -64, None),    # Sq != Sk, causal with earlier keys
     (128, 256, False, 0, 190),      # pad keys masked by kv_len
     (64, 64, True, 32, None),       # rows 0..31 see no key: (0, NEG_INF, 0)
+    (1, 300, False, 0, None),       # one query row
+    (577, 577, True, 0, None),      # ragged past 576
+    (192, 192, False, 0, None),     # exactly one 192-row q-tile
 ])
 def test_cuda_flash_attention_partials_match_plain_version(dtype, d, sq, sk, causal, k_offset,
                                                            kv_len):
@@ -251,6 +261,40 @@ def test_cuda_flash_attention_partials_match_plain_version(dtype, d, sq, sk, cau
         assert _rel(g[live], w[live]) < (2e-2 if dtype == torch.bfloat16 else 1e-4)
     acc, m, l = (t[~live] for t in got)
     assert not acc.any() and not l.any() and bool((m == attention.NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_attention_partials_read_strided_views(dtype):
+    """K3P on (B, S, H, D) projections viewed as (B, H, S, D), as the ViT's
+    training forward passes them: read in place, a ragged last tile taken
+    from its own head only."""
+    _need_cuda()
+    rng = np.random.default_rng(41)
+    q, k, v = (_t(rng, (2, 200, 12, 64), dtype=dtype).transpose(1, 2) for _ in range(3))
+    assert not q.is_contiguous()
+    got = attention.flash_attention(q, k, v, return_partials=True)
+    torch.cuda.synchronize()
+    want = attention.flash_attention_partials_reference(q, k, v)
+    for g, w in zip(got, want):
+        assert _rel(g, w) < (2e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_attention_f32_holds_at_large_scores(d):
+    """Inputs of std 8 (raw scores ~500) stress the 3xTF32 split: the f32
+    kernels, fused and partials, still within 1e-4 of the exact plain
+    versions."""
+    _need_cuda()
+    rng = np.random.default_rng(43 + d)
+    q, k, v = (_t(rng, (2, 3, 256, d), std=8.0) for _ in range(3))
+    got = attention.flash_attention(q, k, v, return_partials=True)
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    for g, w in zip(got, attention.flash_attention_partials_reference(q, k, v)):
+        assert _rel(g, w) < 1e-4
+    assert _rel(out, attention.flash_attention_reference(q, k, v)) < 1e-4
 
 
 @pytest.mark.cuda
@@ -398,6 +442,8 @@ def test_cuda_chain_at_entry_path_shapes(hw, widths):
     ((32, 12, 256, 64), torch.bfloat16),   # E5's own shape
     ((2, 4, 200, 64), torch.bfloat16),     # ragged: one partial tile
     ((2, 4, 100, 32), torch.float32),
+    ((16, 12, 576, 64), torch.bfloat16),   # ViT-B/16-384's shape
+    ((2, 4, 577, 128), torch.bfloat16),    # two swizzle atoms along D, a ragged q-tile
 ], ids=str)
 def test_cuda_flash_gfold_matches_plain_version(g, shape, dtype):
     _need_cuda()
