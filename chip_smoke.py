@@ -94,7 +94,10 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    plain version, a library yardstick (cuBLAS ``matmul`` for expand and
    project, cuDNN depthwise ``conv2d``, torch elementwise ops for BN,
    silu and the squeeze-excite: used nowhere in the port) and the bound,
-   each summed over the 18 calls of one bucket-16 forward;
+   each summed over the 18 calls of one bucket-16 forward; kernel and
+   yardstick also as device time by CUDA-graph replay (every case), and
+   each of K4's three launches alone (expand + depthwise, squeeze-excite,
+   projection) on the batch-16 lines;
 15. EfficientNet-B3 server: ``efficientnet-b3-imagenet`` (300 px, torch
    normalization) served the same way over the msgpack wire, on the fused
    route: 18 K4 launches per forward, logits near the exact f32 graph;
@@ -137,6 +140,7 @@ PEAK_BYTES = 3.35e12
 # throughput); the rate is this times the SMs times the card's max SM clock.
 SFU_EXP_PER_CLOCK_SM = 16
 KERNEL_TOL = 2e-2  # relative max error, bf16 kernel vs its plain version
+MBCONV_PHASES = ("expand_dw", "se", "project")  # K4's three launches
 F32_KERNEL_TOL = 1e-4  # the same for the f32 attention kernel
 MODEL_TOL = 5e-2   # relative max error, bf16 serving path vs exact f32 graph
 BUCKETS = (1, 4, 16)
@@ -995,6 +999,15 @@ def _library_mbconv(x, w, dw_oihw, residual: bool):
     return x + z if residual else z
 
 
+def _mbconv_split_ms(ops, x, w, residual: bool, iters: int) -> dict[str, float]:
+    """Device time of each of K4's three launches alone (CUDA-graph replay):
+    a launch alone reads the scratch as it finds it, so only its time counts."""
+    dims = ops._check(x, w, residual)
+    return {part: _graph_ms(functools.partial(ops._launch, x, w, dims, residual, bit), iters)
+            for part, bit in zip(MBCONV_PHASES, (ops.PHASE_EXPAND_DW, ops.PHASE_SE,
+                                                 ops.PHASE_PROJECT))}
+
+
 def _mbconv_phase(b3_params, seed: int, iters: int, gen: torch.Generator,
                   exp_rate: float) -> dict:
     """K4 at every fused block shape of a bucket-16 EfficientNet-B3 forward
@@ -1034,9 +1047,12 @@ def _mbconv_phase(b3_params, seed: int, iters: int, gen: torch.Generator,
     rec = dict(name="fused_mbconv_block", route="cuda", source=SOURCES["fused_mbconv_block"],
                replaces="kubernetes_deep_learning_tpu/ops/fused_mbconv.py:244",
                max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bound_ms=0.0, tol_rel=KERNEL_TOL,
+               bound_ms=0.0, graph_ms=0.0, library_graph_ms=0.0, tol_rel=KERNEL_TOL,
+               split_graph_ms={part: 0.0 for part in MBCONV_PHASES},
                per=f"the {B3_FUSED_PER_FORWARD} calls of one bucket-16 forward of "
-                   "efficientnet-b3-imagenet (300 px), summed; errors: max over the checked cases")
+                   "efficientnet-b3-imagenet (300 px), summed; errors: max over the checked "
+                   "cases; graph_ms: device time, CUDA-graph replay; split_graph_ms: each "
+                   "launch's device time alone")
     bound_t = {"bytes": 0.0, "operations": 0.0}
     for batch, (h, c_in, c_mid, c_out, k, residual), params, name, calls in cases:
         w = {key: t.to("cuda") for key, t in mbconv_block_weights(params, name).items()}
@@ -1058,15 +1074,19 @@ def _mbconv_phase(b3_params, seed: int, iters: int, gen: torch.Generator,
         err, rel = _rel(got, want)
         if rel > KERNEL_TOL:
             _fail(f"fused_mbconv_block {shape}: relative error {rel:.3e} > {KERNEL_TOL}")
-        t = dict(shape, max_abs_err=err, max_rel_err=rel, tol_rel=KERNEL_TOL)
+        t = dict(shape, max_abs_err=err, max_rel_err=rel, tol_rel=KERNEL_TOL,
+                 graph_ms=_graph_ms(kernel, iters), library_graph_ms=_graph_ms(library, iters))
         if calls:
             b_ms, b_by, terms = _mbconv_bound(batch, h, c_in, c_mid, c_out, s, k, exp_rate)
             t.update(ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
                      library_ms=_time_ms(library, iters),
                      library_vs_plain_rel=_rel(library(), want)[1],
-                     bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                     bound_ms=b_ms, bound_by=b_by, bound_terms_ms=terms,
+                     split_graph_ms=_mbconv_split_ms(ops, x, w, residual, iters))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms", "graph_ms", "library_graph_ms"):
                 rec[key] += calls * t[key]
+            for part, part_ms in t["split_graph_ms"].items():
+                rec["split_graph_ms"][part] += calls * part_ms
             bound_t[b_by] += calls * b_ms
         print("kernel-check fused_mbconv_block", json.dumps(t), flush=True)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)

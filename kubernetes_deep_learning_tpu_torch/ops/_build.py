@@ -122,7 +122,7 @@ def load() -> ctypes.CDLL:
             i64 = ctypes.c_longlong
             lib.kdlt_sepconv_stage.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
             lib.kdlt_sepconv_stage.restype = i32
-            lib.kdlt_mbconv_block.argtypes = [ptr] * 19 + [i32] * 10 + [ptr]
+            lib.kdlt_mbconv_block.argtypes = [ptr] * 18 + [i32] * 11 + [ptr]
             lib.kdlt_mbconv_block.restype = i32
             lib.kdlt_flash_attention.argtypes = (
                 [ptr] * 4 + [i32] * 5 + [i64] * 9 + [i32] * 4 + [ctypes.c_float, ptr]

@@ -10,8 +10,9 @@ project GEMM -> BN (-> + x), with ``w`` from ``weights.mbconv_block_weights``.
 ``residual=False`` serves the stride-1 stage openers whose width changes.
 
 On a CUDA tensor the wrapper launches the hand-written kernels of
-``csrc/fused_mbconv.cu`` (four launches: expand, depthwise, squeeze-excite,
-project) and adds one to its launch count; on a CPU tensor it computes the
+``csrc/fused_mbconv.cu`` (three launches: expand and depthwise fused, the
+expanded tile kept in shared memory; squeeze-excite; gated projection) and
+adds one to its launch count; on a CPU tensor it computes the
 plain PyTorch version beside it, ``mbconv_block_reference``.  Both follow
 the JAX ``mbconv_block_reference`` rounding point for rounding point:
 
@@ -48,6 +49,10 @@ _JAX_TILE_BUDGET = 32 << 20
 _JAX_MIN_TILE = 8
 # Depthwise kernel sizes the CUDA kernel is instantiated for.
 _KERNEL_SIZES = (3, 5)
+# The CUDA kernel's launches, as the bits of its ``phases`` mask.
+PHASE_EXPAND_DW, PHASE_SE, PHASE_PROJECT = 1, 2, 4
+PHASES_ALL = PHASE_EXPAND_DW | PHASE_SE | PHASE_PROJECT
+_SCRATCH_ALIGN = 256  # bytes between the scratch tensor's parts
 
 
 def launch_counts() -> dict[str, int]:
@@ -153,7 +158,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(x, w, dims: dict[str, int], residual: bool):
+def _launch(x, w, dims: dict[str, int], residual: bool, phases: int = PHASES_ALL):
+    """The kernel's launches on ``x``'s stream.  ``phases`` picks a part
+    (``PHASE_EXPAND_DW``, ``PHASE_SE``, ``PHASE_PROJECT``) only to time it:
+    a part alone reads whatever scratch the earlier parts left."""
     from kubernetes_deep_learning_tpu_torch.ops import _build
 
     if not x.is_contiguous() or not all(t.is_contiguous() for t in w.values()):
@@ -166,18 +174,21 @@ def _launch(x, w, dims: dict[str, int], residual: bool):
     lib = _build.load()
     b, h, wd, _ = x.shape
     c_mid, c_out = dims["c_mid"], dims["c_out"]
-    y_exp = torch.empty((b, h, wd, c_mid), dtype=torch.bfloat16, device=x.device)
-    y_dw = torch.empty_like(y_exp)
-    # Per-channel sums of each depthwise row band (the kernel picks at most h bands).
-    sums = torch.empty((b, h, c_mid), dtype=torch.float32, device=x.device)
-    gate = torch.empty((b, c_mid), dtype=torch.float32, device=x.device)
+    # One scratch tensor: y_dw (B,H,W,C_mid) bf16, the per-band channel sums
+    # (B, at most H bands, C_mid) f32 and the gate (B,C_mid) f32.
+    sizes = (b * h * wd * c_mid * 2, b * h * c_mid * 4, b * c_mid * 4)
+    offsets = [0]
+    for n in sizes[:-1]:
+        offsets.append(offsets[-1] + -(-n // _SCRATCH_ALIGN) * _SCRATCH_ALIGN)
+    scratch = torch.empty(offsets[-1] + sizes[-1], dtype=torch.uint8, device=x.device)
     out = torch.empty((b, h, wd, c_out), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    base = scratch.data_ptr()
     code = lib.kdlt_mbconv_block(
         x.data_ptr(), *(w[key].data_ptr() for key in _ORDER),
-        y_exp.data_ptr(), y_dw.data_ptr(), sums.data_ptr(), gate.data_ptr(), out.data_ptr(),
+        *(base + off for off in offsets), out.data_ptr(),
         b, h, wd, dims["c_in"], c_mid, c_out, dims["s"], dims["k"],
-        _sm_count(x.device.index or 0), int(residual), stream,
+        _sm_count(x.device.index or 0), int(residual), phases, stream,
     )
     _build.check(lib, code, "mbconv block")
     return out

@@ -8,7 +8,8 @@ another order), < 1e-4 for the f32 flash-attention kernels, fused (K3)
 and partials (K3P), and for the differentiable attention built on K3P
 (f32 sums in another order, a fast exponential).  The MBConv kernel is
 held at 2e-2 at every fused block shape of EfficientNet-B3 (300 px) and
-B0 (224 px); the entry-segment kernel (K5) at Xception's geometry and a
+B0 (224 px), at batch 17, at inputs of std 4, and replayed from a CUDA
+graph bit-equal to its eager call; the entry-segment kernel (K5) at Xception's geometry and a
 small ragged one, the stage kernel at the entry path's block 3 and 4
 shapes, and the (batch, head)-folded flash attention (K3G), all at 2e-2.
 The stage kernel is also held at K5's stage shapes, block14's 1536-wide
@@ -327,9 +328,13 @@ def _fused_shapes(width: float, depth: float, stem_hw: int, stem_c: int) -> list
                    for b in routes if b.fused})
 
 
+_B3_FUSED = _fused_shapes(1.2, 1.4, 150, 40)
+_B3_BLOCK6 = (38, 48, 288, 48, 5, True)      # the 38x38 stage: bands of rows, a ragged last one
+_B3_BLOCK25 = (10, 384, 2304, 384, 3, True)  # the widest: one band, 64-row tiles straddle images
 _MBCONV_CASES = (
-    [(batch, shape) for shape in _fused_shapes(1.2, 1.4, 150, 40) for batch in (1, 3, 16)]
+    [(batch, shape) for shape in _B3_FUSED for batch in (1, 3, 16)]
     + [(2, shape) for shape in _fused_shapes(1.0, 1.0, 112, 32)]
+    + [(17, _B3_BLOCK6), (17, _B3_BLOCK25)]
 )
 
 
@@ -345,16 +350,21 @@ def _mbconv_weights(rng, c_in, c_mid, c_out, k, s):
         proj_b=_t(rng, (c_out,), 0.1))
 
 
+def _mbconv_case(batch, shape, std=1.0):
+    h, c_in, c_mid, c_out, k, residual = shape
+    rng = np.random.default_rng(h + c_in + c_out + batch)
+    x = _t(rng, (batch, h, h, c_in), std, torch.bfloat16)
+    return x, _mbconv_weights(rng, c_in, c_mid, c_out, k, se_features(c_in)), residual
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,shape", _MBCONV_CASES, ids=str)
 def test_cuda_mbconv_matches_plain_version(batch, shape):
-    """The four-launch MBConv kernel against its plain version, and the
+    """The three-launch MBConv kernel against its plain version, and the
     same bits on a second call (the squeeze-excite sums are deterministic)."""
     _need_cuda()
     h, c_in, c_mid, c_out, k, residual = shape
-    rng = np.random.default_rng(h + c_in + c_out + batch)
-    x = _t(rng, (batch, h, h, c_in), dtype=torch.bfloat16)
-    w = _mbconv_weights(rng, c_in, c_mid, c_out, k, se_features(c_in))
+    x, w, residual = _mbconv_case(batch, shape)
     fused_mbconv.reset_launch_counts()
     got = fused_mbconv.fused_mbconv_block(x, w, residual)
     again = fused_mbconv.fused_mbconv_block(x, w, residual)
@@ -363,6 +373,40 @@ def test_cuda_mbconv_matches_plain_version(batch, shape):
     assert got.shape == (batch, h, h, c_out) and torch.isfinite(got.float()).all()
     assert torch.equal(got, again)
     assert _rel(got, fused_mbconv.mbconv_block_reference(x, w, residual)) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _B3_FUSED, ids=str)
+def test_cuda_mbconv_holds_at_large_inputs(shape):
+    """Inputs of std 4 (large expanded values, band sums and gates near 0
+    or 1): still within 2e-2 of the plain version, at batch 16."""
+    _need_cuda()
+    x, w, residual = _mbconv_case(16, shape, std=4.0)
+    got = fused_mbconv.fused_mbconv_block(x, w, residual)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, fused_mbconv.mbconv_block_reference(x, w, residual)) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,shape", [(16, _B3_BLOCK6), (3, _B3_BLOCK25)], ids=str)
+def test_cuda_mbconv_graph_replay_is_bit_equal(batch, shape):
+    """The block captured in a CUDA graph (its scratch allocated inside the
+    capture) and replayed gives the eager call's bits."""
+    _need_cuda()
+    x, w, residual = _mbconv_case(batch, shape)
+    eager = fused_mbconv.fused_mbconv_block(x, w, residual)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_mbconv.fused_mbconv_block(x, w, residual)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_mbconv.fused_mbconv_block(x, w, residual)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda

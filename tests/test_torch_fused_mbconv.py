@@ -9,16 +9,24 @@ squeeze-excite and the gate, where the reference rounds it to bf16), on
 the same numpy-made inputs.  The JAX reference has no ``residual=False``
 form, so the stage-opener case is held against the Pallas kernel only.
 The CUDA kernel itself is held against the plain version in
-``test_torch_cuda.py``.
+``test_torch_cuda.py``; here its order of work (row bands with their halo
+recomputed, the expanded tile zero outside the image, band sums, the
+projection over 64-row tiles gated row by row) is emulated in plain torch
+and held against both references within one bf16 ulp of the largest
+output (8e-3), with almost every output equal to the port's reference.
 """
 
 from __future__ import annotations
+
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from kubernetes_deep_learning_tpu.models.efficientnet import MBConvBlock
 from kubernetes_deep_learning_tpu.ops import fused_mbconv as jax_ops
@@ -144,3 +152,114 @@ def test_wrapper_rejects_bad_operands():
         ops.fused_mbconv_block(x, {**w, "se_e_w": w["se_e_w"].float()}, residual=False)
     with pytest.raises(ValueError, match="keys"):
         ops.fused_mbconv_block(x, {k: v for k, v in w.items() if k != "proj_b"}, residual=False)
+
+
+def _gemm(a, b):
+    return a.float() @ b.float()
+
+
+def _banded_block(x, w, rows: int, pad_x: bool = False):
+    """The CUDA kernel's order of work in plain torch, with its rounding
+    points.  Per band of ``rows`` output rows: the expand over the band's
+    input rows with the depthwise halo (clipped to the image) into a tile E
+    that is zero outside the image, the depthwise from E, and the band's
+    channel sums of the stored bf16 values; the gate from the band sums
+    added in band order; then the projection over 64-row tiles of the
+    flattened pixels, each row gated with its own image's gate (a tile
+    straddles images).  ``pad_x`` pads x with zero rows and columns instead
+    of E: the trap, since the expand of a zero pixel is silu(expand_b)."""
+    bf = torch.bfloat16
+    B, H, W, _ = x.shape
+    k = w["dw"].shape[0]
+    p = k // 2
+    c_mid, c_out = w["expand_w"].shape[1], w["proj_w"].shape[1]
+
+    def expand(t):
+        return F.silu(_gemm(t, w["expand_w"]) * w["expand_s"] + w["expand_b"]).to(bf)
+
+    y_dw = torch.empty((B, H, W, c_mid), dtype=bf)
+    band_sums = []
+    for h0 in range(0, H, rows):
+        h1 = min(H, h0 + rows)
+        if pad_x:
+            xp = F.pad(x, (0, 0, p, p, p, p))
+            e = expand(xp[:, h0 : h1 + 2 * p])
+        else:
+            hh0, hh1 = max(0, h0 - p), min(H, h1 + p)
+            e = torch.zeros((B, h1 - h0 + 2 * p, W + 2 * p, c_mid), dtype=bf)
+            e[:, hh0 - h0 + p : hh1 - h0 + p, p : p + W] = expand(x[:, hh0:hh1])
+        acc = torch.zeros((B, h1 - h0, W, c_mid))
+        for a in range(k):
+            for b in range(k):
+                acc = acc + e[:, a : a + h1 - h0, b : b + W].float() * w["dw"][a, b]
+        band = F.silu(acc * w["dw_s"] + w["dw_b"]).to(bf)
+        y_dw[:, h0:h1] = band
+        band_sums.append(band.float().sum(dim=(1, 2)))
+    total = band_sums[0]
+    for t in band_sums[1:]:
+        total = total + t
+    r = F.silu(_gemm((total / (H * W)).to(bf), w["se_r_w"]) + w["se_r_b"])
+    g = torch.sigmoid(_gemm(r.to(bf), w["se_e_w"]) + w["se_e_b"])
+
+    flat = y_dw.reshape(B * H * W, c_mid)
+    image = torch.arange(B * H * W) // (H * W)
+    z = torch.empty((B * H * W, c_out), dtype=bf)
+    for m0 in range(0, B * H * W, 64):
+        tile = slice(m0, m0 + 64)
+        gated = (flat[tile].float() * g[image[tile]]).to(bf)
+        z[tile] = (_gemm(gated, w["proj_w"]) * w["proj_s"] + w["proj_b"]).to(bf)
+    return x + z.reshape(B, H, W, c_out)
+
+
+_ONE_ULP = 8e-3  # one bf16 ulp of the largest output, relative to it (<= 2**-7)
+_BANDED_CASES = [
+    ((3, 10, 10, 232), 1392, 5, 58, 4),  # 64-row tiles straddle images; bands 4, 4, 2
+    ((2, 38, 38, 48), 288, 5, 12, 6),    # bands of 6 rows, a ragged last band of 2
+]
+
+
+@pytest.mark.parametrize("shape,c_mid,k,s,rows", _BANDED_CASES, ids=["10x10-232", "38x38-48"])
+def test_banded_decomposition_matches_references(shape, c_mid, k, s, rows):
+    rng = np.random.default_rng(sum(shape) + rows)
+    x_j, x_t = _both(rng.normal(0, 1, shape), jnp.bfloat16)
+    wj, wt = _weights(rng, shape[-1], c_mid, shape[-1], k, s)
+    got = _banded_block(x_t, wt, rows).float().numpy()
+    # The band sums add the same values in another order than either
+    # reference's mean, which may move an output by one bf16 ulp: at most
+    # 2**-7 of the largest output.  Against the port's reference, whose
+    # rounding points the emulation shares, almost every output is equal
+    # (measured: 3 of 69,600 and 0 of 138,624 differ).
+    want = ops.mbconv_block_reference(x_t, wt).float().numpy()
+    assert _rel(got, want) < _ONE_ULP
+    assert (got != want).mean() < 1e-3
+    assert _rel(got, jax_ops.mbconv_block_reference(x_j, wj)) < _ONE_ULP
+
+
+def test_banded_decomposition_padding_x_instead_of_e_is_caught():
+    """Zero padding of x, not of the expanded activation, gives
+    silu(expand_b) at the border: the emulation then misses the reference
+    by more than 1e-2 (measured 2.0e-2), so the test above catches it."""
+    shape, c_mid, k, s, rows = _BANDED_CASES[1]
+    rng = np.random.default_rng(sum(shape) + rows)
+    _, x_t = _both(rng.normal(0, 1, shape), jnp.bfloat16)
+    _, wt = _weights(rng, shape[-1], c_mid, shape[-1], k, s)
+    want = ops.mbconv_block_reference(x_t, wt).float().numpy()
+    assert _rel(_banded_block(x_t, wt, rows, pad_x=True).float().numpy(), want) > 1e-2
+
+
+def test_ablation_script_finds_the_lines_it_ablates():
+    """``mbconv_ablation.py`` edits the CUDA source by text: every ablation
+    must still find its lines, so that it measures what it names."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "mbconv_ablation", os.path.join(root, "mbconv_ablation.py"))
+    ablation = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablation)
+    with open(os.path.join(root, "kubernetes_deep_learning_tpu_torch", "ops", "csrc",
+                           "fused_mbconv.cu")) as f:
+        src = f.read()
+    variants = ablation._variants(src)
+    assert variants["kernel"] == (src, "")
+    for name, (text, launch) in variants.items():
+        if name != "kernel":
+            assert text != src and launch in ablation.LAUNCHES, name
