@@ -18,8 +18,10 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    events;
    Then one ``stage`` line for every shape at which a main path launches
    the stage kernel (K1, K2 at buckets 16 and 1, the entry path's blocks 3
-   and 4, K5's two stages): one launch against its plain version, its time
-   beside the library stage and the bound, and its GEMM rate;
+   and 4) and on a wide image (147x147, 64 and 128 channels: the stages K5
+   launched before it kept them on chip; no path launches them now): one
+   launch against its plain version, its time beside the library stage
+   and the bound, and its GEMM rate;
 4. Xception server: writes a ``clothing-model`` artifact with random
    weights from ``--seed`` (flax layout, the port's own msgpack writer),
    starts the port's model server with buckets (1, 4, 16), warms it and
@@ -35,7 +37,9 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    256->728->728, batch 16), against their plain versions (< 2e-2); times
    kernel, plain version, a library yardstick (cuDNN ``conv2d`` for conv2
    and the depthwise, cuBLAS ``matmul`` for the 1x1s, torch elementwise
-   and max-pool: used nowhere in the port) and the bound.  Then the
+   and max-pool: used nowhere in the port) and the bound, and K5 and the
+   yardstick as device time by CUDA-graph replay, with the segment length
+   the launcher picked (one launch a call; b, c and d stay on chip).  Then the
    entry-kernel forward (``XceptionFast(entry_kernel=True)``): 1 K5, 8 K1
    and 4 K2 launches per forward for batches 1, 3, 16, logits within 2e-2
    of the default fused route and of the exact f32 graph, p50 and img/s of
@@ -297,7 +301,8 @@ def _kernel_phase(params, iters: int, gen: torch.Generator) -> list[dict]:
 
 # Every (batch, side, C_in, C_out) at which the main paths launch the stage
 # kernel, with the stage's relus: K1, K2 (and bucket 1), the entry path's
-# blocks 3 and 4, and K5's two stages.
+# blocks 3 and 4; and a wide image, 147x147 (the two stages K5 launched
+# before it kept its sepconvs on chip; no path launches them now).
 STAGE_SHAPES = (
     ("middle (K1)", 16, 19, 728, 728, True, False),
     ("middle (K1), bucket 1", 1, 19, 728, 728, True, False),
@@ -309,8 +314,8 @@ STAGE_SHAPES = (
     ("entry block 3 (K2)", 16, 74, 256, 256, True, False),
     ("entry block 4 (K2)", 16, 37, 256, 728, True, False),
     ("entry block 4 (K2)", 16, 37, 728, 728, True, False),
-    ("K5 sepconv1", 16, 147, 64, 128, False, True),
-    ("K5 sepconv2", 16, 147, 128, 128, False, False),
+    ("wide 147x147 (no path)", 16, 147, 64, 128, False, True),
+    ("wide 147x147 (no path)", 16, 147, 128, 128, False, False),
 )
 
 
@@ -1134,7 +1139,7 @@ def _entry_kernel_phase(params, iters: int, gen: torch.Generator) -> tuple[dict,
     block 3 and 4 shapes (batch 16), against their plain versions; times
     at batch 16.  Returns (K5's record, K2's entry-path shapes)."""
     from kubernetes_deep_learning_tpu_torch import weights
-    from kubernetes_deep_learning_tpu_torch.ops import fused_entry
+    from kubernetes_deep_learning_tpu_torch.ops import _build, fused_entry
     from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv as ops
 
     p = {k: v.to("cuda") for k, v in params.items()}
@@ -1145,7 +1150,7 @@ def _entry_kernel_phase(params, iters: int, gen: torch.Generator) -> tuple[dict,
                replaces="kubernetes_deep_learning_tpu/ops/fused_entry.py:283",
                also_replaces="exp/fused_entry.py:257", max_abs_err=0.0, max_rel_err=0.0,
                tol_rel=KERNEL_TOL, per="one call at (16, 149, 149, 32) -> (16, 74, 74, 128); "
-               "errors: max over batches 1, 3, 16")
+               "errors: max over batches 1, 3, 16; graph_ms: device time, CUDA-graph replay")
     for batch in ENTRY_BATCHES:
         x = torch.randn((batch, 149, 149, c_in), generator=gen, device="cuda").to(torch.bfloat16)
         kernel = functools.partial(fused_entry.fused_entry_block, x, w)
@@ -1164,9 +1169,12 @@ def _entry_kernel_phase(params, iters: int, gen: torch.Generator) -> tuple[dict,
             b_ms, b_by, terms = _entry_bound(batch, 149, c_in, c_b, c_out)
             t.update(ms=_time_ms(kernel, iters), plain_ms=_time_ms(plain, max(3, iters // 4)),
                      library_ms=_time_ms(library, iters),
+                     graph_ms=_graph_ms(kernel, iters), library_graph_ms=_graph_ms(library, iters),
                      library_vs_plain_rel=_rel(library(), want)[1],
-                     bound_ms=b_ms, bound_by=b_by, bound_terms=terms)
-            rec.update({k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                     bound_ms=b_ms, bound_by=b_by, bound_terms=terms,
+                     segment_rows=_build.load().kdlt_entry_block_rows(batch, 149, 149))
+            rec.update({k: t[k] for k in ("ms", "plain_ms", "library_ms", "graph_ms",
+                                          "library_graph_ms", "bound_ms", "bound_by")})
         print("kernel-check fused_entry_block", json.dumps(t), flush=True)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["max_rel_err"] = max(rec["max_rel_err"], rel)

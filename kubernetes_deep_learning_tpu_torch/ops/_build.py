@@ -140,8 +140,10 @@ def load() -> ctypes.CDLL:
             lib.kdlt_flash_attention_q_tile.restype = i32
             lib.kdlt_flash_map_encode_us.argtypes = [ptr] + [i32] * 5
             lib.kdlt_flash_map_encode_us.restype = ctypes.c_double
-            lib.kdlt_entry_block.argtypes = [ptr] * 19 + [i32] * 6 + [ptr]
+            lib.kdlt_entry_block.argtypes = [ptr] * 16 + [i32] * 7 + [ptr]
             lib.kdlt_entry_block.restype = i32
+            lib.kdlt_entry_block_rows.argtypes = [i32] * 3
+            lib.kdlt_entry_block_rows.restype = i32
             lib.kdlt_error_string.argtypes = [i32]
             lib.kdlt_error_string.restype = ctypes.c_char_p
             _lib = lib

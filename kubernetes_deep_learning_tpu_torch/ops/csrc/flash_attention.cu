@@ -204,20 +204,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big
   mma_tf32(c, a_big, bb0, bb1);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Keys [k0, k0 + F_BK) of K and V into a ring stage; keys at or past Sk
 // are zero-filled.
 template <int D>

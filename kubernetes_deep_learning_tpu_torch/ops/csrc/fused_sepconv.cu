@@ -8,8 +8,6 @@
 //   fused_sepconv_chain_t  (pallas_call at :307) -- the exit-flow chains
 //       (block13 728->728->1024, block14 1024->1536->2048): one launch per
 //       stage.
-// fused_entry.cu launches it twice more for the sepconvs of
-// fused_entry_block_t (kubernetes_deep_learning_tpu/ops/fused_entry.py:283).
 // The Python wrappers are in ../fused_sepconv.py; their plain PyTorch
 // version (stage_reference) defines the arithmetic this kernel reproduces,
 // rounding point for rounding point:
@@ -126,26 +124,6 @@ struct Params {
   int xs_offset;        // bytes from the weight ring to the staging; 0: they share it
   int pre_relu, post_relu;
 };
-
-__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
 
 // One 64-channel chunk of the band's depthwise panel, from the staged input
 // (pixel m0 - W - 1 + s at row s of `xs`, 128 B a row).  Consumer thread t
@@ -359,7 +337,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // first weight stages load while the panel is built, or shares the ring's
 // room, which it leaves before they load.  Sharing is taken where it puts
 // more blocks on an SM and `crowded` says the grid has blocks to fill them
-// (many bands of few channels: K5's 147x147 stages).  Fills the ring and
+// (many bands of few channels: wide images such as 147x147).  Fills the ring and
 // staging fields of p; returns the dynamic shared memory, or -1.
 int plan_smem(Params& p, int W, bool crowded) {
   const int panel_bytes = p.k_chunks * CHUNK_BYTES;

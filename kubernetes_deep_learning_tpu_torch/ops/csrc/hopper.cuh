@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (fused_sepconv.cu, flash_attention.cu, fused_mbconv.cu): mbarriers, TMA
-// tensor loads, wgmma shared-memory descriptors, fences and the m64n64k16
-// product, the lookup of cuTensorMapEncodeTiled and a 2-D map.
+// (fused_sepconv.cu, flash_attention.cu, fused_mbconv.cu, fused_entry.cu):
+// bf16 vector packing, mbarriers, cp.async and TMA tensor loads, wgmma
+// shared-memory descriptors, fences and the m64n64k16 product, the lookup
+// of cuTensorMapEncodeTiled and a 2-D map.
 // Inline PTX only: no CuTe, no libcuda link.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,6 +46,43 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
     if (tries == (1u << 24)) __trap();
   }
+}
+
+// Eight bf16 values (one 16-byte vector) to f32 and back (round to nearest).
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// cp.async: 16 bytes from device memory into shared memory at `dst`, or 16
+// zero bytes where `valid` is false (nothing is read then).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // TMA: the box at (n, k) of `map` into shared memory at `dst`, completing

@@ -39,6 +39,10 @@ from kubernetes_deep_learning_tpu_torch.ops.fused_sepconv import stage_reference
 WEIGHT_KEYS = ("conv2", "conv2_s", "conv2_b", "res", "res_s", "res_b", "dw1", "pw1",
                "bn1_s", "bn1_b", "dw2", "pw2", "bn2_s", "bn2_b")
 
+# The kernel's widths: conv2's K = 9 * C_in in five 64-deep boxes, C_b in one
+# wgmma N, C_out in two (csrc/fused_entry.cu).
+MAX_C_IN, MAX_C_B, MAX_C_OUT = 32, 64, 128
+
 _counts_lock = threading.Lock()
 _launches = {"fused_entry_block": 0}
 
@@ -109,11 +113,20 @@ def _check(x, w) -> tuple[int, int, int]:
 def fused_entry_block(x, w):
     """conv2 + block2 of Xception's entry flow (see module doc); NHWC bf16
     in and out."""
+    if x.device.type != "cpu":
+        return _launch(x, w)
+    _check(x, w)
+    return entry_block_reference(x, w)
+
+
+def _launch(x, w, rows: int = 0):
+    """One launch of K5 on a CUDA tensor; ``rows`` > 0 forces the walk's
+    segment length (output rows a work unit), 0 lets the launcher choose."""
     c_in, c_b, c_out = _check(x, w)
-    if x.device.type == "cpu":
-        return entry_block_reference(x, w)
-    if any(c % 8 for c in (c_in, c_b, c_out)):
-        raise ValueError(f"the CUDA kernel takes widths that are multiples of 8, got "
+    if any(c % 8 for c in (c_in, c_b, c_out)) or c_in > MAX_C_IN or c_b > MAX_C_B or (
+            c_out > MAX_C_OUT):
+        raise ValueError(f"the CUDA kernel takes widths that are multiples of 8, C_in <= "
+                         f"{MAX_C_IN}, C_b <= {MAX_C_B}, C_out <= {MAX_C_OUT}; got "
                          f"{(c_in, c_b, c_out)}")
     for t in (x, *(w[k] for k in WEIGHT_KEYS)):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -122,14 +135,11 @@ def fused_entry_block(x, w):
 
     lib = _build.load()
     bsz, h, wd, _ = x.shape
-    h_b, w_b = h - 2, wd - 2
-    empty = lambda *s: torch.empty(s, dtype=torch.bfloat16, device=x.device)  # noqa: E731
-    b, c, d = empty(bsz, h_b, w_b, c_b), empty(bsz, h_b, w_b, c_out), empty(bsz, h_b, w_b, c_out)
-    out = empty(bsz, (h_b + 1) // 2, (w_b + 1) // 2, c_out)
+    out = torch.empty((bsz, (h - 1) // 2, (wd - 1) // 2, c_out), dtype=torch.bfloat16,
+                      device=x.device)
     code = lib.kdlt_entry_block(
-        x.data_ptr(), *(w[k].data_ptr() for k in WEIGHT_KEYS),
-        b.data_ptr(), c.data_ptr(), d.data_ptr(), out.data_ptr(),
-        bsz, h, wd, c_in, c_b, c_out, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), *(w[k].data_ptr() for k in WEIGHT_KEYS), out.data_ptr(),
+        bsz, h, wd, c_in, c_b, c_out, rows, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "fused entry block")
     _count("fused_entry_block")

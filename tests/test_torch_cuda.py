@@ -9,10 +9,13 @@ and partials (K3P), and for the differentiable attention built on K3P
 (f32 sums in another order, a fast exponential).  The MBConv kernel is
 held at 2e-2 at every fused block shape of EfficientNet-B3 (300 px) and
 B0 (224 px), at batch 17, at inputs of std 4, and replayed from a CUDA
-graph bit-equal to its eager call; the entry-segment kernel (K5) at Xception's geometry and a
-small ragged one, the stage kernel at the entry path's block 3 and 4
-shapes, and the (batch, head)-folded flash attention (K3G), all at 2e-2.
-The stage kernel is also held at K5's stage shapes, block14's 1536-wide
+graph bit-equal to its eager call; the entry-segment kernel (K5) at Xception's geometry
+(batches 1, 3, 16 and 17, an even side of 150), a small ragged one,
+with segments of one output row, and replayed from a CUDA graph
+bit-equal to its eager call; the stage kernel at the entry path's block
+3 and 4 shapes, and the (batch, head)-folded flash attention (K3G), all
+at 2e-2.  The stage kernel is also held on a wide image (147x147, 64 and
+128 channels), block14's 1536-wide
 panel, bucket 1's N-split grid and an odd batch with the residual, and
 must refuse a width that is not a multiple of 8 and an unaligned input.
 The flash kernels (bf16 TMA + wgmma, f32 3xTF32) are held at head dims
@@ -98,15 +101,16 @@ def _need_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,hw,stages", [
-    (1, 147, ((64, 128, False, True), (128, 128, False, False))),  # K5's two stages
+    (1, 147, ((64, 128, False, True), (128, 128, False, False))),  # a wide image (K5's old stages)
     (3, 147, ((64, 128, False, True), (128, 128, False, False))),
     (1, 10, ((1536, 2048, False, True),)),   # block14's second stage: the 192 KB panel
     (16, 10, ((1536, 2048, False, True),)),
     (1, 19, ((728, 728, True, False),)),     # bucket 1: 6 bands x 6 N groups
 ], ids=str)
 def test_cuda_stage_kernel_shapes(batch, hw, stages):
-    """One stage-kernel launch per stage at the shapes of K5, block14 and
-    bucket 1, against the plain version."""
+    """One stage-kernel launch per stage on a wide image (147x147, the
+    shapes K5 used before it kept its sepconvs on chip), at block14's and
+    at bucket 1's, against the plain version."""
     _need_cuda()
     rng = np.random.default_rng(batch * hw + stages[0][0])
     x = _t(rng, (batch, hw, hw, stages[0][0]), dtype=torch.bfloat16)
@@ -452,6 +456,8 @@ def _entry_weights(rng, c_in, c_b, c_out):
     (3, 149, 149, 32, 64, 128),
     (16, 149, 149, 32, 64, 128),
     (3, 24, 19, 16, 24, 40),      # even and odd sides, K and N tails
+    (17, 149, 149, 32, 64, 128),  # not a multiple of 8; many work units
+    (2, 150, 150, 32, 64, 128),   # even sides at Xception's widths: no leading pool pad
 ], ids=str)
 def test_cuda_entry_block_matches_plain_version(batch, h, w, c_in, c_b, c_out):
     _need_cuda()
@@ -465,6 +471,46 @@ def test_cuda_entry_block_matches_plain_version(batch, h, w, c_in, c_b, c_out):
     assert got.shape == (batch, (h - 1) // 2, (w - 1) // 2, c_out)
     assert torch.isfinite(got.float()).all()
     assert _rel(got, fused_entry.entry_block_reference(x, wt)) < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,h,w,c_in,c_b,c_out,rows", [
+    (2, 149, 149, 32, 64, 128, 1),  # segments of one output row: warm-up every row
+    (3, 24, 19, 16, 24, 40, 1),
+    (1, 149, 149, 32, 64, 128, 74),  # one segment an image
+], ids=str)
+def test_cuda_entry_block_segment_lengths(batch, h, w, c_in, c_b, c_out, rows):
+    """The walk forced to segments of ``rows`` output rows gives the plain
+    version's result (the launcher's choice is tested above)."""
+    _need_cuda()
+    rng = np.random.default_rng(batch + h + rows)
+    x = _t(rng, (batch, h, w, c_in), dtype=torch.bfloat16)
+    wt = _entry_weights(rng, c_in, c_b, c_out)
+    got = fused_entry._launch(x, wt, rows)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, fused_entry.entry_block_reference(x, wt)) < 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_entry_block_graph_replay_is_bit_equal():
+    """K5 captured in a CUDA graph and replayed gives the eager call's bits."""
+    _need_cuda()
+    rng = np.random.default_rng(16)
+    x = _t(rng, (16, 149, 149, 32), dtype=torch.bfloat16)
+    wt = _entry_weights(rng, 32, 64, 128)
+    eager = fused_entry.fused_entry_block(x, wt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_entry.fused_entry_block(x, wt)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fused_entry.fused_entry_block(x, wt)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda

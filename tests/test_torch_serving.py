@@ -379,9 +379,9 @@ def test_keep_alive_requests_do_not_stall_on_nagle(tmp_path):
 
 
 def test_port_imports_no_jax_flax_or_jax_package():
-    """Every port module (and chip_smoke.py, mbconv_ablation.py) imports
-    without jax, flax, optax, orbax, msgpack, PIL or the JAX package: none
-    of them is on the GPU machine.  The port's own name starts with the JAX
+    """Every port module (and chip_smoke.py, mbconv_ablation.py,
+    entry_ablation.py) imports without jax, flax, optax, orbax, msgpack,
+    PIL or the JAX package: none of them is on the GPU machine.  The port's own name starts with the JAX
     package's, so match the package name exactly or with a trailing dot."""
     code = """
 import importlib, pkgutil, sys
@@ -390,6 +390,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import chip_smoke
 import mbconv_ablation
+import entry_ablation
 bad = sorted(
     k for k in sys.modules
     for root in ("jax", "flax", "optax", "orbax", "msgpack", "PIL",
