@@ -30,7 +30,23 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    graph, that the engine took the fused fast path, and that the requests
    went through the kernels (8 K1 and 2 K2 launches per forward); then
    the p50 of a 1-image request on a fresh connection against one kept
-   alive, and img/s and p50 per bucket;
+   alive, and img/s and p50 per bucket.  Then the batching phase: the
+   host CPU time of a default and a ``blocking=True`` CUDA event's wait
+   (``event-wait``); then three servers of the same model with buckets
+   (1, 2, 4, 8, 16, 32) -- batching off, at depth 1 and at depth 2 (the
+   default) -- each driven three times, in turns, by the load generator
+   (``serving/loadgen.py``, a process of its own): 32 closed-loop clients
+   on kept-alive connections, 25 one-image msgpack requests each, every
+   request its own image.  Per run one ``batching`` line: img/s, p50 and
+   p99 of the request time, forwards, mean batch, padding rows, the mean
+   ms a batch of the engine's dispatch->sync and of each dispatcher
+   stage, and the K1 and K2 launches, which must be 8 and 2 per forward
+   (per arm, a ``batching-arm`` line of medians).  Every reply must lie
+   within 5e-2 of the exact f32 graph for its own image, and nearer to
+   that image's logits alone through the same engine (bucket 1) than to
+   any other image's.  One more depth-2 run, traced, gives the device's
+   busy share, beside the dispatch stage's ms at buckets 16 and 32 with
+   no load (``batching-profile``);
 5. Xception entry-kernel path: K5 (conv2 + block2) at 149x149x32 ->
    74x74x128, batches 1, 3 and 16, with the clothing model's weights, and
    K2 at blocks 3 and 4 of that path (74x74 128->256->256, 37x37
@@ -108,7 +124,9 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    then the same requests on a ``fast=False`` bf16 engine (the exact
    graph: no K4 launch, the fused route within 2e-2 relative of it) and
    its bucket-16 p50, so the default route can be chosen on this card;
-16. with ``--profile``: a ``torch.profiler`` trace of a few bucket-16
+16. with ``--profile``: the host time by op of a few bucket-16
+   ``predict_async`` dispatches of the batching phase's engine
+   (``batching-host``); a ``torch.profiler`` trace of a few bucket-16
    forwards of each served model (and of B3's ``fast=False`` engine, and
    of the Xception entry-kernel and default forwards) and of a few f32 and
    bf16 training steps, printed as device time by kernel and the device's
@@ -123,6 +141,7 @@ import argparse
 import functools
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -171,6 +190,11 @@ GFOLD = (1, 4, 8)           # (batch, head) pairs per block for K3G
 # E5's own shape (exp/vit_attn_variants.py) and ViT-B/16-384's, bf16.
 GFOLD_SHAPES = ((32, 12, 256, 64), (16, 12, 576, 64))
 B3_FUSED_PER_FORWARD = 18  # EfficientNet-B3's blocks on K4 at 300 px
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)  # the batching phase's server
+LOAD_CLIENTS = 32   # closed-loop clients, one kept-alive connection each
+LOAD_REQUESTS = 25  # one-image msgpack requests per client, each its own image
+# The batching phase's runs, three of each arm in turns.
+BATCH_ORDER = ("off", "depth1", "depth2", "depth2", "depth1", "off", "off", "depth1", "depth2")
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
                   preprocessing="tf",
@@ -662,6 +686,216 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
             summary["unfused"] = _unfused_check(spec, vdir, batches, replies, counter, iters,
                                                 profile)
     return summary, buckets
+
+
+def _grid_images(spec, n: int, seed: int) -> np.ndarray:
+    """``n`` distinct images: a colour from a 10-level RGB grid (each used
+    once) plus uniform noise of +-24.  A random-weight model answers
+    similar noise images with near-equal logits; distinct colours keep
+    every pair of images apart, so a reply wired to another request shows."""
+    rng = np.random.default_rng(seed)
+    levels = np.linspace(0, 255, 10).round()
+    grid = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), -1).reshape(-1, 3)
+    colour = grid[rng.permutation(len(grid))[:n]][:, None, None, :]
+    noise = rng.integers(-24, 25, (n, *spec.input_shape))
+    return np.clip(colour + noise, 0, 255).astype(np.uint8)
+
+
+def _model_value(server, name: str, model: str) -> float:
+    """One ``model``-labelled sample of the server's registry (a counter,
+    or a histogram's ``_sum`` or ``_count``)."""
+    found = re.search(rf'^{name}\{{model="{re.escape(model)}"\}} (\S+)$',
+                      server.registry.render(), re.M)
+    if found is None:
+        _fail(f"no {name} series for {model}")
+    return float(found.group(1))
+
+
+def _load_run(url: str, images_path: str, out_path: str, timeout: float) -> dict:
+    """The load generator in a process of its own (no shared interpreter
+    lock with the server); returns its results."""
+    cmd = [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+           "--url", url, "--images", images_path, "--clients", str(LOAD_CLIENTS),
+           "--requests", str(LOAD_REQUESTS), "--out", out_path]
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if done.returncode != 0:
+        _fail(f"load generator exited {done.returncode}: {done.stderr[-2000:]}")
+    with np.load(out_path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _event_wait_probe(sm_mhz: float) -> dict:
+    """Host CPU time a thread spends in ``Event.synchronize()`` while the
+    card sleeps 50 ms: the default event against ``blocking=True`` (the
+    one the engine's handles use)."""
+    out = {}
+    for name, blocking in (("default", False), ("blocking", True)):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(0.05 * sm_mhz * 1e6))
+        ev = torch.cuda.Event(blocking=blocking)
+        ev.record()
+        c0, w0 = time.thread_time(), time.perf_counter()
+        ev.synchronize()
+        out[f"{name}_wait_ms"] = (time.perf_counter() - w0) * 1e3
+        out[f"{name}_cpu_ms"] = (time.thread_time() - c0) * 1e3
+    return out
+
+
+def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forward: dict,
+                    device: str = "cuda", profile: bool = False) -> list[dict]:
+    """Single-image traffic through the port's server in three arms:
+    batching off, batching at depth 1 and at depth 2 (the default), each
+    run three times in turns (BATCH_ORDER) by the load generator.  Every
+    reply must lie within MODEL_TOL of the exact f32 graph for its own
+    image, and nearer to that image's logits alone (bucket 1, the same
+    engine) than to any other image's; every forward must
+    launch ``per_forward`` kernels of ``counter``.  On the card, one more
+    depth-2 run is traced for the device's busy share, and the dispatch
+    stage is timed with no load beside it; with ``profile``, its host side
+    is traced too (host time by op)."""
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    arms = {"off": dict(use_batcher=False), "depth1": dict(pipeline_depth=1),
+            "depth2": dict(pipeline_depth=2)}
+    n = LOAD_CLIENTS * LOAD_REQUESTS
+    images = _grid_images(spec, n, seed + 2)
+    servers: dict = {}
+    lines = []
+    with tempfile.TemporaryDirectory() as root:
+        art.save_artifact(art.version_dir(root, spec.name, 1), spec, variables,
+                          {"compute_dtype": "bfloat16"})
+        images_path = f"{root}/images.npy"
+        np.save(images_path, images)
+        try:
+            for arm, kw in arms.items():
+                servers[arm] = ModelServer(root, port=0, buckets=BATCH_BUCKETS, device=device,
+                                           **kw)
+                servers[arm].start()
+                servers[arm].warmup()
+            engine = servers["depth2"].engines[spec.name]
+            step = engine.max_batch
+            exact = np.concatenate([
+                engine.predict(normalize(torch.from_numpy(images[i : i + step]),
+                                         spec.preprocessing).numpy())
+                for i in range(0, n, step)])
+            scale = np.abs(exact).max(axis=1)
+            # The wiring reference: each image alone through the same bf16
+            # engine (bucket 1).  Its bf16-vs-f32 error is as large as the
+            # gap between two similar images' logits, so a reply is matched
+            # to its image against these, not against the exact graph.
+            solo = np.concatenate([engine.predict(images[k : k + 1]) for k in range(n)])
+            apart = np.abs(solo[:, None, :] - solo[None, :, :]).max(axis=2) / scale[None, :]
+            np.fill_diagonal(apart, np.inf)
+            stages = ["kdlt_engine_infer_seconds"] + [
+                f"kdlt_pipeline_{k}_seconds" for k in ("enqueue_wait", "dispatch", "execute",
+                                                       "readback")]
+            for run, arm in enumerate(BATCH_ORDER):
+                server = servers[arm]
+                url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
+                series = [f"kdlt_engine_{k}_total" for k in ("images", "batches", "pad_images")]
+                series += [f"{h}_{agg}" for h in stages for agg in ("sum", "count")]
+                # The dispatcher's stages: only depth 2 has one on this path.
+                series = [m for m in series if m.startswith("kdlt_engine_") or arm == "depth2"]
+                before = {m: _model_value(server, m, spec.name) for m in series}
+                counter.reset_launch_counts()
+                res = _load_run(url, images_path, f"{root}/run{run}.npz", timeout=600)
+                launches = counter.launch_counts()
+                delta = {m: _model_value(server, m, spec.name) - v for m, v in before.items()}
+                got = {k: delta[f"kdlt_engine_{k}_total"]
+                       for k in ("images", "batches", "pad_images")}
+                # Mean ms per batch of the engine's dispatch->sync and of each
+                # dispatcher stage (none at depth 1: no dispatcher).
+                stage_ms = {h.replace("kdlt_", "").replace("_seconds", ""):
+                            1e3 * delta[f"{h}_sum"] / max(delta[f"{h}_count"], 1)
+                            for h in stages if f"{h}_sum" in delta}
+                if (res["status"] != 200).any():
+                    _fail(f"batching {arm}: statuses {sorted(set(res['status'].tolist()))}")
+                forwards = int(got["batches"])
+                want = {name: per_forward.get(name, 0) * forwards for name in launches}
+                if got["images"] != n or launches != want:
+                    _fail(f"batching {arm}: {got['images']:.0f} images, launches {launches} "
+                          f"!= {want} for {forwards} forwards")
+                logits = res["logits"]
+                rel = np.abs(logits - exact).max(axis=1) / scale
+                # Reply k against every image's solo logits: its own must be nearest.
+                to_all = np.abs(logits[:, None, :] - solo[None, :, :]).max(axis=2) / scale[None, :]
+                misplaced = int((to_all.argmin(axis=1) != np.arange(n)).sum())
+                if not np.isfinite(logits).all() or rel.max() > MODEL_TOL or misplaced:
+                    _fail(f"batching {arm}: worst reply vs its exact f32 logits {rel.max():.3e} "
+                          f"(tol {MODEL_TOL}), {misplaced} replies nearer another image's")
+                lat = res["lat_ms"]
+                lines.append(dict(
+                    arm=arm, run=run, requests=n, clients=LOAD_CLIENTS,
+                    img_per_s=n / float(res["wall_s"]), p50_ms=float(np.percentile(lat, 50)),
+                    p99_ms=float(np.percentile(lat, 99)), forwards=forwards,
+                    mean_batch=n / forwards, padding_rows=int(got["pad_images"]),
+                    launches=launches, stage_ms=stage_ms, worst_rel=float(rel.max()),
+                    tol_rel=MODEL_TOL, worst_vs_solo_rel=float(to_all.diagonal().max()),
+                    nearest_other_image_rel=float(apart.min()), card=smi))
+                print("batching:", json.dumps(lines[-1]), flush=True)
+            for arm in arms:
+                runs = [line for line in lines if line["arm"] == arm]
+                print("batching-arm:", json.dumps({
+                    "arm": arm, "runs": len(runs),
+                    **{f"median_{k}": float(np.median([r[k] for r in runs]))
+                       for k in ("img_per_s", "p50_ms", "p99_ms", "mean_batch")},
+                    "card": smi}), flush=True)
+            if device == "cuda":
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile
+
+                url = f"http://127.0.0.1:{servers['depth2'].port}/v1/models/{spec.name}:predict"
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    res = _load_run(url, images_path, f"{root}/traced.npz", timeout=600)
+                device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA) / 1e3
+                wall_ms = float(res["wall_s"]) * 1e3
+                # The dispatch stage with no load beside it: one predict_async
+                # (staging, H2D and the forward's launches), then its sync.
+                alone = {}
+                for b in (16, 32):
+                    times = []
+                    for _ in range(ITERS):
+                        t0 = time.perf_counter()
+                        handle, _ = engine.predict_async(images[:b])
+                        times.append((time.perf_counter() - t0) * 1e3)
+                        np.asarray(handle)
+                    alone[str(b)] = float(np.median(times))
+                print("batching-profile:", json.dumps({
+                    "arm": "depth2", "wall_ms": wall_ms, "device_ms": device_ms,
+                    "device_busy_share": device_ms / wall_ms, "img_per_s": n / float(res["wall_s"]),
+                    "dispatch_alone_ms": alone, "card": smi}), flush=True)
+                if profile:
+                    _dispatch_host_profile(engine, images[:16])
+        finally:
+            for server in servers.values():
+                server.shutdown()
+    return lines
+
+
+def _dispatch_host_profile(engine, imgs: np.ndarray, steps: int = 5) -> None:
+    """Host time by op of ``steps`` bucket-16 dispatches (``predict_async``,
+    then the wait for its handle): where the dispatch stage's time goes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            with record_function("dispatch"):
+                handle, _ = engine.predict_async(imgs)
+            with record_function("wait"):
+                np.asarray(handle)
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    rows.sort(key=lambda e: -e.self_cpu_time_total)
+    totals = {e.key: e.cpu_time_total / 1e3 / steps for e in rows if e.key in ("dispatch", "wait")}
+    print("batching-host:", json.dumps({"bucket": len(imgs), "ms_per_call": totals}), flush=True)
+    for e in rows[:15]:
+        print("batching-host-op:", json.dumps({
+            "name": e.key[:90], "calls_per_dispatch": e.count / steps,
+            "self_cpu_ms_per_dispatch": e.self_cpu_time_total / 1e3 / steps}), flush=True)
 
 
 def _routing_phase(seed: int) -> dict:
@@ -1428,6 +1662,12 @@ def main(argv=None) -> int:
     print("server:", json.dumps(summary), flush=True)
     for b in buckets:
         print("bucket:", json.dumps({**b, "card": smi}), flush=True)
+
+    # --- the same model behind the batcher: one-image traffic, three arms ---
+    print("event-wait:", json.dumps({**_event_wait_probe(sm_mhz), "card": smi}), flush=True)
+    _batching_phase(CLOTHING_MODEL, variables, args.seed, smi, counter=fused_sepconv,
+                    per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2},
+                    profile=args.profile)
 
     # --- Xception's entry-kernel path: K5, K2 at blocks 3/4, the forward A/B ---
     k5, k2_entry = _entry_kernel_phase(from_jax_variables(variables), ITERS, gen)

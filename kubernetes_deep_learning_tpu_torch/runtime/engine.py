@@ -1,10 +1,12 @@
-"""Inference engine: bucketed batch padding around the forward module.
+"""Inference engine: bucketed batch padding around the forward module, and
+the in-flight dispatch pipeline over it.
 
-The port of ``runtime/engine.py``'s single-device ``InferenceEngine``.  A
-request batch is padded up to the smallest bucket that holds it, so the
-device only ever sees the bucket shapes that ``warmup()`` ran; warmup also
-builds the CUDA kernels, and a kernel that fails to build or launch fails
-warmup (there is no fallback to another graph).
+The port of ``runtime/engine.py``'s single-device ``InferenceEngine`` and
+``InFlightDispatcher``.  A request batch is padded up to the smallest
+bucket that holds it, so the device only ever sees the bucket shapes that
+``warmup()`` ran; warmup also builds the CUDA kernels, and a kernel that
+fails to build or launch fails warmup (there is no fallback to another
+graph).
 
 Inputs:
 - uint8 (N,H,W,C): the serving path, in the artifact's compute dtype
@@ -12,12 +14,27 @@ Inputs:
   ``fast`` resolves to it;
 - float32 (N,H,W,C), already normalized: the exact float32 graph, the
   debug/reference path (built on first use).
+
+On the card, ``predict_async`` waits for nothing the device is doing: the
+batch is staged in a pinned host buffer and copied with ``non_blocking``,
+the forward's kernels are enqueued behind it, and the logits' copy back
+into pinned host memory is enqueued right after the forward, followed by
+the event the returned handle waits on.  So batch N+1 can be staged and
+launched while batch N runs, and batch N's readback never waits behind
+batch N+1.  Each bucket rotates ``pipeline_depth + 1`` staging buffers; a
+buffer is refilled only after the H2D copy that last read it has run (an
+event per buffer).
 """
 
 from __future__ import annotations
 
+import itertools
+import logging
+import os
+import queue as queue_lib
 import threading
 import time
+from concurrent.futures import Future
 from typing import Sequence
 
 import numpy as np
@@ -26,33 +43,400 @@ import torch
 from kubernetes_deep_learning_tpu_torch import weights
 from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
 from kubernetes_deep_learning_tpu_torch.models import build_forward, resolve_device
+from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
+PIPELINE_DEPTH_ENV = "KDLT_PIPELINE_DEPTH"
+DEFAULT_PIPELINE_DEPTH = 2
+
+# Engine watchdog (serving-path fault tolerance): an in-flight dispatch
+# handle stuck beyond ``multiple`` x the bucket's expected latency (EWMA of
+# observed completions; ``floor`` seconds until there are samples, and
+# never below the floor) is declared stalled -- its future fails with the
+# retryable DispatchStall, the dispatcher flips unhealthy (the model
+# server's /healthz follows, so the orchestrator restarts the pod), and
+# kdlt_dispatch_stall_total counts it.  KDLT_WATCHDOG=0 disables.
+WATCHDOG_ENV = "KDLT_WATCHDOG"
+WATCHDOG_MULTIPLE_ENV = "KDLT_WATCHDOG_MULTIPLE"
+WATCHDOG_FLOOR_S_ENV = "KDLT_WATCHDOG_FLOOR_S"
+DEFAULT_WATCHDOG_MULTIPLE = 10.0
+DEFAULT_WATCHDOG_FLOOR_S = 30.0
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+log = logging.getLogger(__name__)
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name, "")
+    try:
+        return float(raw) if raw.strip() else default
+    except ValueError:
+        return default
+
+
+def resolve_pipeline_depth(depth: int | None = None) -> int:
+    """The in-flight dispatch depth: explicit arg > $KDLT_PIPELINE_DEPTH > 2.
+
+    Depth 1 is serial dispatch (each batch fully materialized before the
+    next is assembled).  Depth 2 overlaps batch N+1's staging, H2D copy and
+    kernel launches with batch N's device execution, which is the whole win
+    on one card: the device runs one stream's work in order, so depth 3+
+    only queues more work behind it and adds latency without adding
+    throughput.  Clamped to >=1; a typo'd env value degrades to the default
+    rather than killing serving.
+    """
+    if depth is None:
+        raw = os.environ.get(PIPELINE_DEPTH_ENV, "")
+        try:
+            depth = int(raw) if raw.strip() else DEFAULT_PIPELINE_DEPTH
+        except ValueError:
+            depth = DEFAULT_PIPELINE_DEPTH
+    return max(1, int(depth))
+
+
+class DispatcherClosed(RuntimeError):
+    """The in-flight dispatcher has been permanently shut down."""
+
+
+class DispatchStall(RuntimeError):
+    """An in-flight dispatch was declared stuck by the watchdog.
+
+    Retryable from the caller's point of view (another replica can serve
+    the request); for THIS process it is terminal evidence -- the
+    completion thread is wedged on a device sync that never returns, so
+    the dispatcher stops intake and the serving health check fails until
+    the orchestrator restarts the pod.
+    """
+
+
+class InFlightDispatcher:
+    """Bounded multi-in-flight dispatch pipeline over an engine.
+
+    ``submit(images)`` enqueues a bucket's forward via
+    ``engine.predict_async`` and returns a Future immediately, so the caller
+    starts assembling the NEXT batch while this one executes; a dedicated
+    completion thread materializes results (the blocking device sync) in
+    FIFO dispatch order and resolves each Future.  Backpressure: submit
+    blocks while ``depth`` batches are already in flight, so host assembly
+    can run at most ``depth`` batches ahead of the device.
+
+    Guarantees:
+
+    - **Ordering**: completions happen in submit order (single FIFO
+      completion queue), and each Future resolves to exactly its own
+      batch's rows -- never another caller's.
+    - **Same results**: the same predict_async + np.asarray
+      materialization path as the engine's own synchronous predict().
+    - **Exception wiring**: a dispatch failure resolves THAT submit's
+      Future with the exception; a device-side failure surfacing at sync
+      resolves the in-flight batch's Future.  Neither kills the pipeline.
+    - **Clean shutdown**: close(drain=True) completes every in-flight
+      batch before the completion thread exits; submits after close raise
+      DispatcherClosed.
+
+    Aliasing contract (inherited from predict_async): a submitted ``images``
+    array must stay unmodified until its Future resolves.  The port's
+    engine copies it into its own pinned staging ring before returning.
+
+    Per-stage latency lands in the kdlt_pipeline_*_seconds histograms
+    (utils.metrics.PIPELINE_STAGES documents the stage semantics).
+    """
+
+    def __init__(self, engine=None, depth: int | None = None,
+                 registry: metrics_lib.Registry | None = None,
+                 watchdog: bool | None = None,
+                 stall_multiple: float | None = None,
+                 stall_floor_s: float | None = None):
+        # ``engine=None``: each submit() names its engine (one bounded
+        # in-flight budget, one FIFO completion thread and one watchdog
+        # over several engines sharing a device).
+        self._engine = engine
+        self.depth = resolve_pipeline_depth(depth)
+        self._slots = threading.Semaphore(self.depth)
+        self._completions: queue_lib.Queue = queue_lib.Queue()
+        self._closed = False         # guarded-by: _close_lock
+        self._close_lock = threading.Lock()
+        registry = registry or getattr(engine, "registry", None) or metrics_lib.Registry()
+        self._m_stage = metrics_lib.pipeline_stage_histograms(registry)
+        self._m_depth = registry.gauge(
+            "kdlt_pipeline_depth", "configured in-flight dispatch depth"
+        )
+        self._m_depth.set(float(self.depth))
+        self._m_stalls = metrics_lib.dispatch_stall_counter(registry)
+        # Watchdog state: in-flight ledger (token -> (future, (engine,
+        # bucket) key, dispatch time)) the watchdog scans, per-key EWMA of
+        # observed dispatch->sync latency, and the terminal "stalled" flag.
+        self._stalled = threading.Event()
+        self._inflight: dict[int, tuple[Future, tuple, float]] = {}  # guarded-by: _inflight_lock
+        self._inflight_lock = threading.Lock()
+        self._seq = 0                # guarded-by: _inflight_lock
+        self._expected_s: dict[tuple, float] = {}  # guarded-by: _inflight_lock
+        if watchdog is None:
+            watchdog = os.environ.get(WATCHDOG_ENV, "").strip() != "0"
+        self._stall_multiple = (
+            stall_multiple if stall_multiple is not None
+            else _env_float(WATCHDOG_MULTIPLE_ENV, DEFAULT_WATCHDOG_MULTIPLE)
+        )
+        self._stall_floor_s = (
+            stall_floor_s if stall_floor_s is not None
+            else _env_float(WATCHDOG_FLOOR_S_ENV, DEFAULT_WATCHDOG_FLOOR_S)
+        )
+        self._watchdog_stop = threading.Event()
+        self._watchdog_thread = None
+        if watchdog and self._stall_floor_s > 0:
+            self._watchdog_thread = threading.Thread(
+                target=self._watchdog_loop, name="kdlt-dispatch-watchdog", daemon=True
+            )
+            self._watchdog_thread.start()
+        self._thread = threading.Thread(
+            target=self._complete_loop, name="kdlt-dispatch-readback", daemon=True
+        )
+        self._thread.start()
+
+    @property
+    def stalled(self) -> bool:
+        """True once the watchdog declared an in-flight dispatch stuck; the
+        dispatcher no longer accepts work and serving health should fail."""
+        return self._stalled.is_set()
+
+    def _engine_key(self, engine):
+        spec = getattr(engine, "spec", None)
+        return getattr(spec, "name", None) or id(engine)
+
+    def submit(self, images: np.ndarray, engine=None) -> Future:
+        """Dispatch one uint8 batch; returns a Future of its logits rows.
+
+        Blocks only while ``depth`` batches are in flight (backpressure) --
+        never on device execution of the batch itself.  ``engine``
+        overrides the construction-time engine for THIS batch.
+        """
+        engine = engine if engine is not None else self._engine
+        if engine is None:
+            raise ValueError("no engine: pass engine= per submit or at init")
+        if self._stalled.is_set():
+            # The completion thread is wedged on a sync that never returns;
+            # slots will never free, so blocking on one would hang the
+            # caller.  Fail fast and retryably (another replica can serve).
+            raise DispatchStall("dispatch pipeline is stalled")
+        t0 = time.perf_counter()
+        self._slots.acquire()
+        # The slot-semaphore handshake orders this read: close() drains
+        # every slot before flipping _closed, so a submit holding a slot
+        # observes the flip or the drain, never a torn state.
+        if self._closed:
+            self._slots.release()
+            raise DispatcherClosed("dispatcher is shut down")
+        if self._stalled.is_set():
+            self._slots.release()
+            raise DispatchStall("dispatch pipeline is stalled")
+        self._m_stage["enqueue_wait"].observe(time.perf_counter() - t0)
+        fut: Future = Future()
+        t1 = time.perf_counter()
+        try:
+            handle, n = engine.predict_async(images)
+        except Exception as e:  # dispatch failure belongs to THIS future
+            self._slots.release()
+            fut.set_exception(e)
+            return fut
+        dispatched_at = time.perf_counter()
+        self._m_stage["dispatch"].observe(dispatched_at - t1)
+        bkey = (self._engine_key(engine), self._bucket_of(engine, n))
+        with self._inflight_lock:
+            token = self._seq
+            self._seq += 1
+            self._inflight[token] = (fut, bkey, dispatched_at)
+        self._completions.put((handle, n, fut, dispatched_at, token, engine, bkey))
+        return fut
+
+    def _complete_loop(self) -> None:
+        while True:
+            item = self._completions.get()
+            if item is None:
+                return
+            self._complete_one(*item)
+
+    def _complete_one(self, handle, n: int, fut: Future, dispatched_at: float, token: int,
+                      engine, bkey) -> None:
+        """MUST NOT raise: an exception escaping here kills the completion
+        thread, which strands every later batch's waiters AND deadlocks
+        close() -- so anything unexpected fails THIS future instead."""
+        t0 = time.perf_counter()
+        try:
+            rows = np.asarray(handle)[:n]  # blocking device sync
+        except Exception as e:  # device-side failure surfaces at sync
+            with self._inflight_lock:
+                self._inflight.pop(token, None)
+            self._slots.release()
+            if not fut.cancelled():
+                fut.set_exception(e)
+            return
+        t1 = time.perf_counter()
+        self._m_stage["execute"].observe(t0 - dispatched_at)
+        self._m_stage["readback"].observe(t1 - t0)
+        self._observe_latency(bkey, t1 - dispatched_at)
+        with self._inflight_lock:
+            self._inflight.pop(token, None)
+        try:
+            if hasattr(engine, "record_completed"):
+                # The engine accounts only its own synchronous path;
+                # pipelined batches report here after materialization
+                # succeeds (failed batches never inflate the counters).
+                engine.record_completed(n, t1 - dispatched_at)
+        except Exception:  # noqa: BLE001 - accounting must not stall results
+            log.exception("record_completed failed")
+        self._slots.release()
+        try:
+            if not fut.cancelled():
+                fut.set_result(rows)
+        except Exception:  # noqa: BLE001 - the watchdog failed it first
+            pass
+
+    # --- watchdog ----------------------------------------------------------
+
+    def _bucket_of(self, engine, n: int) -> int:
+        bucket_for = getattr(engine, "bucket_for", None)
+        if bucket_for is None:
+            return n
+        try:
+            return bucket_for(n)
+        except Exception:  # noqa: BLE001 - accounting key only
+            return n
+
+    def _observe_latency(self, bkey, seconds: float) -> None:
+        """Per-(engine, bucket) EWMA of dispatch->sync latency; the
+        watchdog's notion of "expected"."""
+        with self._inflight_lock:
+            prev = self._expected_s.get(bkey)
+            self._expected_s[bkey] = seconds if prev is None else 0.7 * prev + 0.3 * seconds
+
+    def _stall_bound_s(self, bkey) -> float:
+        """How long an in-flight dispatch with this (engine, bucket) key may
+        run before it is stuck: multiple x the key's EWMA, never below the
+        floor (and exactly the floor until the key has a sample)."""
+        with self._inflight_lock:
+            expected = self._expected_s.get(bkey)
+        if expected is None:
+            return self._stall_floor_s
+        return max(self._stall_floor_s, self._stall_multiple * expected)
+
+    def _watchdog_loop(self) -> None:
+        interval = max(0.01, min(1.0, self._stall_floor_s / 5.0))
+        while not self._watchdog_stop.wait(interval):
+            if self._check_stall():
+                return  # terminal: the pipeline is declared dead
+
+    def _check_stall(self) -> bool:
+        """One watchdog scan; returns True when a stall was declared."""
+        now = time.perf_counter()
+        with self._inflight_lock:
+            entries = list(self._inflight.items())
+        overdue = [
+            token for token, (_, bkey, t0) in entries if now - t0 > self._stall_bound_s(bkey)
+        ]
+        if not overdue:
+            return False
+        log.error(
+            "dispatch watchdog: %d in-flight batch(es) stuck past their stall "
+            "bound (oldest %.1fs); failing waiters and marking the pipeline stalled",
+            len(overdue), max(now - t0 for _, (_, _, t0) in entries),
+        )
+        self.declare_stall()
+        return True
+
+    def declare_stall(self) -> None:
+        """Declare the pipeline terminally stalled: fail every in-flight
+        waiter retryably, stop intake, flip unhealthy.
+
+        The completion thread materializes in FIFO order, so one stuck
+        handle blocks every later in-flight batch too -- this process
+        needs a restart, its callers need another replica.  The watchdog
+        is the normal caller; tests call it directly to stage a wedged
+        replica without waiting out a real device hang.
+        """
+        self._stalled.set()
+        with self._inflight_lock:
+            stranded = list(self._inflight.values())
+            self._inflight.clear()
+        for fut, _bkey, _t0 in stranded:
+            self._m_stalls.inc()
+            try:
+                if not fut.done():
+                    fut.set_exception(DispatchStall("in-flight dispatch exceeded its stall bound"))
+            except Exception:  # noqa: BLE001 - racing completion
+                pass
+
+    def close(self, drain: bool = True) -> None:
+        """Stop intake, drain every in-flight batch, stop the completion
+        thread.
+
+        Quiesces through the slot semaphore: acquiring all ``depth`` slots
+        both waits for in-flight work to finish materializing (each slot is
+        released only after its Future resolves) and blocks any racing
+        submit, which then observes ``_closed`` and raises -- so no Future
+        can be stranded by a close/submit race.  drain=False is accepted
+        for signature symmetry with the batcher but behaves identically:
+        work already dispatched is on the device regardless, so its waiters
+        are always resolved.
+
+        A STALLED dispatcher cannot quiesce (the completion thread is
+        wedged and its slots never free): close skips the drain, leaving
+        the daemon threads to die with the process -- which is imminent,
+        since the stall already failed the health check.
+        """
+        del drain
+        self._watchdog_stop.set()
+        with self._close_lock:
+            if self._closed:
+                return
+            if not self._stalled.is_set():
+                for _ in range(self.depth):  # wait out the in-flight batches
+                    self._slots.acquire()
+                self._closed = True
+                for _ in range(self.depth):  # wake blocked submits -> raise
+                    self._slots.release()
+            else:
+                self._closed = True
+        self._completions.put(None)
+        self._thread.join(timeout=0.5 if self._stalled.is_set() else 30.0)
+        if self._watchdog_thread is not None:
+            self._watchdog_thread.join(timeout=5.0)
 
 
 class DeviceLogits:
-    """An in-flight result: ``np.asarray(handle)`` waits for the device
-    (a CUDA event recorded after the forward) and copies to the host."""
+    """An in-flight result: ``np.asarray(handle)`` waits for ``done`` (a
+    CUDA event recorded after the copy of the logits into the pinned
+    ``rows``) and returns the host rows; a CPU result has no event."""
 
-    def __init__(self, logits: torch.Tensor):
-        self._logits = logits
-        self._event = None
-        if logits.device.type == "cuda":
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(logits.device))
+    def __init__(self, rows: torch.Tensor, done: torch.cuda.Event | None = None):
+        self._rows = rows
+        self._done = done
 
     def __array__(self, dtype=None, copy=None):
-        if self._event is not None:
-            self._event.synchronize()
-        arr = self._logits.cpu().numpy()
+        if self._done is not None:
+            self._done.synchronize()
+        arr = self._rows.numpy()
         return arr if dtype is None else arr.astype(dtype)
+
+
+class _StagingSlot:
+    """A pinned host buffer of one bucket's shape, and the event recorded
+    after the H2D copy that last read it."""
+
+    def __init__(self, shape: tuple[int, ...]):
+        self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        self.copied = torch.cuda.Event(blocking=True)
 
 
 class InferenceEngine:
     def __init__(self, artifact: ModelArtifact, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 device: str | torch.device = "cuda", fast: bool | str = "auto"):
+                 device: str | torch.device = "cuda", fast: bool | str = "auto",
+                 registry: metrics_lib.Registry | None = None,
+                 pipeline_depth: int | None = None):
+        """``pipeline_depth`` (None = $KDLT_PIPELINE_DEPTH or 2) sizes the
+        per-bucket staging ring: depth + 1 pinned buffers, so a dispatcher
+        of that depth never waits for a buffer."""
         self.spec = artifact.spec
         self.buckets = tuple(sorted(buckets))
         self.max_batch = self.buckets[-1]
@@ -69,13 +453,28 @@ class InferenceEngine:
         self._exact_f32 = None
         self._lock = threading.Lock()
         self._ready = threading.Event()
+        self._staging_buffers = resolve_pipeline_depth(pipeline_depth) + 1
+        self._staging: dict[int, itertools.cycle] = {}  # guarded-by: _lock
+        registry = registry or metrics_lib.Registry()
+        self.registry = registry
+        self._m_infer_latency = registry.histogram(
+            "kdlt_engine_infer_seconds",
+            "batch latency dispatch->sync (pipelined serving may include "
+            "bounded queue-wait/assembly overlap)",
+        )
+        self._m_images = registry.counter("kdlt_engine_images_total", "images executed")
+        self._m_batches = registry.counter("kdlt_engine_batches_total", "batches executed")
+        self._m_pad_waste = registry.counter(
+            "kdlt_engine_pad_images_total", "padding rows executed (bucket waste)"
+        )
 
     @property
     def ready(self) -> bool:
         return self._ready.is_set()
 
     def warmup(self) -> float:
-        """Run every bucket once (building the kernels); gate readiness."""
+        """Run every bucket once (building the kernels and the staging
+        rings); gate readiness."""
         t0 = time.perf_counter()
         for b in self.buckets:
             np.asarray(self.predict_async(np.zeros((b, *self.spec.input_shape), np.uint8))[0])
@@ -89,12 +488,17 @@ class InferenceEngine:
                 return b
         raise ValueError(f"batch {n} exceeds max bucket {self.max_batch}")
 
-    def _padded(self, images: np.ndarray, dtype) -> tuple[torch.Tensor, int]:
+    def _checked(self, images, dtype) -> np.ndarray:
         images = np.asarray(images)
         if images.ndim != 4 or images.shape[1:] != tuple(self.spec.input_shape):
             raise ValueError(f"expected (N, {self.spec.input_shape}), got {images.shape}")
         if images.dtype != dtype:
             raise ValueError(f"expected {np.dtype(dtype).name} images, got {images.dtype}")
+        return images
+
+    def _padded(self, images: np.ndarray) -> torch.Tensor:
+        """The batch padded to its bucket, from pageable host memory: the
+        CPU path and the exact float32 graph's."""
         n = images.shape[0]
         bucket = self.bucket_for(n)
         if bucket != n:
@@ -102,14 +506,66 @@ class InferenceEngine:
             images = np.concatenate([images, pad], axis=0)
         # Wire arrays are read-only views of the request body; torch wants a
         # writable buffer, so np.require copies those (and only those).
-        return torch.from_numpy(np.require(images, requirements=["C", "W"])).to(self.device), n
+        return torch.from_numpy(np.require(images, requirements=["C", "W"])).to(self.device)
+
+    def _staged(self, images: np.ndarray) -> torch.Tensor:
+        """The uint8 batch padded into the bucket's next pinned staging
+        buffer and copied to the card without waiting (under ``_lock``)."""
+        n = images.shape[0]
+        bucket = self.bucket_for(n)
+        ring = self._staging.get(bucket)
+        if ring is None:
+            shape = (bucket, *self.spec.input_shape)
+            ring = itertools.cycle([_StagingSlot(shape) for _ in range(self._staging_buffers)])
+            self._staging[bucket] = ring
+        slot = next(ring)
+        slot.copied.synchronize()  # the H2D copy that last read this buffer has run
+        host = slot.host.numpy()
+        host[:n] = images
+        host[n:] = 0
+        batch = slot.host.to(self.device, non_blocking=True)
+        slot.copied.record(torch.cuda.current_stream(self.device))
+        return batch
+
+    def _handle(self, logits: torch.Tensor) -> DeviceLogits:
+        """On the card: the D2H copy into pinned memory, enqueued behind the
+        forward, and the event after it."""
+        if self.device.type != "cuda":
+            return DeviceLogits(logits)
+        rows = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+        rows.copy_(logits, non_blocking=True)
+        # A blocking event: the waiting thread sleeps instead of spinning
+        # on a host core the HTTP threads need (``chip_smoke.py`` measures
+        # the host CPU time of both waits).
+        done = torch.cuda.Event(blocking=True)
+        done.record(torch.cuda.current_stream(self.device))
+        return DeviceLogits(rows, done)
 
     def predict_async(self, images: np.ndarray) -> tuple[DeviceLogits, int]:
         """Dispatch a uint8 batch without waiting; returns (handle, n).
-        ``np.asarray(handle)[:n]`` materializes the logits."""
-        batch, n = self._padded(images, np.uint8)
+        ``np.asarray(handle)[:n]`` materializes the logits.  The images are
+        copied before this returns, so the caller may reuse its array."""
+        images = self._checked(images, np.uint8)
         with self._lock, torch.inference_mode():
-            return DeviceLogits(self._forward(batch)), n
+            if self.device.type == "cuda":
+                batch = self._staged(images)
+            else:
+                batch = self._padded(images)
+            return self._handle(self._forward(batch)), images.shape[0]
+
+    def record_completed(self, n: int, seconds: float) -> None:
+        """Account a successfully synced batch (counters + latency).
+
+        predict() accounts its own synchronous path; the dispatcher reports
+        its batches here after materialization succeeds, so failed batches
+        never inflate the success counters.  The reported interval is
+        dispatch->sync, which under pipelining can include bounded
+        queue-wait/assembly overlap (see the histogram help).
+        """
+        self._m_infer_latency.observe(seconds)
+        self._m_images.inc(n)
+        self._m_batches.inc()
+        self._m_pad_waste.inc(self.bucket_for(n) - n)
 
     def _exact_forward(self):
         with self._lock:
@@ -123,17 +579,28 @@ class InferenceEngine:
         """uint8 or normalized float32 (N,H,W,C) -> float32 logits (N, classes)."""
         images = np.asarray(images)
         if images.dtype == np.uint8:
+            t0 = time.perf_counter()
             handle, n = self.predict_async(images)
-            return np.asarray(handle)[:n]
+            out = np.asarray(handle)[:n]
+            self.record_completed(n, time.perf_counter() - t0)
+            return out
         if images.dtype != np.float32:
             raise ValueError(
                 f"dtype {images.dtype} unsupported: send uint8 pixels or "
                 "float32 pre-normalized data"
             )
+        images = self._checked(images, np.float32)
         fn = self._exact_forward()
-        batch, n = self._padded(images, np.float32)
+        n = images.shape[0]
         with self._lock, torch.inference_mode():
-            return np.asarray(DeviceLogits(fn(batch)))[:n]
+            handle = self._handle(fn(self._padded(images)))
+        out = np.asarray(handle)[:n]
+        # No latency sample here: the debug path's lazy first build would
+        # land an outlier in the serving histogram.
+        self._m_images.inc(n)
+        self._m_batches.inc()
+        self._m_pad_waste.inc(self.bucket_for(n) - n)
+        return out
 
     def predict_scores(self, images: np.ndarray) -> list[dict[str, float]]:
         """Labelled score dicts, the reference's response shape."""

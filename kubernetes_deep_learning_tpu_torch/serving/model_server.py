@@ -2,18 +2,25 @@
 
 A threaded ``http.server`` over one ``InferenceEngine`` per model found
 under ``<model_root>/<name>/<version>/`` (the highest version wins, as in
-TF-Serving).  Routes:
+TF-Serving), each behind a ``ServedModel``: a dynamic batcher that
+coalesces concurrent one-image requests, and an in-flight dispatcher that
+keeps up to ``pipeline_depth`` batches on the device.  Routes:
 
 - ``GET /v1/models``: the served models, versions and readiness;
 - ``GET /v1/models/<name>``: the model's ``spec.json`` (what a gateway
   reads to discover the contract; no ingest capability is advertised, so a
   gateway keeps the tensor wire);
 - ``POST /v1/models/<name>:predict``: msgpack or JSON (``serving.protocol``);
-  a batch larger than the largest bucket is served in max-bucket chunks;
-- ``GET /healthz`` (the process is up) and ``GET /readyz`` (every engine
-  has warmed).
+  a single uint8 image goes through the batcher, a batch up to the largest
+  bucket straight to the engine, and a larger one in max-bucket chunks
+  through the dispatcher.  503 "overloaded" when the batcher's queue is
+  full or a wait outlives its deadline; 503 with ``X-Kdlt-Stalled: 1``
+  once the dispatch watchdog has declared the pipeline stalled;
+- ``GET /healthz`` (the process is up and its pipelines are not stalled)
+  and ``GET /readyz`` (every engine has warmed, nothing stalled).
 
-Run it with ``kdlt-torch-model-server --model-root DIR --device cuda``.
+Run it with ``kdlt-torch-model-server --model-root DIR --device cuda``
+(``--max-delay-ms``, ``--pipeline-depth``, ``--no-batching``).
 """
 
 from __future__ import annotations
@@ -24,39 +31,136 @@ import logging
 import os
 import signal
 import threading
+from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Sequence
 
 import numpy as np
 
 from kubernetes_deep_learning_tpu_torch.export import artifact as art
-from kubernetes_deep_learning_tpu_torch.runtime.engine import DEFAULT_BUCKETS, InferenceEngine
+from kubernetes_deep_learning_tpu_torch.runtime.batcher import (
+    BatcherClosed,
+    DynamicBatcher,
+    QueueFull,
+)
+from kubernetes_deep_learning_tpu_torch.runtime.engine import (
+    DEFAULT_BUCKETS,
+    DispatcherClosed,
+    DispatchStall,
+    InferenceEngine,
+    InFlightDispatcher,
+    resolve_pipeline_depth,
+)
 from kubernetes_deep_learning_tpu_torch.serving import protocol
+from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
 
 log = logging.getLogger(__name__)
 
 _PREFIX = "/v1/models"
 
+# How long a handler waits for its image's batch (the reference's 20 s
+# gRPC deadline) and for a chunk of a large request.
+BATCHER_TIMEOUT_S = 20.0
+CHUNK_TIMEOUT_S = 120.0
+
+
+class ServedModel:
+    """One model's serving pipeline over its engine.
+
+    ``dispatcher``: ONE in-flight dispatch pipeline, shared by the
+    single-image batcher and the chunked multi-image path so both draw
+    from the same bounded in-flight budget; None at depth 1 (serial).
+    ``batcher``: the DynamicBatcher, None when batching is off.
+    """
+
+    def __init__(self, engine: InferenceEngine, max_delay_ms: float = 2.0,
+                 use_batcher: bool = True, pipeline_depth: int | None = None):
+        self.engine = engine
+        depth = resolve_pipeline_depth(pipeline_depth)
+        self.dispatcher = (
+            InFlightDispatcher(engine, depth=depth, registry=engine.registry)
+            if depth > 1 else None
+        )
+        self.batcher = (
+            DynamicBatcher(engine, max_delay_ms=max_delay_ms, registry=engine.registry,
+                           pipeline_depth=depth, dispatcher=self.dispatcher)
+            if use_batcher else None
+        )
+
+    @property
+    def stalled(self) -> bool:
+        return self.dispatcher is not None and self.dispatcher.stalled
+
+    def predict(self, images: np.ndarray) -> np.ndarray:
+        # Single uint8 images go through the batcher to coalesce across
+        # concurrent requests (the batcher is uint8-only so mixed dtypes
+        # never end up in one np.stack).
+        if (self.batcher is not None and images.ndim >= 1 and len(images) == 1
+                and images.dtype == np.uint8):
+            try:
+                return self.batcher.predict(images[0], timeout=BATCHER_TIMEOUT_S)[None]
+            except BatcherClosed:
+                pass  # a shutdown race: the engine is still valid, serve directly
+        step = self.engine.max_batch
+        if images.ndim == 0 or len(images) <= step:
+            return self.engine.predict(images)
+        # Batches beyond the bucket ladder are served in max-bucket chunks:
+        # the client's batch size need not know the server's buckets.  With
+        # the pipeline on, chunk i+1's staging and launches overlap chunk
+        # i's execution; the futures keep chunk order for the concatenate.
+        chunks = [images[i : i + step] for i in range(0, len(images), step)]
+        if self.dispatcher is not None and images.dtype == np.uint8:
+            try:
+                futs = [self.dispatcher.submit(c) for c in chunks]
+                return np.concatenate([f.result(timeout=CHUNK_TIMEOUT_S) for f in futs])
+            except DispatcherClosed:
+                pass  # a shutdown race: fall through to the serial engine path
+        return np.concatenate([self.engine.predict(c) for c in chunks])
+
+    def close(self) -> None:
+        """Drain and stop the batcher, then the dispatcher behind it."""
+        if self.batcher is not None:
+            self.batcher.close(drain=True)
+        if self.dispatcher is not None:
+            # After the batcher's dispatch thread exits, only in-flight
+            # handler threads can race this close; they fall back to the
+            # engine path on DispatcherClosed.
+            self.dispatcher.close(drain=True)
+
 
 class ModelServer:
     def __init__(self, model_root: str, port: int = 8500, host: str = "127.0.0.1",
-                 buckets: Sequence[int] = DEFAULT_BUCKETS, device: str = "cuda"):
-        self.engines: dict[str, InferenceEngine] = {}
+                 buckets: Sequence[int] = DEFAULT_BUCKETS, device: str = "cuda",
+                 max_delay_ms: float = 2.0, use_batcher: bool = True,
+                 pipeline_depth: int | None = None):
+        self.registry = metrics_lib.Registry()
+        self.models: dict[str, ServedModel] = {}
         self.versions: dict[str, int] = {}
         for name in sorted(os.listdir(model_root)):
             version = art.latest_version(model_root, name)
             if version is None:
                 continue
             artifact = art.load_artifact(art.version_dir(model_root, name, version))
-            self.engines[artifact.spec.name] = InferenceEngine(
-                artifact, buckets=buckets, device=device
+            name = artifact.spec.name
+            engine = InferenceEngine(
+                artifact, buckets=buckets, device=device, pipeline_depth=pipeline_depth,
+                registry=self.registry.with_labels(model=name),
             )
-            self.versions[artifact.spec.name] = version
-        if not self.engines:
+            self.models[name] = ServedModel(engine, max_delay_ms, use_batcher, pipeline_depth)
+            self.versions[name] = version
+        if not self.models:
             raise ValueError(f"no model versions found under {model_root!r}")
-        self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
+        try:
+            self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
+        except OSError:
+            self._close_models()
+            raise
         self._httpd.daemon_threads = True
         self._thread: threading.Thread | None = None
+
+    @property
+    def engines(self) -> dict[str, InferenceEngine]:
+        return {name: model.engine for name, model in self.models.items()}
 
     @property
     def port(self) -> int:
@@ -66,6 +170,10 @@ class ModelServer:
     def ready(self) -> bool:
         return all(e.ready for e in self.engines.values())
 
+    @property
+    def stalled(self) -> bool:
+        return any(m.stalled for m in self.models.values())
+
     def warmup(self) -> None:
         for name, engine in self.engines.items():
             log.info("warmed %s in %.2f s", name, engine.warmup())
@@ -74,7 +182,13 @@ class ModelServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
 
+    def _close_models(self) -> None:
+        for model in self.models.values():
+            model.close()
+
     def shutdown(self) -> None:
+        """Drain the batchers, then the dispatchers, then stop HTTP."""
+        self._close_models()
         if self._thread is not None:  # shutdown() waits for a loop that must be running
             self._httpd.shutdown()
             self._thread.join(timeout=10)
@@ -84,8 +198,14 @@ class ModelServer:
 
     def handle_get(self, path: str) -> tuple[int, bytes, str]:
         if path == "/healthz":
+            if self.stalled:
+                # A stalled dispatch pipeline is unrecoverable in-process:
+                # fail liveness so the orchestrator restarts the pod.
+                return 503, b"dispatch stalled", "text/plain"
             return 200, b"ok", "text/plain"
         if path == "/readyz":
+            if self.stalled:
+                return 503, b"dispatch stalled", "text/plain"
             return (200, b"ready", "text/plain") if self.ready else (503, b"warming", "text/plain")
         if path == _PREFIX:
             models = [
@@ -102,17 +222,22 @@ class ModelServer:
     def handle_predict(self, path: str, body: bytes, content_type: str) -> tuple[int, bytes, str]:
         if not (path.startswith(_PREFIX + "/") and path.endswith(":predict")):
             return 404, b"not found", "text/plain"
-        engine = self.engines.get(path[len(_PREFIX) + 1 : -len(":predict")])
-        if engine is None:
+        model = self.models.get(path[len(_PREFIX) + 1 : -len(":predict")])
+        if model is None:
             return 404, b"unknown model", "text/plain"
-        if not engine.ready:
+        if not model.engine.ready:
             return 503, b"model is warming up", "text/plain"
         try:
             images = protocol.decode_predict_request(body, content_type)
-            logits = _predict_chunked(engine, images)
+            logits = model.predict(images)
         except ValueError as e:
             return 400, str(e).encode(), "text/plain"
-        out, ctype = protocol.encode_predict_response(logits, engine.spec.labels, content_type)
+        except (QueueFull, FuturesTimeout) as e:  # transient overload
+            return 503, f"overloaded: {e or 'timed out'}".encode(), "text/plain"
+        except DispatchStall as e:
+            return 503, f"dispatch stalled: {e}".encode(), "text/plain"
+        out, ctype = protocol.encode_predict_response(logits, model.engine.spec.labels,
+                                                      content_type)
         return 200, out, ctype
 
     def _handler_class(self):
@@ -129,6 +254,10 @@ class ModelServer:
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
+                if status == 503 and server.stalled:
+                    # Tells the gateway to take this replica out of its
+                    # pool now, not after repeated failures.
+                    self.send_header(protocol.STALLED_HEADER, "1")
                 self.end_headers()
                 self.wfile.write(body)
 
@@ -152,18 +281,7 @@ class ModelServer:
         return Handler
 
 
-def _predict_chunked(engine: InferenceEngine, images: np.ndarray) -> np.ndarray:
-    """``engine.predict``, with a batch past the largest bucket served in
-    max-bucket chunks: a client's batch size need not know the buckets."""
-    images = np.asarray(images)
-    step = engine.max_batch
-    if images.ndim == 0 or len(images) <= step:
-        return engine.predict(images)
-    return np.concatenate([engine.predict(images[i : i + step])
-                           for i in range(0, len(images), step)])
-
-
-def main(argv: Sequence[str] | None = None) -> None:
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="PyTorch/CUDA model server (tensor wire)")
     p.add_argument("--model-root", required=True, help="directory of <name>/<version>/ artifacts")
     p.add_argument("--host", default="0.0.0.0")
@@ -171,12 +289,35 @@ def main(argv: Sequence[str] | None = None) -> None:
     p.add_argument("--buckets", default=",".join(map(str, DEFAULT_BUCKETS)),
                    help="comma-separated batch buckets")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
-    args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    server = ModelServer(
+    p.add_argument("--max-delay-ms", type=float, default=2.0,
+                   help="how long a small batch waits for more single-image requests")
+    p.add_argument(
+        "--pipeline-depth", type=int, default=0,
+        help="max batches in flight on the device (dispatch pipelining): batch "
+        "N+1's staging and launches overlap batch N's execution.  0 = "
+        "$KDLT_PIPELINE_DEPTH or the default 2; 1 = serial dispatch.  Depth > 2 "
+        "buys nothing on one card (its stream runs one batch at a time); it "
+        "only queues latency",
+    )
+    p.add_argument("--no-batching", action="store_true",
+                   help="serve every request as its own forward")
+    return p
+
+
+def build_server(argv: Sequence[str] | None = None) -> ModelServer:
+    """The server the command line describes (not started, not warmed)."""
+    args = _parser().parse_args(argv)
+    return ModelServer(
         args.model_root, port=args.port, host=args.host,
         buckets=[int(b) for b in args.buckets.split(",")], device=args.device,
+        max_delay_ms=args.max_delay_ms, use_batcher=not args.no_batching,
+        pipeline_depth=args.pipeline_depth or None,
     )
+
+
+def main(argv: Sequence[str] | None = None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    server = build_server(argv)
     server.start()  # /healthz answers while warming; /readyz waits for warmup
     server.warmup()
     log.info("serving %s on port %d", sorted(server.engines), server.port)

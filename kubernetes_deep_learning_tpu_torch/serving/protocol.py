@@ -21,6 +21,13 @@ from kubernetes_deep_learning_tpu_torch import msgpack_lite
 MSGPACK_CONTENT_TYPE = "application/x-msgpack"
 JSON_CONTENT_TYPE = "application/json"
 
+# A model-tier 503 carrying this header declares a terminal dispatch
+# stall (the engine watchdog fired: /healthz is failing, only a restart
+# recovers).  The gateway's upstream pool takes the replica out of
+# rotation IMMEDIATELY on seeing it -- unlike an overload 503, which is
+# transient evidence that takes consecutive failures to act on.
+STALLED_HEADER = "X-Kdlt-Stalled"
+
 
 def encode_tensor(arr: np.ndarray) -> dict[str, Any]:
     arr = np.ascontiguousarray(arr)

@@ -1,0 +1,242 @@
+"""Minimal thread-safe metrics: counters, gauges, histograms, Prometheus text.
+
+The port's own trimmed copy of the JAX package's ``utils/metrics.py``: the
+metric types and registry, and the two helpers the dispatch pipeline mints
+its series through (``pipeline_stage_histograms``,
+``dispatch_stall_counter``), with the same series names and buckets.  No
+route serves the page yet; ``Registry.render`` is what a ``/metrics`` route
+will return.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+
+# Default latency buckets in seconds (sub-ms to 20 s, the reference's
+# implicit deadline ceiling).
+DEFAULT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.015, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 20.0,
+)
+
+# Pipeline-stage buckets reach below the request buckets: the dispatch and
+# readback stages of a well-overlapped pipeline are tens of microseconds to
+# single-digit milliseconds, which DEFAULT_BUCKETS would collapse into its
+# first bin.
+PIPELINE_STAGE_BUCKETS = (
+    0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+    0.025, 0.05, 0.1, 0.25, 1.0, 5.0,
+)
+
+# The in-flight dispatch pipeline's stages (runtime.engine.InFlightDispatcher),
+# in hot-path order:
+#
+# - enqueue_wait: submit() blocked waiting for an in-flight slot -- the
+#   backpressure stage; nonzero means the device (not the host) is the
+#   bottleneck, which is the healthy steady state.
+# - dispatch: staging into pinned memory, the H2D copy and the forward's
+#   kernel launches (the predict_async call).  Everything is enqueued on
+#   the stream without waiting for the device, so this is host cost -- the
+#   part pipelining hides.
+# - execute: dispatch-return -> readback-start on the completion thread.
+#   Under overlap this is the time the batch waited in flight while the
+#   device worked (on it or its predecessors).
+# - readback: the wait for the batch's event (forward + the D2H copy
+#   enqueued behind it) and the hand-over of the host rows.
+PIPELINE_STAGES = (
+    ("enqueue_wait", "submit blocked on the in-flight depth limit (backpressure)"),
+    ("dispatch", "host batch staging + H2D copy and kernel enqueue (predict_async)"),
+    ("execute", "in-flight wait: dispatch return to readback start (overlapped device execution)"),
+    ("readback", "blocking device sync + D2H materialization"),
+)
+
+
+def pipeline_stage_histograms(registry: "Registry") -> dict:
+    """The per-stage histograms every in-flight dispatcher emits
+    (``kdlt_pipeline_<stage>_seconds``), keyed by stage name."""
+    return {
+        stage: registry.histogram(
+            f"kdlt_pipeline_{stage}_seconds", help, buckets=PIPELINE_STAGE_BUCKETS
+        )
+        for stage, help in PIPELINE_STAGES
+    }
+
+
+def dispatch_stall_counter(registry: "Registry") -> "Counter":
+    """In-flight dispatch handles the watchdog declared stuck and failed."""
+    return registry.counter(
+        "kdlt_dispatch_stall_total",
+        "in-flight dispatches failed by the engine watchdog as stuck",
+    )
+
+
+def _escape_label_value(v) -> str:
+    """Prometheus text-format label escaping: backslash, quote, newline."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _escape_help(text: str) -> str:
+    """HELP text escaping per the exposition format: backslash + newline."""
+    return str(text).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _fmt_labels(labels: dict[str, str] | None, extra: str = "") -> str:
+    parts = [f'{k}="{_escape_label_value(v)}"' for k, v in (labels or {}).items()]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+class Counter:
+    kind = "counter"
+
+    def __init__(self, name: str, help: str = "", labels: dict[str, str] | None = None):
+        self.name, self.help, self.labels = name, help, labels
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def sample_lines(self) -> list[str]:
+        return [f"{self.name}{_fmt_labels(self.labels)} {self._value}"]
+
+
+class Gauge(Counter):
+    kind = "gauge"
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = v
+
+
+class Histogram:
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str = "", buckets=DEFAULT_BUCKETS,
+                 labels: dict[str, str] | None = None):
+        self.name, self.help, self.labels = name, help, labels
+        self.buckets = tuple(buckets)
+        self._counts = [0] * (len(self.buckets) + 1)  # +inf bucket
+        self._sum = 0.0
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        i = bisect.bisect_left(self.buckets, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._n += 1
+
+    def percentile(self, q: float) -> float:
+        """Approximate percentile from bucket upper bounds (q in [0,1])."""
+        with self._lock:
+            n = self._n
+            if n == 0:
+                return 0.0
+            target = q * n
+            cum = 0
+            for i, c in enumerate(self._counts):
+                cum += c
+                if cum >= target:
+                    return self.buckets[i] if i < len(self.buckets) else float("inf")
+        return float("inf")
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def sample_lines(self) -> list[str]:
+        out = []
+        cum = 0
+        with self._lock:
+            for le, c in zip(self.buckets, self._counts):
+                cum += c
+                le_label = f'le="{le}"'
+                out.append(f"{self.name}_bucket{_fmt_labels(self.labels, le_label)} {cum}")
+            cum += self._counts[-1]
+            inf_label = 'le="+Inf"'
+            out.append(f"{self.name}_bucket{_fmt_labels(self.labels, inf_label)} {cum}")
+            out.append(f"{self.name}_sum{_fmt_labels(self.labels)} {self._sum}")
+            out.append(f"{self.name}_count{_fmt_labels(self.labels)} {self._n}")
+        return out
+
+
+class Registry:
+    def __init__(self, labels: dict[str, str] | None = None):
+        """``labels`` are applied to every metric created through this
+        registry (e.g. ``model=<name>`` per served model, so two models'
+        engines never emit colliding series)."""
+        self._metrics: list = []
+        self._labels = dict(labels or {})
+        self._keys: set = set()
+        self._lock = threading.Lock()
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._add(Counter(name, help, labels=self._labels or None))
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._add(Gauge(name, help, labels=self._labels or None))
+
+    def histogram(self, name: str, help: str = "", buckets=DEFAULT_BUCKETS) -> Histogram:
+        return self._add(Histogram(name, help, buckets, labels=self._labels or None))
+
+    def with_labels(self, **labels: str) -> "Registry":
+        """Child registry sharing this one's output but adding labels."""
+        child = Registry({**self._labels, **labels})
+        self._add(child)
+        return child
+
+    def _add(self, m):
+        with self._lock:
+            name = getattr(m, "name", None)
+            if name is not None:
+                key = (name, tuple(sorted((m.labels or {}).items())))
+                if key in self._keys:
+                    raise ValueError(f"duplicate metric {name!r} with same labels")
+                self._keys.add(key)
+            self._metrics.append(m)
+        return m
+
+    def _leaves(self):
+        """Every leaf metric under this registry, depth-first, in creation
+        order (child registries flattened in place)."""
+        with self._lock:
+            metrics = list(self._metrics)
+        for m in metrics:
+            if isinstance(m, Registry):
+                yield from m._leaves()
+            else:
+                yield m
+
+    def render(self) -> str:
+        """Prometheus text exposition, grouped by metric name: labeled series
+        sharing a name render under ONE ``# HELP``/``# TYPE`` block (the
+        format forbids repeating them); the first series' HELP/TYPE wins."""
+        order: list[str] = []
+        meta: dict[str, tuple[str, str]] = {}
+        samples: dict[str, list[str]] = {}
+        for m in self._leaves():
+            if m.name not in meta:
+                order.append(m.name)
+                meta[m.name] = (m.kind, m.help)
+                samples[m.name] = []
+            samples[m.name].extend(m.sample_lines())
+        out: list[str] = []
+        for name in order:
+            kind, help = meta[name]
+            out.append(f"# HELP {name} {_escape_help(help)}")
+            out.append(f"# TYPE {name} {kind}")
+            out.extend(samples[name])
+        return "\n".join(out) + "\n" if out else ""

@@ -22,6 +22,11 @@ The flash kernels (bf16 TMA + wgmma, f32 3xTF32) are held at head dims
 32, 64 and 128, at 1, 192, 576 and 577 query rows (both sides of every
 q-tile), on strided (B, S, H, D) views, and in f32 at inputs of std 8,
 whose large scores stress the 3xTF32 split (still 1e-4).
+The engine's dispatch pipeline is held on a 96-px Xception: depth + 2
+batches in flight through the pinned staging ring equal their solo
+predicts bit for bit, and neither a dispatch nor a readback waits for
+another batch (``torch.cuda._sleep`` holds the stream; event queries,
+not timings).
 """
 
 from __future__ import annotations
@@ -586,3 +591,64 @@ def test_cuda_entry_kernel_forward_launches():
         want = default(imgs.cuda())
     assert counts == [(0, 8, 2), (1, 8, 4)]
     assert _rel(out, want) < 2e-2
+
+
+def _tiny_engine(depth: int):
+    """A warmed 96-px Xception engine on the card (buckets 1 and 4) whose
+    staging ring holds depth + 1 buffers a bucket."""
+    from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    spec = ModelSpec(name="tiny-xception", family="xception", input_shape=(96, 96, 3),
+                     labels=("a", "b", "c"), preprocessing="tf")
+    artifact = ModelArtifact(spec, init_variables(spec, seed=0), {"compute_dtype": "bfloat16"})
+    engine = InferenceEngine(artifact, buckets=(1, 4), device="cuda", pipeline_depth=depth)
+    engine.warmup()
+    return engine
+
+
+_HOLD_CYCLES = 10**9  # torch.cuda._sleep: about half a second of the stream
+
+
+@pytest.mark.cuda
+def test_cuda_staging_ring_never_refills_a_buffer_in_flight():
+    """depth + 2 batches of different content dispatched back to back behind
+    a held stream, so every one is in flight when the ring wraps: each
+    handle's rows equal a solo predict of its own batch."""
+    _need_cuda()
+    depth = 2
+    engine = _tiny_engine(depth)
+    assert engine.fast
+    rng = np.random.default_rng(5)
+    batches = [rng.integers(0, 256, (3, 96, 96, 3), np.uint8) for _ in range(depth + 2)]
+    solo = [engine.predict(b) for b in batches]
+    torch.cuda._sleep(_HOLD_CYCLES)
+    handles = [engine.predict_async(b) for b in batches]
+    for (handle, n), want in zip(handles, solo):
+        np.testing.assert_array_equal(np.asarray(handle)[:n], want)
+
+
+@pytest.mark.cuda
+def test_cuda_predict_async_and_readback_wait_for_no_other_batch():
+    """A dispatch returns while the batch before it still waits on the
+    device, and a readback returns while the batch after it does (event
+    queries, not timings)."""
+    _need_cuda()
+    engine = _tiny_engine(2)
+    rng = np.random.default_rng(6)
+    a, b = (rng.integers(0, 256, (4, 96, 96, 3), np.uint8) for _ in range(2))
+    want_a = engine.predict(a)
+    torch.cuda._sleep(_HOLD_CYCLES)
+    first, _ = engine.predict_async(a)
+    second, _ = engine.predict_async(b)
+    assert not first._done.query()  # the second dispatch did not wait for the first forward
+    np.asarray(second)
+    first, _ = engine.predict_async(a)
+    torch.cuda._sleep(_HOLD_CYCLES)
+    second, _ = engine.predict_async(b)
+    rows = np.asarray(first)
+    assert not second._done.query()  # the first readback did not wait for the second forward
+    np.testing.assert_array_equal(rows, want_a)
+    np.asarray(second)
