@@ -28,13 +28,20 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    sends JSON ``:predict`` requests of 1, 3 and 16 images.  It checks the
    shapes, finite logits, agreement with the same server's exact float32
    graph, that the engine took the fused fast path, and that the requests
-   went through the kernels (8 K1 and 2 K2 launches per forward); then
-   the p50 of a 1-image request on a fresh connection against one kept
-   alive, and img/s and p50 per bucket.  Then the batching phase: the
-   host CPU time of a default and a ``blocking=True`` CUDA event's wait
-   (``event-wait``); then three servers of the same model with buckets
-   (1, 2, 4, 8, 16, 32) -- batching off, at depth 1 and at depth 2 (the
-   default) -- each driven three times, in turns, by the load generator
+   went through the kernels (8 K1 and 2 K2 launches per forward, credited
+   by the bucket graphs' replays); each bucket's CUDA graph against the
+   eager forward module (``graph``: bit-equal, else within 1e-3), the
+   kernels of one traced replay counted by name (``trace-launches``), the
+   graph pool's device memory (``graph-memory``); then the p50 of a
+   1-image request on a fresh connection against one kept alive, and
+   img/s and p50 per bucket, replayed and eager.  (ViT and B3 below get
+   the same lines.)  Then the batching phase: the host CPU time of a
+   default and a ``blocking=True`` CUDA event's wait (``event-wait``);
+   then four servers of the same model with buckets (1, 2, 4, 8, 16, 32)
+   -- the Python batcher off, at depth 1 and at depth 2, and the C++
+   queue at depth 2 (``--batcher native``) -- after the depth-2 engine's
+   bucket graphs are held against eager (``batching-graph``), each
+   driven three times, in turns, by the load generator
    (``serving/loadgen.py``, a process of its own): 32 closed-loop clients
    on kept-alive connections, 25 one-image msgpack requests each, every
    request its own image.  Per run one ``batching`` line: img/s, p50 and
@@ -44,9 +51,10 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    (per arm, a ``batching-arm`` line of medians).  Every reply must lie
    within 5e-2 of the exact f32 graph for its own image, and nearer to
    that image's logits alone through the same engine (bucket 1) than to
-   any other image's.  One more depth-2 run, traced, gives the device's
-   busy share, beside the dispatch stage's ms at buckets 16 and 32 with
-   no load (``batching-profile``);
+   any other image's.  One more run of each depth-2 arm, traced, gives
+   the device's busy share, beside the dispatch stage's ms at buckets 16
+   and 32 with no load and the copy into a staging slot alone
+   (``batching-profile``);
 5. Xception entry-kernel path: K5 (conv2 + block2) at 149x149x32 ->
    74x74x128, batches 1, 3 and 16, with the clothing model's weights, and
    K2 at blocks 3 and 4 of that path (74x74 128->256->256, 37x37
@@ -193,8 +201,25 @@ B3_FUSED_PER_FORWARD = 18  # EfficientNet-B3's blocks on K4 at 300 px
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)  # the batching phase's server
 LOAD_CLIENTS = 32   # closed-loop clients, one kept-alive connection each
 LOAD_REQUESTS = 25  # one-image msgpack requests per client, each its own image
-# The batching phase's runs, three of each arm in turns.
-BATCH_ORDER = ("off", "depth1", "depth2", "depth2", "depth1", "off", "off", "depth1", "depth2")
+# The batching phase's arms: the Python batcher off, at depth 1 and at depth
+# 2, and the C++ queue at depth 2; three runs of each in turns.
+BATCH_ARMS = {"off": dict(use_batcher=False),
+              "depth1": dict(pipeline_depth=1, batcher_impl="python"),
+              "depth2": dict(pipeline_depth=2, batcher_impl="python"),
+              "depth2-native": dict(pipeline_depth=2, batcher_impl="native")}
+BATCH_ORDER = ("off", "depth1", "depth2", "depth2-native", "depth2-native", "depth2", "depth1",
+               "off", "off", "depth1", "depth2", "depth2-native")
+GRAPH_TOL = 1e-3  # relative, a bucket graph's replay vs the eager forward, if not bit-equal
+# Kernel launches in a profiler trace of one replay of each served model's
+# bucket graph (by kernel name): K1 runs sepconv_stage_kernel 3 times a
+# block, K2 once a stage (block13 and block14: 2 stages each); K4 runs its
+# three kernels once a block.
+TRACE_KERNELS = {
+    "clothing-model": {"sepconv_stage_kernel": 8 * 3 + 2 * 2},
+    "vit-b16-384": {"flash_fwd_bf16": 12},
+    "efficientnet-b3-imagenet": {k: 18 for k in ("mbconv_expand_dw_kernel", "mbconv_se_kernel",
+                                                 "mbconv_proj_kernel")},
+}
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
                   preprocessing="tf",
@@ -576,17 +601,71 @@ def _profile(model: str, fn, batch: int, steps: int = 5) -> float:
     return device_ms / steps
 
 
+def _eager_predict(engine, imgs: np.ndarray) -> np.ndarray:
+    """The same work as ``engine.predict`` on a full bucket, with the forward
+    module called eagerly instead of the bucket's graph replayed."""
+    with torch.inference_mode():
+        return engine._forward(torch.from_numpy(imgs).to(engine.device)).cpu().numpy()
+
+
 def _bucket_times(engine, name: str, b: int, imgs: np.ndarray, iters: int) -> dict:
-    """p50 and img/s of ``engine.predict`` on one bucket-sized batch."""
+    """p50 and img/s of ``engine.predict`` on one bucket-sized batch (its
+    graph replayed), and in turns the p50 of the same work run eagerly."""
     for _ in range(2):
         engine.predict(imgs)
-    lat = []
+        _eager_predict(engine, imgs)
+    lat, eager = [], []
     for _ in range(iters):
         t0 = time.perf_counter()
         engine.predict(imgs)  # ends in a device sync (event + copy)
-        lat.append((time.perf_counter() - t0) * 1e3)
+        t1 = time.perf_counter()
+        _eager_predict(engine, imgs)
+        eager.append((time.perf_counter() - t1) * 1e3)
+        lat.append((t1 - t0) * 1e3)
     return dict(model=name, bucket=b, p50_ms=float(np.median(lat)),
-                img_per_s=b * len(lat) / (sum(lat) / 1e3))
+                img_per_s=b * len(lat) / (sum(lat) / 1e3), eager_p50_ms=float(np.median(eager)))
+
+
+def _graph_check(engine, name: str, seed: int) -> dict:
+    """Each bucket's graph against the eager forward module on the same
+    zero-padded batch (a quarter of the rows padding): bit-equal, or within
+    GRAPH_TOL relative (then the run reports which bucket was not)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for b in engine.buckets:
+        n = max(1, b - b // 4)
+        imgs = rng.integers(0, 256, (n, *engine.spec.input_shape), np.uint8)
+        handle, _ = engine.predict_async(imgs)
+        rows = np.asarray(handle).copy()
+        padded = np.zeros((b, *engine.spec.input_shape), np.uint8)
+        padded[:n] = imgs
+        eager = _eager_predict(engine, padded)
+        rel = float(np.abs(rows - eager).max() / (np.abs(eager).max() + 1e-6))
+        if not np.isfinite(rows).all() or rel > GRAPH_TOL:
+            _fail(f"{name}: bucket {b}'s graph replay vs the eager forward: relative {rel:.3e} "
+                  f"> {GRAPH_TOL}")
+        out[str(b)] = dict(images=n, bit_equal=bool(np.array_equal(rows, eager)), rel=rel)
+    return dict(model=name, buckets=out, tol_rel=GRAPH_TOL,
+                all_bit_equal=all(v["bit_equal"] for v in out.values()))
+
+
+def _trace_check(engine, name: str, seed: int) -> dict:
+    """One replay of the largest bucket's graph under ``torch.profiler``: each
+    of TRACE_KERNELS[name]'s kernels must appear the expected number of times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs = np.random.default_rng(seed).integers(
+        0, 256, (engine.max_batch, *engine.spec.input_shape), np.uint8)
+    np.asarray(engine.predict_async(imgs)[0])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        np.asarray(engine.predict_async(imgs)[0])
+    seen = {k: sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and k in e.key)
+            for k in TRACE_KERNELS[name]}
+    if seen != TRACE_KERNELS[name]:
+        _fail(f"{name}: one traced replay launched {seen}, expected {TRACE_KERNELS[name]}")
+    return dict(model=name, bucket=engine.max_batch, kernels=seen)
 
 
 def _unfused_check(spec, vdir: str, batches, replies, counter, iters: int, profile: bool) -> dict:
@@ -600,6 +679,7 @@ def _unfused_check(spec, vdir: str, batches, replies, counter, iters: int, profi
     if engine.fast:
         _fail(f"{spec.name}: a fast=False engine took the fused path")
     engine.warmup()
+    graphs = _graph_check(engine, f"{spec.name}-unfused", len(batches))
     counter.reset_launch_counts()
     worst = 0.0
     for imgs, (got, _, _) in zip(batches, replies):
@@ -615,7 +695,7 @@ def _unfused_check(spec, vdir: str, batches, replies, counter, iters: int, profi
     times = _bucket_times(engine, f"{spec.name}-unfused", b, imgs, iters)
     if profile:
         _profile(f"{spec.name}-unfused", functools.partial(engine.predict, imgs), b)
-    return dict(fused_vs_unfused_bf16_rel=worst, tol_rel=KERNEL_TOL, **times)
+    return dict(fused_vs_unfused_bf16_rel=worst, tol_rel=KERNEL_TOL, graphs=graphs, **times)
 
 
 def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, counter,
@@ -640,8 +720,11 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
             if engine.fast != fast:
                 _fail(f"{spec.name}: engine.fast is {engine.fast}, expected {fast}")
             t0 = time.perf_counter()
-            server.warmup()
+            server.warmup()  # a graph per bucket: the main path below replays them
             warm_s = time.perf_counter() - t0
+            memory = dict(model=spec.name, buckets=list(BUCKETS),
+                          graph_pool_mib=engine.graph_memory_bytes() / 2**20,
+                          reserved_mib_after_warmup=torch.cuda.memory_reserved() / 2**20)
             url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
             batches = [rng.integers(0, 256, (n, *spec.input_shape), np.uint8) for n in REQUESTS]
 
@@ -668,6 +751,8 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
                 _fail(f"{spec.name}: bf16 path vs exact f32 graph: relative error "
                       f"{worst:.3e} > {MODEL_TOL}")
 
+            graphs = _graph_check(engine, spec.name, seed + 5)
+            traced = _trace_check(engine, spec.name, seed + 6)
             one_image = _one_image_ms(server.port, f"/v1/models/{spec.name}:predict",
                                       batches[0], wire, iters)
             buckets = []
@@ -679,6 +764,7 @@ def _server_phase(spec, variables, seed: int, iters: int, profile: bool, *, coun
         finally:
             server.shutdown()
         summary = dict(model=spec.name, wire=wire, fast=fast, warmup_s=warm_s, launches=launches,
+                       graphs=graphs, trace_launches=traced, graph_memory=memory,
                        bf16_vs_exact_rel=worst, tol_rel=MODEL_TOL,
                        request_ms={str(len(i)): ms for i, (_, _, ms) in zip(batches, replies)},
                        one_image_request=one_image)
@@ -744,22 +830,25 @@ def _event_wait_probe(sm_mhz: float) -> dict:
 
 def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forward: dict,
                     device: str = "cuda", profile: bool = False) -> list[dict]:
-    """Single-image traffic through the port's server in three arms:
-    batching off, batching at depth 1 and at depth 2 (the default), each
-    run three times in turns (BATCH_ORDER) by the load generator.  Every
+    """Single-image traffic through the port's server in four arms
+    (BATCH_ARMS): the Python batcher off, at depth 1 and at depth 2, and the
+    C++ queue at depth 2 (``--batcher native``: a queue that will not build
+    fails the run), each run three times in turns (BATCH_ORDER) by the load
+    generator.  Each bucket graph of the depth-2 engine is first held
+    against the eager forward.  Every
     reply must lie within MODEL_TOL of the exact f32 graph for its own
     image, and nearer to that image's logits alone (bucket 1, the same
     engine) than to any other image's; every forward must
     launch ``per_forward`` kernels of ``counter``.  On the card, one more
-    depth-2 run is traced for the device's busy share, and the dispatch
-    stage is timed with no load beside it; with ``profile``, its host side
-    is traced too (host time by op)."""
+    run of each depth-2 arm is traced for the device's busy share, and the
+    dispatch stage is timed with no load beside it, beside the copy of the
+    batch into a staging slot alone; with ``profile``, its host side is
+    traced too (host time by op)."""
     from kubernetes_deep_learning_tpu_torch.export import artifact as art
     from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
     from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
 
-    arms = {"off": dict(use_batcher=False), "depth1": dict(pipeline_depth=1),
-            "depth2": dict(pipeline_depth=2)}
+    arms = BATCH_ARMS
     n = LOAD_CLIENTS * LOAD_REQUESTS
     images = _grid_images(spec, n, seed + 2)
     servers: dict = {}
@@ -776,6 +865,8 @@ def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forwar
                 servers[arm].start()
                 servers[arm].warmup()
             engine = servers["depth2"].engines[spec.name]
+            graphs = _graph_check(engine, spec.name, seed + 7)
+            print("batching-graph:", json.dumps({**graphs, "card": smi}), flush=True)
             step = engine.max_batch
             exact = np.concatenate([
                 engine.predict(normalize(torch.from_numpy(images[i : i + step]),
@@ -798,7 +889,8 @@ def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forwar
                 series = [f"kdlt_engine_{k}_total" for k in ("images", "batches", "pad_images")]
                 series += [f"{h}_{agg}" for h in stages for agg in ("sum", "count")]
                 # The dispatcher's stages: only depth 2 has one on this path.
-                series = [m for m in series if m.startswith("kdlt_engine_") or arm == "depth2"]
+                series = [m for m in series
+                          if m.startswith("kdlt_engine_") or arm.startswith("depth2")]
                 before = {m: _model_value(server, m, spec.name) for m in series}
                 counter.reset_launch_counts()
                 res = _load_run(url, images_path, f"{root}/run{run}.npz", timeout=600)
@@ -847,27 +939,36 @@ def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forwar
                 from torch.autograd import DeviceType
                 from torch.profiler import ProfilerActivity, profile
 
-                url = f"http://127.0.0.1:{servers['depth2'].port}/v1/models/{spec.name}:predict"
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    res = _load_run(url, images_path, f"{root}/traced.npz", timeout=600)
-                device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                                if e.device_type == DeviceType.CUDA) / 1e3
-                wall_ms = float(res["wall_s"]) * 1e3
                 # The dispatch stage with no load beside it: one predict_async
-                # (staging, H2D and the forward's launches), then its sync.
-                alone = {}
+                # (the copy into a staging slot, the H2D copy and the graph's
+                # replay), then its sync; and the copy into the slot alone.
+                alone, copy = {}, {}
                 for b in (16, 32):
-                    times = []
+                    times, copies = [], []
+                    slot = engine.lend_staging()
                     for _ in range(ITERS):
                         t0 = time.perf_counter()
                         handle, _ = engine.predict_async(images[:b])
                         times.append((time.perf_counter() - t0) * 1e3)
                         np.asarray(handle)
+                        t0 = time.perf_counter()
+                        slot.array[:b] = images[:b]
+                        copies.append((time.perf_counter() - t0) * 1e3)
+                    engine.return_staging(slot)
                     alone[str(b)] = float(np.median(times))
-                print("batching-profile:", json.dumps({
-                    "arm": "depth2", "wall_ms": wall_ms, "device_ms": device_ms,
-                    "device_busy_share": device_ms / wall_ms, "img_per_s": n / float(res["wall_s"]),
-                    "dispatch_alone_ms": alone, "card": smi}), flush=True)
+                    copy[str(b)] = float(np.median(copies))
+                for arm in ("depth2", "depth2-native"):
+                    url = f"http://127.0.0.1:{servers[arm].port}/v1/models/{spec.name}:predict"
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        res = _load_run(url, images_path, f"{root}/traced.npz", timeout=600)
+                    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                                    if e.device_type == DeviceType.CUDA) / 1e3
+                    wall_ms = float(res["wall_s"]) * 1e3
+                    print("batching-profile:", json.dumps({
+                        "arm": arm, "wall_ms": wall_ms, "device_ms": device_ms,
+                        "device_busy_share": device_ms / wall_ms,
+                        "img_per_s": n / float(res["wall_s"]), "dispatch_alone_ms": alone,
+                        "staging_copy_ms": copy, "card": smi}), flush=True)
                 if profile:
                     _dispatch_host_profile(engine, images[:16])
         finally:
@@ -878,20 +979,29 @@ def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forwar
 
 def _dispatch_host_profile(engine, imgs: np.ndarray, steps: int = 5) -> None:
     """Host time by op of ``steps`` bucket-16 dispatches (``predict_async``,
-    then the wait for its handle): where the dispatch stage's time goes."""
+    then the wait for its handle): where the dispatch stage's time goes.
+    Beside each, the same batch's copy into a lent staging slot alone
+    (``staging-copy``), the part of a dispatch that is the host copy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    slot = engine.lend_staging()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             with record_function("dispatch"):
                 handle, _ = engine.predict_async(imgs)
             with record_function("wait"):
                 np.asarray(handle)
+            with record_function("staging-copy"):
+                slot.array[: len(imgs)] = imgs
+    engine.return_staging(slot)
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     rows.sort(key=lambda e: -e.self_cpu_time_total)
-    totals = {e.key: e.cpu_time_total / 1e3 / steps for e in rows if e.key in ("dispatch", "wait")}
-    print("batching-host:", json.dumps({"bucket": len(imgs), "ms_per_call": totals}), flush=True)
+    totals = {e.key: e.cpu_time_total / 1e3 / steps for e in rows
+              if e.key in ("dispatch", "wait", "staging-copy")}
+    share = totals.get("staging-copy", 0.0) / totals["dispatch"] if totals.get("dispatch") else None
+    print("batching-host:", json.dumps({"bucket": len(imgs), "ms_per_call": totals,
+                                        "staging_copy_share_of_dispatch": share}), flush=True)
     for e in rows[:15]:
         print("batching-host-op:", json.dumps({
             "name": e.key[:90], "calls_per_dispatch": e.count / steps,
@@ -1588,6 +1698,18 @@ def _gfold_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
     return rec
 
 
+def _print_server(summary: dict, buckets: list[dict], smi: str) -> None:
+    """A served model's lines: the summary, each bucket graph against the
+    eager forward, the traced replay's launches, the device memory the
+    warmup reserved, and p50 and img/s per bucket."""
+    print("server:", json.dumps(summary), flush=True)
+    for key in ("graphs", "trace_launches", "graph_memory"):
+        tag = key.replace("_", "-").replace("graphs", "graph")
+        print(f"{tag}:", json.dumps({**summary[key], "card": smi}), flush=True)
+    for b in buckets:
+        print("bucket:", json.dumps({**b, "card": smi}), flush=True)
+
+
 def _card(query: str, fmt: str = "csv,noheader") -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
@@ -1659,9 +1781,7 @@ def main(argv=None) -> int:
         per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2}, fast=True, wire="json")
     for k in kernels:
         k["launches"] = summary["launches"][k["name"]]
-    print("server:", json.dumps(summary), flush=True)
-    for b in buckets:
-        print("bucket:", json.dumps({**b, "card": smi}), flush=True)
+    _print_server(summary, buckets, smi)
 
     # --- the same model behind the batcher: one-image traffic, three arms ---
     print("event-wait:", json.dumps({**_event_wait_probe(sm_mhz), "card": smi}), flush=True)
@@ -1688,9 +1808,7 @@ def main(argv=None) -> int:
         wire="msgpack")
     k3["launches"] = summary["launches"]["flash_attention"]
     kernels.append(k3)
-    print("server:", json.dumps(summary), flush=True)
-    for b in buckets:
-        print("bucket:", json.dumps({**b, "card": smi}), flush=True)
+    _print_server(summary, buckets, smi)
     print("routing:", json.dumps(_routing_phase(args.seed)), flush=True)
     k3g = _gfold_phase(ITERS, gen, exp_rate)
 
@@ -1712,9 +1830,7 @@ def main(argv=None) -> int:
     del variables
     k4["launches"] = summary["launches"]["fused_mbconv_block"]
     kernels += [k4, k5, k3g]
-    print("server:", json.dumps(summary), flush=True)
-    for b in [*buckets, summary["unfused"]]:
-        print("bucket:", json.dumps({**b, "card": smi}), flush=True)
+    _print_server(summary, [*buckets, summary["unfused"]], smi)
 
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

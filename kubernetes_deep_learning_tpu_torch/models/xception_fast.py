@@ -18,7 +18,8 @@ sets it, as JAX's does not: whether it pays on the card is a measurement
 (``chip_smoke.py``).
 
 The kernel-ready weights are derived once, when the module is built, from
-the exact graph's parameters.  The JAX path's TPU-only schedule rules
+the exact graph's parameters, and the middle blocks' stage views
+(``fused_sepconv.prepare_block``) are sliced and checked then too.  The JAX path's TPU-only schedule rules
 (batch padded to a multiple of 8, 16-image chunking) have no counterpart,
 nor has ``conv1_t``: it computes conv1 in the TPU kernels' (H, W, B, C)
 layout to spare a transpose, and the port is NHWC end to end.
@@ -42,8 +43,9 @@ from kubernetes_deep_learning_tpu_torch.models.xception import (
 )
 from kubernetes_deep_learning_tpu_torch.ops.fused_entry import fused_entry_block
 from kubernetes_deep_learning_tpu_torch.ops.fused_sepconv import (
-    fused_sepconv_block,
+    fused_sepconv_block_stages,
     fused_sepconv_chain,
+    prepare_block,
 )
 from kubernetes_deep_learning_tpu_torch.weights import (
     entry_block_weights,
@@ -71,7 +73,10 @@ class XceptionFast(nn.Module):
         self._w = {k: v for k, v in cast.items() if ".running_" not in k}
         # Entry-flow BN in the compute dtype, as the JAX fast path's bn().
         self._bn = lowp_batchnorms(cast, dtype)
-        self._middle = [middle_block_weights(p, f"block{i}") for i in MIDDLE_BLOCKS]
+        # Each middle block's stage views, sliced and checked once here
+        # rather than on every forward.
+        self._middle = [prepare_block(*middle_block_weights(p, f"block{i}"))
+                        for i in MIDDLE_BLOCKS]
         self._down = {i: self._downsample_weights(p, f"block{i}")
                       for i in ((3, 4, 13) if entry_kernel else (13,))}
         self._entry = entry_block_weights(p) if entry_kernel else None
@@ -125,8 +130,8 @@ class XceptionFast(nn.Module):
 
         # --- middle flow: 8 fused blocks, NHWC contiguous for the kernel ---
         x = x.contiguous()
-        for dw, pw, scale, shift in self._middle:
-            x = fused_sepconv_block(x, dw, pw, scale, shift)
+        for stages in self._middle:
+            x = fused_sepconv_block_stages(x, stages)
 
         # --- block13: residual 1x1/2 (matmul) + fused chain + pool ---
         x = self._downsample(x, 13)

@@ -48,9 +48,10 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
+
+from kubernetes_deep_learning_tpu_torch.ops._counts import LaunchCounts
 
 NEG_INF = -1e30  # large-but-finite: -inf breaks exp(m - m_new) when a row is fully masked
 
@@ -61,25 +62,11 @@ EINSUM_MAX_SEQ = 512
 
 KERNEL_HEAD_DIMS = (32, 64, 128)  # head dims K3 is instantiated for
 
-_counts_lock = threading.Lock()
-_launches = {"flash_attention": 0, "flash_attention_partials": 0, "flash_gfold": 0}
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset (CUDA path only)."""
-    with _counts_lock:
-        return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    with _counts_lock:
-        for k in _launches:
-            _launches[k] = 0
-
-
-def _count(name: str) -> None:
-    with _counts_lock:
-        _launches[name] += 1
+_counts = LaunchCounts("flash_attention", "flash_attention_partials", "flash_gfold")
+launch_counts = _counts.snapshot
+reset_launch_counts = _counts.reset
+credit_launches = _counts.credit
+_count = _counts.count
 
 
 def pick_block(seq: int) -> int | None:

@@ -598,8 +598,7 @@ extern "C" int kdlt_entry_block(const void* x, const void* conv2, const void* co
     return (int)cudaErrorInvalidValue;
 
   const int smem = SMEM_BYTES + ALIGN;
-  cudaError_t e =
-      cudaFuncSetAttribute(entry_walker_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = allow_max_dynamic_smem(reinterpret_cast<const void*>(entry_walker_kernel));
   if (e != cudaSuccess) return (int)e;
   const int grid = p.units < sms ? p.units : sms;
   entry_walker_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(

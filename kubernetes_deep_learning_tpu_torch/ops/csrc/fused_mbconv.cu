@@ -816,8 +816,7 @@ extern "C" int kdlt_mbconv_block(
         !encode_map(encode, &ew_map, expand_w, C_in, C_mid, 64, CU_TENSOR_MAP_SWIZZLE_128B))
       return (int)cudaErrorInvalidValue;
     const void* kernel = expand_dw_kernel(k, L);
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    cudaError_t e = allow_max_dynamic_smem(kernel);
     if (e != cudaSuccess) return (int)e;
     void* args[] = {&x_map, &ew_map, &xp};
     e = cudaLaunchKernel(kernel, dim3(ceil_div(C_mid, CT), bands, B), dim3(XD_THREADS), args,
@@ -828,8 +827,7 @@ extern "C" int kdlt_mbconv_block(
   if (phases & 2) {
     const SePlan se = plan_se(C_mid, S);
     if (se.smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(mbconv_se_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, se.smem);
+    cudaError_t e = allow_max_dynamic_smem(reinterpret_cast<const void*>(mbconv_se_kernel));
     if (e != cudaSuccess) return (int)e;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(se.ranks, B);
@@ -869,7 +867,7 @@ extern "C" int kdlt_mbconv_block(
         !encode_map(encode, &pw_map, proj_w, C_mid, C_out, 64, CU_TENSOR_MAP_SWIZZLE_128B))
       return (int)cudaErrorInvalidValue;
     const void* kernel = proj_kernel(ksplit);
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = allow_max_dynamic_smem(kernel);
     if (e != cudaSuccess) return (int)e;
     void* args[] = {&y_map, &pw_map, &pp};
     e = cudaLaunchKernel(kernel, dim3(ceil_div((int)M, 64), ceil_div(C_out, 64)),

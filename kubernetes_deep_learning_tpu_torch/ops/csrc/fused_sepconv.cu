@@ -460,8 +460,7 @@ extern "C" int kdlt_sepconv_stage(const void* x, const void* dw, const void* pw,
       !encode_map(encode, &x_map, x, p.M, C_in, p.xs_rows, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
 
-  e = cudaFuncSetAttribute(sepconv_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
+  e = allow_max_dynamic_smem(reinterpret_cast<const void*>(sepconv_stage_kernel));
   if (e != cudaSuccess) return (int)e;
   sepconv_stage_kernel<<<dim3(bands, groups), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       pw_map, x_map, p);

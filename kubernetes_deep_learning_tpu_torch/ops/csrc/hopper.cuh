@@ -2,7 +2,8 @@
 // (fused_sepconv.cu, flash_attention.cu, fused_mbconv.cu, fused_entry.cu):
 // bf16 vector packing, mbarriers, cp.async and TMA tensor loads, wgmma
 // shared-memory descriptors, fences and the m64n64k16 product, the lookup
-// of cuTensorMapEncodeTiled and a 2-D map.
+// of cuTensorMapEncodeTiled and a 2-D map, and the once-per-kernel opt-in
+// to the card's largest dynamic shared memory.
 // Inline PTX only: no CuTe, no libcuda link.
 
 #pragma once
@@ -11,6 +12,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -197,6 +202,32 @@ inline bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, i
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Opt `kernel` in, once per device, to the most dynamic shared memory a
+// block of it may take on this card (the opt-in limit less its static
+// shared memory), so a launch needs no cudaFuncSetAttribute of its own.  A
+// per-launch call would set the limit to that launch's size; a launch
+// captured into a CUDA graph must not meet a lower limit a later eager
+// launch of a smaller shape left behind.
+inline cudaError_t allow_max_dynamic_smem(const void* kernel) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& kd : done)
+    if (kd.first == kernel && kd.second == dev) return cudaSuccess;
+  int optin = 0;
+  cudaFuncAttributes attr;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(attr.sharedSizeBytes));
+  if (e == cudaSuccess) done.emplace_back(kernel, dev);
+  return e;
 }
 
 }  // namespace

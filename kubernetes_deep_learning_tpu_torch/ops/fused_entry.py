@@ -29,11 +29,10 @@ padded to a multiple of 8 is a Mosaic rule and has no counterpart.
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from kubernetes_deep_learning_tpu_torch.models.layers import max_pool_same
+from kubernetes_deep_learning_tpu_torch.ops._counts import LaunchCounts
 from kubernetes_deep_learning_tpu_torch.ops.fused_sepconv import stage_reference
 
 WEIGHT_KEYS = ("conv2", "conv2_s", "conv2_b", "res", "res_s", "res_b", "dw1", "pw1",
@@ -43,25 +42,11 @@ WEIGHT_KEYS = ("conv2", "conv2_s", "conv2_b", "res", "res_s", "res_b", "dw1", "p
 # wgmma N, C_out in two (csrc/fused_entry.cu).
 MAX_C_IN, MAX_C_B, MAX_C_OUT = 32, 64, 128
 
-_counts_lock = threading.Lock()
-_launches = {"fused_entry_block": 0}
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset (CUDA path only)."""
-    with _counts_lock:
-        return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    with _counts_lock:
-        for k in _launches:
-            _launches[k] = 0
-
-
-def _count(name: str) -> None:
-    with _counts_lock:
-        _launches[name] += 1
+_counts = LaunchCounts("fused_entry_block")
+launch_counts = _counts.snapshot
+reset_launch_counts = _counts.reset
+credit_launches = _counts.credit
+_count = _counts.count
 
 
 def entry_block_reference(x, w):

@@ -33,13 +33,17 @@ bf16 first (the two agree to bf16 noise, < 2e-2 relative).
 from __future__ import annotations
 
 import functools
-import threading
 
 import torch
 import torch.nn.functional as F
 
-_counts_lock = threading.Lock()
-_launches = {"fused_mbconv_block": 0}
+from kubernetes_deep_learning_tpu_torch.ops._counts import LaunchCounts
+
+_counts = LaunchCounts("fused_mbconv_block")
+launch_counts = _counts.snapshot
+reset_launch_counts = _counts.reset
+credit_launches = _counts.credit
+_count = _counts.count
 
 # The JAX package fuses a block only where its smallest batch tile (8
 # images) fits a VMEM budget: ~8 bytes of working set per expanded element
@@ -53,23 +57,6 @@ _KERNEL_SIZES = (3, 5)
 PHASE_EXPAND_DW, PHASE_SE, PHASE_PROJECT = 1, 2, 4
 PHASES_ALL = PHASE_EXPAND_DW | PHASE_SE | PHASE_PROJECT
 _SCRATCH_ALIGN = 256  # bytes between the scratch tensor's parts
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset (CUDA path only)."""
-    with _counts_lock:
-        return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    with _counts_lock:
-        for k in _launches:
-            _launches[k] = 0
-
-
-def _count(name: str) -> None:
-    with _counts_lock:
-        _launches[name] += 1
 
 
 def fusible_as_in_jax(h: int, w: int, c_mid: int) -> bool:

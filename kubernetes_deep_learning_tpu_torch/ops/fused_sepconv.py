@@ -6,7 +6,10 @@ functions take NHWC bf16 activations, as the JAX functions' NHWC forms do:
 - ``fused_sepconv_block(x, dw, pw, scale, shift)``: one middle block,
   x + 3 x [relu -> 3x3 SAME depthwise -> 1x1 GEMM -> affine], with
   dw (3,3,3,C) f32, pw (3,C,C) bf16, scale/shift (3,C) f32
-  (``weights.middle_block_weights``);
+  (``weights.middle_block_weights``); ``prepare_block`` slices and checks
+  those stacked weights once, and ``fused_sepconv_block_stages(x, stages)``
+  runs the block over what it returns, checking only ``x`` (the forward's
+  per-call path);
 - ``fused_sepconv_chain(x, stages)``: [optional relu -> depthwise -> GEMM
   C_in->C_out -> affine -> optional relu] per stage, no residual, no pool
   (``weights.sepconv_stage_weights``).
@@ -21,29 +24,15 @@ operands in f32, affine in f32 -> bf16.
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
-_counts_lock = threading.Lock()
-_launches = {"fused_sepconv_block": 0, "fused_sepconv_chain": 0}
+from kubernetes_deep_learning_tpu_torch.ops._counts import LaunchCounts
 
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last reset (CUDA path only)."""
-    with _counts_lock:
-        return dict(_launches)
-
-
-def reset_launch_counts() -> None:
-    with _counts_lock:
-        for k in _launches:
-            _launches[k] = 0
-
-
-def _count(name: str) -> None:
-    with _counts_lock:
-        _launches[name] += 1
+_counts = LaunchCounts("fused_sepconv_block", "fused_sepconv_chain")
+launch_counts = _counts.snapshot
+reset_launch_counts = _counts.reset
+credit_launches = _counts.credit
+_count = _counts.count
 
 
 # --- plain PyTorch versions ---------------------------------------------------
@@ -74,6 +63,11 @@ def sepconv_block_reference(x, dw, pw, scale, shift):
     for i in range(3):
         y = stage_reference(y, dw[i], pw[i], scale[i], shift[i], True, False)
     return x + y
+
+
+def _block_stages_reference(x, stages):
+    """``sepconv_block_reference`` over ``prepare_block``'s stages."""
+    return x + sepconv_chain_reference(x, stages)
 
 
 def sepconv_chain_reference(x, stages):
@@ -117,11 +111,16 @@ def _check_stage(c_in: int, device, dw, pw, scale, shift) -> int:
 MAX_C_IN = 1536
 
 
-def _check_cuda(x, stages) -> None:
-    """What the CUDA kernel takes on top of ``_check_stage``: widths that
-    are multiples of 8 (16-byte vectors, TMA row strides), C_in <= 1536,
-    and contiguous 16-byte aligned tensors.  Checked before any launch."""
-    tensors = [x]
+def _check_aligned(tensors) -> None:
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors only")
+
+
+def _check_cuda_stages(stages) -> None:
+    """What the CUDA kernel takes of the weights on top of ``_check_stage``:
+    widths that are multiples of 8 (16-byte vectors, TMA row strides),
+    C_in <= 1536, and contiguous 16-byte aligned tensors."""
+    tensors = []
     for s in stages:
         c_in, c_out = s["pw"].shape
         if c_in % 8 or c_out % 8:
@@ -130,8 +129,13 @@ def _check_cuda(x, stages) -> None:
         if c_in > MAX_C_IN:
             raise ValueError(f"the CUDA kernel takes at most {MAX_C_IN} input channels, got {c_in}")
         tensors += [s["dw"], s["pw"], s["scale"], s["shift"]]
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors only")
+    _check_aligned(tensors)
+
+
+def _check_cuda(x, stages) -> None:
+    """``_check_cuda_stages`` and an aligned input.  Checked before any launch."""
+    _check_cuda_stages(stages)
+    _check_aligned([x])
 
 
 def _launch_stage(x, dw, pw, scale, shift, residual, pre_relu: bool, post_relu: bool):
@@ -151,21 +155,41 @@ def _launch_stage(x, dw, pw, scale, shift, residual, pre_relu: bool, post_relu: 
     return out
 
 
-def fused_sepconv_block(x, dw, pw, scale, shift):
-    """One Xception middle block (see module doc); NHWC bf16 in and out."""
-    _check_input(x)
+def prepare_block(dw, pw, scale, shift) -> tuple[dict, ...]:
+    """A middle block's three stages as views of its stacked weights (see
+    module doc), checked once, for the CUDA kernel too when they lie on the
+    card: what ``fused_sepconv_block_stages`` takes."""
     if dw.shape[0] != 3 or pw.shape[0] != 3 or pw.shape[1] != pw.shape[2]:
         raise ValueError("a middle block stacks exactly 3 sepconvs of C->C")
-    for i in range(3):
-        _check_stage(x.shape[-1], x.device, dw[i], pw[i], scale[i], shift[i])
+    stages = tuple(dict(dw=dw[i], pw=pw[i], scale=scale[i], shift=shift[i],
+                        pre_relu=True, post_relu=False) for i in range(3))
+    for s in stages:
+        _check_stage(pw.shape[1], pw.device, s["dw"], s["pw"], s["scale"], s["shift"])
+    if pw.device.type == "cuda":
+        _check_cuda_stages(stages)
+    return stages
+
+
+def fused_sepconv_block(x, dw, pw, scale, shift):
+    """One Xception middle block (see module doc); NHWC bf16 in and out."""
+    return fused_sepconv_block_stages(x, prepare_block(dw, pw, scale, shift))
+
+
+def fused_sepconv_block_stages(x, stages):
+    """``fused_sepconv_block`` over ``prepare_block(dw, pw, scale, shift)``:
+    only ``x`` is checked here."""
+    _check_input(x)
+    pw = stages[0]["pw"]
+    if x.shape[-1] != pw.shape[0] or x.device != pw.device:
+        raise ValueError(f"x must have {pw.shape[0]} channels on {pw.device}, got "
+                         f"{x.shape[-1]} on {x.device}")
     if x.device.type == "cpu":
-        return sepconv_block_reference(x, dw, pw, scale, shift)
-    _check_cuda(x, [dict(dw=dw[i], pw=pw[i], scale=scale[i], shift=shift[i]) for i in range(3)])
+        return _block_stages_reference(x, stages)
+    _check_aligned([x])
     y = x
-    for i in range(3):
-        y = _launch_stage(
-            y, dw[i], pw[i], scale[i], shift[i], x if i == 2 else None, True, False
-        )
+    for i, s in enumerate(stages):
+        y = _launch_stage(y, s["dw"], s["pw"], s["scale"], s["shift"], x if i == 2 else None,
+                          True, False)
     _count("fused_sepconv_block")
     return y
 

@@ -7,6 +7,8 @@ the JAX package's constants (bit-equal to its numpy ``normalize``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 #   tf    : x / 127.5 - 1            (Keras "tf" mode; Xception)
@@ -17,6 +19,13 @@ _TORCH_MEAN = (0.485, 0.456, 0.406)
 _TORCH_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """A constant made on ``device`` once: a forward captured into a CUDA
+    graph must not copy one from pageable host memory."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def normalize(x: torch.Tensor, mode: str) -> torch.Tensor:
     """uint8/float NHWC batch -> normalized float32 on ``x``'s device."""
     if mode == "none":
@@ -24,7 +33,7 @@ def normalize(x: torch.Tensor, mode: str) -> torch.Tensor:
     x = x.to(torch.float32)
     if mode == "tf":
         return x / 127.5 - 1.0
-    const = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
+    const = lambda v: _const(v, x.device)  # noqa: E731
     if mode == "caffe":
         return x.flip(-1) - const(_CAFFE_MEAN_BGR)
     if mode == "torch":

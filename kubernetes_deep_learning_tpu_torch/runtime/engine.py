@@ -4,9 +4,13 @@ the in-flight dispatch pipeline over it.
 The port of ``runtime/engine.py``'s single-device ``InferenceEngine`` and
 ``InFlightDispatcher``.  A request batch is padded up to the smallest
 bucket that holds it, so the device only ever sees the bucket shapes that
-``warmup()`` ran; warmup also builds the CUDA kernels, and a kernel that
-fails to build or launch fails warmup (there is no fallback to another
-graph).
+``warmup()`` ran.  On the card, warmup is the counterpart of the JAX
+engine's per-bucket compile: for each bucket in turn it runs the forward
+once on a side stream (building the CUDA kernels and warming cuDNN and
+cuBLAS), then captures it into a CUDA graph over a static uint8 input and a
+static logits output, and replays it once.  A kernel that fails to build or
+launch, or a forward that cannot be captured (a host sync, a pageable
+copy), fails warmup: there is no fallback to eager execution on the card.
 
 Inputs:
 - uint8 (N,H,W,C): the serving path, in the artifact's compute dtype
@@ -16,26 +20,33 @@ Inputs:
   debug/reference path (built on first use).
 
 On the card, ``predict_async`` waits for nothing the device is doing: the
-batch is staged in a pinned host buffer and copied with ``non_blocking``,
-the forward's kernels are enqueued behind it, and the logits' copy back
-into pinned host memory is enqueued right after the forward, followed by
-the event the returned handle waits on.  So batch N+1 can be staged and
-launched while batch N runs, and batch N's readback never waits behind
-batch N+1.  Each bucket rotates ``pipeline_depth + 1`` staging buffers; a
-buffer is refilled only after the H2D copy that last read it has run (an
-event per buffer).
+batch is staged in a pinned host buffer, copied into the bucket's static
+input with ``non_blocking``, the bucket's graph is replayed behind it, and
+the logits' copy back into pinned host memory is enqueued right after,
+followed by the event the returned handle waits on, all on one stream.  So
+batch N+1 can be staged and launched while batch N runs, and batch N's
+readback never waits behind batch N+1.  A replay credits the kernel
+launches its capture recorded to the kernels' launch counts.
+
+Staging slots hold ``max_batch`` images each and sit in a free list, the
+oldest handed out first: ``pipeline_depth + 1`` of them at first, more
+only while one is lent.  ``lend_staging`` lends one to a batcher that
+gathers its requests straight into it (``StagedBatch``); the borrower owns
+it until it hands it back, after ``predict_async`` has enqueued its H2D
+copy, so no other dispatch can refill it in between.  A slot is refilled
+only after the H2D copy that last read it has run (an event per slot).
 """
 
 from __future__ import annotations
 
-import itertools
+import collections
 import logging
 import os
 import queue as queue_lib
 import threading
 import time
 from concurrent.futures import Future
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +54,7 @@ import torch
 from kubernetes_deep_learning_tpu_torch import weights
 from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
 from kubernetes_deep_learning_tpu_torch.models import build_forward, resolve_device
+from kubernetes_deep_learning_tpu_torch.ops import _counts
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -205,8 +217,9 @@ class InFlightDispatcher:
         spec = getattr(engine, "spec", None)
         return getattr(spec, "name", None) or id(engine)
 
-    def submit(self, images: np.ndarray, engine=None) -> Future:
-        """Dispatch one uint8 batch; returns a Future of its logits rows.
+    def submit(self, images, engine=None) -> Future:
+        """Dispatch one uint8 batch (an array, or a ``StagedBatch`` in a slot
+        the engine lent); returns a Future of its logits rows.
 
         Blocks only while ``depth`` batches are in flight (backpressure) --
         never on device execution of the batch itself.  ``engine``
@@ -420,13 +433,37 @@ class DeviceLogits:
         return arr if dtype is None else arr.astype(dtype)
 
 
-class _StagingSlot:
-    """A pinned host buffer of one bucket's shape, and the event recorded
-    after the H2D copy that last read it."""
+class StagingSlot:
+    """A pinned host buffer of ``max_batch`` images (``host``, and ``array``,
+    its numpy view), and the event recorded after the H2D copy that last
+    read it."""
 
     def __init__(self, shape: tuple[int, ...]):
         self.host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+        self.array = self.host.numpy()
         self.copied = torch.cuda.Event(blocking=True)
+
+
+class StagedBatch(NamedTuple):
+    """``n`` images a borrower wrote into rows ``[:n]`` of a lent slot."""
+
+    slot: StagingSlot
+    n: int
+
+
+class _BucketGraph(NamedTuple):
+    """One bucket's captured forward: its static input and output, and the
+    kernel launches each replay makes (``ops._counts.recording``)."""
+
+    graph: torch.cuda.CUDAGraph
+    static_in: torch.Tensor
+    static_out: torch.Tensor
+    launches: dict
+
+
+# One capture at a time in the process: the buckets of an engine, and the
+# engines of a server, are captured one after another.
+_capture_lock = threading.Lock()
 
 
 class InferenceEngine:
@@ -454,7 +491,16 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self._ready = threading.Event()
         self._staging_buffers = resolve_pipeline_depth(pipeline_depth) + 1
-        self._staging: dict[int, itertools.cycle] = {}  # guarded-by: _lock
+        self._free: collections.deque[StagingSlot] = collections.deque()  # guarded-by: _free_lock
+        self._slots_made = 0  # guarded-by: _free_lock
+        self._free_lock = threading.Lock()
+        self._graphs: dict[int, _BucketGraph] = {}  # guarded-by: _lock
+        # One memory pool for all of this engine's bucket graphs.  Safe only
+        # because replays never overlap: every replay, and the copy of its
+        # output into pinned rows, is enqueued on the one current stream
+        # before any later replay.  A second stream would make a shared pool
+        # unsafe (two replays could then write the same intermediates).
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         registry = registry or metrics_lib.Registry()
         self.registry = registry
         self._m_infer_latency = registry.histogram(
@@ -472,9 +518,14 @@ class InferenceEngine:
     def ready(self) -> bool:
         return self._ready.is_set()
 
+    @property
+    def lends_staging(self) -> bool:
+        """Whether ``lend_staging`` has pinned slots to lend (on the card)."""
+        return self.device.type == "cuda"
+
     def warmup(self) -> float:
-        """Run every bucket once (building the kernels and the staging
-        rings); gate readiness."""
+        """Run every bucket once, in turn (on the card: building the kernels,
+        capturing the bucket's graph and replaying it); gate readiness."""
         t0 = time.perf_counter()
         for b in self.buckets:
             np.asarray(self.predict_async(np.zeros((b, *self.spec.input_shape), np.uint8))[0])
@@ -508,24 +559,76 @@ class InferenceEngine:
         # writable buffer, so np.require copies those (and only those).
         return torch.from_numpy(np.require(images, requirements=["C", "W"])).to(self.device)
 
-    def _staged(self, images: np.ndarray) -> torch.Tensor:
-        """The uint8 batch padded into the bucket's next pinned staging
-        buffer and copied to the card without waiting (under ``_lock``)."""
-        n = images.shape[0]
-        bucket = self.bucket_for(n)
-        ring = self._staging.get(bucket)
-        if ring is None:
-            shape = (bucket, *self.spec.input_shape)
-            ring = itertools.cycle([_StagingSlot(shape) for _ in range(self._staging_buffers)])
-            self._staging[bucket] = ring
-        slot = next(ring)
-        slot.copied.synchronize()  # the H2D copy that last read this buffer has run
-        host = slot.host.numpy()
-        host[:n] = images
-        host[n:] = 0
-        batch = slot.host.to(self.device, non_blocking=True)
+    def lend_staging(self) -> StagingSlot:
+        """The oldest free pinned slot of ``max_batch`` rows, owned by the
+        caller until ``return_staging``: it may write rows ``[:n]`` and
+        dispatch them as ``StagedBatch(slot, n)``.  Waits, if need be, for the
+        H2D copy that last read the slot (on the card only)."""
+        if not self.lends_staging:
+            raise RuntimeError("staging slots are pinned memory for the card")
+        with self._free_lock:
+            if not self._free:
+                # At first use the pipeline's slots; later, while every slot
+                # is lent or being filled, one more.
+                fresh = 1 if self._slots_made else self._staging_buffers
+                shape = (self.max_batch, *self.spec.input_shape)
+                self._free.extend(StagingSlot(shape) for _ in range(fresh))
+                self._slots_made += fresh
+            slot = self._free.popleft()
+        slot.copied.synchronize()  # the H2D copy that last read this slot has run
+        return slot
+
+    def return_staging(self, slot: StagingSlot) -> None:
+        """Hand a lent slot back, once any dispatch of it has been enqueued."""
+        with self._free_lock:
+            self._free.append(slot)
+
+    def _graph(self, bucket: int) -> _BucketGraph:
+        """The bucket's captured forward, captured on first use (under
+        ``_lock``)."""
+        g = self._graphs.get(bucket)
+        if g is None:
+            with _capture_lock:
+                g = self._graphs[bucket] = self._capture(bucket)
+        return g
+
+    def _capture(self, bucket: int) -> _BucketGraph:
+        static_in = torch.zeros((bucket, *self.spec.input_shape), dtype=torch.uint8,
+                                device=self.device)
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._forward(static_in)  # builds the kernels, warms cuDNN and cuBLAS
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: CUDA calls of other threads (another engine serving)
+        # neither break this capture nor are captured into it.
+        with _counts.recording() as launches, torch.cuda.graph(
+                graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
+            static_out = self._forward(static_in)
+        return _BucketGraph(graph, static_in, static_out, launches)
+
+    def graph_memory_bytes(self) -> int:
+        """Device memory reserved for this engine's bucket graphs: the
+        segments of their shared pool (0 before any capture)."""
+        if self._pool is None:
+            return 0
+        return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
+
+    def _replay(self, slot: StagingSlot, n: int) -> DeviceLogits:
+        """Rows ``[:n]`` of a staging slot through the bucket's graph: the pad
+        rows zeroed, the H2D copy into the static input, the replay and the
+        D2H copy, enqueued without waiting (under ``_lock``)."""
+        g = self._graph(self.bucket_for(n))
+        bucket = g.static_in.shape[0]
+        slot.array[n:bucket] = 0
+        g.static_in.copy_(slot.host[:bucket], non_blocking=True)
         slot.copied.record(torch.cuda.current_stream(self.device))
-        return batch
+        g.graph.replay()
+        _counts.credit(g.launches)
+        return self._handle(g.static_out)
 
     def _handle(self, logits: torch.Tensor) -> DeviceLogits:
         """On the card: the D2H copy into pinned memory, enqueued behind the
@@ -541,17 +644,29 @@ class InferenceEngine:
         done.record(torch.cuda.current_stream(self.device))
         return DeviceLogits(rows, done)
 
-    def predict_async(self, images: np.ndarray) -> tuple[DeviceLogits, int]:
+    def predict_async(self, images: np.ndarray | StagedBatch) -> tuple[DeviceLogits, int]:
         """Dispatch a uint8 batch without waiting; returns (handle, n).
         ``np.asarray(handle)[:n]`` materializes the logits.  The images are
-        copied before this returns, so the caller may reuse its array."""
+        copied before this returns, so the caller may reuse its array (or
+        hand back its lent slot)."""
+        if isinstance(images, StagedBatch):
+            if not 1 <= images.n <= self.max_batch:
+                raise ValueError(f"a staged batch holds 1..{self.max_batch} images, "
+                                 f"got {images.n}")
+            with self._lock, torch.inference_mode():
+                return self._replay(images.slot, images.n), images.n
         images = self._checked(images, np.uint8)
+        n = images.shape[0]
         with self._lock, torch.inference_mode():
-            if self.device.type == "cuda":
-                batch = self._staged(images)
-            else:
-                batch = self._padded(images)
-            return self._handle(self._forward(batch)), images.shape[0]
+            if self.device.type != "cuda":
+                return self._handle(self._forward(self._padded(images))), n
+            self.bucket_for(n)  # a batch past the largest bucket fails before staging
+            slot = self.lend_staging()
+            try:
+                slot.array[:n] = images
+                return self._replay(slot, n), n
+            finally:
+                self.return_staging(slot)
 
     def record_completed(self, n: int, seconds: float) -> None:
         """Account a successfully synced batch (counters + latency).
@@ -575,10 +690,11 @@ class InferenceEngine:
                 )
             return self._exact_f32
 
-    def predict(self, images: np.ndarray) -> np.ndarray:
+    def predict(self, images: np.ndarray | StagedBatch) -> np.ndarray:
         """uint8 or normalized float32 (N,H,W,C) -> float32 logits (N, classes)."""
-        images = np.asarray(images)
-        if images.dtype == np.uint8:
+        if not isinstance(images, StagedBatch):
+            images = np.asarray(images)
+        if isinstance(images, StagedBatch) or images.dtype == np.uint8:
             t0 = time.perf_counter()
             handle, n = self.predict_async(images)
             out = np.asarray(handle)[:n]

@@ -13,14 +13,20 @@ keeps up to ``pipeline_depth`` batches on the device.  Routes:
 - ``POST /v1/models/<name>:predict``: msgpack or JSON (``serving.protocol``);
   a single uint8 image goes through the batcher, a batch up to the largest
   bucket straight to the engine, and a larger one in max-bucket chunks
-  through the dispatcher.  503 "overloaded" when the batcher's queue is
-  full or a wait outlives its deadline; 503 with ``X-Kdlt-Stalled: 1``
-  once the dispatch watchdog has declared the pipeline stalled;
-- ``GET /healthz`` (the process is up and its pipelines are not stalled)
-  and ``GET /readyz`` (every engine has warmed, nothing stalled).
+  through the dispatcher.  Errors answer as the JAX server does, with a
+  JSON ``{"error": ...}`` body: 400 for a malformed request, 404, 500; 503
+  "overloaded" with ``Retry-After: 0.050`` when the batcher's queue is
+  full or a wait outlives its deadline; 503 with ``Retry-After: 1.000``
+  and ``X-Kdlt-Stalled: 1`` once the dispatch watchdog has declared the
+  pipeline stalled;
+- ``GET /healthz`` (the process is up and its pipelines are not stalled),
+  ``GET /readyz`` (every engine has warmed, nothing stalled) and
+  ``GET /metrics`` (the registry's Prometheus text: engine, batcher and
+  dispatch-pipeline series, labelled by model).
 
 Run it with ``kdlt-torch-model-server --model-root DIR --device cuda``
-(``--max-delay-ms``, ``--pipeline-depth``, ``--no-batching``).
+(``--max-delay-ms``, ``--pipeline-depth``, ``--batcher``,
+``--no-batching``).
 """
 
 from __future__ import annotations
@@ -38,11 +44,8 @@ from typing import Sequence
 import numpy as np
 
 from kubernetes_deep_learning_tpu_torch.export import artifact as art
-from kubernetes_deep_learning_tpu_torch.runtime.batcher import (
-    BatcherClosed,
-    DynamicBatcher,
-    QueueFull,
-)
+from kubernetes_deep_learning_tpu_torch.runtime import create_batcher
+from kubernetes_deep_learning_tpu_torch.runtime.batcher import BatcherClosed, QueueFull
 from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     DEFAULT_BUCKETS,
     DispatcherClosed,
@@ -58,6 +61,19 @@ log = logging.getLogger(__name__)
 
 _PREFIX = "/v1/models"
 
+# (status, body, content type, extra headers)
+Reply = tuple[int, bytes, str, dict[str, str]]
+
+
+def _json(status: int, obj, headers: dict[str, str] | None = None) -> Reply:
+    return status, json.dumps(obj).encode(), protocol.JSON_CONTENT_TYPE, headers or {}
+
+
+def _error(status: int, message: str, headers: dict[str, str] | None = None) -> Reply:
+    """An error reply as the JAX server sends it: ``{"error": message}``."""
+    return _json(status, {"error": message}, headers)
+
+
 # How long a handler waits for its image's batch (the reference's 20 s
 # gRPC deadline) and for a chunk of a large request.
 BATCHER_TIMEOUT_S = 20.0
@@ -70,11 +86,14 @@ class ServedModel:
     ``dispatcher``: ONE in-flight dispatch pipeline, shared by the
     single-image batcher and the chunked multi-image path so both draw
     from the same bounded in-flight budget; None at depth 1 (serial).
-    ``batcher``: the DynamicBatcher, None when batching is off.
+    ``batcher``: the single-image batcher ``runtime.create_batcher`` picks
+    for ``batcher_impl`` (the C++ queue or the Python one), None when
+    batching is off.
     """
 
     def __init__(self, engine: InferenceEngine, max_delay_ms: float = 2.0,
-                 use_batcher: bool = True, pipeline_depth: int | None = None):
+                 use_batcher: bool = True, pipeline_depth: int | None = None,
+                 batcher_impl: str = "auto"):
         self.engine = engine
         depth = resolve_pipeline_depth(pipeline_depth)
         self.dispatcher = (
@@ -82,8 +101,9 @@ class ServedModel:
             if depth > 1 else None
         )
         self.batcher = (
-            DynamicBatcher(engine, max_delay_ms=max_delay_ms, registry=engine.registry,
-                           pipeline_depth=depth, dispatcher=self.dispatcher)
+            create_batcher(engine, impl=batcher_impl, max_delay_ms=max_delay_ms,
+                           registry=engine.registry, pipeline_depth=depth,
+                           dispatcher=self.dispatcher)
             if use_batcher else None
         )
 
@@ -132,7 +152,7 @@ class ModelServer:
     def __init__(self, model_root: str, port: int = 8500, host: str = "127.0.0.1",
                  buckets: Sequence[int] = DEFAULT_BUCKETS, device: str = "cuda",
                  max_delay_ms: float = 2.0, use_batcher: bool = True,
-                 pipeline_depth: int | None = None):
+                 pipeline_depth: int | None = None, batcher_impl: str = "auto"):
         self.registry = metrics_lib.Registry()
         self.models: dict[str, ServedModel] = {}
         self.versions: dict[str, int] = {}
@@ -146,8 +166,13 @@ class ModelServer:
                 artifact, buckets=buckets, device=device, pipeline_depth=pipeline_depth,
                 registry=self.registry.with_labels(model=name),
             )
-            self.models[name] = ServedModel(engine, max_delay_ms, use_batcher, pipeline_depth)
             self.versions[name] = version
+            try:
+                self.models[name] = ServedModel(engine, max_delay_ms, use_batcher,
+                                                pipeline_depth, batcher_impl)
+            except BaseException:
+                self._close_models()  # a failed queue build stops the models made so far
+                raise
         if not self.models:
             raise ValueError(f"no model versions found under {model_root!r}")
         try:
@@ -196,49 +221,63 @@ class ModelServer:
 
     # --- request handling ----------------------------------------------------
 
-    def handle_get(self, path: str) -> tuple[int, bytes, str]:
+    def handle_get(self, path: str) -> Reply:
         if path == "/healthz":
             if self.stalled:
                 # A stalled dispatch pipeline is unrecoverable in-process:
                 # fail liveness so the orchestrator restarts the pod.
-                return 503, b"dispatch stalled", "text/plain"
-            return 200, b"ok", "text/plain"
+                return 503, b"dispatch stalled", "text/plain", {}
+            return 200, b"ok", "text/plain", {}
         if path == "/readyz":
             if self.stalled:
-                return 503, b"dispatch stalled", "text/plain"
-            return (200, b"ready", "text/plain") if self.ready else (503, b"warming", "text/plain")
+                return 503, b"dispatch stalled", "text/plain", {}
+            if not self.ready:
+                return 503, b"warming", "text/plain", {}
+            return 200, b"ready", "text/plain", {}
+        if path == "/metrics":
+            return 200, self.registry.render().encode(), protocol.METRICS_CONTENT_TYPE, {}
         if path == _PREFIX:
             models = [
                 {"name": n, "version": self.versions[n], "ready": e.ready}
                 for n, e in self.engines.items()
             ]
-            return 200, json.dumps({"models": models}).encode(), protocol.JSON_CONTENT_TYPE
+            return _json(200, {"models": models})
         if path.startswith(_PREFIX + "/"):
-            engine = self.engines.get(path[len(_PREFIX) + 1 :])
+            name = path[len(_PREFIX) + 1 :]
+            engine = self.engines.get(name)
             if engine is not None:
-                return 200, engine.spec.to_json().encode(), protocol.JSON_CONTENT_TYPE
-        return 404, b"not found", "text/plain"
+                return 200, engine.spec.to_json().encode(), protocol.JSON_CONTENT_TYPE, {}
+            return _error(404, f"no model {name!r}")
+        return _error(404, "not found")
 
-    def handle_predict(self, path: str, body: bytes, content_type: str) -> tuple[int, bytes, str]:
+    def handle_predict(self, path: str, body: bytes, content_type: str) -> Reply:
         if not (path.startswith(_PREFIX + "/") and path.endswith(":predict")):
-            return 404, b"not found", "text/plain"
-        model = self.models.get(path[len(_PREFIX) + 1 : -len(":predict")])
+            return _error(404, "not found")
+        name = path[len(_PREFIX) + 1 : -len(":predict")]
+        model = self.models.get(name)
         if model is None:
-            return 404, b"unknown model", "text/plain"
+            return _error(404, f"no model {name!r}")
         if not model.engine.ready:
-            return 503, b"model is warming up", "text/plain"
+            return _error(503, "model is warming up")
         try:
             images = protocol.decode_predict_request(body, content_type)
             logits = model.predict(images)
-        except ValueError as e:
-            return 400, str(e).encode(), "text/plain"
+        except ValueError as e:  # malformed request
+            return _error(400, str(e))
         except (QueueFull, FuturesTimeout) as e:  # transient overload
-            return 503, f"overloaded: {e or 'timed out'}".encode(), "text/plain"
+            return _error(503, f"overloaded: {e or 'timed out'}",
+                          protocol.retry_after_headers(protocol.OVERLOAD_RETRY_AFTER_S))
         except DispatchStall as e:
-            return 503, f"dispatch stalled: {e}".encode(), "text/plain"
+            # Retryable for the client (another replica serves it), terminal
+            # for this process: the header tells the gateway to take the
+            # replica out of its pool now, not after repeated failures.
+            return _error(503, f"dispatch stalled: {e}", {
+                **protocol.retry_after_headers(protocol.STALL_RETRY_AFTER_S),
+                protocol.STALLED_HEADER: "1",
+            })
         out, ctype = protocol.encode_predict_response(logits, model.engine.spec.labels,
                                                       content_type)
-        return 200, out, ctype
+        return 200, out, ctype, {}
 
     def _handler_class(self):
         server = self
@@ -250,14 +289,13 @@ class ModelServer:
             # keep-alive connection.
             disable_nagle_algorithm = True
 
-            def _reply(self, status: int, body: bytes, ctype: str) -> None:
+            def _reply(self, status: int, body: bytes, ctype: str,
+                       headers: dict[str, str]) -> None:
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
-                if status == 503 and server.stalled:
-                    # Tells the gateway to take this replica out of its
-                    # pool now, not after repeated failures.
-                    self.send_header(protocol.STALLED_HEADER, "1")
+                for key, value in headers.items():
+                    self.send_header(key, value)
                 self.end_headers()
                 self.wfile.write(body)
 
@@ -272,7 +310,7 @@ class ModelServer:
                     )
                 except Exception as e:  # noqa: BLE001 - a request must get an answer
                     log.exception("predict failed")
-                    reply = (500, f"internal error: {e}".encode(), "text/plain")
+                    reply = _error(500, str(e))
                 self._reply(*reply)
 
             def log_message(self, fmt, *args):
@@ -299,6 +337,10 @@ def _parser() -> argparse.ArgumentParser:
         "buys nothing on one card (its stream runs one batch at a time); it "
         "only queues latency",
     )
+    p.add_argument("--batcher", default="auto", choices=["auto", "native", "python"],
+                   help="batching queue implementation (native = the C++ queue, "
+                   "native/batchqueue.cc, built with g++ at first use; auto = native "
+                   "when the process may run on 2 or more cores)")
     p.add_argument("--no-batching", action="store_true",
                    help="serve every request as its own forward")
     return p
@@ -311,7 +353,7 @@ def build_server(argv: Sequence[str] | None = None) -> ModelServer:
         args.model_root, port=args.port, host=args.host,
         buckets=[int(b) for b in args.buckets.split(",")], device=args.device,
         max_delay_ms=args.max_delay_ms, use_batcher=not args.no_batching,
-        pipeline_depth=args.pipeline_depth or None,
+        pipeline_depth=args.pipeline_depth or None, batcher_impl=args.batcher,
     )
 
 

@@ -6,7 +6,9 @@ tensor bytes (``{"inputs": {"shape", "dtype", "data"}}`` in,
 ``{"outputs": ..., "labels": [...]}`` out), or the TF-Serving-style JSON
 fallback (``{"instances": ...}`` in, ``{"predictions": [{label: score}]}``
 out).  msgpack goes through ``msgpack_lite``, so the wire needs no
-third-party package.
+third-party package.  Error replies are JSON ``{"error": ...}`` bodies, and
+a 503 carries ``Retry-After`` in the JAX admission package's format
+(``retry_after_headers``), which the gateway copies into its own reply.
 """
 
 from __future__ import annotations
@@ -27,6 +29,26 @@ JSON_CONTENT_TYPE = "application/json"
 # rotation IMMEDIATELY on seeing it -- unlike an overload 503, which is
 # transient evidence that takes consecutive failures to act on.
 STALLED_HEADER = "X-Kdlt-Stalled"
+
+RETRY_AFTER_HEADER = "Retry-After"
+# The overload 503's hint: what the JAX server sends under its default
+# admission settings on an idle limiter (its floor, 0.05 s, which it
+# jitters by +-25%).  The port has no admission control yet and sends the
+# centre.
+OVERLOAD_RETRY_AFTER_S = 0.05
+# The stall 503's hint: another replica is the retry, not this one.
+STALL_RETRY_AFTER_S = 1.0
+
+# The Prometheus text exposition the JAX server's /metrics answers with.
+METRICS_CONTENT_TYPE = "text/plain"
+
+
+def retry_after_headers(retry_after_s: float | None) -> dict[str, str]:
+    """``Retry-After`` as decimal seconds with three places, as the JAX
+    server writes it (fractional: the gateway and the client parse a float)."""
+    if retry_after_s is None:
+        return {}
+    return {RETRY_AFTER_HEADER: f"{max(0.0, retry_after_s):.3f}"}
 
 
 def encode_tensor(arr: np.ndarray) -> dict[str, Any]:

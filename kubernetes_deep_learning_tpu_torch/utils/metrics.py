@@ -3,9 +3,8 @@
 The port's own trimmed copy of the JAX package's ``utils/metrics.py``: the
 metric types and registry, and the two helpers the dispatch pipeline mints
 its series through (``pipeline_stage_histograms``,
-``dispatch_stall_counter``), with the same series names and buckets.  No
-route serves the page yet; ``Registry.render`` is what a ``/metrics`` route
-will return.
+``dispatch_stall_counter``), with the same series names and buckets.
+``Registry.render`` is the model server's ``/metrics`` page.
 """
 
 from __future__ import annotations

@@ -6,16 +6,21 @@ port's (``runtime.batcher.DynamicBatcher``, ``runtime.engine.
 InFlightDispatcher``): ordering and row wiring, backpressure at depth,
 dispatch and sync failures, close/drain, the next batch dispatched
 before the last completes, the queue cap, ``resolve_pipeline_depth``,
-the stage metrics and the watchdog.  The engine stand-in completes each
-batch only when the test releases it, so overlap is asserted by
-construction, never by sleeps.
+the stage metrics and the watchdog.  The batcher contracts also run
+against the port's C++ queue (``runtime.native_batcher.NativeBatcher``,
+built with g++), and ``create_batcher`` picks by core count and raises
+for ``native`` when the queue will not build.  The engine stand-in
+completes each batch only when the test releases it, so overlap is
+asserted by construction, never by sleeps.
 
 Then the port's ``ModelServer`` on the CPU (a 96-px Xception exported by
 the JAX package, buckets 1, 2, 4, 8): 8 concurrent one-image requests
 beside a 5-image and a 9-image one, each reply held against JAX's
 ``build_forward`` of the same images (rtol/atol 1e-3, as
 ``test_torch_serving.py``), the engine counters against the batcher's
-batch sizes, the stalled-pipeline answers, and ``--no-batching``.
+batch sizes, the stalled-pipeline and full-queue answers (JSON bodies and
+``Retry-After``, as the JAX server's), ``--no-batching``, each
+``--batcher`` and the ``/metrics`` page.
 """
 
 from __future__ import annotations
@@ -42,20 +47,32 @@ from kubernetes_deep_learning_tpu.runtime import batcher as jax_batcher
 from kubernetes_deep_learning_tpu.runtime import engine as jax_engine
 from kubernetes_deep_learning_tpu.utils import metrics as jax_metrics
 from kubernetes_deep_learning_tpu_torch.runtime import batcher as port_batcher
+from kubernetes_deep_learning_tpu_torch.runtime import create_batcher
 from kubernetes_deep_learning_tpu_torch.runtime import engine as port_engine
+from kubernetes_deep_learning_tpu_torch.runtime.native_batcher import NativeBatcher
 from kubernetes_deep_learning_tpu_torch.serving import protocol
 from kubernetes_deep_learning_tpu_torch.serving.model_server import build_server
 from kubernetes_deep_learning_tpu_torch.utils import metrics as port_metrics
 
 PACKAGES = {
-    "jax": SimpleNamespace(batcher=jax_batcher, engine=jax_engine, metrics=jax_metrics),
-    "port": SimpleNamespace(batcher=port_batcher, engine=port_engine, metrics=port_metrics),
+    "jax": SimpleNamespace(batcher=jax_batcher, engine=jax_engine, metrics=jax_metrics,
+                           Batcher=jax_batcher.DynamicBatcher),
+    "port": SimpleNamespace(batcher=port_batcher, engine=port_engine, metrics=port_metrics,
+                            Batcher=port_batcher.DynamicBatcher),
 }
+# The batcher contracts run against the port's C++ queue too.
+BATCHERS = {**PACKAGES, "native": SimpleNamespace(
+    batcher=port_batcher, engine=port_engine, metrics=port_metrics, Batcher=NativeBatcher)}
 
 
 @pytest.fixture(params=sorted(PACKAGES))
 def pkg(request):
     return PACKAGES[request.param]
+
+
+@pytest.fixture(params=sorted(BATCHERS))
+def bpkg(request):
+    return BATCHERS[request.param]
 
 
 # --- a controlled-completion engine -------------------------------------------
@@ -85,7 +102,7 @@ class ControlledEngine:
     [i, r, sum of the row's pixels], so a row wired to the wrong batch,
     position or request shows in the values."""
 
-    spec = SimpleNamespace(input_shape=(2, 2, 3))
+    spec = SimpleNamespace(input_shape=(2, 2, 3), num_classes=3)
 
     def __init__(self, max_batch=8, fail_dispatch_at=(), fail_sync_at=()):
         self.max_batch = max_batch
@@ -132,6 +149,11 @@ def _until(cond, timeout=5.0):
 def _release_all(eng):
     for h in list(eng.handles):
         h.release()
+
+
+def _queued(b) -> int:
+    """Requests a batcher holds that no batch has taken yet."""
+    return b.pending() if isinstance(b, NativeBatcher) else len(b._queue)
 
 
 # --- dispatcher contracts -------------------------------------------------------
@@ -299,12 +321,12 @@ def test_watchdog_declare_stall(pkg):
 # --- batcher contracts ----------------------------------------------------------
 
 
-def test_batcher_dispatches_next_batch_before_previous_completes(pkg):
+def test_batcher_dispatches_next_batch_before_previous_completes(bpkg):
     """With a pipelined engine the dispatch thread starts (assembles AND
     dispatches) batch N+1 while batch N is still executing -- held open by
     batch N's unreleased handle, so the overlap is structural."""
     eng = ControlledEngine(max_batch=1)  # one request per batch
-    b = pkg.batcher.DynamicBatcher(eng, max_delay_ms=0, pipeline_depth=2)
+    b = bpkg.Batcher(eng, max_delay_ms=0, pipeline_depth=2)
     try:
         f0 = b.submit(_imgs(1, 1)[0])
         f1 = b.submit(_imgs(1, 2)[0])
@@ -319,11 +341,11 @@ def test_batcher_dispatches_next_batch_before_previous_completes(pkg):
         b.close()
 
 
-def test_batcher_wires_rows_to_their_requests(pkg):
+def test_batcher_wires_rows_to_their_requests(bpkg):
     """Concurrent requests coalesce (the engine is held busy, so the queue
     fills) and every request gets its own row back."""
     eng = ControlledEngine(max_batch=8)
-    b = pkg.batcher.DynamicBatcher(eng, max_delay_ms=5, pipeline_depth=2)
+    b = bpkg.Batcher(eng, max_delay_ms=5, pipeline_depth=2)
     try:
         first = b.submit(_imgs(1, 0)[0])
         assert _until(lambda: eng.dispatches == 1)
@@ -341,9 +363,9 @@ def test_batcher_wires_rows_to_their_requests(pkg):
         b.close()
 
 
-def test_batcher_engine_error_propagates_and_batcher_survives(pkg):
+def test_batcher_engine_error_propagates_and_batcher_survives(bpkg):
     eng = ControlledEngine(fail_dispatch_at={0})
-    b = pkg.batcher.DynamicBatcher(eng, max_delay_ms=0, pipeline_depth=2)
+    b = bpkg.Batcher(eng, max_delay_ms=0, pipeline_depth=2)
     try:
         with pytest.raises(ValueError, match="dispatch 0 rejected"):
             b.predict(_imgs(1, 1)[0], timeout=5)
@@ -356,47 +378,47 @@ def test_batcher_engine_error_propagates_and_batcher_survives(pkg):
         b.close()
 
 
-def test_batcher_serial_engine_unchanged(pkg):
+def test_batcher_serial_engine_unchanged(bpkg):
     """Engines without predict_async keep the dispatch-then-sync loop (no
     dispatcher), as does depth 1."""
 
     class Plain:
         max_batch = 4
-        spec = SimpleNamespace(input_shape=(2, 2, 3))
+        spec = SimpleNamespace(input_shape=(2, 2, 3), num_classes=2)
 
         def predict(self, images):
             s = images.reshape(images.shape[0], -1).sum(axis=1)
             return np.stack([s, s * 2], axis=1).astype(np.float32)
 
-    b = pkg.batcher.DynamicBatcher(Plain(), max_delay_ms=1, pipeline_depth=2)
+    b = bpkg.Batcher(Plain(), max_delay_ms=1, pipeline_depth=2)
     try:
         assert b._dispatcher is None
         assert b.predict(_imgs(1, 3)[0]).tolist() == [36.0, 72.0]
     finally:
         b.close()
     eng = ControlledEngine()
-    b = pkg.batcher.DynamicBatcher(eng, max_delay_ms=1, pipeline_depth=1)
+    b = bpkg.Batcher(eng, max_delay_ms=1, pipeline_depth=1)
     try:
         assert b._dispatcher is None
     finally:
         b.close()
 
 
-def test_batcher_queue_cap_rejects(pkg):
+def test_batcher_queue_cap_rejects(bpkg):
     """Two batches in flight and a third blocked at the depth limit: the
     queue then holds queue_cap requests and the next is rejected."""
-    reg = pkg.metrics.Registry()
+    reg = bpkg.metrics.Registry()
     eng = ControlledEngine(max_batch=1)
-    b = pkg.batcher.DynamicBatcher(eng, max_delay_ms=0, queue_cap=2, registry=reg,
+    b = bpkg.Batcher(eng, max_delay_ms=0, queue_cap=2, registry=reg,
                                    pipeline_depth=2)
     try:
         futs = []
         for v in range(3):  # each taken off the queue before the next
             futs.append(b.submit(_imgs(1, v)[0]))
-            assert _until(lambda: not b._queue)
+            assert _until(lambda: not _queued(b))
         assert eng.dispatches == 2
         futs += [b.submit(_imgs(1, v)[0]) for v in (3, 4)]
-        with pytest.raises(pkg.batcher.QueueFull):
+        with pytest.raises(bpkg.batcher.QueueFull):
             b.submit(_imgs(1, 5)[0])
         assert "kdlt_batcher_rejected_total 1.0" in reg.render()
         while not all(f.done() for f in futs):
@@ -408,9 +430,9 @@ def test_batcher_queue_cap_rejects(pkg):
         b.close()
 
 
-def test_batcher_close_rejects_new_and_drains(pkg):
+def test_batcher_close_rejects_new_and_drains(bpkg):
     eng = ControlledEngine()
-    b = pkg.batcher.DynamicBatcher(eng, max_delay_ms=1, pipeline_depth=2)
+    b = bpkg.Batcher(eng, max_delay_ms=1, pipeline_depth=2)
     fut = b.submit(_imgs(1, 1)[0])
     assert _until(lambda: eng.dispatches == 1)
     closer = threading.Thread(target=b.close, daemon=True)
@@ -419,7 +441,7 @@ def test_batcher_close_rejects_new_and_drains(pkg):
     closer.join(timeout=10)
     assert not closer.is_alive()
     assert fut.result(timeout=5).tolist() == [0.0, 0.0, 12.0]
-    with pytest.raises(pkg.batcher.BatcherClosed):
+    with pytest.raises(bpkg.batcher.BatcherClosed):
         b.submit(_imgs(1, 1)[0])
 
 
@@ -565,7 +587,7 @@ def test_model_server_answers_503_once_the_pipeline_stalls(exported):
         for batch in (imgs, np.concatenate([imgs] * 9)):  # batcher and chunk paths
             status, (body, stalled) = _post(server.port, spec.name, batch)
             assert status == 503 and stalled == "1", body
-            assert body.startswith(b"dispatch stalled")
+            assert json.loads(body)["error"].startswith("dispatch stalled")
         status, models = _get(server.port, "/v1/models")
         assert status == 200 and json.loads(models)["models"][0]["ready"]
     finally:
@@ -580,7 +602,8 @@ def test_model_server_answers_503_when_the_queue_is_full(exported):
         model.batcher.queue_cap = 0
         status, (body, stalled) = _post(server.port, spec.name,
                                         np.zeros((1, *spec.input_shape), np.uint8))
-        assert status == 503 and body.startswith(b"overloaded") and stalled is None
+        assert status == 503 and stalled is None
+        assert json.loads(body)["error"].startswith("overloaded")
     finally:
         server.shutdown()
 
@@ -592,3 +615,90 @@ def test_model_server_cli_defaults_are_jaxs():
 
     args = _parser().parse_args(["--model-root", "x"])
     assert (args.max_delay_ms, args.pipeline_depth, args.no_batching) == (2.0, 0, False)
+
+
+def test_model_server_batcher_flag_default_is_jaxs():
+    """--batcher auto, the JAX server's default (its ``batcher_impl``)."""
+    import inspect
+
+    from kubernetes_deep_learning_tpu.serving.model_server import ModelServer as JaxModelServer
+
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer, _parser
+
+    jax_default = inspect.signature(JaxModelServer).parameters["batcher_impl"].default
+    assert _parser().parse_args(["--model-root", "x"]).batcher == jax_default == "auto"
+    assert inspect.signature(ModelServer).parameters["batcher_impl"].default == jax_default
+
+
+@pytest.mark.parametrize("impl", ["native", "python"])
+def test_model_server_batcher_flag_serves_the_same_replies(exported, impl):
+    """``--batcher native`` and ``--batcher python``: the replies of the
+    concurrent requests match JAX's forward, and ``/metrics`` serves the
+    engine, batcher and pipeline series of the registry."""
+    spec, root, jax_forward = exported
+    server = _server(root, "--batcher", impl)
+    try:
+        batcher = server.models[spec.name].batcher
+        assert isinstance(batcher, NativeBatcher if impl == "native" else port_batcher.DynamicBatcher)
+        batches = _requests(spec)
+        replies = _send_concurrently(server.port, spec.name, batches)
+        for imgs, (status, got) in zip(batches, replies):
+            assert status == 200, got
+            np.testing.assert_allclose(got, jax_forward(imgs), rtol=1e-3, atol=1e-3)
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=30) as r:
+            ctype, text = r.headers["Content-Type"], r.read().decode()
+    finally:
+        server.shutdown()
+    assert ctype == "text/plain"
+    assert _series(text, "kdlt_engine_images_total", spec.name)[""] == 22.0
+    assert _series(text, "kdlt_batcher_batch_size_sum", spec.name)[""] == 8.0
+    n_batched = _series(text, "kdlt_batcher_batch_size_count", spec.name)[""]
+    assert _series(text, "kdlt_pipeline_dispatch_seconds_count", spec.name)[""] == n_batched + 2
+
+
+# --- create_batcher ---------------------------------------------------------------
+
+
+def test_create_batcher_picks_by_core_count(monkeypatch):
+    """The JAX rule: native with 2 or more cores in the affinity mask, Python
+    on one core; ``python`` and ``native`` as asked."""
+    import os
+
+    eng = ControlledEngine()
+    for cores, impl, want in (({0, 1}, "auto", NativeBatcher),
+                              ({0}, "auto", port_batcher.DynamicBatcher),
+                              ({0}, "native", NativeBatcher),
+                              ({0, 1, 2}, "python", port_batcher.DynamicBatcher)):
+        monkeypatch.setattr(os, "sched_getaffinity", lambda pid, cores=cores: cores)
+        b = create_batcher(eng, impl=impl, max_delay_ms=1, pipeline_depth=1)
+        try:
+            assert type(b) is want, (cores, impl)
+        finally:
+            b.close()
+    with pytest.raises(ValueError, match="unknown batcher"):
+        create_batcher(eng, impl="rust")
+
+
+def test_create_batcher_native_raises_when_the_queue_will_not_build(monkeypatch, tmp_path):
+    """A compiler that does not exist and an empty build directory: ``native``
+    raises, ``auto`` takes the Python batcher."""
+    import os
+
+    from kubernetes_deep_learning_tpu_torch.ops import _native
+
+    monkeypatch.setattr(_native, "_lib", None)  # forget the library built so far
+    monkeypatch.setenv("KDLT_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0, 1, 2, 3})
+    eng = ControlledEngine()
+    with pytest.raises(RuntimeError, match="no-such-g\\+\\+"):
+        create_batcher(eng, impl="native", pipeline_depth=1)
+    b = create_batcher(eng, impl="auto", max_delay_ms=1, pipeline_depth=1)
+    try:
+        assert type(b) is port_batcher.DynamicBatcher
+    finally:
+        b.close()
+    monkeypatch.setenv("CXX", "false")  # a compiler that fails
+    with pytest.raises(RuntimeError, match="false failed"):
+        create_batcher(eng, impl="native", pipeline_depth=1)
+    assert not list(tmp_path.iterdir())  # nothing half-built is left to load

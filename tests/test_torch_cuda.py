@@ -23,10 +23,16 @@ The flash kernels (bf16 TMA + wgmma, f32 3xTF32) are held at head dims
 q-tile), on strided (B, S, H, D) views, and in f32 at inputs of std 8,
 whose large scores stress the 3xTF32 split (still 1e-4).
 The engine's dispatch pipeline is held on a 96-px Xception: depth + 2
-batches in flight through the pinned staging ring equal their solo
-predicts bit for bit, and neither a dispatch nor a readback waits for
-another batch (``torch.cuda._sleep`` holds the stream; event queries,
-not timings).
+batches in flight through the pinned staging slots equal their solo
+predicts bit for bit, neither a dispatch nor a readback waits for
+another batch, and a slot lent to a batcher is never handed out again
+before its H2D copy has run (``torch.cuda._sleep`` holds the stream;
+event queries, not timings).  K1 and K2 captured in a CUDA graph replay
+their eager call's bits; each engine's per-bucket graphs (a 96-px
+Xception, vit-tiny at 1024 tokens, efficientnet-b0 at 64 px; buckets 2
+and 8, the latter fed 5 images) replay the eager forward's bits on the
+same padded batch, and every replay credits its capture's launches; a
+forward that syncs with the host fails warmup.
 """
 
 from __future__ import annotations
@@ -595,7 +601,7 @@ def test_cuda_entry_kernel_forward_launches():
 
 def _tiny_engine(depth: int):
     """A warmed 96-px Xception engine on the card (buckets 1 and 4) whose
-    staging ring holds depth + 1 buffers a bucket."""
+    staging free list starts with depth + 1 slots."""
     from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
     from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
     from kubernetes_deep_learning_tpu_torch.models import init_variables
@@ -652,3 +658,131 @@ def test_cuda_predict_async_and_readback_wait_for_no_other_batch():
     assert not second._done.query()  # the first readback did not wait for the second forward
     np.testing.assert_array_equal(rows, want_a)
     np.asarray(second)
+
+
+@pytest.mark.cuda
+def test_cuda_stage_kernels_replay_from_a_graph_bit_equal():
+    """K1 (a middle block over its prepared stages) and K2 (block14's chain)
+    captured in one CUDA graph and replayed give their eager calls' bits."""
+    _need_cuda()
+    rng = np.random.default_rng(8)
+    x = _t(rng, (4, 19, 19, 728), dtype=torch.bfloat16)
+    st = [_stage(rng, 728, 728, True, False) for _ in range(3)]
+    block = ops.prepare_block(*(torch.stack([s[k] for s in st])
+                                for k in ("dw", "pw", "scale", "shift")))
+    xc = _t(rng, (4, 10, 10, 1024), dtype=torch.bfloat16)
+    chain = [_stage(rng, a, b, False, True) for a, b in ((1024, 1536), (1536, 2048))]
+    eager = (ops.fused_sepconv_block_stages(x, block), ops.fused_sepconv_chain(xc, chain))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.fused_sepconv_block_stages(x, block)  # warm up outside the capture
+        ops.fused_sepconv_chain(xc, chain)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = (ops.fused_sepconv_block_stages(x, block), ops.fused_sepconv_chain(xc, chain))
+    ops.reset_launch_counts()
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"fused_sepconv_block": 0, "fused_sepconv_chain": 0}
+    for got, want in zip(captured, eager):
+        assert torch.equal(got, want)
+
+
+def _engine_case(name: str):
+    """A small served model of each family on the card, the kernel module
+    it launches and its launches per forward."""
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+
+    return {
+        "xception": (ModelSpec(name="graph-xception", family="xception",
+                               input_shape=(96, 96, 3), labels=("a", "b", "c"),
+                               preprocessing="tf"),
+                     ops, {"fused_sepconv_block": 8, "fused_sepconv_chain": 2}),
+        "vit": (ModelSpec(name="graph-vit", family="vit-tiny", input_shape=(256, 256, 3),
+                          labels=("a", "b"), preprocessing="tf"),
+                attention, {"flash_attention": 2}),
+        "efficientnet": (ModelSpec(name="graph-effnet", family="efficientnet-b0",
+                                   input_shape=(64, 64, 3), labels=("a", "b", "c"),
+                                   preprocessing="torch"),
+                         fused_mbconv, {"fused_mbconv_block": 11}),
+    }[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["xception", "vit", "efficientnet"])
+def test_cuda_engine_bucket_graphs_replay_bit_equal_to_eager(name):
+    """Buckets 2 and 8: 2 images, then 5 (3 of bucket 8's rows padding).  The
+    replay's logits equal ``engine._forward`` on the same zero-padded batch
+    bit for bit, and each replay credits the capture's launches."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    spec, counter, per_forward = _engine_case(name)
+    artifact = ModelArtifact(spec, init_variables(spec, seed=0), {"compute_dtype": "bfloat16"})
+    engine = InferenceEngine(artifact, buckets=(2, 8), device="cuda")
+    engine.warmup()
+    rng = np.random.default_rng(9)
+    for n, bucket in ((2, 2), (5, 8)):
+        imgs = rng.integers(0, 256, (n, *spec.input_shape), np.uint8)
+        counter.reset_launch_counts()
+        handle, got_n = engine.predict_async(imgs)
+        rows = np.asarray(handle)
+        assert got_n == n and rows.shape == (bucket, spec.num_classes)
+        launches = counter.launch_counts()
+        assert {k: v for k, v in launches.items() if v} == per_forward, launches
+        padded = np.zeros((bucket, *spec.input_shape), np.uint8)
+        padded[:n] = imgs
+        with torch.inference_mode():
+            eager = engine._forward(torch.from_numpy(padded).cuda()).cpu().numpy()
+        assert np.isfinite(rows).all()
+        np.testing.assert_array_equal(rows, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_fails_warmup_on_a_host_sync():
+    """A forward that reads a value back to the host cannot be captured:
+    warmup raises instead of serving eagerly."""
+    _need_cuda()
+    engine = _tiny_engine(2)
+    forward = engine._forward
+
+    def syncing(x):
+        out = forward(x)
+        return out * float(out.abs().max())  # a device-to-host read
+    engine._forward = syncing
+    engine._graphs.clear()
+    with pytest.raises(RuntimeError):
+        engine.warmup()
+
+
+@pytest.mark.cuda
+def test_cuda_lent_slot_is_never_handed_out_before_its_h2d():
+    """A slot lent to a batcher and dispatched behind a held stream: while
+    it is lent, no other dispatch or lend gets it; once handed back, the
+    next lend of it returns only after its H2D copy has run, and every slot
+    a lend returns has no H2D copy pending."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.runtime.engine import StagedBatch
+
+    engine = _tiny_engine(2)
+    rng = np.random.default_rng(10)
+    imgs = rng.integers(0, 256, (3, 96, 96, 3), np.uint8)
+    want = engine.predict(imgs)
+    torch.cuda._sleep(_HOLD_CYCLES)
+    lent = engine.lend_staging()
+    lent.array[:3] = imgs
+    handle, n = engine.predict_async(StagedBatch(lent, 3))
+    assert not lent.copied.query()  # its H2D waits behind the held stream
+    others = [engine.lend_staging() for _ in range(4)]  # every other slot, and new ones
+    assert all(s is not lent and s.copied.query() for s in others)
+    for s in others:
+        engine.return_staging(s)
+    engine.return_staging(lent)
+    seen = [engine.lend_staging() for _ in range(5)]
+    assert any(s is lent for s in seen) and all(s.copied.query() for s in seen)
+    np.testing.assert_array_equal(np.asarray(handle)[:n], want)

@@ -158,3 +158,34 @@ def test_wrappers_reject_bad_operands():
                                          pre_relu=True, post_relu=False)])
     with pytest.raises(ValueError, match="empty chain"):
         ops.fused_sepconv_chain(x, [])
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 128), (3, 6, 6, 32)])
+def test_prepared_block_stages_are_bit_equal_to_the_stacked_form(shape):
+    """``prepare_block``'s stage views, checked once, give the stacked-weight
+    call's bits (the forward's per-call path against ``fused_sepconv_block``
+    and ``sepconv_block_reference``)."""
+    rng = np.random.default_rng(4)
+    _, x = _bf16(rng.normal(0, 1, shape))
+    _, w = _block_weights(rng, shape[-1])
+    stages = ops.prepare_block(*w)
+    assert len(stages) == 3 and all(s["pre_relu"] and not s["post_relu"] for s in stages)
+    assert all(s["pw"].data_ptr() == w[1][i].data_ptr() for i, s in enumerate(stages))  # views
+    got = ops.fused_sepconv_block_stages(x, stages)
+    assert torch.equal(got, ops.fused_sepconv_block(x, *w))
+    assert torch.equal(got, ops.sepconv_block_reference(x, *w))
+
+
+def test_prepared_block_checks_once_and_the_call_checks_x():
+    rng = np.random.default_rng(5)
+    _, x = _bf16(rng.normal(0, 1, (1, 4, 4, 32)))
+    _, (dw, pw, s, b) = _block_weights(rng, 32)
+    with pytest.raises(ValueError, match="dw must be"):
+        ops.prepare_block(dw[:, :2], pw, s, b)
+    with pytest.raises(ValueError, match="exactly 3"):
+        ops.prepare_block(dw[:2], pw[:2], s[:2], b[:2])
+    stages = ops.prepare_block(dw, pw, s, b)
+    with pytest.raises(ValueError, match="32 channels"):
+        ops.fused_sepconv_block_stages(x[..., :16], stages)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.fused_sepconv_block_stages(x.float(), stages)

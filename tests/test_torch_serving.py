@@ -6,7 +6,10 @@
   (rtol/atol 2e-3, as ``test_golden_fixture.py``);
 - the unchanged JAX ``Gateway`` pointed at the port's model server returns
   ``{label: score}`` within 1e-3 of the JAX forward in float32;
-- importing the port loads neither jax, flax nor the JAX package.
+- importing the port loads neither jax, flax nor the JAX package;
+- the port server's error replies (400, the overload 503, the stall 503)
+  carry the JAX server's JSON body keys and ``Retry-After`` header for the
+  same fault, and ``/metrics`` serves the registry.
 """
 
 from __future__ import annotations
@@ -419,9 +422,9 @@ def test_model_server_gates_on_warmup(exported):
         assert server.handle_get("/healthz")[0] == 200
         assert server.handle_get("/readyz")[0] == 503
         body = protocol.encode_predict_request(np.zeros((1, *spec.input_shape), np.uint8))
-        status, _, _ = server.handle_predict(
+        status = server.handle_predict(
             f"/v1/models/{spec.name}:predict", body, protocol.MSGPACK_CONTENT_TYPE
-        )
+        )[0]
         assert status == 503
         server.warmup()
         assert server.handle_get("/readyz")[0] == 200
@@ -432,3 +435,101 @@ def test_model_server_gates_on_warmup(exported):
 def test_model_server_needs_a_model(tmp_path):
     with pytest.raises(ValueError, match="no model versions"):
         ModelServer(str(tmp_path), port=0, device="cpu")
+
+
+# --- error replies, against the JAX server -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def error_servers(exported, tmp_path_factory):
+    """The JAX model server (a stub engine: its error paths need no model)
+    and the port's, each serving one model, under default settings."""
+    from kubernetes_deep_learning_tpu.runtime.stub import StubEngine
+    from kubernetes_deep_learning_tpu.serving.model_server import ModelServer as JaxModelServer
+
+    spec, root, _ = exported
+    jax_root = str(tmp_path_factory.mktemp("jax-models"))
+    jax_art.save_artifact(jax_art.version_dir(jax_root, spec.name, 1), spec, {"params": {}},
+                          None, {})
+    jax_server = JaxModelServer(jax_root, port=0, buckets=(1,), host="127.0.0.1",
+                                engine_factory=lambda a, **kw: StubEngine(a, **kw))
+    jax_server.warmup()
+    jax_server.start()
+    port_server = ModelServer(root, port=0, buckets=(1,), device="cpu")
+    port_server.start()
+    port_server.warmup()
+    yield spec, jax_server, port_server
+    port_server.shutdown()
+    jax_server.shutdown()
+
+
+def _raise(exc):
+    def predict(*args, **kwargs):
+        raise exc
+    return predict
+
+
+def _post_raw(port, name, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/models/{name}:predict",
+                                 data=body, method="POST",
+                                 headers={"Content-Type": protocol.MSGPACK_CONTENT_TYPE})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+@pytest.mark.parametrize("fault", ["bad-request", "overload", "stall"])
+def test_error_replies_match_the_jax_server(error_servers, monkeypatch, fault):
+    """The same fault at both servers: the same status, a JSON body with the
+    same keys, and the same ``Retry-After`` and ``X-Kdlt-Stalled`` headers.
+    The overload hint is the one the JAX server sends under its default
+    admission settings: its limiter's idle value, which it jitters by
+    +-25%; the test pins that jitter to its centre."""
+    from types import SimpleNamespace
+
+    from kubernetes_deep_learning_tpu.runtime import DispatchStall as JaxDispatchStall
+    from kubernetes_deep_learning_tpu.runtime import QueueFull as JaxQueueFull
+    from kubernetes_deep_learning_tpu.serving.admission import limiter as jax_limiter
+
+    from kubernetes_deep_learning_tpu_torch.runtime import DispatchStall, QueueFull
+
+    spec, jax_server, port_server = error_servers
+    assert jax_server.admission.limiter is not None  # the JAX default: a limiter
+    monkeypatch.setattr(jax_limiter, "random", SimpleNamespace(uniform=lambda a, b: (a + b) / 2))
+    body = protocol.encode_predict_request(np.zeros((1, *spec.input_shape), np.uint8))
+    if fault == "bad-request":  # a well-formed tensor of the wrong shape
+        body = protocol.encode_predict_request(np.zeros((1, 8, 8, 3), np.uint8))
+    else:
+        jax_exc, port_exc = ((JaxQueueFull, QueueFull) if fault == "overload"
+                             else (JaxDispatchStall, DispatchStall))
+        monkeypatch.setattr(jax_server.models[spec.name], "predict",
+                            _raise(jax_exc("request queue full")))
+        monkeypatch.setattr(port_server.models[spec.name], "predict",
+                            _raise(port_exc("request queue full")))
+    replies = [_post_raw(s.port, spec.name, body) for s in (jax_server, port_server)]
+    (want_status, want_headers, want_body), (status, headers, got_body) = replies
+    assert status == want_status == {"bad-request": 400}.get(fault, 503)
+    assert headers["Content-Type"] == want_headers["Content-Type"] == protocol.JSON_CONTENT_TYPE
+    assert json.loads(got_body).keys() == json.loads(want_body).keys() == {"error"}
+    for key in ("Retry-After", protocol.STALLED_HEADER):
+        assert headers.get(key) == want_headers.get(key), key
+    assert headers.get("Retry-After") == {"bad-request": None, "overload": "0.050",
+                                          "stall": "1.000"}[fault]
+
+
+def test_model_server_routes_answer_json_errors_and_metrics(stack):
+    """404s carry ``{"error": ...}``; ``/metrics`` serves the registry's
+    Prometheus text, the engine's series included."""
+    spec, server, _, _, _, _ = stack
+    base = f"http://127.0.0.1:{server.port}"
+    for method, path in (("GET", "/nope"), ("GET", "/v1/models/nope"),
+                         ("POST", "/v1/models/nope:predict"), ("POST", "/nope")):
+        status, body, ctype = _http(method, f"{base}{path}", b"{}" if method == "POST" else None,
+                                    protocol.JSON_CONTENT_TYPE if method == "POST" else None)
+        assert status == 404 and ctype == protocol.JSON_CONTENT_TYPE
+        assert set(json.loads(body)) == {"error"}
+    status, body, ctype = _http("GET", f"{base}/metrics")
+    assert status == 200 and ctype == "text/plain"
+    assert f'kdlt_engine_images_total{{model="{spec.name}"}}' in body.decode()
