@@ -132,7 +132,29 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    then the same requests on a ``fast=False`` bf16 engine (the exact
    graph: no K4 launch, the fused route within 2e-2 relative of it) and
    its bucket-16 p50, so the default route can be chosen on this card;
-16. with ``--profile``: the host time by op of a few bucket-16
+16. ResNet50 (BASELINE config 3): ``resnet50-imagenet`` at 224 px, all 16
+   bottleneck blocks, bf16, served with buckets (1, 4, 16, 32): its path
+   is cuDNN convolutions and must launch none of the hand kernels; every
+   bucket's graph must replay bit-equal to the eager forward, the bf16
+   logits lie within 2e-2 of the exact f32 graph (TF32 off), and a
+   3-image msgpack ``:predict`` return the engine's logits; then graph
+   and eager p50 and img/s per bucket (``resnet-bucket``), and with
+   ``--profile`` the device ms at bucket 16;
+17. admission: ``clothing-model`` on the batching phase's depth-2 server
+   (buckets 1-32) with admission on: a request with
+   ``X-Request-Deadline-Ms: 0`` must get a JSON 504 with the engine's
+   image counter unmoved; the overload A/B drives the open-loop load
+   generator (4 processes, 128 kept-alive connections each) at twice the
+   depth-2 arm's img/s for 8 s, 600 ms a request, against admission on
+   and ``--no-admission`` (``overload`` lines: offered rate, goodput,
+   in-deadline p50/p99, sheds by reason, the limit; every 200 must carry
+   its own image's logits, every 503/504 a JSON body, every 503 a
+   ``Retry-After`` in the limiter's range, every forward K1 8 and K2 2
+   launches; JAX's criterion is printed, not gated); then a server
+   process under 16 closed-loop clients gets SIGTERM (``drain``: /readyz
+   503 "draining", new requests 503 "draining", nothing admitted lost,
+   exit 0);
+18. with ``--profile``: the host time by op of a few bucket-16
    ``predict_async`` dispatches of the batching phase's engine
    (``batching-host``); a ``torch.profiler`` trace of a few bucket-16
    forwards of each served model (and of B3's ``fast=False`` engine, and
@@ -155,6 +177,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -220,6 +243,21 @@ TRACE_KERNELS = {
     "efficientnet-b3-imagenet": {k: 18 for k in ("mbconv_expand_dw_kernel", "mbconv_se_kernel",
                                                  "mbconv_proj_kernel")},
 }
+# ResNet50 (BASELINE config 3) at 224 px: its buckets, and its bf16 logits'
+# tolerance against the exact f32 graph (TF32 off), relative to the largest.
+RESNET_BUCKETS = (1, 4, 16, 32)
+RESNET_TOL = 2e-2
+# The admission phase's overload A/B (the JAX bench's --overload-ab
+# defaults): one-image requests at OVERLOAD_X times the batching phase's
+# depth-2 img/s for OVERLOAD_S seconds, each with a OVERLOAD_DEADLINE_MS
+# budget, from OVERLOAD_PROCESSES load processes of OVERLOAD_CONNECTIONS
+# kept-alive connections; admission on, then off.
+OVERLOAD_X = 2.0
+OVERLOAD_S = 8.0
+OVERLOAD_DEADLINE_MS = 600.0
+OVERLOAD_PROCESSES = 4
+OVERLOAD_CONNECTIONS = 128
+DRAIN_CLIENTS = 16  # closed-loop clients on the server process SIGTERM drains
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
                   preprocessing="tf",
@@ -975,6 +1013,372 @@ def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forwar
             for server in servers.values():
                 server.shutdown()
     return lines
+
+
+def _kernel_modules() -> tuple:
+    """Every hand kernel's wrapper module (each keeps its launch counts)."""
+    from kubernetes_deep_learning_tpu_torch.ops import (
+        attention,
+        fused_entry,
+        fused_mbconv,
+        fused_sepconv,
+    )
+
+    return fused_sepconv, attention, fused_mbconv, fused_entry
+
+
+def _resnet_phase(seed: int, iters: int, profile: bool, smi: str) -> dict:
+    """``resnet50-imagenet`` at full width and depth (224 px, 16 bottleneck
+    blocks), random weights from ``seed``, bf16, served by the port's model
+    server with buckets RESNET_BUCKETS.  Its path runs cuDNN convolutions and
+    none of the hand kernels: a 3-image msgpack ``:predict`` (the main path)
+    must launch none, and return the engine's logits for the same images bit
+    for bit.  Every bucket's graph must replay bit-equal to the eager forward
+    (the stem's padded conv and max-pool captured); the bf16 logits must lie
+    within RESNET_TOL of the exact f32 graph.  Then graph and eager p50 and
+    img/s per bucket, and with ``profile`` the device ms at bucket 16."""
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.modelspec import RESNET50_IMAGENET as spec
+    from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    rng = np.random.default_rng(seed + 3)
+    with tempfile.TemporaryDirectory() as root:
+        art.save_artifact(art.version_dir(root, spec.name, 1), spec,
+                          init_variables(spec, seed=seed), {"compute_dtype": "bfloat16"})
+        server = ModelServer(root, port=0, buckets=RESNET_BUCKETS, device="cuda")
+        try:
+            server.start()
+            engine = server.engines[spec.name]
+            if engine.fast:
+                _fail(f"{spec.name}: the engine took a fused path; ResNet50 has none")
+            t0 = time.perf_counter()
+            server.warmup()
+            warm_s = time.perf_counter() - t0
+            graphs = _graph_check(engine, spec.name, seed + 5)
+            if not graphs["all_bit_equal"]:
+                _fail(f"{spec.name}: a bucket graph's replay is not bit-equal to eager: {graphs}")
+            print("graph:", json.dumps({**graphs, "card": smi}), flush=True)
+
+            # --- the main path: HTTP -> engine -> graph replay (cuDNN, no hand kernel) ---
+            imgs = rng.integers(0, 256, (3, *spec.input_shape), np.uint8)
+            url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
+            for m in _kernel_modules():
+                m.reset_launch_counts()
+            got, labels, request_ms = _post(url, imgs, "msgpack")
+            launches = {k: v for m in _kernel_modules() for k, v in m.launch_counts().items()}
+            if any(launches.values()):
+                _fail(f"{spec.name}: its path launched hand kernels: {launches}")
+            if got.shape != (3, spec.num_classes) or labels != list(spec.labels):
+                _fail(f"{spec.name}: logits shape {got.shape}")
+            if not np.isfinite(got).all():
+                _fail(f"{spec.name}: non-finite logits")
+            direct = engine.predict(imgs)
+            if not np.array_equal(got, direct):
+                _fail(f"{spec.name}: the HTTP reply differs from the engine's logits")
+            exact = engine.predict(normalize(torch.from_numpy(imgs), spec.preprocessing).numpy())
+            rel = float(np.abs(got - exact).max() / (np.abs(exact).max() + 1e-6))
+            if rel > RESNET_TOL:
+                _fail(f"{spec.name}: bf16 vs exact f32 graph: relative {rel:.3e} > {RESNET_TOL}")
+
+            buckets, device_ms = [], None
+            for b in RESNET_BUCKETS:
+                batch = rng.integers(0, 256, (b, *spec.input_shape), np.uint8)
+                buckets.append(_bucket_times(engine, spec.name, b, batch, iters))
+                print("resnet-bucket:", json.dumps({**buckets[-1], "card": smi}), flush=True)
+                if profile and b == 16:
+                    device_ms = _profile(spec.name, functools.partial(engine.predict, batch), b)
+            memory_mib = engine.graph_memory_bytes() / 2**20
+        finally:
+            server.shutdown()
+    return dict(model=spec.name, buckets=list(RESNET_BUCKETS), warmup_s=warm_s,
+                graphs_bit_equal=graphs["all_bit_equal"], launches=launches,
+                request_ms=request_ms, http_equals_engine=True, bf16_vs_exact_rel=rel,
+                tol_rel=RESNET_TOL, graph_pool_mib=memory_mib,
+                device_ms_bucket16=device_ms, card=smi)
+
+
+def _overload_run(url: str, images_path: str, out_path: str, rate: float) -> dict:
+    """The open-loop load generator (OVERLOAD_PROCESSES processes) at
+    ``rate``; returns its per-request results."""
+    cmd = [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+           "--url", url, "--images", images_path, "--rate", f"{rate:.1f}",
+           "--duration", str(OVERLOAD_S), "--deadline-ms", str(OVERLOAD_DEADLINE_MS),
+           "--processes", str(OVERLOAD_PROCESSES), "--connections", str(OVERLOAD_CONNECTIONS),
+           "--out", out_path]
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=120,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if done.returncode != 0:
+        _fail(f"open-loop load generator exited {done.returncode}: {done.stderr[-2000:]}")
+    with np.load(out_path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _check_replies(arm: str, res: dict, solo: np.ndarray) -> dict:
+    """Every 200 carries its own image's logits (nearest to that image's
+    solo logits of all images, within MODEL_TOL of them); every 503 and 504
+    has a JSON body; every 503 a Retry-After inside the limiter's jittered
+    range; nothing else but unsent or lost requests."""
+    from kubernetes_deep_learning_tpu_torch.serving.admission import limiter
+
+    status = res["status"]
+    bad = sorted(set(status.tolist()) - {0, -1, 200, 503, 504})
+    if bad:
+        _fail(f"overload {arm}: replies with status {bad}")
+    shed = np.isin(status, (503, 504))
+    if not res["json_body"][shed].all():
+        _fail(f"overload {arm}: {int((~res['json_body'][shed]).sum())} 503/504 without JSON")
+    lo = limiter.RETRY_AFTER_MIN_S * (1 - limiter.RETRY_AFTER_JITTER)
+    hi = limiter.RETRY_AFTER_MAX_S * (1 + limiter.RETRY_AFTER_JITTER)
+    hints = res["retry_after_s"][status == 503]
+    if not ((hints >= lo) & (hints <= hi)).all():
+        _fail(f"overload {arm}: Retry-After outside [{lo}, {hi}]: "
+              f"{sorted(set(hints[~((hints >= lo) & (hints <= hi))].tolist()))[:5]}")
+    ok = np.flatnonzero(status == 200)
+    scale = np.abs(solo).max(axis=1)
+    misplaced, worst = 0, 0.0
+    for i in range(0, len(ok), 1024):
+        rows = ok[i : i + 1024]
+        got, own = res["logits"][rows], res["image"][rows]
+        to_all = np.abs(got[:, None, :] - solo[None, :, :]).max(axis=2) / scale[None, :]
+        misplaced += int((to_all.argmin(axis=1) != own).sum())
+        worst = max(worst, float(to_all[np.arange(len(rows)), own].max()))
+    if not np.isfinite(res["logits"][ok]).all() or misplaced or worst > MODEL_TOL:
+        _fail(f"overload {arm}: {misplaced} replies nearer another image's logits, worst vs "
+              f"its own {worst:.3e} (tol {MODEL_TOL})")
+    return dict(replies_200=len(ok), worst_vs_solo_rel=worst, retry_after_range=[lo, hi],
+                retry_after_seen=[float(hints.min()), float(hints.max())] if len(hints) else None)
+
+
+def _drain_phase(root: str, spec, images: np.ndarray, solo: np.ndarray) -> dict:
+    """A server process (``python -m ...serving.model_server``) under
+    DRAIN_CLIENTS closed-loop clients gets SIGTERM: /readyz must turn 503
+    "draining", new predicts 503 "draining" (JSON, ``Retry-After: 1.000``),
+    every request sent before them complete with 200 and its own image's
+    logits, none be lost, and the process exit 0."""
+    import http.client
+    import signal
+    import socket
+    import threading
+
+    from kubernetes_deep_learning_tpu_torch.serving import protocol
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log_path = os.path.join(root, "drain-server.log")
+    path = f"/v1/models/{spec.name}:predict"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.model_server",
+             "--model-root", root, "--host", "127.0.0.1", "--port", str(port),
+             "--buckets", ",".join(map(str, BUCKETS)), "--device", "cuda"],
+            stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.perf_counter()
+        while True:  # wait for readiness (warmup captures every bucket's graph)
+            if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                _fail(f"drain: the server process did not become ready (rc {proc.poll()}): "
+                      f"{open(log_path).read()[-2000:]}")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        print(f"drain: server process ready in {ready_s:.1f} s", flush=True)
+        replies: list = []  # (client, image, status, reason, retry_after, logits)
+        lost: list = []
+        readyz: list = []
+        stop_poll, termed, give_up = threading.Event(), threading.Event(), threading.Event()
+
+        def client(c: int) -> None:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            headers = {"Content-Type": protocol.MSGPACK_CONTENT_TYPE}
+            k = c
+            try:
+                while not give_up.is_set():
+                    i = k % len(images)
+                    conn.request("POST", path, protocol.encode_predict_request(images[i : i + 1]),
+                                 headers)
+                    resp = conn.getresponse()
+                    body = resp.read()
+                    if resp.status == 200:
+                        replies.append((c, i, 200, "", None, protocol.decode_predict_response(
+                            body, resp.getheader("Content-Type"))[0][0]))
+                    else:
+                        try:
+                            reason = json.loads(body).get("shed_reason", "")
+                        except ValueError:
+                            reason = "not-json"
+                        replies.append((c, i, resp.status, reason,
+                                        resp.getheader("Retry-After"), None))
+                        return  # a shed: this client stops
+                    k += DRAIN_CLIENTS
+            except (OSError, http.client.HTTPException) as e:
+                lost.append((c, repr(e)))
+            finally:
+                conn.close()
+
+        def poll_readyz() -> None:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+            try:
+                while not stop_poll.is_set():
+                    conn.request("GET", "/readyz")
+                    resp = conn.getresponse()
+                    readyz.append((termed.is_set(), resp.status, resp.read().decode()))
+                    time.sleep(0.002)
+            except (OSError, http.client.HTTPException):
+                pass  # the process has gone
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(DRAIN_CLIENTS)]
+        poller = threading.Thread(target=poll_readyz, daemon=True)
+        for t in [*threads, poller]:
+            t.start()
+        time.sleep(2.0)  # load on the server
+        served_before = sum(1 for r in replies if r[2] == 200)
+        termed.set()
+        proc.send_signal(signal.SIGTERM)
+        until = time.monotonic() + 60
+        for t in threads:
+            t.join(timeout=max(0.0, until - time.monotonic()))
+        give_up.set()  # a client still sending a minute after SIGTERM: the drain failed
+        print(f"drain: clients done ({len(replies)} replies, {len(lost)} lost, "
+              f"{sum(t.is_alive() for t in threads)} still sending)", flush=True)
+        rc = proc.wait(timeout=60)
+        stop_poll.set()
+        poller.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    statuses = {}
+    for r in replies:
+        key = f"{r[2]} {r[3]}".strip()
+        statuses[key] = statuses.get(key, 0) + 1
+    draining_readyz = sum(1 for after, st, body in readyz
+                          if after and (st, body) == (503, "draining"))
+    sheds = [r for r in replies if r[2] != 200]
+    ok = [r for r in replies if r[2] == 200]
+    scale = np.abs(solo).max(axis=1)
+    worst = max((float(np.abs(r[5] - solo[r[1]]).max() / scale[r[1]]) for r in ok), default=0.0)
+    out = dict(model=spec.name, clients=DRAIN_CLIENTS, ready_s=ready_s, exit_code=rc,
+               replies=statuses, served_before_sigterm=served_before, lost=len(lost),
+               readyz_before=sum(1 for after, st, _ in readyz if not after and st == 200),
+               readyz_draining=draining_readyz, worst_vs_solo_rel=worst)
+    if (rc != 0 or lost or not sheds or draining_readyz == 0 or worst > MODEL_TOL
+            or any((r[2], r[3], r[4]) != (503, "draining", "1.000") for r in sheds)):
+        _fail(f"drain: {out}; lost {lost[:3]}; server log: {open(log_path).read()[-2000:]}")
+    return out
+
+
+def _admission_phase(spec, variables, seed: int, smi: str, depth2_img_s: float, *,
+                     counter, per_forward: dict) -> dict:
+    """The port server's admission front door on the card, serving ``spec``
+    through its kernels (``counter``, ``per_forward`` launches a forward)
+    with BATCH_BUCKETS at depth 2 (the batching phase's depth-2 arm):
+
+    (a) a request with ``X-Request-Deadline-Ms: 0`` gets a JSON 504, and the
+    engine's image counter does not move;
+    (b) the overload A/B: open-loop one-image load at OVERLOAD_X x
+    ``depth2_img_s`` for OVERLOAD_S s, OVERLOAD_DEADLINE_MS a request, once
+    with admission on and once with ``--no-admission``: offered rate
+    achieved, goodput, in-deadline p50/p99, sheds by reason, the limiter's
+    final limit, and the JAX bench's criterion (goodput on >= off and
+    in-deadline p99 on < off) as a measurement, not a gate; every reply
+    checked (``_check_replies``) and the kernels' launches per forward;
+    (c) drain (``_drain_phase``)."""
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.serving import loadgen, protocol
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    n_images = LOAD_CLIENTS * LOAD_REQUESTS
+    images = _grid_images(spec, n_images, seed + 2)
+    rate = OVERLOAD_X * depth2_img_s
+    out: dict = {"rate_target": rate, "depth2_img_per_s": depth2_img_s}
+    with tempfile.TemporaryDirectory() as root:
+        art.save_artifact(art.version_dir(root, spec.name, 1), spec, variables,
+                          {"compute_dtype": "bfloat16"})
+        images_path = os.path.join(root, "images.npy")
+        np.save(images_path, images)
+        servers = {}
+        try:
+            for arm, admission in (("on", None), ("off", False)):
+                servers[arm] = ModelServer(root, port=0, buckets=BATCH_BUCKETS, device="cuda",
+                                           pipeline_depth=2, batcher_impl="python",
+                                           admission=admission)
+                servers[arm].start()
+                servers[arm].warmup()
+            on = servers["on"]
+            if not on.admission.enabled or servers["off"].admission.enabled:
+                _fail("admission: the arms' admission settings are wrong")
+            engine = on.engines[spec.name]
+            solo = np.concatenate([engine.predict(images[k : k + 1]) for k in range(n_images)])
+
+            # (a) a spent budget: a JSON 504 before the engine is touched
+            before = _model_value(on, "kdlt_engine_images_total", spec.name)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{on.port}/v1/models/{spec.name}:predict",
+                data=protocol.encode_predict_request(images[:1]), method="POST",
+                headers={"Content-Type": protocol.MSGPACK_CONTENT_TYPE,
+                         "X-Request-Deadline-Ms": "0"})
+            try:
+                urllib.request.urlopen(req, timeout=30)
+                _fail("admission: a spent budget was served")
+            except urllib.error.HTTPError as e:
+                body = json.loads(e.read())
+                if e.code != 504 or body.get("shed_reason") != "deadline_exhausted":
+                    _fail(f"admission: a spent budget got {e.code} {body}")
+            if _model_value(on, "kdlt_engine_images_total", spec.name) != before:
+                _fail("admission: the 504 moved the engine's image counter")
+            out["deadline_504"] = dict(status=504, images_moved=0)
+
+            # (b) the overload A/B
+            arms = {}
+            for arm in ("on", "off"):
+                server = servers[arm]
+                url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
+                batches0 = _model_value(server, "kdlt_engine_batches_total", spec.name)
+                counter.reset_launch_counts()
+                res = _overload_run(url, images_path, os.path.join(root, f"{arm}.npz"), rate)
+                # Requests the clients gave up on may still be queued: count
+                # launches and batches once every admitted one has finished.
+                if not server.admission.wait_idle(timeout_s=60):
+                    _fail(f"overload {arm}: requests still in flight 60 s after the load")
+                launches = counter.launch_counts()
+                forwards = int(_model_value(server, "kdlt_engine_batches_total", spec.name)
+                               - batches0)
+                want = {k: per_forward.get(k, 0) * forwards for k in launches}
+                if not forwards or launches != want:
+                    _fail(f"overload {arm}: launches {launches} != {want} for {forwards} "
+                          f"forwards")
+                arms[arm] = dict(arm=arm, **loadgen.summarize(res),
+                                 limit=server.admission.limit, forwards=forwards,
+                                 launches=launches, **_check_replies(arm, res, solo), card=smi)
+                print("overload:", json.dumps(arms[arm]), flush=True)
+            p99 = {a: arms[a]["p99_in_deadline_ms"] for a in arms}
+            out["jax_criterion"] = bool(
+                arms["on"]["goodput_rps"] >= arms["off"]["goodput_rps"]
+                and p99["on"] is not None
+                and (p99["off"] is None or p99["on"] < p99["off"]))
+            out["overload"] = {a: {k: arms[a][k] for k in (
+                "offered_rps", "goodput_rps", "p50_in_deadline_ms", "p99_in_deadline_ms",
+                "status", "shed", "limit")} for a in arms}
+        finally:
+            for server in servers.values():
+                server.shutdown()
+        print("admission: overload servers stopped", flush=True)
+        # (c) drain: SIGTERM a server process under load
+        out["drain"] = _drain_phase(root, spec, images, solo)
+    print("drain:", json.dumps({**out["drain"], "card": smi}), flush=True)
+    return {**out, "card": smi}
 
 
 def _dispatch_host_profile(engine, imgs: np.ndarray, steps: int = 5) -> None:
@@ -1785,9 +2189,10 @@ def main(argv=None) -> int:
 
     # --- the same model behind the batcher: one-image traffic, three arms ---
     print("event-wait:", json.dumps({**_event_wait_probe(sm_mhz), "card": smi}), flush=True)
-    _batching_phase(CLOTHING_MODEL, variables, args.seed, smi, counter=fused_sepconv,
-                    per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2},
-                    profile=args.profile)
+    batching = _batching_phase(CLOTHING_MODEL, variables, args.seed, smi, counter=fused_sepconv,
+                               per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2},
+                               profile=args.profile)
+    depth2_img_s = float(np.median([r["img_per_s"] for r in batching if r["arm"] == "depth2"]))
 
     # --- Xception's entry-kernel path: K5, K2 at blocks 3/4, the forward A/B ---
     k5, k2_entry = _entry_kernel_phase(from_jax_variables(variables), ITERS, gen)
@@ -1831,6 +2236,16 @@ def main(argv=None) -> int:
     k4["launches"] = summary["launches"]["fused_mbconv_block"]
     kernels += [k4, k5, k3g]
     _print_server(summary, [*buckets, summary["unfused"]], smi)
+
+    # --- ResNet50 at 224 px (BASELINE config 3): cuDNN convolutions, no hand kernel ---
+    print("resnet:", json.dumps(_resnet_phase(args.seed, ITERS, args.profile, smi)), flush=True)
+
+    # --- the admission front door on clothing-model (K1, K2): 504, overload A/B, drain ---
+    admission = _admission_phase(
+        CLOTHING_MODEL, init_variables(CLOTHING_MODEL, seed=args.seed), args.seed, smi,
+        depth2_img_s, counter=fused_sepconv,
+        per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})
+    print("admission:", json.dumps(admission), flush=True)
 
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

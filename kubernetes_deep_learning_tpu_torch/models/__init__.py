@@ -6,9 +6,11 @@ are normalized on the device (``ops.preprocess.normalize``); float batches
 are taken as already normalized.  Families: ``xception`` and
 ``efficientnet-*``, whose ``fast`` flag picks the fused-kernel path
 (``models.xception_fast``, ``models.efficientnet_fast``) or the exact
-graph (``models.xception``, ``models.efficientnet``), and ``vit-*``
+graph (``models.xception``, ``models.efficientnet``); ``vit-*``
 (``models.vit``), whose kernel sits inside its attention, so it has no
-separate fast path.
+separate fast path; and ``resnet50`` (``models.resnet``), which the JAX
+package runs on XLA convolutions with no Pallas kernel, so the port runs
+it on cuDNN convolutions with no fast path.
 """
 
 from __future__ import annotations
@@ -40,13 +42,18 @@ def exact_float32(device: torch.device) -> None:
 
 
 def create_model(spec: ModelSpec, dtype: torch.dtype = torch.float32):
-    """The exact-graph module for a spec (dtype = compute dtype).  A ViT
-    trains through ``forward(x, train=True)``; the BatchNorm families have
+    """The exact-graph module for a spec (dtype = compute dtype): families
+    ``xception``, ``resnet50``, ``efficientnet-b0``..``-b7`` and the ViTs
+    of ``models.vit.VIT_CONFIGS``.  A ViT trains through ``forward(x, train=True)``; the BatchNorm families have
     no train mode in the port yet."""
     if spec.family == "xception":
         from kubernetes_deep_learning_tpu_torch.models.xception import Xception
 
         return Xception(spec.num_classes, head_hidden=spec.head_hidden, dtype=dtype)
+    if spec.family == "resnet50":
+        from kubernetes_deep_learning_tpu_torch.models.resnet import ResNet50
+
+        return ResNet50(spec.num_classes, head_hidden=spec.head_hidden, dtype=dtype)
     if spec.family.startswith("efficientnet-"):
         from kubernetes_deep_learning_tpu_torch.models.efficientnet import build_efficientnet
 

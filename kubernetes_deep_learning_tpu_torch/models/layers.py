@@ -68,8 +68,9 @@ class SeparableConv2D(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis (Keras epsilon), computed in
-    float32 and returned in the input's dtype (flax ``BatchNorm`` semantics)."""
+    """Inference BatchNorm over the last axis (Keras's epsilon unless the
+    family gives its own), computed in float32 and returned in the input's
+    dtype (flax ``BatchNorm`` semantics)."""
 
     def __init__(self, c: int, eps: float = KERAS_BN_EPS):
         super().__init__()
@@ -84,18 +85,20 @@ class BatchNorm(nn.Module):
         return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
 
 
-def lowp_batchnorms(cast: dict, dtype: torch.dtype) -> dict[str, tuple]:
+def lowp_batchnorms(cast: dict, dtype: torch.dtype,
+                    eps: float = KERAS_BN_EPS) -> dict[str, tuple]:
     """Every BatchNorm in ``cast`` (parameters already in ``dtype``) as
     (mean, rsqrt(var + eps), scale, bias), all in ``dtype``: the JAX fast
-    paths' BN, which computes in the compute dtype, not in float32."""
+    paths' BN, which computes in the compute dtype, not in float32.  ``eps``
+    is the family's (Keras's 1e-3 for Xception and EfficientNet)."""
     out = {}
     for k in cast:
         if k.endswith(".running_mean"):
             name = k.removesuffix(".running_mean")
-            eps = torch.tensor(KERAS_BN_EPS, dtype=dtype, device=cast[k].device)
+            eps_t = torch.tensor(eps, dtype=dtype, device=cast[k].device)
             out[name] = (
                 cast[f"{name}.running_mean"],
-                torch.rsqrt(cast[f"{name}.running_var"] + eps),
+                torch.rsqrt(cast[f"{name}.running_var"] + eps_t),
                 cast[f"{name}.weight"],
                 cast[f"{name}.bias"],
             )

@@ -102,6 +102,19 @@ CLOTHING_MODEL = register_spec(
 
 _IMAGENET_LABELS = tuple(f"class_{i}" for i in range(1000))
 
+# BASELINE config 3: ResNet50/ImageNet served through the same gateway path,
+# 224x224, Keras "caffe" preprocessing.  The same spec as the JAX package's.
+RESNET50_IMAGENET = register_spec(
+    ModelSpec(
+        name="resnet50-imagenet",
+        family="resnet50",
+        input_shape=(224, 224, 3),
+        labels=_IMAGENET_LABELS,
+        preprocessing="caffe",
+        description="ResNet50 ImageNet classifier",
+    )
+)
+
 # EfficientNet-B3 ImageNet classifier at its native 300x300, torchvision
 # normalization.  The same spec as the JAX package's, so an artifact of
 # either package loads in the other.

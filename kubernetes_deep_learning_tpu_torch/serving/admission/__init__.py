@@ -1,0 +1,56 @@
+"""Admission control and overload management for the port's model tier.
+
+The port's copy of the model-tier half of the JAX package's
+``serving/admission/``:
+
+- ``deadline``: the request's remaining budget, from
+  ``X-Request-Deadline-Ms``; every wait below is computed from what is
+  left, and an exhausted request is rejected (504) before it touches the
+  device;
+- ``limiter``: an AIMD adaptive concurrency limiter with a bounded
+  admission queue, per-model budgets and priority classes (503 + a derived,
+  jittered ``Retry-After``, with a shed reason of its own);
+- ``controller``: the front door combining them, the ``kdlt_admission_*``
+  series, and graceful drain (SIGTERM flips /readyz, sheds new work and
+  lets admitted work finish).
+
+The gateway's circuit breaker and the brownout controller belong to the
+gateway tier and the generative lane, and are not ported here.
+"""
+
+from kubernetes_deep_learning_tpu_torch.serving.admission.controller import (
+    AdmissionController,
+    Ticket,
+    admission_enabled,
+    drain_timeout_s,
+    install_sigterm_drain,
+)
+from kubernetes_deep_learning_tpu_torch.serving.admission.deadline import DEADLINE_HEADER, Deadline
+from kubernetes_deep_learning_tpu_torch.serving.admission.limiter import (
+    AdaptiveLimiter,
+    env_budgets,
+    env_max_limit,
+    parse_budgets,
+)
+from kubernetes_deep_learning_tpu_torch.serving.admission.shed import (
+    RETRY_AFTER_HEADER,
+    Shed,
+    retry_after_headers,
+)
+
+__all__ = [
+    "AdaptiveLimiter",
+    "AdmissionController",
+    "DEADLINE_HEADER",
+    "Deadline",
+    "RETRY_AFTER_HEADER",
+    "Shed",
+    "Ticket",
+    "admission_enabled",
+    "drain_timeout_s",
+    "env_budgets",
+    "env_max_limit",
+    "install_sigterm_drain",
+    "parse_budgets",
+    "retry_after_headers",
+]

@@ -1,4 +1,6 @@
-"""Closed-loop HTTP load generator for the model server's tensor wire.
+"""HTTP load generator for the model server's tensor wire: closed or open loop.
+
+Closed loop (``--clients``/``--requests``)::
 
     python -m kubernetes_deep_learning_tpu_torch.serving.loadgen \\
         --url http://127.0.0.1:8500/v1/models/clothing-model:predict \\
@@ -7,18 +9,48 @@
 Each of ``clients`` threads holds one kept-alive connection and sends
 ``requests`` one-image msgpack ``:predict`` calls back to back; request j
 of client c carries image ``c * requests + j`` of the uint8 (N, H, W, C)
-array in ``images``, so every request has its own image.  Run it as a
-process of its own, so that it does not share the server's interpreter
-lock.  ``--out`` receives an ``.npz`` with the logits of every reply (row
-k for image k), each request's latency in ms, its HTTP status, and the
-wall time from the first request to the last reply.  Imports numpy and
-the standard library only.
+array in ``images``, so every request has its own image.  ``--out``
+receives an ``.npz`` with the logits of every reply (row k for image k),
+each request's latency in ms, its HTTP status, and the wall time from the
+first request to the last reply.
+
+Open loop (``--rate``), with the semantics of the JAX bench's overload
+A/B::
+
+    python -m kubernetes_deep_learning_tpu_torch.serving.loadgen --url URL \\
+        --images images.npy --rate 1700 --duration 8 --deadline-ms 600 \\
+        --processes 4 --connections 128 --out result.npz
+
+Request k is scheduled at ``k / rate`` seconds after the start, for
+``duration`` seconds, whatever the replies do; it carries image
+``k % N`` and an ``X-Request-Deadline-Ms`` header, and its latency is
+measured from its SCHEDULED send time, so a backlog (at the server or in
+the client's connections) counts against it as a real caller would feel
+it.  ``connections`` kept-alive connections a process take the requests
+in schedule order; ``--processes`` runs that many processes (each takes
+every P-th request) when one cannot offer the rate.  A request not sent
+by ``grace`` seconds after the window, or not answered within ``timeout``
+seconds, counts as unsent (status 0) or lost (-1).  The ``.npz`` holds per
+request its image, scheduled and actual send time, latency, status, shed
+reason (the JSON error body's ``shed_reason``, or "overloaded"/"error"),
+``Retry-After`` and logits; ``summarize`` turns it into the offered rate
+achieved, goodput (completions inside their deadline per second), p50
+and p99 of the in-deadline completions and the replies by status and
+shed reason, which ``main`` prints as one JSON line.
+
+Run it as a process of its own, so that it does not share the server's
+interpreter lock.  Imports numpy and the standard library only.
 """
 
 from __future__ import annotations
 
 import argparse
 import http.client
+import json
+import os
+import subprocess
+import sys
+import tempfile
 import threading
 import time
 import urllib.parse
@@ -87,16 +119,212 @@ def run(url: str, images: np.ndarray, clients: int, requests: int) -> dict:
     return dict(logits=out, lat_ms=lat_ms, status=status, wall_s=wall_s)
 
 
+DEADLINE_HEADER = "X-Request-Deadline-Ms"  # serving.admission's, spelled here
+
+
+def _reply_reason(status: int, body: bytes) -> tuple[str, bool]:
+    """(shed reason, whether an error body is JSON ``{"error": ...}``)."""
+    if status == 200:
+        return "", True
+    try:
+        obj = json.loads(body)
+    except ValueError:
+        return "error", False
+    if not isinstance(obj, dict) or "error" not in obj:
+        return "error", False
+    return obj.get("shed_reason") or ("overloaded" if status == 503 else "error"), True
+
+
+def run_open(url: str, images: np.ndarray, rate: float, duration_s: float,
+             deadline_ms: float, connections: int = 64, part: tuple[int, int] = (0, 1),
+             start_at: float | None = None, grace_s: float | None = None,
+             timeout_s: float | None = None) -> dict:
+    """Open-loop load: request k at ``start + k / rate`` for ``duration_s``,
+    of which this process sends those with ``k % parts == index``
+    (``part = (index, parts)``).  ``start_at`` is a ``time.time()`` shared
+    by every part (default: half a second from now).  Returns per-request
+    arrays (see the module's docstring) and the run's settings."""
+    index, parts = part
+    parts_ = urllib.parse.urlsplit(url)
+    n_all = int(duration_s * rate)
+    ks = np.arange(index, n_all, parts)
+    n = len(ks)
+    deadline_s = deadline_ms / 1e3
+    grace_s = max(2.0, 4 * deadline_s) if grace_s is None else grace_s
+    timeout_s = max(2.0, 4 * deadline_s) if timeout_s is None else timeout_s
+    headers = {"Content-Type": protocol.MSGPACK_CONTENT_TYPE,
+               DEADLINE_HEADER: f"{deadline_ms:.1f}"}
+    bodies = [protocol.encode_predict_request(images[i : i + 1]) for i in range(len(images))]
+    image = ks % len(images)
+    sched = ks / rate
+    sent = np.full(n, np.nan)
+    lat_ms = np.full(n, np.nan)
+    status = np.zeros(n, np.int32)
+    reason = np.full(n, "", dtype="U24")
+    retry_after = np.full(n, np.nan)
+    json_body = np.zeros(n, bool)
+    logits: list = [None] * n
+    start_at = time.time() + 0.5 if start_at is None else start_at
+    t_base = time.monotonic() + (start_at - time.time())
+    end_by = t_base + duration_s + grace_s
+    lock = threading.Lock()
+    nxt = [0]
+
+    def worker() -> None:
+        conn = None
+        while True:
+            with lock:
+                j = nxt[0]
+                nxt[0] += 1
+            if j >= n:
+                break
+            at = t_base + sched[j]
+            delay = at - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            t_send = time.monotonic()
+            if t_send > end_by:
+                continue  # never sent: status stays 0
+            sent[j] = t_send - t_base
+            try:
+                if conn is None:
+                    conn = http.client.HTTPConnection(parts_.hostname, parts_.port,
+                                                      timeout=timeout_s)
+                conn.request("POST", parts_.path, bodies[image[j]], headers)
+                resp = conn.getresponse()
+                reply = resp.read()
+            except (OSError, http.client.HTTPException):
+                status[j], reason[j] = -1, "lost"
+                lat_ms[j] = (time.monotonic() - at) * 1e3
+                if conn is not None:
+                    conn.close()
+                conn = None
+                continue
+            lat_ms[j] = (time.monotonic() - at) * 1e3  # from the SCHEDULED send
+            status[j] = resp.status
+            reason[j], json_body[j] = _reply_reason(resp.status, reply)
+            hint = resp.getheader("Retry-After")
+            if hint is not None:
+                retry_after[j] = float(hint)
+            if resp.status == 200:
+                logits[j] = protocol.decode_predict_response(
+                    reply, resp.getheader("Content-Type", ""))[0][0]
+            if resp.getheader("Connection", "").lower() == "close":
+                conn.close()
+                conn = None
+        if conn is not None:
+            conn.close()
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(connections)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    width = max((len(row) for row in logits if row is not None), default=0)
+    out = np.full((n, width), np.nan, np.float32)
+    for j, row in enumerate(logits):
+        if row is not None:
+            out[j] = row
+    return dict(k=ks, image=image, sched_s=sched, sent_s=sent, lat_ms=lat_ms, status=status,
+                reason=reason, retry_after_s=retry_after, json_body=json_body, logits=out,
+                rate=np.float64(rate), duration_s=np.float64(duration_s),
+                deadline_ms=np.float64(deadline_ms))
+
+
+def merge(results: Sequence[dict]) -> dict:
+    """The parts of one open-loop run, in request order (a part that got no
+    logits back has zero-width logits: widened with NaN)."""
+    width = max(r["logits"].shape[1] for r in results)
+    results = [{**r, "logits": np.pad(r["logits"], ((0, 0), (0, width - r["logits"].shape[1])),
+                                      constant_values=np.nan)} for r in results]
+    order = np.argsort(np.concatenate([r["k"] for r in results]))
+    out = {key: np.concatenate([r[key] for r in results])[order]
+           for key in results[0] if np.ndim(results[0][key])}
+    out.update({key: results[0][key] for key in results[0] if not np.ndim(results[0][key])})
+    return out
+
+
+def summarize(res: dict) -> dict:
+    """An open-loop run's end-to-end numbers: the offered rate achieved
+    (requests sent over the time from the schedule's start to one schedule
+    step past the last send: the target rate when every send is on time),
+    goodput (200s within their deadline per second of the window),
+    p50/p99 of those in-deadline completions, and the replies by status
+    and by shed reason."""
+    status, lat = res["status"], res["lat_ms"]
+    sent = status != 0
+    window = float(np.nanmax(res["sent_s"])) + 1.0 / float(res["rate"]) if sent.any() else 0.0
+    ok = lat[status == 200]
+    good = ok[ok <= float(res["deadline_ms"])]
+    pct = lambda q: float(np.percentile(good, q)) if len(good) else None  # noqa: E731
+    codes, counts = np.unique(status, return_counts=True)
+    reasons, rcounts = np.unique(res["reason"][sent & (status != 200)], return_counts=True)
+    return {
+        "rate_target": float(res["rate"]), "duration_s": float(res["duration_s"]),
+        "deadline_ms": float(res["deadline_ms"]), "requests": int(len(status)),
+        "sent": int(sent.sum()),
+        "offered_rps": float(sent.sum() / window) if sent.any() else 0.0,
+        "goodput_rps": len(good) / float(res["duration_s"]),
+        "completed_200": int(len(ok)), "in_deadline": int(len(good)),
+        "p50_in_deadline_ms": pct(50), "p99_in_deadline_ms": pct(99),
+        "status": {str(int(c)): int(m) for c, m in zip(codes, counts)},
+        "shed": {str(r): int(m) for r, m in zip(reasons, rcounts)},
+    }
+
+
+def _run_parts(args) -> dict:
+    """``--processes`` > 1: one child process a part, on one schedule."""
+    start_at = time.time() + 1.0 + 0.2 * args.processes
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"part{i}.npz") for i in range(args.processes)]
+        base = [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+                "--url", args.url, "--images", args.images, "--rate", str(args.rate),
+                "--duration", str(args.duration), "--deadline-ms", str(args.deadline_ms),
+                "--connections", str(args.connections), "--start-at", repr(start_at)]
+        procs = [subprocess.Popen([*base, "--part", f"{i}/{args.processes}", "--out", out])
+                 for i, out in enumerate(outs)]
+        codes = [p.wait() for p in procs]
+        if any(codes):
+            raise RuntimeError(f"load processes exited {codes}")
+        parts = []
+        for out in outs:
+            with np.load(out) as z:
+                parts.append({k: z[k] for k in z.files})
+    return merge(parts)
+
+
 def main(argv: Sequence[str] | None = None) -> None:
-    p = argparse.ArgumentParser(description="closed-loop :predict load over kept-alive connections")
+    p = argparse.ArgumentParser(description=":predict load over kept-alive connections, "
+                                "closed loop (--clients) or open loop (--rate)")
     p.add_argument("--url", required=True, help="the model's :predict URL")
     p.add_argument("--images", required=True, help=".npy of uint8 (N, H, W, C) images")
     p.add_argument("--clients", type=int, default=32)
     p.add_argument("--requests", type=int, default=25, help="requests per client")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="open loop: requests per second (0 = closed loop)")
+    p.add_argument("--duration", type=float, default=8.0, help="open loop: seconds of sends")
+    p.add_argument("--deadline-ms", type=float, default=600.0,
+                   help="open loop: every request's X-Request-Deadline-Ms")
+    p.add_argument("--connections", type=int, default=64,
+                   help="open loop: kept-alive connections a process")
+    p.add_argument("--processes", type=int, default=1, help="open loop: load processes")
+    p.add_argument("--part", default="0/1", help=argparse.SUPPRESS)
+    p.add_argument("--start-at", type=float, default=None, help=argparse.SUPPRESS)
     p.add_argument("--out", required=True, help=".npz to write the results to")
     args = p.parse_args(argv)
-    images = np.load(args.images, mmap_mode="r")
-    np.savez(args.out, **run(args.url, images, args.clients, args.requests))
+    if args.rate <= 0:
+        images = np.load(args.images, mmap_mode="r")
+        np.savez(args.out, **run(args.url, images, args.clients, args.requests))
+        return
+    if args.processes > 1:
+        res = _run_parts(args)
+    else:
+        index, parts = (int(x) for x in args.part.split("/"))
+        res = run_open(args.url, np.load(args.images), args.rate, args.duration,
+                       args.deadline_ms, args.connections, (index, parts), args.start_at)
+    np.savez(args.out, **res)
+    if args.part == "0/1":  # the whole run, not one part of it
+        print(json.dumps(summarize(res)), flush=True)
 
 
 if __name__ == "__main__":

@@ -13,20 +13,34 @@ keeps up to ``pipeline_depth`` batches on the device.  Routes:
 - ``POST /v1/models/<name>:predict``: msgpack or JSON (``serving.protocol``);
   a single uint8 image goes through the batcher, a batch up to the largest
   bucket straight to the engine, and a larger one in max-bucket chunks
-  through the dispatcher.  Errors answer as the JAX server does, with a
-  JSON ``{"error": ...}`` body: 400 for a malformed request, 404, 500; 503
-  "overloaded" with ``Retry-After: 0.050`` when the batcher's queue is
-  full or a wait outlives its deadline; 503 with ``Retry-After: 1.000``
+  through the dispatcher.  Admission runs first, before the body is read
+  (``serving.admission``): the request's deadline budget
+  (``X-Request-Deadline-Ms``, which the JAX gateway sends), its priority
+  class (``X-Kdlt-Priority``) and the model name go to the controller,
+  which sheds a request while the server drains (503 "draining"), one
+  whose budget is spent (504, the engine untouched) and one the AIMD
+  concurrency limiter cannot seat in time (503 with a derived, jittered
+  ``Retry-After``); a shed's unread body is drained (or the connection
+  closed), so a kept-alive connection stays usable.  An admitted request
+  waits for its batch at most its remaining budget.  Errors answer as the
+  JAX server does, with a JSON ``{"error": ...}`` body (sheds add
+  ``"shed_reason"``): 400 for a malformed request, 404, 500; 503
+  "overloaded" with the limiter's ``Retry-After`` when the batcher's queue
+  is full or a wait outlives its deadline; 503 with ``Retry-After: 1.000``
   and ``X-Kdlt-Stalled: 1`` once the dispatch watchdog has declared the
   pipeline stalled;
 - ``GET /healthz`` (the process is up and its pipelines are not stalled),
-  ``GET /readyz`` (every engine has warmed, nothing stalled) and
-  ``GET /metrics`` (the registry's Prometheus text: engine, batcher and
-  dispatch-pipeline series, labelled by model).
+  ``GET /readyz`` (every engine has warmed, nothing stalled, not draining)
+  and ``GET /metrics`` (the registry's Prometheus text: engine, batcher,
+  dispatch-pipeline and admission series, labelled by model and tier).
 
 Run it with ``kdlt-torch-model-server --model-root DIR --device cuda``
 (``--max-delay-ms``, ``--pipeline-depth``, ``--batcher``,
-``--no-batching``).
+``--no-batching``, ``--no-admission``).  ``--no-admission`` or
+``KDLT_ADMISSION=0`` turn deadline rejection and the limiter off (every
+wait is then a fixed 20 s, or 120 s for a chunk); drain stays on.  SIGTERM
+drains: /readyz turns 503 "draining", new requests shed, admitted ones
+finish (at most ``KDLT_DRAIN_TIMEOUT_S``, 25 s), then the process exits.
 """
 
 from __future__ import annotations
@@ -35,7 +49,6 @@ import argparse
 import json
 import logging
 import os
-import signal
 import threading
 from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -55,6 +68,17 @@ from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     resolve_pipeline_depth,
 )
 from kubernetes_deep_learning_tpu_torch.serving import protocol
+from kubernetes_deep_learning_tpu_torch.serving.admission import (
+    DEADLINE_HEADER,
+    AdaptiveLimiter,
+    AdmissionController,
+    Deadline,
+    Shed,
+    Ticket,
+    admission_enabled,
+    env_max_limit,
+    install_sigterm_drain,
+)
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
 
 log = logging.getLogger(__name__)
@@ -75,7 +99,8 @@ def _error(status: int, message: str, headers: dict[str, str] | None = None) -> 
 
 
 # How long a handler waits for its image's batch (the reference's 20 s
-# gRPC deadline) and for a chunk of a large request.
+# gRPC deadline) and for a chunk of a large request, when the request
+# carries no deadline (admission off); a deadline shortens both.
 BATCHER_TIMEOUT_S = 20.0
 CHUNK_TIMEOUT_S = 120.0
 
@@ -106,19 +131,30 @@ class ServedModel:
                            dispatcher=self.dispatcher)
             if use_batcher else None
         )
+        self._m_budget = metrics_lib.batcher_budget_histogram(engine.registry)
 
     @property
     def stalled(self) -> bool:
         return self.dispatcher is not None and self.dispatcher.stalled
 
-    def predict(self, images: np.ndarray) -> np.ndarray:
+    def predict(self, images: np.ndarray, deadline: Deadline | None = None) -> np.ndarray:
+        """Logits for ``images``.  Every wait below (the batcher's, the chunk
+        futures') is bounded by ``deadline``'s remaining budget, so a
+        request never holds a handler thread after its caller stopped
+        listening; ``deadline=None`` keeps the fixed 20 s and 120 s."""
+        batcher_timeout, chunk_timeout = BATCHER_TIMEOUT_S, CHUNK_TIMEOUT_S
+        if deadline is not None:
+            remaining = max(deadline.remaining_s(), 0.0)
+            self._m_budget.observe(remaining * 1e3)
+            batcher_timeout = min(batcher_timeout, remaining)
+            chunk_timeout = min(chunk_timeout, remaining)
         # Single uint8 images go through the batcher to coalesce across
         # concurrent requests (the batcher is uint8-only so mixed dtypes
         # never end up in one np.stack).
         if (self.batcher is not None and images.ndim >= 1 and len(images) == 1
                 and images.dtype == np.uint8):
             try:
-                return self.batcher.predict(images[0], timeout=BATCHER_TIMEOUT_S)[None]
+                return self.batcher.predict(images[0], timeout=batcher_timeout)[None]
             except BatcherClosed:
                 pass  # a shutdown race: the engine is still valid, serve directly
         step = self.engine.max_batch
@@ -132,7 +168,7 @@ class ServedModel:
         if self.dispatcher is not None and images.dtype == np.uint8:
             try:
                 futs = [self.dispatcher.submit(c) for c in chunks]
-                return np.concatenate([f.result(timeout=CHUNK_TIMEOUT_S) for f in futs])
+                return np.concatenate([f.result(timeout=chunk_timeout) for f in futs])
             except DispatcherClosed:
                 pass  # a shutdown race: fall through to the serial engine path
         return np.concatenate([self.engine.predict(c) for c in chunks])
@@ -152,8 +188,25 @@ class ModelServer:
     def __init__(self, model_root: str, port: int = 8500, host: str = "127.0.0.1",
                  buckets: Sequence[int] = DEFAULT_BUCKETS, device: str = "cuda",
                  max_delay_ms: float = 2.0, use_batcher: bool = True,
-                 pipeline_depth: int | None = None, batcher_impl: str = "auto"):
+                 pipeline_depth: int | None = None, batcher_impl: str = "auto",
+                 admission: bool | None = None):
+        """``admission``: None = ``$KDLT_ADMISSION`` (on by default); False
+        turns deadline rejection and the concurrency limiter off (drain
+        stays on)."""
         self.registry = metrics_lib.Registry()
+        # The model tier's front door.  The limiter's floor is 2x the largest
+        # bucket: the admitted handlers ARE the batcher's supply, so a lower
+        # limit would starve batch formation without shortening anyone's
+        # wait; below it, overload belongs to the shed path.  The ceiling is
+        # 2x the floor, or the operator's KDLT_ADMISSION_MAX_CONCURRENCY if
+        # higher (never under the floor: that would turn the AIMD decrease
+        # into an increase).
+        floor = 2.0 * max(buckets)
+        self.admission = AdmissionController(
+            self.registry, tier="model-server", enabled=admission,
+            limiter=(AdaptiveLimiter(min_limit=floor, max_limit=max(2.0 * floor, env_max_limit()))
+                     if admission_enabled(admission) else None),
+        )
         self.models: dict[str, ServedModel] = {}
         self.versions: dict[str, int] = {}
         for name in sorted(os.listdir(model_root)):
@@ -207,6 +260,12 @@ class ModelServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
 
+    def begin_drain(self) -> None:
+        """Graceful drain: /readyz answers 503 "draining", new predicts
+        shed "draining", admitted ones run to completion
+        (``admission.wait_idle``).  SIGTERM leads here from the command line."""
+        self.admission.begin_drain()
+
     def _close_models(self) -> None:
         for model in self.models.values():
             model.close()
@@ -229,6 +288,10 @@ class ModelServer:
                 return 503, b"dispatch stalled", "text/plain", {}
             return 200, b"ok", "text/plain", {}
         if path == "/readyz":
+            if self.admission.draining:
+                # Readiness fails first, so the endpoint pool stops routing
+                # here while admitted batches complete.
+                return 503, b"draining", "text/plain", {}
             if self.stalled:
                 return 503, b"dispatch stalled", "text/plain", {}
             if not self.ready:
@@ -250,23 +313,62 @@ class ModelServer:
             return _error(404, f"no model {name!r}")
         return _error(404, "not found")
 
-    def handle_predict(self, path: str, body: bytes, content_type: str) -> Reply:
+    def handle_predict(self, path: str, body, content_type: str, headers=None) -> Reply:
+        """``serve_predict``, its ticket released once the reply is made."""
+        reply, ticket = self.serve_predict(path, body, content_type, headers)
+        if ticket is not None:
+            ticket.release()
+        return reply
+
+    def serve_predict(self, path: str, body, content_type: str,
+                      headers=None) -> tuple[Reply, Ticket | None]:
+        """A ``:predict`` request -> (reply, admission ticket or None).
+
+        ``body`` is the request's bytes, or a callable that reads them: the
+        HTTP handler passes one, so the body is read only once the request
+        is admitted.  ``headers`` (any mapping with ``get``) carry the
+        deadline and the priority.  The caller releases the ticket after it
+        has sent the reply.
+        """
         if not (path.startswith(_PREFIX + "/") and path.endswith(":predict")):
-            return _error(404, "not found")
+            return _error(404, "not found"), None
         name = path[len(_PREFIX) + 1 : -len(":predict")]
         model = self.models.get(name)
         if model is None:
-            return _error(404, f"no model {name!r}")
+            return _error(404, f"no model {name!r}"), None
         if not model.engine.ready:
-            return _error(503, "model is warming up")
+            return _error(503, "model is warming up"), None
+        headers = headers if headers is not None else {}
+        # The deadline is parsed only with admission on: off, every wait is
+        # the fixed one of a server without admission.
+        deadline = (Deadline.from_header(headers.get(DEADLINE_HEADER))
+                    if self.admission.enabled else None)
+        priority = protocol.parse_priority(headers.get(protocol.PRIORITY_HEADER))
         try:
-            images = protocol.decode_predict_request(body, content_type)
-            logits = model.predict(images)
+            ticket = self.admission.admit(deadline, model=name, priority=priority)
+        except Shed as e:  # a refusal, not a fault: before the body is read
+            return _json(e.http_status, {"error": str(e), "shed_reason": e.reason},
+                         e.headers()), None
+        try:
+            return self._predict(model, body, content_type, deadline, ticket), ticket
+        except BaseException:
+            ticket.release()
+            raise
+
+    def _predict(self, model: ServedModel, body, content_type: str,
+                 deadline: Deadline | None, ticket: Ticket) -> Reply:
+        try:
+            images = protocol.decode_predict_request(body() if callable(body) else body,
+                                                     content_type)
+            logits = model.predict(images, deadline)
         except ValueError as e:  # malformed request
             return _error(400, str(e))
         except (QueueFull, FuturesTimeout) as e:  # transient overload
+            # An admitted request still missed its budget or found the
+            # batcher full: the AIMD limit is too high for the service time.
+            ticket.mark_overloaded()
             return _error(503, f"overloaded: {e or 'timed out'}",
-                          protocol.retry_after_headers(protocol.OVERLOAD_RETRY_AFTER_S))
+                          protocol.retry_after_headers(self.admission.retry_after_s()))
         except DispatchStall as e:
             # Retryable for the client (another replica serves it), terminal
             # for this process: the header tells the gateway to take the
@@ -289,11 +391,20 @@ class ModelServer:
             # keep-alive connection.
             disable_nagle_algorithm = True
 
+            # A body at most this size is drained (not closed over) when the
+            # reply goes out before it was read: sheds come under overload,
+            # just when a gateway's kept-alive connections are worth most.
+            _DRAIN_LIMIT = 1 << 20
+
             def _reply(self, status: int, body: bytes, ctype: str,
                        headers: dict[str, str]) -> None:
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
+                if self.close_connection:
+                    # Said explicitly, so a pooling client retires the
+                    # connection instead of reusing a dead socket.
+                    self.send_header("Connection", "close")
                 for key, value in headers.items():
                     self.send_header(key, value)
                 self.end_headers()
@@ -302,16 +413,60 @@ class ModelServer:
             def do_GET(self):  # noqa: N802 - http.server API
                 self._reply(*server.handle_get(self.path.split("?", 1)[0]))
 
-            def do_POST(self):  # noqa: N802 - http.server API
-                body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+            def _read_body(self) -> bytes:
+                self._body_read = True
                 try:
-                    reply = server.handle_predict(
-                        self.path.split("?", 1)[0], body, self.headers.get("Content-Type", "")
-                    )
+                    length = int(self.headers.get("Content-Length") or 0)
+                except ValueError:
+                    self.close_connection = True
+                    raise ValueError("malformed Content-Length") from None
+                return self.rfile.read(length)
+
+            def _discard_body(self) -> None:
+                """Settle a body that was never read before the connection is
+                reused: left in the socket, the keep-alive loop would parse
+                it as the next request line.  Small bodies are drained;
+                large, chunked or unsized ones close the connection."""
+                self._body_read = True
+                if "chunked" in self.headers.get("Transfer-Encoding", "").lower():
+                    self.close_connection = True
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length") or 0)
+                except ValueError:
+                    length = -1
+                if not 0 <= length <= self._DRAIN_LIMIT:
+                    self.close_connection = True
+                    return
+                try:
+                    while length > 0:
+                        chunk = self.rfile.read(min(length, 65536))
+                        if not chunk:
+                            self.close_connection = True
+                            return
+                        length -= len(chunk)
+                except OSError:
+                    self.close_connection = True
+
+            def do_POST(self):  # noqa: N802 - http.server API
+                self._body_read = False
+                ticket = None
+                try:
+                    reply, ticket = server.serve_predict(
+                        self.path.split("?", 1)[0], self._read_body,
+                        self.headers.get("Content-Type", ""), self.headers)
                 except Exception as e:  # noqa: BLE001 - a request must get an answer
                     log.exception("predict failed")
                     reply = _error(500, str(e))
-                self._reply(*reply)
+                try:
+                    if not self._body_read:  # a reply made before the body was read
+                        self._discard_body()
+                    self._reply(*reply)
+                except ConnectionError:  # the client hung up (gave up waiting)
+                    self.close_connection = True
+                finally:
+                    if ticket is not None:  # after the reply: drain waits for it
+                        ticket.release()
 
             def log_message(self, fmt, *args):
                 log.debug(fmt, *args)
@@ -343,6 +498,10 @@ def _parser() -> argparse.ArgumentParser:
                    "when the process may run on 2 or more cores)")
     p.add_argument("--no-batching", action="store_true",
                    help="serve every request as its own forward")
+    p.add_argument("--no-admission", action="store_true",
+                   help="turn deadline rejection and the AIMD concurrency limiter off "
+                   "(as KDLT_ADMISSION=0): every wait is the fixed 20 s (120 s a chunk); "
+                   "drain on SIGTERM stays on")
     return p
 
 
@@ -354,22 +513,34 @@ def build_server(argv: Sequence[str] | None = None) -> ModelServer:
         buckets=[int(b) for b in args.buckets.split(",")], device=args.device,
         max_delay_ms=args.max_delay_ms, use_batcher=not args.no_batching,
         pipeline_depth=args.pipeline_depth or None, batcher_impl=args.batcher,
+        admission=False if args.no_admission else None,
     )
 
 
 def main(argv: Sequence[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO)
     server = build_server(argv)
+    stopped = threading.Event()
+
+    def stop() -> None:
+        server.shutdown()
+        stopped.set()
+
+    # SIGTERM: /readyz turns 503, new requests shed, admitted ones finish,
+    # then the server stops and the process exits 0.
+    install_sigterm_drain(server.admission, stop)
     server.start()  # /healthz answers while warming; /readyz waits for warmup
     server.warmup()
     log.info("serving %s on port %d", sorted(server.engines), server.port)
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
     try:
-        stop.wait()
+        # A signal handler runs only when the main thread executes bytecode,
+        # and the kernel may deliver SIGTERM to any thread (the CUDA runtime
+        # starts several): a main thread blocked in an untimed wait would
+        # never run it.  Waking twice a second lets it run.
+        while not stopped.wait(0.5):
+            pass
     except KeyboardInterrupt:
-        pass
-    server.shutdown()
+        stop()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ fallback (``{"instances": ...}`` in, ``{"predictions": [{label: score}]}``
 out).  msgpack goes through ``msgpack_lite``, so the wire needs no
 third-party package.  Error replies are JSON ``{"error": ...}`` bodies, and
 a 503 carries ``Retry-After`` in the JAX admission package's format
-(``retry_after_headers``), which the gateway copies into its own reply.
+(``retry_after_headers``, re-exported by ``serving.admission``), which the
+gateway copies into its own reply.  The priority header and its bounded
+class set are the JAX protocol's.
 """
 
 from __future__ import annotations
@@ -31,13 +33,22 @@ JSON_CONTENT_TYPE = "application/json"
 STALLED_HEADER = "X-Kdlt-Stalled"
 
 RETRY_AFTER_HEADER = "Retry-After"
-# The overload 503's hint: what the JAX server sends under its default
-# admission settings on an idle limiter (its floor, 0.05 s, which it
-# jitters by +-25%).  The port has no admission control yet and sends the
-# centre.
-OVERLOAD_RETRY_AFTER_S = 0.05
-# The stall 503's hint: another replica is the retry, not this one.
+# The stall 503's hint: another replica is the retry, not this one.  The
+# overload 503's hint is the admission limiter's, derived from live state
+# (``serving.admission``).
 STALL_RETRY_AFTER_S = 1.0
+
+# Request priority class (DAGOR-style bounded set), propagated client ->
+# gateway -> model tier so admission sheds the lowest class first.  The
+# set is closed: an unknown or absent header value falls back to the
+# default, so the ``class`` metric label stays bounded whatever a caller
+# sends.
+PRIORITY_HEADER = "X-Kdlt-Priority"
+PRIORITY_CLASSES = ("interactive", "batch", "best-effort")
+DEFAULT_PRIORITY = "interactive"
+# Shed order: HIGHER rank sheds first (best-effort before batch before
+# interactive); grant order is the reverse.
+PRIORITY_RANK = {name: rank for rank, name in enumerate(PRIORITY_CLASSES)}
 
 # The Prometheus text exposition the JAX server's /metrics answers with.
 METRICS_CONTENT_TYPE = "text/plain"
@@ -49,6 +60,17 @@ def retry_after_headers(retry_after_s: float | None) -> dict[str, str]:
     if retry_after_s is None:
         return {}
     return {RETRY_AFTER_HEADER: f"{max(0.0, retry_after_s):.3f}"}
+
+
+def parse_priority(raw: str | None) -> str:
+    """An ``X-Kdlt-Priority`` value normalized into the bounded class set;
+    anything absent, empty or unrecognized is ``interactive`` (the default
+    is the HIGHEST class: a client that never heard of priorities keeps its
+    service level)."""
+    if not raw:
+        return DEFAULT_PRIORITY
+    value = raw.strip().lower()
+    return value if value in PRIORITY_RANK else DEFAULT_PRIORITY
 
 
 def encode_tensor(arr: np.ndarray) -> dict[str, Any]:

@@ -1,10 +1,13 @@
 """Minimal thread-safe metrics: counters, gauges, histograms, Prometheus text.
 
 The port's own trimmed copy of the JAX package's ``utils/metrics.py``: the
-metric types and registry, and the two helpers the dispatch pipeline mints
+metric types and registry, the two helpers the dispatch pipeline mints
 its series through (``pipeline_stage_histograms``,
-``dispatch_stall_counter``), with the same series names and buckets.
-``Registry.render`` is the model server's ``/metrics`` page.
+``dispatch_stall_counter``) and the admission controller's
+(``admission_metrics``, ``admission_class_metrics``,
+``admission_model_metrics``, ``batcher_budget_histogram``), with the same
+series names and buckets.  ``Registry.render`` is the model server's
+``/metrics`` page.
 """
 
 from __future__ import annotations
@@ -68,6 +71,107 @@ def dispatch_stall_counter(registry: "Registry") -> "Counter":
         "kdlt_dispatch_stall_total",
         "in-flight dispatches failed by the engine watchdog as stuck",
     )
+
+
+# Admission control (serving.admission): every way the model tier can refuse
+# work, as the ``shed_reason`` label on kdlt_admission_shed_total.  The JAX
+# package's set, so one dashboard query covers both servers (the breaker's
+# and brownout's reasons belong to the gateway and stay at 0 here).
+ADMISSION_SHED_REASONS = (
+    ("deadline_exhausted", "the deadline budget was spent before execution (504)"),
+    ("queue_timeout", "no concurrency slot freed within the bounded queue wait"),
+    ("queue_full", "the admission queue's waiter cap was reached"),
+    ("breaker_open", "the model-tier circuit breaker refused the call"),
+    ("draining", "the tier is draining for shutdown"),
+    ("budget_exhausted", "the model's per-tenant admission budget was spent "
+                         "and no borrowed slot could be reclaimed"),
+    ("preempted", "a queued waiter was evicted by a higher-priority or "
+                  "under-budget arrival (borrowed slots shed first)"),
+    ("brownout", "rejected by the brownout controller's staged class "
+                 "shedding (429: the caller's class is out of budget, not "
+                 "a server failure)"),
+)
+
+# The bounded value set of the ``class`` label (serving.protocol.PRIORITY_CLASSES).
+ADMISSION_PRIORITY_CLASSES = ("interactive", "batch", "best-effort")
+
+# At most this many distinct ``model`` label values per admission
+# controller; every further name shares the overflow value.
+MODEL_LABEL_CAP = 32
+MODEL_LABEL_OVERFLOW = "__other__"
+
+# Deadline budgets are ms-scale; the request-latency buckets (seconds) would
+# collapse every remaining-budget observation into two bins.
+DEADLINE_MS_BUCKETS = (
+    1, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000,
+    10_000, 20_000, 60_000, 120_000,
+)
+
+
+def admission_metrics(registry: "Registry") -> dict:
+    """The per-tier admission series (kdlt_admission_*), distinguished by
+    the registry's ``tier`` label."""
+    return {
+        "requests": registry.counter(
+            "kdlt_admission_requests_total", "requests seen by admission control"),
+        "admitted": registry.counter(
+            "kdlt_admission_admitted_total", "requests admitted to execution"),
+        "queue_wait": registry.histogram(
+            "kdlt_admission_queue_wait_seconds",
+            "wait for a concurrency slot before execution", buckets=PIPELINE_STAGE_BUCKETS),
+        "deadline_remaining_ms": registry.histogram(
+            "kdlt_admission_deadline_remaining_ms",
+            "remaining deadline budget at admission (propagation evidence: "
+            "each tier down the path observes strictly less)", buckets=DEADLINE_MS_BUCKETS),
+        "limit": registry.gauge(
+            "kdlt_admission_concurrency_limit", "current AIMD concurrency limit"),
+        "inflight": registry.gauge(
+            "kdlt_admission_inflight", "admitted requests currently executing"),
+        "draining": registry.gauge(
+            "kdlt_admission_draining", "1 while the tier refuses new work for shutdown"),
+        "shed": {
+            reason: registry.with_labels(shed_reason=reason).counter(
+                "kdlt_admission_shed_total", help)
+            for reason, help in ADMISSION_SHED_REASONS
+        },
+    }
+
+
+def admission_class_metrics(registry: "Registry") -> dict:
+    """Admitted and shed requests by priority class (the ``class`` label)."""
+    out: dict = {}
+    for cls in ADMISSION_PRIORITY_CLASSES:
+        child = registry.with_labels(**{"class": cls})
+        out[cls] = {
+            "admitted": child.counter(
+                "kdlt_admission_class_admitted_total",
+                "requests admitted to execution, by priority class"),
+            "shed": child.counter(
+                "kdlt_admission_class_shed_total",
+                "requests shed, by priority class (lowest class sheds first)"),
+        }
+    return out
+
+
+def admission_model_metrics(registry: "Registry", model: str) -> dict:
+    """Requests seen and admitted for one model (the ``model`` label under
+    the controller's ``tier`` registry; the controller bounds its values)."""
+    child = registry.with_labels(model=model)
+    return {
+        "requests": child.counter(
+            "kdlt_admission_requests_total", "requests seen by admission control"),
+        "admitted": child.counter(
+            "kdlt_admission_admitted_total", "requests admitted to execution"),
+    }
+
+
+def batcher_budget_histogram(registry: "Registry") -> "Histogram":
+    """The remaining budget when a request reached the batcher's or the
+    dispatcher's wait (a served model's registry)."""
+    return registry.histogram(
+        "kdlt_admission_batcher_budget_ms",
+        "remaining deadline budget when the request reached the batcher/dispatcher wait",
+        buckets=DEADLINE_MS_BUCKETS)
 
 
 def _escape_label_value(v) -> str:

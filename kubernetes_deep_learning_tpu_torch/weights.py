@@ -29,7 +29,9 @@ Also the kernel-ready forms of ``ops/fused_sepconv.py``,
 (``fold_bn``, ``middle_block_weights``, ``sepconv_stage_weights``,
 ``entry_block_weights``, ``mbconv_block_weights``), with the same math: BN
 folded with the Keras epsilon into an f32 scale/shift, depthwise taps
-(k,k,C) f32, 1x1 kernels (C_in,C_out) bf16.
+(k,k,C) f32, 1x1 kernels (C_in,C_out) bf16.  ``fold_bn`` takes another
+epsilon for a family that has its own (ResNet's 1.001e-5,
+``models.resnet.RESNET_BN_EPS``).
 """
 
 from __future__ import annotations

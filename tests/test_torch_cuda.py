@@ -32,7 +32,11 @@ their eager call's bits; each engine's per-bucket graphs (a 96-px
 Xception, vit-tiny at 1024 tokens, efficientnet-b0 at 64 px; buckets 2
 and 8, the latter fed 5 images) replay the eager forward's bits on the
 same padded batch, and every replay credits its capture's launches; a
-forward that syncs with the host fails warmup.
+forward that syncs with the host fails warmup.  ResNet50 at 224 px
+(cuDNN convolutions, no hand kernel) replays its bucket 1 and 16 graphs
+bit-equal to its eager forward, and a card server with admission on
+serves a request with budget left while it answers one whose budget is
+spent with a JSON 504, the engine untouched.
 """
 
 from __future__ import annotations
@@ -786,3 +790,92 @@ def test_cuda_lent_slot_is_never_handed_out_before_its_h2d():
     seen = [engine.lend_staging() for _ in range(5)]
     assert any(s is lent for s in seen) and all(s.copied.query() for s in seen)
     np.testing.assert_array_equal(np.asarray(handle)[:n], want)
+
+
+@pytest.mark.cuda
+def test_cuda_resnet50_graph_replay_is_bit_equal_to_eager():
+    """``resnet50-imagenet`` at 224 px, bf16: buckets 1 and 16 (the stem's
+    padded conv and max-pool captured) replay the eager forward's bits on
+    the same padded batch, and launch none of the hand kernels."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.modelspec import RESNET50_IMAGENET
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    spec = RESNET50_IMAGENET
+    artifact = ModelArtifact(spec, init_variables(spec, seed=0), {"compute_dtype": "bfloat16"})
+    engine = InferenceEngine(artifact, buckets=(1, 16), device="cuda")
+    assert not engine.fast
+    engine.warmup()
+    rng = np.random.default_rng(12)
+    counters = (ops, attention, fused_entry, fused_mbconv)
+    for n, bucket in ((1, 1), (11, 16)):
+        imgs = rng.integers(0, 256, (n, *spec.input_shape), np.uint8)
+        for c in counters:
+            c.reset_launch_counts()
+        handle, _ = engine.predict_async(imgs)
+        rows = np.asarray(handle)
+        assert not any(v for c in counters for v in c.launch_counts().values())
+        padded = np.zeros((bucket, *spec.input_shape), np.uint8)
+        padded[:n] = imgs
+        with torch.inference_mode():
+            eager = engine._forward(torch.from_numpy(padded).cuda()).cpu().numpy()
+        assert rows.shape == (bucket, 1000) and np.isfinite(rows).all()
+        np.testing.assert_array_equal(rows, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_server_admits_a_live_budget_and_sheds_a_spent_one(tmp_path):
+    """The port server on the card with admission on: a request with budget
+    left is served; one with ``X-Request-Deadline-Ms: 0`` gets a JSON 504
+    before the engine is touched (its image counter does not move)."""
+    _need_cuda()
+    import json
+    import re
+    import urllib.error
+    import urllib.request
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.serving import protocol
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    spec = ModelSpec(name="admit-xception", family="xception", input_shape=(96, 96, 3),
+                     labels=("a", "b", "c"), preprocessing="tf")
+    art.save_artifact(art.version_dir(str(tmp_path), spec.name, 1), spec,
+                      init_variables(spec, seed=0), {"compute_dtype": "bfloat16"})
+    server = ModelServer(str(tmp_path), port=0, buckets=(1, 4), device="cuda")
+    body = protocol.encode_predict_request(np.zeros((1, 96, 96, 3), np.uint8))
+
+    def post(budget_ms: str):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict", data=body,
+            method="POST", headers={"Content-Type": protocol.MSGPACK_CONTENT_TYPE,
+                                    "X-Request-Deadline-Ms": budget_ms})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def images() -> float:
+        found = re.search(rf'^kdlt_engine_images_total{{model="{spec.name}"}} (\S+)$',
+                          server.registry.render(), re.M)
+        return float(found.group(1))
+
+    try:
+        server.start()
+        server.warmup()
+        assert server.admission.enabled and server.admission.limiter is not None
+        status, reply = post("10000")
+        assert status == 200
+        logits, _ = protocol.decode_predict_response(reply, protocol.MSGPACK_CONTENT_TYPE)
+        assert logits.shape == (1, 3) and np.isfinite(logits).all()
+        before = images()
+        status, reply = post("0")
+        assert status == 504 and json.loads(reply)["shed_reason"] == "deadline_exhausted"
+        assert images() == before == 1.0
+    finally:
+        server.shutdown()

@@ -403,6 +403,10 @@ bad = sorted(
 training = {"kubernetes_deep_learning_tpu_torch.training." + m
             for m in ("trainer", "loop", "data", "checkpoint")}
 assert training <= set(sys.modules), training - set(sys.modules)
+slice12 = {"kubernetes_deep_learning_tpu_torch." + m for m in (
+    "models.resnet", "serving.admission", "serving.admission.controller",
+    "serving.admission.deadline", "serving.admission.limiter", "serving.admission.shed")}
+assert slice12 <= set(sys.modules), slice12 - set(sys.modules)
 print(len([k for k in sys.modules if k.startswith("kubernetes_deep_learning_tpu_torch.")]))
 assert not bad, bad
 """
@@ -411,7 +415,7 @@ assert not bad, bad
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 22  # every module was really imported
+    assert int(out.stdout.strip()) >= 43  # every module was really imported
 
 
 def test_model_server_gates_on_warmup(exported):
@@ -469,10 +473,11 @@ def _raise(exc):
     return predict
 
 
-def _post_raw(port, name, body):
+def _post_raw(port, name, body, headers=None):
     req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/models/{name}:predict",
                                  data=body, method="POST",
-                                 headers={"Content-Type": protocol.MSGPACK_CONTENT_TYPE})
+                                 headers={"Content-Type": protocol.MSGPACK_CONTENT_TYPE,
+                                          **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=60) as r:
             return r.status, r.headers, r.read()
@@ -480,13 +485,14 @@ def _post_raw(port, name, body):
         return e.code, e.headers, e.read()
 
 
-@pytest.mark.parametrize("fault", ["bad-request", "overload", "stall"])
+@pytest.mark.parametrize("fault", ["bad-request", "overload", "stall", "deadline", "shed"])
 def test_error_replies_match_the_jax_server(error_servers, monkeypatch, fault):
     """The same fault at both servers: the same status, a JSON body with the
     same keys, and the same ``Retry-After`` and ``X-Kdlt-Stalled`` headers.
-    The overload hint is the one the JAX server sends under its default
-    admission settings: its limiter's idle value, which it jitters by
-    +-25%; the test pins that jitter to its centre."""
+    "deadline" is an exhausted budget (``X-Request-Deadline-Ms: 0``, the
+    504); "shed" the limiter's queue at its cap (a 503 with a shed reason).
+    The overload and shed hints are the limiters' derived ones, which both
+    servers jitter by +-25%; the test pins the jitter to its centre."""
     from types import SimpleNamespace
 
     from kubernetes_deep_learning_tpu.runtime import DispatchStall as JaxDispatchStall
@@ -494,13 +500,24 @@ def test_error_replies_match_the_jax_server(error_servers, monkeypatch, fault):
     from kubernetes_deep_learning_tpu.serving.admission import limiter as jax_limiter
 
     from kubernetes_deep_learning_tpu_torch.runtime import DispatchStall, QueueFull
+    from kubernetes_deep_learning_tpu_torch.serving.admission import limiter as port_limiter
 
     spec, jax_server, port_server = error_servers
     assert jax_server.admission.limiter is not None  # the JAX default: a limiter
-    monkeypatch.setattr(jax_limiter, "random", SimpleNamespace(uniform=lambda a, b: (a + b) / 2))
+    assert port_server.admission.limiter is not None  # and the port's
+    centre = SimpleNamespace(uniform=lambda a, b: (a + b) / 2)
+    monkeypatch.setattr(jax_limiter, "random", centre)
+    monkeypatch.setattr(port_limiter, "random", centre)
     body = protocol.encode_predict_request(np.zeros((1, *spec.input_shape), np.uint8))
+    headers = {}
     if fault == "bad-request":  # a well-formed tensor of the wrong shape
         body = protocol.encode_predict_request(np.zeros((1, 8, 8, 3), np.uint8))
+    elif fault == "deadline":
+        headers = {"X-Request-Deadline-Ms": "0"}
+    elif fault == "shed":  # the limiter's waiter cap at 0: every arrival finds it full
+        for server in (jax_server, port_server):
+            monkeypatch.setattr(server.admission.limiter, "queue_cap", 0)
+            monkeypatch.setattr(server.admission.limiter, "_inflight", 10**6)
     else:
         jax_exc, port_exc = ((JaxQueueFull, QueueFull) if fault == "overload"
                              else (JaxDispatchStall, DispatchStall))
@@ -508,15 +525,19 @@ def test_error_replies_match_the_jax_server(error_servers, monkeypatch, fault):
                             _raise(jax_exc("request queue full")))
         monkeypatch.setattr(port_server.models[spec.name], "predict",
                             _raise(port_exc("request queue full")))
-    replies = [_post_raw(s.port, spec.name, body) for s in (jax_server, port_server)]
+    replies = [_post_raw(s.port, spec.name, body, headers) for s in (jax_server, port_server)]
     (want_status, want_headers, want_body), (status, headers, got_body) = replies
-    assert status == want_status == {"bad-request": 400}.get(fault, 503)
+    assert status == want_status == {"bad-request": 400, "deadline": 504}.get(fault, 503)
     assert headers["Content-Type"] == want_headers["Content-Type"] == protocol.JSON_CONTENT_TYPE
-    assert json.loads(got_body).keys() == json.loads(want_body).keys() == {"error"}
+    got, want = json.loads(got_body), json.loads(want_body)
+    assert got.keys() == want.keys() == (
+        {"error", "shed_reason"} if fault in ("deadline", "shed") else {"error"})
+    assert got.get("shed_reason") == want.get("shed_reason")
     for key in ("Retry-After", protocol.STALLED_HEADER):
         assert headers.get(key) == want_headers.get(key), key
     assert headers.get("Retry-After") == {"bad-request": None, "overload": "0.050",
-                                          "stall": "1.000"}[fault]
+                                          "stall": "1.000", "deadline": None,
+                                          "shed": "0.050"}[fault]
 
 
 def test_model_server_routes_answer_json_errors_and_metrics(stack):
@@ -533,3 +554,284 @@ def test_model_server_routes_answer_json_errors_and_metrics(stack):
     status, body, ctype = _http("GET", f"{base}/metrics")
     assert status == 200 and ctype == "text/plain"
     assert f'kdlt_engine_images_total{{model="{spec.name}"}}' in body.decode()
+
+
+# --- admission: deadlines, sheds, drain ------------------------------------------
+
+_DEADLINE = "X-Request-Deadline-Ms"
+
+
+def _served(exported, argv=(), **kw):
+    """A started, warmed port server over the exported artifact, buckets
+    (1, 2); ``argv`` goes through the command line's parser."""
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import build_server
+
+    spec, root, _ = exported
+    if argv:
+        server = build_server(["--model-root", root, "--port", "0", "--host", "127.0.0.1",
+                               "--buckets", "1,2", "--device", "cpu", *argv])
+    else:
+        server = ModelServer(root, port=0, buckets=(1, 2), device="cpu", **kw)
+    server.start()
+    server.warmup()
+    return spec, server
+
+
+def _sample(server, name: str, labels: str) -> float:
+    """The sample of ``name`` whose label set is exactly ``labels``."""
+    import re
+
+    found = re.search(rf"^{name}\{{{re.escape(labels)}\}} (\S+)$", server.registry.render(),
+                      re.M)
+    assert found, (name, labels)
+    return float(found.group(1))
+
+
+def _image_body(spec, n=1):
+    return protocol.encode_predict_request(np.zeros((n, *spec.input_shape), np.uint8))
+
+
+def _timeouts(monkeypatch, batcher) -> list:
+    """Record the timeout of every wait for a batch."""
+    seen = []
+    real = batcher.predict
+
+    def predict(image, timeout=20.0):
+        seen.append(timeout)
+        return real(image, timeout=timeout)
+
+    monkeypatch.setattr(batcher, "predict", predict)
+    return seen
+
+
+def test_exhausted_deadline_gets_504_before_the_body_is_read(exported):
+    """A spent budget is shed at admission: the body is never read, the
+    engine never called (its image counter does not move)."""
+    spec, server = _served(exported)
+    try:
+        read = []
+        status, body, ctype, _ = server.handle_predict(
+            f"/v1/models/{spec.name}:predict", lambda: read.append(1) or b"",
+            protocol.MSGPACK_CONTENT_TYPE, {_DEADLINE: "0"})
+        assert status == 504 and not read and ctype == protocol.JSON_CONTENT_TYPE
+        assert json.loads(body)["shed_reason"] == "deadline_exhausted"
+        before = _sample(server, "kdlt_engine_images_total", f'model="{spec.name}"')
+        status, headers, body = _post_raw(server.port, spec.name, _image_body(spec),
+                                          {_DEADLINE: "0"})
+        assert status == 504 and "Retry-After" not in headers
+        assert json.loads(body)["shed_reason"] == "deadline_exhausted"
+        assert _sample(server, "kdlt_engine_images_total", f'model="{spec.name}"') == before
+        assert _sample(server, "kdlt_admission_shed_total",
+                       'tier="model-server",shed_reason="deadline_exhausted"') == 2.0
+        # A healthy budget on the same server is served.
+        assert _post_raw(server.port, spec.name, _image_body(spec),
+                         {_DEADLINE: "10000"})[0] == 200
+        assert _sample(server, "kdlt_engine_images_total", f'model="{spec.name}"') == before + 1
+    finally:
+        server.shutdown()
+
+
+def test_shed_keeps_a_kept_alive_connection_usable(exported):
+    """Replies made before the body was read (a shed, a 404) drain it, so
+    the next request on the same kept-alive connection is parsed whole."""
+    import http.client
+
+    spec, server = _served(exported)
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+    try:
+        ctype = {"Content-Type": protocol.MSGPACK_CONTENT_TYPE}
+        statuses, socks = [], []
+        for path, headers in ((f"/v1/models/{spec.name}:predict", {_DEADLINE: "0"}),
+                              ("/v1/models/nope:predict", {}),
+                              (f"/v1/models/{spec.name}:predict", {_DEADLINE: "-1"}),
+                              (f"/v1/models/{spec.name}:predict", {_DEADLINE: "10000"})):
+            conn.request("POST", path, _image_body(spec), {**ctype, **headers})
+            resp = conn.getresponse()
+            resp.read()
+            statuses.append(resp.status)
+            assert resp.getheader("Connection") != "close"
+            socks.append(conn.sock)
+        assert statuses == [504, 404, 504, 200]
+        assert all(s is socks[0] for s in socks)  # one connection throughout
+    finally:
+        conn.close()
+        server.shutdown()
+
+
+def test_drain_flips_readyz_sheds_new_work_and_completes_inflight(exported, monkeypatch):
+    spec, server = _served(exported)
+    model = server.models[spec.name]
+    entered, gate = threading.Event(), threading.Event()
+    real = model.predict
+
+    def held(images, deadline=None):
+        entered.set()
+        gate.wait(30)
+        return real(images, deadline)
+
+    monkeypatch.setattr(model, "predict", held)
+    base = f"http://127.0.0.1:{server.port}"
+    result = []
+    t = threading.Thread(target=lambda: result.append(
+        _post_raw(server.port, spec.name, _image_body(spec), {_DEADLINE: "20000"})))
+    try:
+        assert _http("GET", f"{base}/readyz")[:2] == (200, b"ready")
+        t.start()
+        assert entered.wait(30) and server.admission.inflight == 1
+        server.begin_drain()
+        assert _http("GET", f"{base}/readyz")[:2] == (503, b"draining")
+        assert _http("GET", f"{base}/healthz")[0] == 200
+        status, headers, body = _post_raw(server.port, spec.name, _image_body(spec))
+        assert status == 503 and headers["Retry-After"] == "1.000"
+        assert json.loads(body)["shed_reason"] == "draining"
+        assert not server.admission.wait_idle(timeout_s=0.05)  # still in flight
+        gate.set()
+        assert server.admission.wait_idle(timeout_s=30)
+        t.join(timeout=30)
+        assert not t.is_alive() and result[0][0] == 200
+        logits, _ = protocol.decode_predict_response(result[0][2], protocol.MSGPACK_CONTENT_TYPE)
+        assert logits.shape == (1, len(spec.labels)) and np.isfinite(logits).all()
+    finally:
+        gate.set()
+        server.shutdown()
+
+
+def test_jax_gateway_deadline_budget_bounds_the_port_servers_wait(stack, monkeypatch):
+    """The unchanged JAX gateway's ``X-Request-Deadline-Ms`` reaches the port
+    server: admission sees less budget than the client gave, the batcher's
+    wait less again, and that wait's timeout is the budget left, not 20 s."""
+    spec, server, gateway, image_url, _, _ = stack
+    timeouts = _timeouts(monkeypatch, server.models[spec.name].batcher)
+    tier, model = 'tier="model-server"', f'model="{spec.name}"'
+    names = [("kdlt_admission_deadline_remaining_ms", tier),
+             ("kdlt_admission_batcher_budget_ms", model)]
+    before = {(n, agg): _sample(server, f"{n}_{agg}", lab) for n, lab in names
+              for agg in ("sum", "count")}
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{gateway.port}/predict", method="POST",
+        data=json.dumps({"url": image_url}).encode(),
+        # The salt keeps the gateway's response cache from answering for the
+        # model server (an earlier test sent the same image).
+        headers={"Content-Type": "application/json", _DEADLINE: "5000",
+                 "X-Kdlt-Cache-Bust": "deadline-test"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200 and set(json.loads(r.read())) == set(spec.labels)
+    delta = {(n, agg): _sample(server, f"{n}_{agg}", lab) - before[(n, agg)]
+             for n, lab in names for agg in ("sum", "count")}
+    assert delta[(names[0][0], "count")] == delta[(names[1][0], "count")] == 1.0
+    at_server, at_batcher = delta[(names[0][0], "sum")], delta[(names[1][0], "sum")]
+    assert 0.0 < at_batcher < at_server < 5000.0, (at_server, at_batcher)
+    assert len(timeouts) == 1 and abs(timeouts[0] * 1e3 - at_batcher) < 1e-6
+
+
+@pytest.mark.parametrize("how", ["flag", "env"])
+def test_no_admission_restores_the_fixed_waits(exported, monkeypatch, how):
+    """``--no-admission`` or ``KDLT_ADMISSION=0``: no limiter, the deadline
+    header ignored (a spent budget is served), every batch wait the fixed
+    20 s; drain still sheds."""
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import BATCHER_TIMEOUT_S
+
+    if how == "env":
+        monkeypatch.setenv("KDLT_ADMISSION", "0")
+    spec, server = _served(exported, argv=["--no-admission"] if how == "flag" else ())
+    try:
+        assert not server.admission.enabled and server.admission.limiter is None
+        timeouts = _timeouts(monkeypatch, server.models[spec.name].batcher)
+        for budget in ("0", "50"):
+            assert _post_raw(server.port, spec.name, _image_body(spec),
+                             {_DEADLINE: budget})[0] == 200
+        assert timeouts == [BATCHER_TIMEOUT_S] * 2
+        server.begin_drain()
+        status, _, body = _post_raw(server.port, spec.name, _image_body(spec))
+        assert status == 503 and json.loads(body)["shed_reason"] == "draining"
+    finally:
+        server.shutdown()
+
+
+def test_open_loop_loadgen_reports_goodput_and_sheds(exported, tmp_path):
+    """The load generator's open-loop mode against a port server on the CPU,
+    in two processes on one schedule: every request sent, latency from its
+    scheduled time, goodput and the in-deadline percentiles; then a spent
+    budget on every request: all 504, each a JSON shed with its reason."""
+    from kubernetes_deep_learning_tpu_torch.serving import loadgen
+
+    spec, server = _served(exported)
+    images = np.random.default_rng(4).integers(0, 256, (6, *spec.input_shape), np.uint8)
+    np.save(tmp_path / "images.npy", images)
+    url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
+    try:
+        out = tmp_path / "open.npz"
+        done = subprocess.run(
+            [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+             "--url", url, "--images", str(tmp_path / "images.npy"), "--rate", "30",
+             "--duration", "1", "--deadline-ms", "60000", "--processes", "2",
+             "--connections", "8", "--out", str(out)],
+            cwd=REPO, capture_output=True, text=True, timeout=120,
+            env={**os.environ, "PYTHONPATH": REPO})
+        assert done.returncode == 0, done.stderr
+        summary = json.loads(done.stdout.strip().splitlines()[-1])
+        with np.load(out) as z:
+            res = {k: z[k] for k in z.files}
+        assert summary == loadgen.summarize(res)
+        assert summary["requests"] == summary["sent"] == summary["completed_200"] == 30
+        assert summary["status"] == {"200": 30} and summary["shed"] == {}
+        assert summary["goodput_rps"] == 30.0 and 0.0 < summary["offered_rps"] <= 31.0
+        assert 0.0 < summary["p50_in_deadline_ms"] <= summary["p99_in_deadline_ms"]
+        np.testing.assert_array_equal(res["k"], np.arange(30))
+        np.testing.assert_array_equal(res["image"], np.arange(30) % 6)
+        np.testing.assert_allclose(res["sched_s"], np.arange(30) / 30)
+        # Never sent before its time; its latency counts from the schedule.
+        assert (res["sent_s"] >= res["sched_s"]).all()
+        assert (res["lat_ms"] >= 1e3 * (res["sent_s"] - res["sched_s"])).all()
+        engine = server.engines[spec.name]
+        solo = np.concatenate([engine.predict(images[i : i + 1]) for i in range(6)])
+        np.testing.assert_allclose(res["logits"], solo[res["image"]], rtol=1e-4, atol=1e-4)
+
+        res = loadgen.run_open(url, images, rate=40, duration_s=0.5, deadline_ms=0,
+                               connections=3)
+        summary = loadgen.summarize(res)
+        assert summary["status"] == {"504": 20} and summary["shed"] == {"deadline_exhausted": 20}
+        assert summary["goodput_rps"] == 0.0 and summary["p99_in_deadline_ms"] is None
+        assert res["json_body"].all() and np.isnan(res["retry_after_s"]).all()
+    finally:
+        server.shutdown()
+
+
+def test_sigterm_drains_the_server_process_and_exits_0(exported):
+    """The command line's server, serving: SIGTERM drains it and the
+    process exits 0 (``install_sigterm_drain`` wired in ``main``)."""
+    import signal
+    import socket
+    import time
+
+    spec, root, _ = exported
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.model_server",
+         "--model-root", root, "--host", "127.0.0.1", "--port", str(port), "--buckets", "1",
+         "--device", "cpu"], cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        for _ in range(600):
+            if proc.poll() is None and _http_or_none(f"{base}/readyz") == (200, b"ready"):
+                break
+            time.sleep(0.1)
+        else:
+            pytest.fail(f"server never ready: {proc.stderr.read().decode()[-2000:]}")
+        assert _post_raw(port, spec.name, _image_body(spec))[0] == 200
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _http_or_none(url):
+    try:
+        return _http("GET", url)[:2]
+    except OSError:
+        return None
