@@ -38,8 +38,9 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    the same lines.)  Then the batching phase: the host CPU time of a
    default and a ``blocking=True`` CUDA event's wait (``event-wait``);
    then four servers of the same model with buckets (1, 2, 4, 8, 16, 32)
-   -- the Python batcher off, at depth 1 and at depth 2, and the C++
-   queue at depth 2 (``--batcher native``) -- after the depth-2 engine's
+   -- batching off, the scheduler's lane (``runtime/scheduler.py``, the
+   server's default) at depth 1 and at depth 2, and the C++ queue at
+   depth 2 (``--batcher native``) -- after the depth-2 engine's
    bucket graphs are held against eager (``batching-graph``), each
    driven three times, in turns, by the load generator
    (``serving/loadgen.py``, a process of its own): 32 closed-loop clients
@@ -154,7 +155,31 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    process under 16 closed-loop clients gets SIGTERM (``drain``: /readyz
    503 "draining", new requests 503 "draining", nothing admitted lost,
    exit 0);
-18. with ``--profile``: the host time by op of a few bucket-16
+18. multimodel: ``clothing-model`` (K1, K2) and ``vit-b16-384`` (K3) on one
+   server (buckets 1-32, depth 2, ``--no-admission``): ViT's img/s alone
+   under closed-loop 8-image requests, then both models' batches replayed
+   in turn through the shared dispatcher must equal each replayed alone
+   bit for bit; then a server per ``--sched-policy`` (weighted_deadline,
+   then fifo), 8 s each under two open-loop loads on one schedule (the
+   JAX bench's --multimodel-ab defaults): ViT at twice its img/s in
+   8-image requests with 2 s budgets, clothing-model at 40 one-image
+   requests a second with 300 ms budgets.  Per model and arm (``multimodel``
+   lines): offered, completed, in-deadline, goodput as a fraction, p50/p99,
+   and the device's busy share; every 200 must carry its own images'
+   logits within 5e-2 of the exact f32 graph, every other reply be a JSON
+   503/504, every forward launch 8 K1 and 2 K2 (clothing) or 12 K3 (ViT);
+   JAX's criterion is printed, not gated;
+19. reload: ``clothing-model`` v1 under 16 closed-loop one-image clients,
+   the version watcher every 0.5 s; v2 (weights from ``--seed`` + 1), v3
+   (+ 2) and v4 (a byte copy of v3) renamed into place in turn.  No
+   request may fail; each reply must carry the logits of the version its
+   ``X-Kdlt-Artifact-Hash`` names, and after a swap plus one scan only the
+   new version's; the hash and ``:status`` must change at v2 and v3 and
+   not at v4 (same engine, no capture); /readyz must stay 200; after each
+   unload ``memory_allocated`` must be within 16 MiB of one version's.
+   ``reload-swap`` lines: swap and warmup seconds, allocated, peak and
+   reserved memory; ``reload``: p99 inside the reload windows and steady;
+20. with ``--profile``: the host time by op of a few bucket-16
    ``predict_async`` dispatches of the batching phase's engine
    (``batching-host``); a ``torch.profiler`` trace of a few bucket-16
    forwards of each served model (and of B3's ``fast=False`` engine, and
@@ -224,7 +249,8 @@ B3_FUSED_PER_FORWARD = 18  # EfficientNet-B3's blocks on K4 at 300 px
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)  # the batching phase's server
 LOAD_CLIENTS = 32   # closed-loop clients, one kept-alive connection each
 LOAD_REQUESTS = 25  # one-image msgpack requests per client, each its own image
-# The batching phase's arms: the Python batcher off, at depth 1 and at depth
+# The batching phase's arms: batching off, the scheduler's lane (what
+# ``--batcher python`` and ``auto`` serve through) at depth 1 and at depth
 # 2, and the C++ queue at depth 2; three runs of each in turns.
 BATCH_ARMS = {"off": dict(use_batcher=False),
               "depth1": dict(pipeline_depth=1, batcher_impl="python"),
@@ -258,6 +284,33 @@ OVERLOAD_DEADLINE_MS = 600.0
 OVERLOAD_PROCESSES = 4
 OVERLOAD_CONNECTIONS = 128
 DRAIN_CLIENTS = 16  # closed-loop clients on the server process SIGTERM drains
+# The multimodel phase (the JAX bench's --multimodel-ab defaults): the heavy
+# lane (ViT-B/16 at 384 px) offered MM_RATE_X times its img/s alone, in
+# requests of MM_IMAGES images with a MM_HEAVY_DEADLINE_MS budget, from
+# MM_HEAVY_PROCESSES load processes of MM_HEAVY_CONNECTIONS connections (a
+# bounded pool, as a gateway's: with 512 connections, 512 handler threads
+# decoding 3.5 MB bodies left the scheduler's threads short of the
+# interpreter lock and the card 70% idle); the
+# light lane (clothing-model) MM_LIGHT_RPS one-image requests a second with a
+# MM_LIGHT_DEADLINE_MS budget; MM_SECONDS an arm.  ViT's img/s alone:
+# MM_CALIBRATE (closed-loop clients, requests each) of MM_IMAGES images.
+MM_RATE_X = 2.0
+MM_IMAGES = 8
+MM_HEAVY_DEADLINE_MS = 2000.0
+MM_LIGHT_DEADLINE_MS = 300.0
+MM_LIGHT_RPS = 40.0
+MM_SECONDS = 8.0
+MM_HEAVY_PROCESSES = 2
+MM_HEAVY_CONNECTIONS = 32
+MM_CALIBRATE = (8, 6)
+# The reload phase: RELOAD_CLIENTS closed-loop one-image clients while
+# versions land, the watcher scanning every RELOAD_WATCH_S, RELOAD_STEADY_S
+# of load between swaps; memory after an unload within RELOAD_MEMORY_SLACK
+# bytes of one version's.
+RELOAD_CLIENTS = 16
+RELOAD_WATCH_S = 0.5
+RELOAD_STEADY_S = 2.0
+RELOAD_MEMORY_SLACK = 16 << 20
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
                   preprocessing="tf",
@@ -827,8 +880,9 @@ def _grid_images(spec, n: int, seed: int) -> np.ndarray:
 
 def _model_value(server, name: str, model: str) -> float:
     """One ``model``-labelled sample of the server's registry (a counter,
-    or a histogram's ``_sum`` or ``_count``)."""
-    found = re.search(rf'^{name}\{{model="{re.escape(model)}"\}} (\S+)$',
+    or a histogram's ``_sum`` or ``_count``); a served version's series
+    also carry its ``version``."""
+    found = re.search(rf'^{name}\{{model="{re.escape(model)}"(?:,version="\d+")?\}} (\S+)$',
                       server.registry.render(), re.M)
     if found is None:
         _fail(f"no {name} series for {model}")
@@ -869,8 +923,8 @@ def _event_wait_probe(sm_mhz: float) -> dict:
 def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forward: dict,
                     device: str = "cuda", profile: bool = False) -> list[dict]:
     """Single-image traffic through the port's server in four arms
-    (BATCH_ARMS): the Python batcher off, at depth 1 and at depth 2, and the
-    C++ queue at depth 2 (``--batcher native``: a queue that will not build
+    (BATCH_ARMS): batching off, the scheduler's lane at depth 1 and at depth
+    2, and the C++ queue at depth 2 (``--batcher native``: a queue that will not build
     fails the run), each run three times in turns (BATCH_ORDER) by the load
     generator.  Each bucket graph of the depth-2 engine is first held
     against the eager forward.  Every
@@ -926,9 +980,8 @@ def _batching_phase(spec, variables, seed: int, smi: str, *, counter, per_forwar
                 url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
                 series = [f"kdlt_engine_{k}_total" for k in ("images", "batches", "pad_images")]
                 series += [f"{h}_{agg}" for h in stages for agg in ("sum", "count")]
-                # The dispatcher's stages: only depth 2 has one on this path.
-                series = [m for m in series
-                          if m.startswith("kdlt_engine_") or arm.startswith("depth2")]
+                # The dispatcher's stages: none on this path with batching off.
+                series = [m for m in series if m.startswith("kdlt_engine_") or arm != "off"]
                 before = {m: _model_value(server, m, spec.name) for m in series}
                 counter.reset_launch_counts()
                 res = _load_run(url, images_path, f"{root}/run{run}.npz", timeout=600)
@@ -1379,6 +1432,445 @@ def _admission_phase(spec, variables, seed: int, smi: str, depth2_img_s: float, 
         out["drain"] = _drain_phase(root, spec, images, solo)
     print("drain:", json.dumps({**out["drain"], "card": smi}), flush=True)
     return {**out, "card": smi}
+
+
+def _mm_check(arm: str, name: str, res: dict, solo: np.ndarray, exact: np.ndarray,
+              per_request: int) -> dict:
+    """Every 200 of ``name`` carries its own images' logits (of all images'
+    solo logits, its own are the nearest) within MODEL_TOL of the exact f32
+    graph; every other reply is a JSON 503 or 504, or was never sent or
+    lost (status 0 or -1)."""
+    status = res["status"]
+    bad = sorted(set(status.tolist()) - {0, -1, 200, 503, 504})
+    if bad:
+        _fail(f"multimodel {arm} {name}: replies with status {bad}")
+    shed = np.isin(status, (503, 504))
+    if not res["json_body"][shed].all():
+        _fail(f"multimodel {arm} {name}: {int((~res['json_body'][shed]).sum())} 503/504 "
+              "without a JSON body")
+    ok = np.flatnonzero(status == 200)
+    logits = res["logits"][ok].reshape(-1, solo.shape[1])
+    own = (res["image"][ok][:, None] + np.arange(per_request)[None, :]).reshape(-1)
+    scale_solo, scale_exact = np.abs(solo).max(axis=1), np.abs(exact).max(axis=1)
+    misplaced, worst = 0, 0.0
+    for i in range(0, len(own), 1024):
+        got, idx = logits[i : i + 1024], own[i : i + 1024]
+        to_all = np.abs(got[:, None, :] - solo[None, :, :]).max(axis=2) / scale_solo[None, :]
+        misplaced += int((to_all.argmin(axis=1) != idx).sum())
+        if len(idx):
+            worst = max(worst, float((np.abs(got - exact[idx]).max(axis=1)
+                                      / scale_exact[idx]).max()))
+    if not np.isfinite(logits).all() or misplaced or worst > MODEL_TOL:
+        _fail(f"multimodel {arm} {name}: {misplaced} images nearer another image's logits, "
+              f"worst vs its exact f32 logits {worst:.3e} (tol {MODEL_TOL})")
+    return dict(replies_200=len(ok), worst_vs_exact_rel=worst, tol_rel=MODEL_TOL)
+
+
+def _interleave_check(server, images: dict, seed: int) -> dict:
+    """Batches of both models replayed in turn through the server's shared
+    dispatcher (depth 2: one of each in flight at once) must equal each
+    model's batch replayed alone, bit for bit."""
+    rng = np.random.default_rng(seed)
+    plan = []
+    for n in (1, 3, *BATCH_BUCKETS[-3:], 5):
+        for name, imgs in images.items():
+            plan.append((name, imgs[rng.permutation(len(imgs))[:n]]))
+    solo = [server.engines[name].predict(imgs) for name, imgs in plan]
+    futs = [server.dispatcher.submit(imgs, engine=server.engines[name], model=name)
+            for name, imgs in plan]
+    unequal = [i for i, (fut, want) in enumerate(zip(futs, solo))
+               if not np.array_equal(fut.result(timeout=120), want)]
+    if unequal:
+        _fail(f"multimodel: interleaved replays {unequal} differ from the solo replays")
+    return dict(batches=len(plan), sizes=[len(imgs) for _, imgs in plan], bit_equal=True)
+
+
+def _mm_load(url: str, images_path: str, out_path: str, *, rate: float, deadline_ms: float,
+             per_request: int, processes: int, connections: int, start_at: float):
+    cmd = [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+           "--url", url, "--images", images_path, "--rate", f"{rate:.3f}",
+           "--duration", str(MM_SECONDS), "--deadline-ms", str(deadline_ms),
+           "--images-per-request", str(per_request), "--processes", str(processes),
+           "--connections", str(connections), "--start-at", repr(start_at), "--out", out_path]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _multimodel_phase(clothing, vit, seed: int, smi: str) -> dict:
+    """``clothing-model`` (K1, K2) and ``vit-b16-384`` (K3) on one server:
+    buckets 1-32, depth 2, admission off, so the scheduler alone arbitrates
+    (as the JAX bench's --multimodel-ab).  First ViT's img/s alone
+    (closed loop, MM_CALIBRATE clients x requests of MM_IMAGES images) and
+    the interleave check (``_interleave_check``); then one server per
+    policy, weighted_deadline and then fifo, each for MM_SECONDS under two
+    open-loop loads on one schedule: ViT at MM_RATE_X x its img/s in
+    requests of MM_IMAGES (MM_HEAVY_DEADLINE_MS), clothing-model at
+    MM_LIGHT_RPS one-image requests (MM_LIGHT_DEADLINE_MS).  Per model and
+    arm: offered, completed and in-deadline requests, goodput as a fraction
+    of offered, in-deadline p50/p99; per arm the worst model's goodput and
+    the device's busy share (a CUDA trace of the arm).  Gates: replies
+    (``_mm_check``), and 8 K1, 2 K2 and 12 K3 launches a forward of their
+    model.  JAX's criterion is printed, not gated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.ops import attention as attn
+    from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv
+    from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
+    from kubernetes_deep_learning_tpu_torch.serving import loadgen
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    per_forward = {clothing.name: {"fused_sepconv_block": 8, "fused_sepconv_chain": 2},
+                   vit.name: {"flash_attention": 12}}
+    clients, requests = MM_CALIBRATE
+    images = {clothing.name: _grid_images(clothing, int(MM_LIGHT_RPS * MM_SECONDS), seed + 12),
+              vit.name: _grid_images(vit, clients * requests * MM_IMAGES, seed + 11)}
+    plans = {clothing.name: dict(per_request=1, deadline_ms=MM_LIGHT_DEADLINE_MS,
+                                 processes=1, connections=32),
+             vit.name: dict(per_request=MM_IMAGES, deadline_ms=MM_HEAVY_DEADLINE_MS,
+                            processes=MM_HEAVY_PROCESSES, connections=MM_HEAVY_CONNECTIONS)}
+    out: dict = {"card": smi}
+    arms: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        for spec in (clothing, vit):
+            art.save_artifact(art.version_dir(root, spec.name, 1), spec,
+                              init_variables(spec, seed=seed), {"compute_dtype": "bfloat16"})
+        paths = {name: os.path.join(root, f"{name}.npy") for name in images}
+        for name, imgs in images.items():
+            np.save(paths[name], imgs)
+        for policy in ("weighted_deadline", "fifo"):
+            t0 = time.perf_counter()
+            server = ModelServer(root, port=0, buckets=BATCH_BUCKETS, device="cuda",
+                                 pipeline_depth=2, admission=False, sched_policy=policy)
+            try:
+                server.start()
+                server.warmup()
+                if server.scheduler is None or server.scheduler.policy != policy:
+                    _fail(f"multimodel: the {policy} server has no {policy} scheduler")
+                urls = {name: f"http://127.0.0.1:{server.port}/v1/models/{name}:predict"
+                        for name in images}
+                print(f"multimodel: {policy} server warm in {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+                if policy == "weighted_deadline":
+                    solo, exact = {}, {}
+                    for name, imgs in images.items():
+                        engine = server.engines[name]
+                        step = engine.max_batch
+                        exact[name] = np.concatenate([
+                            engine.predict(normalize(torch.from_numpy(imgs[i : i + step]),
+                                                     engine.spec.preprocessing).numpy())
+                            for i in range(0, len(imgs), step)])
+                        solo[name] = np.concatenate([engine.predict(imgs[k : k + 1])
+                                                     for k in range(len(imgs))])
+                    out["interleave"] = _interleave_check(server, images, seed + 14)
+                    print("multimodel-interleave:", json.dumps({**out["interleave"], "card": smi}),
+                          flush=True)
+                    cal_path = os.path.join(root, "calibrate.npz")
+                    done = subprocess.run(
+                        [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+                         "--url", urls[vit.name], "--images", paths[vit.name], "--clients",
+                         str(clients), "--requests", str(requests), "--images-per-request",
+                         str(MM_IMAGES), "--out", cal_path],
+                        capture_output=True, text=True, timeout=300,
+                        cwd=os.path.dirname(os.path.abspath(__file__)))
+                    if done.returncode != 0:
+                        _fail(f"multimodel: calibration load exited {done.returncode}: "
+                              f"{done.stderr[-2000:]}")
+                    with np.load(cal_path) as z:
+                        cal = {k: z[k] for k in z.files}
+                    if (cal["status"] != 200).any():
+                        _fail(f"multimodel: calibration statuses {sorted(set(cal['status']))}")
+                    n_cal = clients * requests
+                    cal["image"] = np.arange(n_cal) * MM_IMAGES
+                    cal["json_body"] = np.ones(n_cal, bool)
+                    _mm_check("calibration", vit.name, cal, solo[vit.name], exact[vit.name],
+                              MM_IMAGES)
+                    vit_img_s = n_cal * MM_IMAGES / float(cal["wall_s"])
+                    out["calibration"] = dict(
+                        model=vit.name, clients=clients, requests=n_cal,
+                        images_per_request=MM_IMAGES, img_per_s=vit_img_s,
+                        p50_ms=float(np.percentile(cal["lat_ms"], 50)),
+                        p99_ms=float(np.percentile(cal["lat_ms"], 99)))
+                    print("multimodel-calibration:", json.dumps({**out["calibration"],
+                                                                 "card": smi}), flush=True)
+                    rates = {clothing.name: MM_LIGHT_RPS,
+                             vit.name: MM_RATE_X * vit_img_s / MM_IMAGES}
+                batches0 = {name: _model_value(server, "kdlt_engine_batches_total", name)
+                            for name in images}
+                fused_sepconv.reset_launch_counts()
+                attn.reset_launch_counts()
+                start_at = time.time() + 1.5 + 0.2 * MM_HEAVY_PROCESSES
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    procs = {name: _mm_load(urls[name], paths[name],
+                                            os.path.join(root, f"{policy}-{name}.npz"),
+                                            rate=rates[name], start_at=start_at, **plans[name])
+                             for name in images}
+                    for name, proc in procs.items():
+                        _, err = proc.communicate(timeout=300)
+                        if proc.returncode != 0:
+                            _fail(f"multimodel {policy}: {name}'s load exited "
+                                  f"{proc.returncode}: {err[-2000:]}")
+                    # Requests the clients gave up on may still be queued:
+                    # count once every one has left the server.
+                    if not server.admission.wait_idle(timeout_s=120):
+                        _fail(f"multimodel {policy}: requests in flight 120 s after the load")
+                    torch.cuda.synchronize()
+                    window_s = time.time() - start_at
+                device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA) / 1e3
+                launches = {**fused_sepconv.launch_counts(), **attn.launch_counts()}
+                forwards = {name: int(_model_value(server, "kdlt_engine_batches_total", name)
+                                      - batches0[name]) for name in images}
+                want = {k: sum(per_forward[name].get(k, 0) * forwards[name] for name in images)
+                        for k in launches}
+                if launches != want or not all(forwards.values()):
+                    _fail(f"multimodel {policy}: launches {launches} != {want} for forwards "
+                          f"{forwards}")
+                models = {}
+                for name in images:
+                    with np.load(os.path.join(root, f"{policy}-{name}.npz")) as z:
+                        res = {k: z[k] for k in z.files}
+                    summary = loadgen.summarize(res)
+                    offered = len(res["status"])
+                    models[name] = dict(
+                        offered=offered, offered_rps=summary["offered_rps"],
+                        sent=summary["sent"], completed=summary["completed_200"],
+                        in_deadline=summary["in_deadline"],
+                        goodput_frac=summary["in_deadline"] / max(offered, 1),
+                        goodput_rps=summary["goodput_rps"],
+                        p50_in_deadline_ms=summary["p50_in_deadline_ms"],
+                        p99_in_deadline_ms=summary["p99_in_deadline_ms"],
+                        status=summary["status"], shed=summary["shed"],
+                        images_per_request=plans[name]["per_request"],
+                        deadline_ms=plans[name]["deadline_ms"], forwards=forwards[name],
+                        **_mm_check(policy, name, res, solo[name], exact[name],
+                                    plans[name]["per_request"]))
+                arms[policy] = dict(
+                    policy=policy, seconds=MM_SECONDS, rates=rates, models=models,
+                    worst_model_goodput_frac=min(m["goodput_frac"] for m in models.values()),
+                    launches=launches, device_ms=device_ms, window_s=window_s,
+                    device_busy_share=device_ms / (window_s * 1e3), card=smi)
+                print("multimodel:", json.dumps(arms[policy]), flush=True)
+            finally:
+                server.shutdown()
+    w, f = arms["weighted_deadline"], arms["fifo"]
+    ratio = w["worst_model_goodput_frac"] / max(f["worst_model_goodput_frac"], 1e-9)
+    heavy_ok = (w["models"][vit.name]["goodput_frac"]
+                >= 0.8 * f["models"][vit.name]["goodput_frac"])
+    out.update(arms={p: {k: a[k] for k in ("worst_model_goodput_frac", "device_busy_share")}
+                     | {"goodput_frac": {n: m["goodput_frac"] for n, m in a["models"].items()}}
+                     for p, a in arms.items()},
+               worst_model_ratio=ratio, jax_criterion=bool(ratio >= 1.2 and heavy_ok))
+    return out
+
+
+def _reload_phase(spec, seed: int, smi: str, *, counter, per_forward: dict) -> dict:
+    """``spec`` (clothing-model, K1 and K2) v1 served with buckets 1-32 under
+    RELOAD_CLIENTS closed-loop one-image clients (the load generator, a
+    process of its own), the version watcher scanning every RELOAD_WATCH_S.
+    v2 (weights from ``seed`` + 1), v3 (``seed`` + 2) and v4 (a byte copy of
+    v3) land in turn, each renamed into place whole, RELOAD_STEADY_S of load
+    apart.  Gates: every request is answered 200; every reply names its
+    version by ``X-Kdlt-Artifact-Hash`` and carries that version's logits
+    for its image (nearest among every version's and image's, within
+    MODEL_TOL of its version's solo logits); a request sent one scan after
+    a swap gets the new version; the hash and ``:status`` change at v2 and
+    v3 and not at v4, which keeps the engine object (no capture); /readyz
+    answers 200 throughout; after each unload ``memory_allocated`` is within
+    RELOAD_MEMORY_SLACK of its value with v1 alone; 8 K1 and 2 K2 launches
+    a dispatch.  Recorded: allocated, peak and reserved memory, each swap's
+    seconds and warmup seconds, and the p99 inside the reload windows
+    against steady state."""
+    import shutil
+    import threading
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+    from kubernetes_deep_learning_tpu_torch.serving.registry import artifact_hash
+
+    n = 256
+    images = _grid_images(spec, n, seed + 13)
+    name = spec.name
+    with tempfile.TemporaryDirectory() as root:
+        model_dir = os.path.join(root, name)
+        staged = {v: art.save_artifact(os.path.join(model_dir, f".staged-{v}"), spec,
+                                       init_variables(spec, seed=seed + v - 1),
+                                       {"compute_dtype": "bfloat16"})
+                  for v in (1, 2, 3)}
+        # Each version's logits of each image alone (bucket 1), from an
+        # engine of its own, closed before the server starts.
+        refs = {}
+        for v, d in staged.items():
+            engine = InferenceEngine(art.load_artifact(d), buckets=(1,), device="cuda")
+            engine.warmup()
+            refs[v] = np.concatenate([engine.predict(images[k : k + 1]) for k in range(n)])
+            engine.close()
+        hashes = {v: artifact_hash(d) for v, d in staged.items()}
+        version_of = {h: v for v, h in hashes.items()}
+        os.rename(staged[1], art.version_dir(root, name, 1))
+        images_path = os.path.join(root, "images.npy")
+        np.save(images_path, images)
+        server = ModelServer(root, port=0, buckets=BATCH_BUCKETS, device="cuda")
+        readyz: list = []
+        stop_poll = threading.Event()
+        stop_file = os.path.join(root, "stop")
+        try:
+            server.start()
+            server.warmup()
+            server.start_version_watcher(RELOAD_WATCH_S)
+            torch.cuda.synchronize()
+            base = dict(allocated=torch.cuda.memory_allocated(),
+                        reserved=torch.cuda.memory_reserved())
+
+            def poll_readyz() -> None:
+                while not stop_poll.is_set():
+                    try:
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{server.port}/readyz", timeout=10) as r:
+                            readyz.append(r.status)
+                    except urllib.error.HTTPError as e:
+                        readyz.append(e.code)
+                    except OSError:
+                        readyz.append(-1)
+                    time.sleep(0.01)
+
+            poller = threading.Thread(target=poll_readyz, daemon=True)
+            poller.start()
+            counter.reset_launch_counts()
+            dispatches0 = _model_value(server, "kdlt_sched_dispatch_total", name)
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+                 "--url", f"http://127.0.0.1:{server.port}/v1/models/{name}:predict",
+                 "--images", images_path, "--clients", str(RELOAD_CLIENTS),
+                 "--requests", "5000", "--duration", "300", "--stop-file", stop_file,
+                 "--out", os.path.join(root, "load.npz")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            time.sleep(RELOAD_STEADY_S)
+            swaps = []
+            for v in (2, 3, 4):
+                old = server.models[name]
+                if v == 4:
+                    src = shutil.copytree(art.version_dir(root, name, 3),
+                                          os.path.join(model_dir, ".staged-4"))
+                else:
+                    src = staged[v]
+                torch.cuda.reset_peak_memory_stats()
+                t_write = time.time()
+                os.rename(src, art.version_dir(root, name, v))
+                deadline = time.monotonic() + 120
+                while server.models[name].version != v:
+                    if time.monotonic() > deadline or proc.poll() is not None:
+                        _fail(f"reload: v{v} was not adopted within 120 s")
+                    time.sleep(0.005)
+                with server.model_registry._lock:  # the scan that swapped (and unloaded) is over
+                    t_swap = time.time()
+                torch.cuda.synchronize()
+                status = json.loads(server.handle_get(f"/v1/models/{name}:status")[1])
+                new = server.models[name]
+                swaps.append(dict(
+                    version=v, t_write=t_write, t_swap=t_swap, swap_s=t_swap - t_write,
+                    warmup_s=new.warmup_s if new is not old else None,
+                    same_engine=new.engine is old.engine, old_engine_closed=old.engine._closed,
+                    status_version=status["version"], status_hash=status["artifact_hash"],
+                    allocated=torch.cuda.memory_allocated(),
+                    peak_allocated=torch.cuda.max_memory_allocated(),
+                    reserved=torch.cuda.memory_reserved()))
+                print("reload-swap:", json.dumps({**swaps[-1], "card": smi}), flush=True)
+                time.sleep(RELOAD_STEADY_S)
+            with open(stop_file, "w"):
+                pass
+            _, err = proc.communicate(timeout=120)
+            if proc.returncode != 0:
+                _fail(f"reload: the load exited {proc.returncode}: {err[-2000:]}")
+            launches = counter.launch_counts()
+            dispatches = int(_model_value(server, "kdlt_sched_dispatch_total", name) - dispatches0)
+        finally:
+            stop_poll.set()
+            server.shutdown()
+        with np.load(os.path.join(root, "load.npz")) as z:
+            res = {k: z[k] for k in z.files}
+    sent = res["status"] != 0
+    status, lat = res["status"][sent], res["lat_ms"][sent]
+    sent_at, image = res["sent_at"][sent], res["image"][sent]
+    logits, served_hash = res["logits"][sent], res["artifact_hash"][sent]
+    if (status != 200).any():
+        _fail(f"reload: failed requests: {sorted(set(status.tolist()))}")
+    unknown = sorted(set(served_hash.tolist()) - set(version_of))
+    if unknown:
+        _fail(f"reload: replies name artifacts no version has: {unknown[:3]}")
+    served = np.array([version_of[h] for h in served_hash])
+    # Each reply against every version's and image's solo logits: its own
+    # version's row for its own image must be the nearest, within MODEL_TOL.
+    table = np.concatenate([refs[v] for v in (1, 2, 3)])
+    scale = np.abs(table).max(axis=1)
+    wrong, worst = 0, 0.0
+    for i in range(0, len(image), 512):
+        got = logits[i : i + 512]
+        own = (served[i : i + 512] - 1) * n + image[i : i + 512]
+        rel = np.abs(got[:, None, :] - table[None, :, :]).max(axis=2) / scale[None, :]
+        wrong += int((rel.argmin(axis=1) != own).sum())
+        worst = max(worst, float(rel[np.arange(len(own)), own].max()))
+    if wrong or worst > MODEL_TOL or not np.isfinite(logits).all():
+        _fail(f"reload: {wrong} replies nearer another version's or image's logits, worst vs "
+              f"its own {worst:.3e} (tol {MODEL_TOL})")
+    # After a swap plus one scan, only the new version answers; before the
+    # write, only the old one.
+    late = []
+    for s, prev in zip(swaps, (1, 2, 3)):
+        want = min(s["version"], 3)
+        after = sent_at > s["t_swap"] + RELOAD_WATCH_S
+        nxt = [t["t_write"] for t in swaps if t["version"] > s["version"]]
+        if nxt:
+            after &= sent_at < nxt[0]
+        before = res["done_at"][sent] < s["t_write"]
+        if s["version"] > 2:
+            before &= sent_at > swaps[s["version"] - 3]["t_swap"] + RELOAD_WATCH_S
+        late += [(s["version"], "after", int((served[after] != want).sum())),
+                 (s["version"], "before", int((served[before] != prev).sum()))]
+    if any(k for _, _, k in late):
+        _fail(f"reload: replies from the wrong version around a swap: {late}")
+    v2, v3, v4 = swaps
+    seen = [s["status_hash"] for s in swaps]
+    if (seen != [hashes[2], hashes[3], hashes[3]] or len(set(hashes.values())) != 3
+            or [s["status_version"] for s in swaps] != [2, 3, 4]):
+        _fail(f"reload: :status hashes {[s['status_hash'][:12] for s in swaps]} versions "
+              f"{[s['status_version'] for s in swaps]}")
+    if v2["same_engine"] or v3["same_engine"] or not v4["same_engine"]:
+        _fail("reload: v2 and v3 must bring new engines and v4 keep v3's")
+    if not (v2["old_engine_closed"] and v3["old_engine_closed"]):
+        _fail("reload: a superseded engine was not closed")
+    drift = [s["allocated"] - base["allocated"] for s in swaps]
+    if any(abs(d) >= RELOAD_MEMORY_SLACK for d in drift):
+        _fail(f"reload: memory_allocated after the unloads differs by {drift} bytes from one "
+              f"version's {base['allocated']}")
+    if any(code != 200 for code in readyz) or not readyz:
+        _fail(f"reload: /readyz answered {sorted(set(readyz))}")
+    # A new version's warmup runs each bucket's forward twice: eagerly before
+    # its capture, and the capture's first replay.
+    forwards = dispatches + 2 * len(BATCH_BUCKETS) * sum(not s["same_engine"] for s in swaps)
+    want = {k: per_forward.get(k, 0) * forwards for k in launches}
+    if launches != want or not dispatches:
+        _fail(f"reload: launches {launches} != {want} for {dispatches} dispatches and "
+              f"{forwards - dispatches} warmup forwards")
+    windows = np.zeros(len(sent_at), bool)
+    for s in swaps:
+        windows |= (sent_at >= s["t_write"]) & (sent_at <= s["t_swap"])
+    pct = lambda x, q: float(np.percentile(x, q)) if len(x) else None  # noqa: E731
+    return dict(
+        model=spec.name, clients=RELOAD_CLIENTS, watch_interval_s=RELOAD_WATCH_S,
+        requests=int(sent.sum()), all_200=True, worst_vs_own_rel=worst, tol_rel=MODEL_TOL,
+        hashes={f"v{v}": h[:16] for v, h in hashes.items()},
+        one_version=base, swaps=[{k: s[k] for k in s if not k.startswith("t_")} for s in swaps],
+        allocated_drift_bytes=drift, memory_slack_bytes=RELOAD_MEMORY_SLACK,
+        readyz_polls=len(readyz), readyz_all_200=True, dispatches=dispatches, launches=launches,
+        p50_steady_ms=pct(lat[~windows], 50), p99_steady_ms=pct(lat[~windows], 99),
+        p50_reload_window_ms=pct(lat[windows], 50), p99_reload_window_ms=pct(lat[windows], 99),
+        requests_in_windows=int(windows.sum()), card=smi)
 
 
 def _dispatch_host_profile(engine, imgs: np.ndarray, steps: int = 5) -> None:
@@ -2246,6 +2738,13 @@ def main(argv=None) -> int:
         depth2_img_s, counter=fused_sepconv,
         per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})
     print("admission:", json.dumps(admission), flush=True)
+
+    # --- the multi-model tier: ViT and clothing-model on one scheduler; hot reload ---
+    print("multimodel-summary:", json.dumps(_multimodel_phase(CLOTHING_MODEL, vit, args.seed, smi)),
+          flush=True)
+    print("reload:", json.dumps(_reload_phase(
+        CLOTHING_MODEL, args.seed, smi, counter=fused_sepconv,
+        per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})), flush=True)
 
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""The serving engine of the port, its dispatch pipeline and its batchers."""
+"""The serving engine of the port, its dispatch pipeline, its batchers and
+the multi-model scheduler."""
 
 import logging
 import os
@@ -12,10 +13,12 @@ from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     DEFAULT_BUCKETS,
     DispatcherClosed,
     DispatchStall,
+    EngineClosed,
     InferenceEngine,
     InFlightDispatcher,
     resolve_pipeline_depth,
 )
+from kubernetes_deep_learning_tpu_torch.runtime.scheduler import UnifiedScheduler
 
 log = logging.getLogger(__name__)
 
@@ -63,9 +66,11 @@ __all__ = [
     "DispatchStall",
     "DispatcherClosed",
     "DynamicBatcher",
+    "EngineClosed",
     "InFlightDispatcher",
     "InferenceEngine",
     "QueueFull",
+    "UnifiedScheduler",
     "create_batcher",
     "resolve_pipeline_depth",
 ]

@@ -35,17 +35,26 @@ gathers its requests straight into it (``StagedBatch``); the borrower owns
 it until it hands it back, after ``predict_async`` has enqueued its H2D
 copy, so no other dispatch can refill it in between.  A slot is refilled
 only after the H2D copy that last read it has run (an event per slot).
+
+``close()`` gives an unloaded version's device memory back: it waits for
+the event of the engine's last dispatch, then drops its bucket graphs,
+their pool, its staging slots and its parameters, and releases the cached
+blocks, under the capture lock so the release never runs while another
+engine captures.  The caller first makes sure no dispatch of the engine is
+still to come (``UnifiedScheduler.wait_engine_idle``, or closing the
+batcher and dispatcher that fed it).
 """
 
 from __future__ import annotations
 
 import collections
+import gc
 import logging
 import os
 import queue as queue_lib
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -112,6 +121,10 @@ class DispatcherClosed(RuntimeError):
     """The in-flight dispatcher has been permanently shut down."""
 
 
+class EngineClosed(RuntimeError):
+    """The engine was closed (its version unloaded); another version serves."""
+
+
 class DispatchStall(RuntimeError):
     """An in-flight dispatch was declared stuck by the watchdog.
 
@@ -171,7 +184,11 @@ class InFlightDispatcher:
         self._closed = False         # guarded-by: _close_lock
         self._close_lock = threading.Lock()
         registry = registry or getattr(engine, "registry", None) or metrics_lib.Registry()
+        self._registry = registry
         self._m_stage = metrics_lib.pipeline_stage_histograms(registry)
+        # Model-labelled stage series (a scheduler's shared dispatcher),
+        # minted by stage_histograms.
+        self._m_stage_models: dict[str, dict] = {}
         self._m_depth = registry.gauge(
             "kdlt_pipeline_depth", "configured in-flight dispatch depth"
         )
@@ -213,17 +230,32 @@ class InFlightDispatcher:
         dispatcher no longer accepts work and serving health should fail."""
         return self._stalled.is_set()
 
+    def stage_histograms(self, model: str | None = None) -> dict:
+        """The stage histograms a batch's times land in: the unlabelled set,
+        or the ``model``-labelled one when a scheduler attributes each
+        batch to its model (minted on first call: a scheduler calls this
+        when it adds a model's lane, so the series read 0 until its first
+        batch)."""
+        if model is None:
+            return self._m_stage
+        stages = self._m_stage_models.get(model)
+        if stages is None:
+            stages = self._m_stage_models[model] = metrics_lib.pipeline_stage_histograms(
+                self._registry, model=model)
+        return stages
+
     def _engine_key(self, engine):
         spec = getattr(engine, "spec", None)
         return getattr(spec, "name", None) or id(engine)
 
-    def submit(self, images, engine=None) -> Future:
+    def submit(self, images, engine=None, model: str | None = None) -> Future:
         """Dispatch one uint8 batch (an array, or a ``StagedBatch`` in a slot
         the engine lent); returns a Future of its logits rows.
 
         Blocks only while ``depth`` batches are in flight (backpressure) --
         never on device execution of the batch itself.  ``engine``
-        overrides the construction-time engine for THIS batch.
+        overrides the construction-time engine for THIS batch; ``model``
+        attributes its stage times to that model's series.
         """
         engine = engine if engine is not None else self._engine
         if engine is None:
@@ -244,7 +276,8 @@ class InFlightDispatcher:
         if self._stalled.is_set():
             self._slots.release()
             raise DispatchStall("dispatch pipeline is stalled")
-        self._m_stage["enqueue_wait"].observe(time.perf_counter() - t0)
+        stages = self.stage_histograms(model)
+        stages["enqueue_wait"].observe(time.perf_counter() - t0)
         fut: Future = Future()
         t1 = time.perf_counter()
         try:
@@ -254,13 +287,13 @@ class InFlightDispatcher:
             fut.set_exception(e)
             return fut
         dispatched_at = time.perf_counter()
-        self._m_stage["dispatch"].observe(dispatched_at - t1)
+        stages["dispatch"].observe(dispatched_at - t1)
         bkey = (self._engine_key(engine), self._bucket_of(engine, n))
         with self._inflight_lock:
             token = self._seq
             self._seq += 1
             self._inflight[token] = (fut, bkey, dispatched_at)
-        self._completions.put((handle, n, fut, dispatched_at, token, engine, bkey))
+        self._completions.put((handle, n, fut, dispatched_at, token, engine, bkey, stages))
         return fut
 
     def _complete_loop(self) -> None:
@@ -271,7 +304,7 @@ class InFlightDispatcher:
             self._complete_one(*item)
 
     def _complete_one(self, handle, n: int, fut: Future, dispatched_at: float, token: int,
-                      engine, bkey) -> None:
+                      engine, bkey, stages: dict) -> None:
         """MUST NOT raise: an exception escaping here kills the completion
         thread, which strands every later batch's waiters AND deadlocks
         close() -- so anything unexpected fails THIS future instead."""
@@ -286,8 +319,8 @@ class InFlightDispatcher:
                 fut.set_exception(e)
             return
         t1 = time.perf_counter()
-        self._m_stage["execute"].observe(t0 - dispatched_at)
-        self._m_stage["readback"].observe(t1 - t0)
+        stages["execute"].observe(t0 - dispatched_at)
+        stages["readback"].observe(t1 - t0)
         self._observe_latency(bkey, t1 - dispatched_at)
         with self._inflight_lock:
             self._inflight.pop(token, None)
@@ -462,8 +495,32 @@ class _BucketGraph(NamedTuple):
 
 
 # One capture at a time in the process: the buckets of an engine, and the
-# engines of a server, are captured one after another.
+# engines of a server, are captured one after another; an engine's close
+# releases memory under it too, so the release never runs during a capture.
 _capture_lock = threading.Lock()
+# Every capture runs on one thread and one stream per device (under
+# _capture_lock).  cuBLAS keeps a handle per thread and a workspace per
+# (handle, stream) for the life of the process: captures from whichever
+# thread loads a version (the server's at start, the version watcher's at a
+# reload), each on a fresh stream, would leave one more behind every time.
+_capture_streams: dict = {}
+_capture_thread: ThreadPoolExecutor | None = None
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    stream = _capture_streams.get(device)
+    if stream is None:
+        stream = _capture_streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def _on_capture_thread(fn, *args):
+    """``fn(*args)`` on the capture thread (under _capture_lock); its
+    result, or its exception."""
+    global _capture_thread
+    if _capture_thread is None:
+        _capture_thread = ThreadPoolExecutor(1, thread_name_prefix="kdlt-capture")
+    return _capture_thread.submit(fn, *args).result()
 
 
 class InferenceEngine:
@@ -475,6 +532,9 @@ class InferenceEngine:
         per-bucket staging ring: depth + 1 pinned buffers, so a dispatcher
         of that depth never waits for a buffer."""
         self.spec = artifact.spec
+        # The served artifact's identity (serving.registry.artifact_hash),
+        # set when a registry serves this engine.
+        self.artifact_hash: str | None = None
         self.buckets = tuple(sorted(buckets))
         self.max_batch = self.buckets[-1]
         self.device = resolve_device(device)
@@ -489,6 +549,10 @@ class InferenceEngine:
         self.fast = self._forward.fast
         self._exact_f32 = None
         self._lock = threading.Lock()
+        self._closed = False  # guarded-by: _lock
+        # The event after this engine's last dispatch (its D2H copy): once
+        # it has completed, the device has finished every replay of it.
+        self._last_done: torch.cuda.Event | None = None  # guarded-by: _lock
         self._ready = threading.Event()
         self._staging_buffers = resolve_pipeline_depth(pipeline_depth) + 1
         self._free: collections.deque[StagingSlot] = collections.deque()  # guarded-by: _free_lock
@@ -517,6 +581,11 @@ class InferenceEngine:
     @property
     def ready(self) -> bool:
         return self._ready.is_set()
+
+    def sharding_info(self) -> dict:
+        """The status page's sharding keys: one device, the JAX package's
+        "single" scheme."""
+        return {"sharding": "single", "model_parallel": 1, "mesh_shape": None}
 
     @property
     def lends_staging(self) -> bool:
@@ -589,14 +658,20 @@ class InferenceEngine:
         g = self._graphs.get(bucket)
         if g is None:
             with _capture_lock:
-                g = self._graphs[bucket] = self._capture(bucket)
+                g = self._graphs[bucket] = _on_capture_thread(self._capture, bucket)
         return g
 
     def _capture(self, bucket: int) -> _BucketGraph:
+        """The bucket's forward captured, on the capture thread (the caller's
+        inference mode and device do not carry over to it)."""
+        with torch.inference_mode(), torch.cuda.device(self.device):
+            return self._capture_on(bucket)
+
+    def _capture_on(self, bucket: int) -> _BucketGraph:
         static_in = torch.zeros((bucket, *self.spec.input_shape), dtype=torch.uint8,
                                 device=self.device)
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _capture_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             self._forward(static_in)  # builds the kernels, warms cuDNN and cuBLAS
@@ -642,6 +717,7 @@ class InferenceEngine:
         # the host CPU time of both waits).
         done = torch.cuda.Event(blocking=True)
         done.record(torch.cuda.current_stream(self.device))
+        self._last_done = done
         return DeviceLogits(rows, done)
 
     def predict_async(self, images: np.ndarray | StagedBatch) -> tuple[DeviceLogits, int]:
@@ -654,10 +730,12 @@ class InferenceEngine:
                 raise ValueError(f"a staged batch holds 1..{self.max_batch} images, "
                                  f"got {images.n}")
             with self._lock, torch.inference_mode():
+                self._check_open()
                 return self._replay(images.slot, images.n), images.n
         images = self._checked(images, np.uint8)
         n = images.shape[0]
         with self._lock, torch.inference_mode():
+            self._check_open()
             if self.device.type != "cuda":
                 return self._handle(self._forward(self._padded(images))), n
             self.bucket_for(n)  # a batch past the largest bucket fails before staging
@@ -667,6 +745,39 @@ class InferenceEngine:
                 return self._replay(slot, n), n
             finally:
                 self.return_staging(slot)
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise EngineClosed(f"the engine of {self.spec.name!r} is closed")
+
+    def close(self) -> None:
+        """Give this engine's device memory back (an unloaded version).
+
+        The caller has made sure no dispatch of this engine is still to
+        come.  Then: wait for the event of its last dispatch (replaying or
+        reading a graph whose pool was freed would be a use after free),
+        drop the bucket graphs, their pool, the staging slots and the
+        parameters, and release the cached blocks -- under the capture lock,
+        so the release never runs while another engine captures.  Later
+        predicts raise EngineClosed.  Idempotent.
+        """
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            last, self._last_done = self._last_done, None
+        if last is not None:
+            last.synchronize()
+        with _capture_lock:
+            # No predict passes _check_open any more: nothing else reads these.
+            self._graphs.clear()
+            self._pool = None
+            self._params = self._forward = self._exact_f32 = None
+            with self._free_lock:
+                self._free.clear()
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
 
     def record_completed(self, n: int, seconds: float) -> None:
         """Account a successfully synced batch (counters + latency).
@@ -684,6 +795,7 @@ class InferenceEngine:
 
     def _exact_forward(self):
         with self._lock:
+            self._check_open()
             if self._exact_f32 is None:
                 self._exact_f32 = build_forward(
                     self.spec, self._params, torch.float32, False, self.device

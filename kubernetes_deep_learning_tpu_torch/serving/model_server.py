@@ -2,18 +2,33 @@
 
 A threaded ``http.server`` over one ``InferenceEngine`` per model found
 under ``<model_root>/<name>/<version>/`` (the highest version wins, as in
-TF-Serving), each behind a ``ServedModel``: a dynamic batcher that
-coalesces concurrent one-image requests, and an in-flight dispatcher that
-keeps up to ``pipeline_depth`` batches on the device.  Routes:
+TF-Serving), each behind a ``ServedModel``.  The ``serving.registry``
+``ModelRegistry`` owns the name -> ServedModel map: it loads every model's
+highest version, and on each scan (``poll_versions``, or the watcher every
+``--watch-interval`` seconds) builds, warms (captures the CUDA graphs of)
+and activates a higher version whose bytes changed, swaps it in and only
+then closes the old one, whose engine gives its device memory back; a
+byte-identical version is adopted without a reload.  With batching on
+(and any ``--batcher`` but ``native``), every model serves through its
+lane of one ``runtime.scheduler.UnifiedScheduler`` over ONE shared
+in-flight dispatcher (``--sched-policy``, ``--sched-weights``), which
+arbitrates the card's time across models; ``--batcher native`` keeps a
+private C++ queue and dispatcher per model.  Routes:
 
-- ``GET /v1/models``: the served models, versions and readiness;
+- ``GET /v1/models``: every model's status, keyed by name (the JAX
+  server's keys: version, readiness, artifact hash, buckets, family,
+  labels, quantization, sharding);
+- ``GET /v1/models/<name>:status``: one model's;
 - ``GET /v1/models/<name>``: the model's ``spec.json`` (what a gateway
   reads to discover the contract; no ingest capability is advertised, so a
   gateway keeps the tensor wire);
 - ``POST /v1/models/<name>:predict``: msgpack or JSON (``serving.protocol``);
-  a single uint8 image goes through the batcher, a batch up to the largest
-  bucket straight to the engine, and a larger one in max-bucket chunks
-  through the dispatcher.  Admission runs first, before the body is read
+  uint8 images go through the model's lane in max-bucket chunks (or, with
+  the native batcher, a single image through it, a batch up to the largest
+  bucket straight to the engine and a larger one in chunks through the
+  dispatcher); every 200 carries the served artifact's hash
+  (``X-Kdlt-Artifact-Hash``), on which the JAX gateway keys its response
+  cache.  Admission runs first, before the body is read
   (``serving.admission``): the request's deadline budget
   (``X-Request-Deadline-Ms``, which the JAX gateway sends), its priority
   class (``X-Kdlt-Priority``) and the model name go to the controller,
@@ -36,7 +51,8 @@ keeps up to ``pipeline_depth`` batches on the device.  Routes:
 
 Run it with ``kdlt-torch-model-server --model-root DIR --device cuda``
 (``--max-delay-ms``, ``--pipeline-depth``, ``--batcher``,
-``--no-batching``, ``--no-admission``).  ``--no-admission`` or
+``--no-batching``, ``--no-admission``, ``--watch-interval``,
+``--sched-policy``, ``--sched-weights``).  ``--no-admission`` or
 ``KDLT_ADMISSION=0`` turn deadline rejection and the limiter off (every
 wait is then a fixed 20 s, or 120 s for a chunk); drain stays on.  SIGTERM
 drains: /readyz turns 503 "draining", new requests shed, admitted ones
@@ -48,7 +64,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import os
+import re
 import threading
 from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -63,9 +79,15 @@ from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     DEFAULT_BUCKETS,
     DispatcherClosed,
     DispatchStall,
+    EngineClosed,
     InferenceEngine,
     InFlightDispatcher,
     resolve_pipeline_depth,
+)
+from kubernetes_deep_learning_tpu_torch.runtime.scheduler import (
+    POLICIES,
+    UnifiedScheduler,
+    resolve_weights,
 )
 from kubernetes_deep_learning_tpu_torch.serving import protocol
 from kubernetes_deep_learning_tpu_torch.serving.admission import (
@@ -79,11 +101,13 @@ from kubernetes_deep_learning_tpu_torch.serving.admission import (
     env_max_limit,
     install_sigterm_drain,
 )
+from kubernetes_deep_learning_tpu_torch.serving.registry import ModelRegistry
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
 
 log = logging.getLogger(__name__)
 
 _PREFIX = "/v1/models"
+_STATUS_RE = re.compile(r"^/v1/models/([^/:]+):status$")
 
 # (status, body, content type, extra headers)
 Reply = tuple[int, bytes, str, dict[str, str]]
@@ -103,51 +127,118 @@ def _error(status: int, message: str, headers: dict[str, str] | None = None) -> 
 # carries no deadline (admission off); a deadline shortens both.
 BATCHER_TIMEOUT_S = 20.0
 CHUNK_TIMEOUT_S = 120.0
+# How long an unloaded version waits for its last dispatches before its
+# engine frees the graphs they replay (longer than any request's wait).
+UNLOAD_WAIT_S = 2 * CHUNK_TIMEOUT_S
 
 
 class ServedModel:
-    """One model's serving pipeline over its engine.
+    """One served model version's pipeline over its engine.
 
-    ``dispatcher``: ONE in-flight dispatch pipeline, shared by the
-    single-image batcher and the chunked multi-image path so both draw
-    from the same bounded in-flight budget; None at depth 1 (serial).
-    ``batcher``: the single-image batcher ``runtime.create_batcher`` picks
-    for ``batcher_impl`` (the C++ queue or the Python one), None when
-    batching is off.
+    With ``scheduler`` (the server's ``UnifiedScheduler``) and batching on,
+    every uint8 batch of this model rides its scheduling lane: single
+    images coalesce in the lane, multi-image requests enter as max-bucket
+    chunks, and the scheduler's one shared dispatcher carries them, so the
+    card's time is arbitrated across models.  Otherwise the model has a
+    private pipeline: ``dispatcher``, ONE in-flight dispatch pipeline shared
+    by the single-image batcher and the chunked path (None at depth 1), and
+    ``batcher``, the one ``runtime.create_batcher`` picks for
+    ``batcher_impl`` (None when batching is off).
     """
 
     def __init__(self, engine: InferenceEngine, max_delay_ms: float = 2.0,
                  use_batcher: bool = True, pipeline_depth: int | None = None,
-                 batcher_impl: str = "auto"):
+                 batcher_impl: str = "auto", scheduler: UnifiedScheduler | None = None,
+                 weight: float | None = None, artifact: art.ModelArtifact | None = None,
+                 version: int | None = None):
         self.engine = engine
-        depth = resolve_pipeline_depth(pipeline_depth)
-        self.dispatcher = (
-            InFlightDispatcher(engine, depth=depth, registry=engine.registry)
-            if depth > 1 else None
-        )
-        self.batcher = (
-            create_batcher(engine, impl=batcher_impl, max_delay_ms=max_delay_ms,
-                           registry=engine.registry, pipeline_depth=depth,
-                           dispatcher=self.dispatcher)
-            if use_batcher else None
-        )
+        self.name = engine.spec.name
+        self.artifact = artifact
+        self.version = version
+        self.warmup_s: float | None = None  # how long the engine's warmup took
+        self._max_delay_ms = max_delay_ms
+        self._weight = weight
+        self._scheduler = scheduler if use_batcher else None
+        self.dispatcher = self.batcher = None
+        if self._scheduler is None:
+            depth = resolve_pipeline_depth(pipeline_depth)
+            self.dispatcher = (
+                InFlightDispatcher(engine, depth=depth, registry=engine.registry)
+                if depth > 1 else None
+            )
+            self.batcher = (
+                create_batcher(engine, impl=batcher_impl, max_delay_ms=max_delay_ms,
+                               registry=engine.registry, pipeline_depth=depth,
+                               dispatcher=self.dispatcher)
+                if use_batcher else None
+            )
         self._m_budget = metrics_lib.batcher_budget_histogram(engine.registry)
+
+    @property
+    def artifact_hash(self) -> str | None:
+        """The registry's identity key (sha256 of the artifact dir), stamped
+        by ModelRegistry.poll after a successful load; kept on the engine,
+        so a reply names the version whose engine served it."""
+        return self.engine.artifact_hash
+
+    @artifact_hash.setter
+    def artifact_hash(self, digest: str | None) -> None:
+        self.engine.artifact_hash = digest
 
     @property
     def stalled(self) -> bool:
         return self.dispatcher is not None and self.dispatcher.stalled
 
-    def predict(self, images: np.ndarray, deadline: Deadline | None = None) -> np.ndarray:
-        """Logits for ``images``.  Every wait below (the batcher's, the chunk
-        futures') is bounded by ``deadline``'s remaining budget, so a
-        request never holds a handler thread after its caller stopped
-        listening; ``deadline=None`` keeps the fixed 20 s and 120 s."""
+    def activate(self) -> None:
+        """Route the model's lane to this version's engine: called after
+        warmup (a lane never routes to a cold engine on a reload) and before
+        the registry rebinds its dict.  Queued requests survive the swap.
+        No-op without a scheduler."""
+        if self._scheduler is not None:
+            self._scheduler.register(self.name, self.engine, weight=self._weight,
+                                     max_delay_ms=self._max_delay_ms)
+
+    def _wait(self, fut, timeout: float) -> np.ndarray:
+        """Every wait for a lane's batch."""
+        return fut.result(timeout=timeout)
+
+    def predict(self, images: np.ndarray, deadline: Deadline | None = None,
+                priority: str | None = None, engines: list | None = None) -> np.ndarray:
+        """Logits for ``images``.  Every wait below (the lane's, the
+        batcher's, the chunk futures') is bounded by ``deadline``'s remaining
+        budget, so a request never holds a handler thread after its caller
+        stopped listening; ``deadline=None`` keeps the fixed 20 s and 120 s.
+        ``priority`` orders the request in its lane.  ``engines``, if given,
+        receives the engine that served each part: on a lane, the version
+        current when the part was dispatched, which a reload may have
+        changed since this version was resolved."""
+        if engines is None:
+            engines = []
         batcher_timeout, chunk_timeout = BATCHER_TIMEOUT_S, CHUNK_TIMEOUT_S
         if deadline is not None:
             remaining = max(deadline.remaining_s(), 0.0)
             self._m_budget.observe(remaining * 1e3)
             batcher_timeout = min(batcher_timeout, remaining)
             chunk_timeout = min(chunk_timeout, remaining)
+        step = self.engine.max_batch
+        if (self._scheduler is not None and images.dtype == np.uint8 and images.ndim >= 1
+                and len(images)):
+            try:
+                if len(images) == 1:
+                    fut = self._scheduler.submit(self.name, images[0], deadline=deadline,
+                                                 priority=priority)
+                    row = self._wait(fut, batcher_timeout)
+                    engines.append(fut.engine)
+                    return row[None]
+                futs = [self._scheduler.submit_batch(self.name, images[i : i + step],
+                                                     deadline=deadline, priority=priority)
+                        for i in range(0, len(images), step)]
+                rows = [self._wait(f, chunk_timeout) for f in futs]
+                engines.extend(f.engine for f in futs)
+                return np.concatenate(rows)
+            except BatcherClosed:
+                pass  # a shutdown race: the engine is still valid, serve directly
+        engines.append(self.engine)
         # Single uint8 images go through the batcher to coalesce across
         # concurrent requests (the batcher is uint8-only so mixed dtypes
         # never end up in one np.stack).
@@ -157,7 +248,6 @@ class ServedModel:
                 return self.batcher.predict(images[0], timeout=batcher_timeout)[None]
             except BatcherClosed:
                 pass  # a shutdown race: the engine is still valid, serve directly
-        step = self.engine.max_batch
         if images.ndim == 0 or len(images) <= step:
             return self.engine.predict(images)
         # Batches beyond the bucket ladder are served in max-bucket chunks:
@@ -173,8 +263,16 @@ class ServedModel:
                 pass  # a shutdown race: fall through to the serial engine path
         return np.concatenate([self.engine.predict(c) for c in chunks])
 
-    def close(self) -> None:
-        """Drain and stop the batcher, then the dispatcher behind it."""
+    def close(self) -> bool:
+        """Stop serving this version.  With a scheduler: drop its lane
+        unless a newer version already owns it (then a no-op), and wait
+        until none of its plans is still dispatching or in flight.  Without:
+        drain and stop the batcher, then the dispatcher behind it.  Returns
+        whether the engine is quiet (nothing of it left to run), so that it
+        may be closed."""
+        if self._scheduler is not None:
+            self._scheduler.unregister(self.name, engine=self.engine)
+            return self._scheduler.wait_engine_idle(self.engine, UNLOAD_WAIT_S)
         if self.batcher is not None:
             self.batcher.close(drain=True)
         if self.dispatcher is not None:
@@ -182,6 +280,7 @@ class ServedModel:
             # handler threads can race this close; they fall back to the
             # engine path on DispatcherClosed.
             self.dispatcher.close(drain=True)
+        return True
 
 
 class ModelServer:
@@ -189,10 +288,12 @@ class ModelServer:
                  buckets: Sequence[int] = DEFAULT_BUCKETS, device: str = "cuda",
                  max_delay_ms: float = 2.0, use_batcher: bool = True,
                  pipeline_depth: int | None = None, batcher_impl: str = "auto",
-                 admission: bool | None = None):
+                 admission: bool | None = None, sched_policy: str | None = None,
+                 sched_weights: dict[str, float] | None = None):
         """``admission``: None = ``$KDLT_ADMISSION`` (on by default); False
         turns deadline rejection and the concurrency limiter off (drain
-        stays on)."""
+        stays on).  ``sched_policy`` and ``sched_weights``: the scheduler's
+        (None = ``$KDLT_SCHED_POLICY`` and ``$KDLT_SCHED_WEIGHTS``)."""
         self.registry = metrics_lib.Registry()
         # The model tier's front door.  The limiter's floor is 2x the largest
         # bucket: the admitted handlers ARE the batcher's supply, so a lower
@@ -207,34 +308,46 @@ class ModelServer:
             limiter=(AdaptiveLimiter(min_limit=floor, max_limit=max(2.0 * floor, env_max_limit()))
                      if admission_enabled(admission) else None),
         )
-        self.models: dict[str, ServedModel] = {}
-        self.versions: dict[str, int] = {}
-        for name in sorted(os.listdir(model_root)):
-            version = art.latest_version(model_root, name)
-            if version is None:
-                continue
-            artifact = art.load_artifact(art.version_dir(model_root, name, version))
-            name = artifact.spec.name
-            engine = InferenceEngine(
-                artifact, buckets=buckets, device=device, pipeline_depth=pipeline_depth,
-                registry=self.registry.with_labels(model=name),
-            )
-            self.versions[name] = version
-            try:
-                self.models[name] = ServedModel(engine, max_delay_ms, use_batcher,
-                                                pipeline_depth, batcher_impl)
-            except BaseException:
-                self._close_models()  # a failed queue build stops the models made so far
-                raise
+        self.model_root = model_root
+        self._buckets = tuple(buckets)
+        self._device = device
+        self._max_delay_ms = max_delay_ms
+        self._use_batcher = use_batcher
+        self._pipeline_depth = pipeline_depth
+        self._batcher_impl = batcher_impl
+        # A version that loads once the server has been warmed (a reload) is
+        # warmed before it is swapped in; warmup() warms the first scan's.
+        self._warm = False
+        # One scheduler and one shared dispatcher for every model, as in the
+        # JAX server: batching on and any batcher but "native", whose C++
+        # queue keeps a private pipeline per model.
+        self.dispatcher: InFlightDispatcher | None = None
+        self.scheduler: UnifiedScheduler | None = None
+        if use_batcher and batcher_impl != "native":
+            self.dispatcher = InFlightDispatcher(None, depth=pipeline_depth,
+                                                 registry=self.registry)
+            self.scheduler = UnifiedScheduler(registry=self.registry, policy=sched_policy,
+                                              weights=sched_weights, dispatcher=self.dispatcher)
+        self.model_registry = ModelRegistry(model_root, loader=self._load_model,
+                                            unloader=self._unload_model)
+        self._watcher: threading.Thread | None = None
+        self._watcher_stop = threading.Event()
+        self.poll_versions()
         if not self.models:
+            self._close_pipeline()
             raise ValueError(f"no model versions found under {model_root!r}")
         try:
             self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
         except OSError:
-            self._close_models()
+            self._close_pipeline()
             raise
         self._httpd.daemon_threads = True
         self._thread: threading.Thread | None = None
+
+    @property
+    def models(self) -> dict[str, ServedModel]:
+        """The name -> ServedModel routing map (the registry's)."""
+        return self.model_registry.models
 
     @property
     def engines(self) -> dict[str, InferenceEngine]:
@@ -250,15 +363,86 @@ class ModelServer:
 
     @property
     def stalled(self) -> bool:
+        if self.scheduler is not None and self.scheduler.stalled:
+            return True
         return any(m.stalled for m in self.models.values())
 
     def warmup(self) -> None:
-        for name, engine in self.engines.items():
-            log.info("warmed %s in %.2f s", name, engine.warmup())
+        for name, model in self.models.items():
+            model.warmup_s = model.engine.warmup()
+            log.info("warmed %s in %.2f s", name, model.warmup_s)
+        self._warm = True
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
+
+    # --- versions ----------------------------------------------------------------
+
+    def poll_versions(self) -> list[str]:
+        """One scan of the artifact root: load any new model, or a higher
+        version whose bytes changed (``serving.registry``); "name vN" per
+        swap.  The first scan (from ``__init__``) is the initial load."""
+        return self.model_registry.poll()
+
+    def _load_model(self, name: str, version: int, directory: str) -> ServedModel | None:
+        """The registry's loader: build one version's engine and pipeline,
+        warm it (capture its graphs) if the server is warm, and activate it,
+        all before the registry swaps it in.  An artifact whose
+        ``spec.name`` is not its directory's name is declined: the name is
+        the serving key, the URL path and the version-comparison key."""
+        artifact = art.load_artifact(directory)
+        if artifact.spec.name != name:
+            log.warning("version watcher: skipping %s: spec.name %r != directory name %r",
+                        directory, artifact.spec.name, name)
+            return None
+        child = metrics_lib.model_version_registry(self.registry, name, version)
+        engine = fresh = None
+        try:
+            engine = InferenceEngine(artifact, buckets=self._buckets, device=self._device,
+                                     pipeline_depth=self._pipeline_depth, registry=child)
+            fresh = ServedModel(engine, self._max_delay_ms, self._use_batcher,
+                                self._pipeline_depth, self._batcher_impl,
+                                scheduler=self.scheduler, artifact=artifact, version=version)
+            if self._warm:
+                fresh.warmup_s = engine.warmup()
+                log.info("warmed %s v%d in %.2f s", name, version, fresh.warmup_s)
+        except BaseException:
+            # The registry retries on its next scan; nothing of this version
+            # may stay behind (its series, its device memory).
+            if fresh is not None:
+                fresh.close()
+            if engine is not None:
+                engine.close()
+            self.registry.remove(child)
+            raise
+        fresh.activate()
+        return fresh
+
+    def _unload_model(self, old: ServedModel) -> None:
+        """The registry's unloader for a superseded version: stop its
+        pipeline, free its engine's device memory once nothing of it is
+        left to run, and drop its series."""
+        if old.close():
+            old.engine.close()
+        else:
+            log.error("%s v%s: dispatches still in flight after %.0f s; its device memory "
+                      "stays allocated", old.name, old.version, UNLOAD_WAIT_S)
+        self.registry.remove(old.engine.registry)
+
+    def start_version_watcher(self, interval_s: float = 10.0) -> None:
+        """Scan the artifact root for new versions every ``interval_s``
+        seconds in a daemon thread (hot reload)."""
+
+        def loop():
+            while not self._watcher_stop.wait(interval_s):
+                try:
+                    self.poll_versions()
+                except Exception:  # noqa: BLE001 - the watcher must keep watching
+                    log.exception("version watcher error")
+
+        self._watcher = threading.Thread(target=loop, name="kdlt-version-watcher", daemon=True)
+        self._watcher.start()
 
     def begin_drain(self) -> None:
         """Graceful drain: /readyz answers 503 "draining", new predicts
@@ -266,13 +450,21 @@ class ModelServer:
         (``admission.wait_idle``).  SIGTERM leads here from the command line."""
         self.admission.begin_drain()
 
-    def _close_models(self) -> None:
+    def _close_pipeline(self) -> None:
+        """Drain the lanes, then the models, then the shared dispatcher."""
+        if self.scheduler is not None:
+            self.scheduler.close(drain=True)
         for model in self.models.values():
             model.close()
+        if self.dispatcher is not None:
+            self.dispatcher.close(drain=True)
 
     def shutdown(self) -> None:
-        """Drain the batchers, then the dispatchers, then stop HTTP."""
-        self._close_models()
+        """Stop the version watcher, drain the pipeline, then stop HTTP."""
+        self._watcher_stop.set()
+        if self._watcher is not None:
+            self._watcher.join(timeout=30)
+        self._close_pipeline()
         if self._thread is not None:  # shutdown() waits for a loop that must be running
             self._httpd.shutdown()
             self._thread.join(timeout=10)
@@ -300,11 +492,13 @@ class ModelServer:
         if path == "/metrics":
             return 200, self.registry.render().encode(), protocol.METRICS_CONTENT_TYPE, {}
         if path == _PREFIX:
-            models = [
-                {"name": n, "version": self.versions[n], "ready": e.ready}
-                for n, e in self.engines.items()
-            ]
-            return _json(200, {"models": models})
+            return _json(200, self.model_registry.status())
+        found = _STATUS_RE.match(path)
+        if found:
+            status = self.model_registry.model_status(found.group(1))
+            if status is None:
+                return _error(404, f"no model {found.group(1)!r}")
+            return _json(200, status)
         if path.startswith(_PREFIX + "/"):
             name = path[len(_PREFIX) + 1 :]
             engine = self.engines.get(name)
@@ -350,17 +544,35 @@ class ModelServer:
             return _json(e.http_status, {"error": str(e), "shed_reason": e.reason},
                          e.headers()), None
         try:
-            return self._predict(model, body, content_type, deadline, ticket), ticket
+            return self._predict(model, body, content_type, deadline, priority, ticket), ticket
         except BaseException:
             ticket.release()
             raise
 
+    def _infer(self, model: ServedModel, images: np.ndarray, deadline: Deadline | None,
+               priority: str) -> tuple[np.ndarray, str | None]:
+        """(logits, the artifact hash of the version that served them, None
+        if a reload split the request between two).  A request that
+        resolved a version a reload has since closed is served by the new
+        one."""
+        engines: list = []
+        try:
+            logits = model.predict(images, deadline, priority, engines=engines)
+        except EngineClosed:
+            fresh = self.models.get(model.name)
+            if fresh is None or fresh is model:
+                raise
+            engines.clear()
+            logits = fresh.predict(images, deadline, priority, engines=engines)
+        hashes = {getattr(e, "artifact_hash", None) for e in engines}
+        return logits, hashes.pop() if len(hashes) == 1 else None
+
     def _predict(self, model: ServedModel, body, content_type: str,
-                 deadline: Deadline | None, ticket: Ticket) -> Reply:
+                 deadline: Deadline | None, priority: str, ticket: Ticket) -> Reply:
         try:
             images = protocol.decode_predict_request(body() if callable(body) else body,
                                                      content_type)
-            logits = model.predict(images, deadline)
+            logits, digest = self._infer(model, images, deadline, priority)
         except ValueError as e:  # malformed request
             return _error(400, str(e))
         except (QueueFull, FuturesTimeout) as e:  # transient overload
@@ -379,7 +591,9 @@ class ModelServer:
             })
         out, ctype = protocol.encode_predict_response(logits, model.engine.spec.labels,
                                                       content_type)
-        return 200, out, ctype, {}
+        # The served artifact's identity rides every success: the gateway's
+        # response cache drops a model's entries when it changes.
+        return 200, out, ctype, {protocol.ARTIFACT_HASH_HEADER: digest} if digest else {}
 
     def _handler_class(self):
         server = self
@@ -502,24 +716,40 @@ def _parser() -> argparse.ArgumentParser:
                    help="turn deadline rejection and the AIMD concurrency limiter off "
                    "(as KDLT_ADMISSION=0): every wait is the fixed 20 s (120 s a chunk); "
                    "drain on SIGTERM stays on")
+    p.add_argument("--watch-interval", type=float, default=10.0,
+                   help="seconds between artifact-root scans for new versions (0 = off)")
+    p.add_argument("--sched-policy", default=None, choices=list(POLICIES),
+                   help="cross-model arbitration policy of the scheduler (default "
+                   "$KDLT_SCHED_POLICY or weighted_deadline): weighted_deadline = earliest "
+                   "effective deadline with per-model weight floors; fifo = arrival order")
+    p.add_argument("--sched-weights", default=None,
+                   help='per-model scheduling weights, e.g. "clothing-model=2,vit-b16-384=1" '
+                   "(default $KDLT_SCHED_WEIGHTS; unlisted models weigh 1.0)")
     return p
 
 
-def build_server(argv: Sequence[str] | None = None) -> ModelServer:
-    """The server the command line describes (not started, not warmed)."""
-    args = _parser().parse_args(argv)
+def _server_from_args(args: argparse.Namespace) -> ModelServer:
     return ModelServer(
         args.model_root, port=args.port, host=args.host,
         buckets=[int(b) for b in args.buckets.split(",")], device=args.device,
         max_delay_ms=args.max_delay_ms, use_batcher=not args.no_batching,
         pipeline_depth=args.pipeline_depth or None, batcher_impl=args.batcher,
-        admission=False if args.no_admission else None,
+        admission=False if args.no_admission else None, sched_policy=args.sched_policy,
+        sched_weights=(None if args.sched_weights is None
+                       else resolve_weights(args.sched_weights)),
     )
+
+
+def build_server(argv: Sequence[str] | None = None) -> ModelServer:
+    """The server the command line describes (not started, not warmed, no
+    version watcher)."""
+    return _server_from_args(_parser().parse_args(argv))
 
 
 def main(argv: Sequence[str] | None = None) -> None:
     logging.basicConfig(level=logging.INFO)
-    server = build_server(argv)
+    args = _parser().parse_args(argv)
+    server = _server_from_args(args)
     stopped = threading.Event()
 
     def stop() -> None:
@@ -531,6 +761,8 @@ def main(argv: Sequence[str] | None = None) -> None:
     install_sigterm_drain(server.admission, stop)
     server.start()  # /healthz answers while warming; /readyz waits for warmup
     server.warmup()
+    if args.watch_interval > 0:
+        server.start_version_watcher(args.watch_interval)
     log.info("serving %s on port %d", sorted(server.engines), server.port)
     try:
         # A signal handler runs only when the main thread executes bytecode,

@@ -25,6 +25,13 @@ from kubernetes_deep_learning_tpu_torch import msgpack_lite
 MSGPACK_CONTENT_TYPE = "application/x-msgpack"
 JSON_CONTENT_TYPE = "application/json"
 
+# The model tier stamps every 200 :predict reply with the serving
+# artifact's sha256 identity (serving.registry.artifact_hash).  The JAX
+# gateway's response cache keys validity on it: a hot reload that changes
+# the bytes changes the hash and drops that model's entries, while a
+# version bump with identical bytes keeps them.
+ARTIFACT_HASH_HEADER = "X-Kdlt-Artifact-Hash"
+
 # A model-tier 503 carrying this header declares a terminal dispatch
 # stall (the engine watchdog fired: /healthz is failing, only a restart
 # recovers).  The gateway's upstream pool takes the replica out of

@@ -3,11 +3,14 @@
 The port's own trimmed copy of the JAX package's ``utils/metrics.py``: the
 metric types and registry, the two helpers the dispatch pipeline mints
 its series through (``pipeline_stage_histograms``,
-``dispatch_stall_counter``) and the admission controller's
+``dispatch_stall_counter``), the admission controller's
 (``admission_metrics``, ``admission_class_metrics``,
-``admission_model_metrics``, ``batcher_budget_histogram``), with the same
-series names and buckets.  ``Registry.render`` is the model server's
-``/metrics`` page.
+``admission_model_metrics``, ``batcher_budget_histogram``), the bounded
+``model`` label (``model_registry``), a served version's child registry
+(``model_version_registry``, dropped with ``Registry.remove`` when the
+version is unloaded) and the scheduler's lane series
+(``scheduler_lane_metrics``, ``kdlt_sched_*``), with the same series names
+and buckets.  ``Registry.render`` is the model server's ``/metrics`` page.
 """
 
 from __future__ import annotations
@@ -54,15 +57,24 @@ PIPELINE_STAGES = (
 )
 
 
-def pipeline_stage_histograms(registry: "Registry") -> dict:
+def pipeline_stage_histograms(registry: "Registry", model: str | None = None) -> dict:
     """The per-stage histograms every in-flight dispatcher emits
-    (``kdlt_pipeline_<stage>_seconds``), keyed by stage name."""
-    return {
-        stage: registry.histogram(
-            f"kdlt_pipeline_{stage}_seconds", help, buckets=PIPELINE_STAGE_BUCKETS
-        )
-        for stage, help in PIPELINE_STAGES
-    }
+    (``kdlt_pipeline_<stage>_seconds``), keyed by stage name.  ``model``
+    mints them under the bounded ``model`` label (the scheduler's shared
+    dispatcher attributes each batch's stage times to its model), once per
+    model child."""
+
+    def mint(reg: "Registry") -> dict:
+        return {
+            stage: reg.histogram(
+                f"kdlt_pipeline_{stage}_seconds", help, buckets=PIPELINE_STAGE_BUCKETS
+            )
+            for stage, help in PIPELINE_STAGES
+        }
+
+    if model is None:
+        return mint(registry)
+    return _memo_on_child(model_registry(registry, model), "_kdlt_pipeline_stages", mint)
 
 
 def dispatch_stall_counter(registry: "Registry") -> "Counter":
@@ -96,9 +108,87 @@ ADMISSION_SHED_REASONS = (
 ADMISSION_PRIORITY_CLASSES = ("interactive", "batch", "best-effort")
 
 # At most this many distinct ``model`` label values per admission
-# controller; every further name shares the overflow value.
+# controller (and per root registry, through ``model_registry``); every
+# further name shares the overflow value.
 MODEL_LABEL_CAP = 32
 MODEL_LABEL_OVERFLOW = "__other__"
+
+_model_children_lock = threading.Lock()
+
+
+def model_registry(registry: "Registry", model: str) -> "Registry":
+    """The child registry carrying the bounded ``model`` label, memoized per
+    root registry (the same model always lands on the same child); past
+    MODEL_LABEL_CAP distinct models every further name shares the
+    MODEL_LABEL_OVERFLOW child."""
+    model = str(model)
+    with _model_children_lock:
+        children = getattr(registry, "_kdlt_model_children", None)
+        if children is None:
+            children = registry._kdlt_model_children = {}
+        if model not in children:
+            if len(children) >= MODEL_LABEL_CAP:
+                model = MODEL_LABEL_OVERFLOW
+                if model in children:
+                    return children[model]
+            children[model] = registry.with_labels(model=model)
+        return children[model]
+
+
+def model_version_registry(registry: "Registry", model: str, version: int) -> "Registry":
+    """A served model VERSION's labelled child registry (one per served
+    version; dropped with ``registry.remove`` when the version is unloaded,
+    so at most one version of a model is live on the page at a time)."""
+    return registry.with_labels(model=model, version=str(version))
+
+
+def _memo_on_child(child: "Registry", attr: str, factory):
+    """Mint a model child's series once: two names can share a child (the
+    overflow one), and re-minting a (name, labels) pair raises."""
+    with _model_children_lock:
+        got = getattr(child, attr, None)
+        if got is None:
+            got = factory(child)
+            setattr(child, attr, got)
+        return got
+
+
+def scheduler_lane_metrics(registry: "Registry", model: str) -> dict:
+    """One scheduling lane's series (``runtime.scheduler.UnifiedScheduler``):
+    ``kdlt_batcher_batch_size`` and ``kdlt_batcher_rejected_total`` keep the
+    batchers' names under the ``model`` label; the ``kdlt_sched_*`` series
+    are the scheduler's own (queue depth, dispatches, weight-floor boosts,
+    device time consumed, weight, queue age at dispatch)."""
+    return _memo_on_child(model_registry(registry, model), "_kdlt_sched_lane",
+                          _mint_lane_metrics)
+
+
+def _mint_lane_metrics(child: "Registry") -> dict:
+    return {
+        "batch_size": child.histogram(
+            "kdlt_batcher_batch_size", "dispatched batch sizes",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256)),
+        "queue_full": child.counter(
+            "kdlt_batcher_rejected_total", "requests rejected because queue was full"),
+        "queue_depth": child.gauge(
+            "kdlt_sched_queue_depth", "images queued awaiting dispatch"),
+        "dispatch": child.counter(
+            "kdlt_sched_dispatch_total", "batches dispatched for this model"),
+        "floor_boosts": child.counter(
+            "kdlt_sched_floor_boosts_total",
+            "dispatches granted by the weight-floor starvation guard ahead "
+            "of the deadline order"),
+        "device_seconds": child.counter(
+            "kdlt_sched_device_seconds_total",
+            "observed dispatch->completion device time consumed by this "
+            "model (the share the weighted policy arbitrates)"),
+        "weight": child.gauge("kdlt_sched_weight", "configured scheduling weight"),
+        "queue_age": child.histogram(
+            "kdlt_sched_queue_age_seconds",
+            "age of queued units when their dispatch plan was taken "
+            "(enqueue -> scheduled): the queuing-delay component of "
+            "cross-model arbitration", buckets=PIPELINE_STAGE_BUCKETS),
+    }
 
 # Deadline budgets are ms-scale; the request-latency buckets (seconds) would
 # collapse every remaining-budget observation into two bins.
@@ -311,6 +401,16 @@ class Registry:
                 self._keys.add(key)
             self._metrics.append(m)
         return m
+
+    def remove(self, m) -> None:
+        """Drop a metric or child registry (an unloaded model version's
+        series) from this registry's output."""
+        with self._lock:
+            if m in self._metrics:
+                self._metrics.remove(m)
+                name = getattr(m, "name", None)
+                if name is not None:
+                    self._keys.discard((name, tuple(sorted((m.labels or {}).items()))))
 
     def _leaves(self):
         """Every leaf metric under this registry, depth-first, in creation

@@ -17,10 +17,13 @@ Then the port's ``ModelServer`` on the CPU (a 96-px Xception exported by
 the JAX package, buckets 1, 2, 4, 8): 8 concurrent one-image requests
 beside a 5-image and a 9-image one, each reply held against JAX's
 ``build_forward`` of the same images (rtol/atol 1e-3, as
-``test_torch_serving.py``), the engine counters against the batcher's
-batch sizes, the stalled-pipeline and full-queue answers (JSON bodies and
-``Retry-After``, as the JAX server's), ``--no-batching``, each
-``--batcher`` and the ``/metrics`` page.
+``test_torch_serving.py``), the engine counters against the batch sizes
+of the scheduler's lane (the default ``--batcher auto``, as in JAX, serves
+every uint8 batch through ``runtime.scheduler.UnifiedScheduler``), the
+stalled-pipeline and full-queue answers (JSON bodies and ``Retry-After``,
+as the JAX server's), ``--no-batching``, each ``--batcher`` and the
+``/metrics`` page (engine series under ``{model, version}``, lane and
+pipeline series under ``{model}``).
 """
 
 from __future__ import annotations
@@ -517,9 +520,11 @@ def _send_concurrently(port, name, batches):
 
 
 def _series(text, name, model):
-    """{le or "": value} of one series family of a rendered registry."""
+    """{le or "": value} of one series family of a rendered registry: the
+    model's (a served version's series also carry its ``version``)."""
     out = {}
-    for m in re.finditer(rf'^{name}\{{model="{model}"(?:,le="([^"]+)")?\}} (\S+)$', text, re.M):
+    for m in re.finditer(rf'^{name}\{{model="{model}"(?:,version="\d+")?(?:,le="([^"]+)")?\}} '
+                         r'(\S+)$', text, re.M):
         out[m.group(1) or ""] = float(m.group(2))
     return out
 
@@ -538,22 +543,24 @@ def test_model_server_batches_and_chunks_match_jax(exported):
     finally:
         server.shutdown()
     name = spec.name
+    # Every image rides the model's lane: the 8 single images, the 5-image
+    # request as one unit and the 9-image one as units of 8 and 1, packed
+    # into plans of at most 8 rows.
     sizes = _series(text, "kdlt_batcher_batch_size_bucket", name)
-    assert _series(text, "kdlt_batcher_batch_size_sum", name)[""] == 8.0
+    assert _series(text, "kdlt_batcher_batch_size_sum", name)[""] == 22.0
     n_batched = _series(text, "kdlt_batcher_batch_size_count", name)[""]
     # With buckets (1, 2, 4, 8) a batch of s rows pads to the histogram bin
-    # it falls in, so the padding follows from the batch-size histogram:
-    # the batcher's batches, 3 rows for the 5-image request, none for the
-    # 9-image one served as chunks of 8 and 1.
+    # it falls in, so the padding follows from the batch-size histogram.
     cum, padded_rows = 0.0, 0.0
     for le in ("1", "2", "4", "8"):
         padded_rows += (sizes[le] - cum) * int(le)
         cum = sizes[le]
     assert cum == n_batched
+    assert _series(text, "kdlt_sched_dispatch_total", name)[""] == n_batched
     assert _series(text, "kdlt_engine_images_total", name)[""] == 22.0
-    assert _series(text, "kdlt_engine_batches_total", name)[""] == n_batched + 3
-    assert _series(text, "kdlt_engine_pad_images_total", name)[""] == padded_rows - 8 + 3
-    assert _series(text, "kdlt_pipeline_dispatch_seconds_count", name)[""] == n_batched + 2
+    assert _series(text, "kdlt_engine_batches_total", name)[""] == n_batched
+    assert _series(text, "kdlt_engine_pad_images_total", name)[""] == padded_rows - 22
+    assert _series(text, "kdlt_pipeline_dispatch_seconds_count", name)[""] == n_batched
 
 
 def test_model_server_no_batching_serves_the_same_replies(exported):
@@ -580,16 +587,16 @@ def test_model_server_answers_503_once_the_pipeline_stalls(exported):
     try:
         assert _get(server.port, "/healthz") == (200, b"ok")
         assert _get(server.port, "/readyz") == (200, b"ready")
-        server.models[spec.name].dispatcher.declare_stall()
+        server.scheduler.dispatcher.declare_stall()  # the lanes' shared dispatcher
         assert _get(server.port, "/healthz") == (503, b"dispatch stalled")
         assert _get(server.port, "/readyz") == (503, b"dispatch stalled")
         imgs = np.zeros((1, *spec.input_shape), np.uint8)
-        for batch in (imgs, np.concatenate([imgs] * 9)):  # batcher and chunk paths
+        for batch in (imgs, np.concatenate([imgs] * 9)):  # one image, and chunks
             status, (body, stalled) = _post(server.port, spec.name, batch)
             assert status == 503 and stalled == "1", body
             assert json.loads(body)["error"].startswith("dispatch stalled")
         status, models = _get(server.port, "/v1/models")
-        assert status == 200 and json.loads(models)["models"][0]["ready"]
+        assert status == 200 and json.loads(models)[spec.name]["ready"]
     finally:
         server.shutdown()
 
@@ -598,8 +605,7 @@ def test_model_server_answers_503_when_the_queue_is_full(exported):
     spec, root, _ = exported
     server = _server(root)
     try:
-        model = server.models[spec.name]
-        model.batcher.queue_cap = 0
+        server.scheduler.lane(spec.name).queue_cap = 0
         status, (body, stalled) = _post(server.port, spec.name,
                                         np.zeros((1, *spec.input_shape), np.uint8))
         assert status == 503 and stalled is None
@@ -634,12 +640,17 @@ def test_model_server_batcher_flag_default_is_jaxs():
 def test_model_server_batcher_flag_serves_the_same_replies(exported, impl):
     """``--batcher native`` and ``--batcher python``: the replies of the
     concurrent requests match JAX's forward, and ``/metrics`` serves the
-    engine, batcher and pipeline series of the registry."""
+    engine, batcher and pipeline series of the registry.  As in JAX,
+    ``native`` keeps the model's private C++ queue (single images only)
+    and ``python`` serves through the scheduler's lane (every image)."""
     spec, root, jax_forward = exported
     server = _server(root, "--batcher", impl)
     try:
-        batcher = server.models[spec.name].batcher
-        assert isinstance(batcher, NativeBatcher if impl == "native" else port_batcher.DynamicBatcher)
+        model = server.models[spec.name]
+        if impl == "native":
+            assert isinstance(model.batcher, NativeBatcher) and server.scheduler is None
+        else:
+            assert model.batcher is None and server.scheduler.lane(spec.name) is not None
         batches = _requests(spec)
         replies = _send_concurrently(server.port, spec.name, batches)
         for imgs, (status, got) in zip(batches, replies):
@@ -651,9 +662,13 @@ def test_model_server_batcher_flag_serves_the_same_replies(exported, impl):
         server.shutdown()
     assert ctype == "text/plain"
     assert _series(text, "kdlt_engine_images_total", spec.name)[""] == 22.0
-    assert _series(text, "kdlt_batcher_batch_size_sum", spec.name)[""] == 8.0
+    # The C++ queue takes the single images and the dispatcher also the
+    # 9-image request's chunks of 8 and 1; the lane takes every image.
+    on_lane = impl == "python"
+    assert _series(text, "kdlt_batcher_batch_size_sum", spec.name)[""] == (22.0 if on_lane else 8.0)
     n_batched = _series(text, "kdlt_batcher_batch_size_count", spec.name)[""]
-    assert _series(text, "kdlt_pipeline_dispatch_seconds_count", spec.name)[""] == n_batched + 2
+    assert (_series(text, "kdlt_pipeline_dispatch_seconds_count", spec.name)[""]
+            == n_batched + (0 if on_lane else 2))
 
 
 # --- create_batcher ---------------------------------------------------------------

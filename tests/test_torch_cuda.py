@@ -36,7 +36,11 @@ forward that syncs with the host fails warmup.  ResNet50 at 224 px
 (cuDNN convolutions, no hand kernel) replays its bucket 1 and 16 graphs
 bit-equal to its eager forward, and a card server with admission on
 serves a request with budget left while it answers one whose budget is
-spent with a JSON 504, the engine untouched.
+spent with a JSON 504, the engine untouched.  Two engines' graphs
+interleaved through one shared dispatcher equal each replayed alone; a
+capture on one thread while another replays raises nothing and leaves
+both bit-equal; and ``InferenceEngine.close()`` gives the device memory
+back (within 16 MiB).
 """
 
 from __future__ import annotations
@@ -861,7 +865,7 @@ def test_cuda_server_admits_a_live_budget_and_sheds_a_spent_one(tmp_path):
             return e.code, e.read()
 
     def images() -> float:
-        found = re.search(rf'^kdlt_engine_images_total{{model="{spec.name}"}} (\S+)$',
+        found = re.search(rf'^kdlt_engine_images_total{{model="{spec.name}",version="1"}} (\S+)$',
                           server.registry.render(), re.M)
         return float(found.group(1))
 
@@ -879,3 +883,112 @@ def test_cuda_server_admits_a_live_budget_and_sheds_a_spent_one(tmp_path):
         assert images() == before == 1.0
     finally:
         server.shutdown()
+
+
+def _warm_engine(name: str, seed: int = 0, buckets=(1, 4)):
+    from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    spec, _, _ = _engine_case(name)
+    artifact = ModelArtifact(spec, init_variables(spec, seed=seed), {"compute_dtype": "bfloat16"})
+    engine = InferenceEngine(artifact, buckets=buckets, device="cuda")
+    engine.warmup()
+    return engine
+
+
+@pytest.mark.cuda
+def test_cuda_two_engines_interleaved_on_one_dispatcher_equal_each_alone():
+    """A Xception's and a ViT's bucket graphs replayed in turn through one
+    shared dispatcher (depth 2: one batch of each model in flight at once,
+    each engine its own pool) give each batch the bits of that model's
+    batch replayed alone."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.runtime import InFlightDispatcher
+
+    engines = {name: _warm_engine(name) for name in ("xception", "vit")}
+    rng = np.random.default_rng(13)
+    plan = [(name, rng.integers(0, 256, (n, *engines[name].spec.input_shape), np.uint8))
+            for _ in range(3) for name, n in (("xception", 3), ("vit", 4), ("xception", 1),
+                                              ("vit", 2))]
+    solo = [engines[name].predict(imgs) for name, imgs in plan]
+    dispatcher = InFlightDispatcher(None, depth=2)
+    try:
+        futs = [dispatcher.submit(imgs, engine=engines[name], model=name) for name, imgs in plan]
+        for fut, want in zip(futs, solo):
+            np.testing.assert_array_equal(fut.result(timeout=60), want)
+    finally:
+        dispatcher.close()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_while_another_thread_replays():
+    """One thread replays a warmed Xception engine's graphs back to back while
+    another builds a ViT engine and captures its bucket graphs: nothing
+    raises, every replay equals the Xception's solo bits, the ViT's graphs
+    replay its eager forward's bits, and its capture recorded only its own
+    launches (2 flash attentions a forward, none of the Xception's)."""
+    _need_cuda()
+    import threading
+
+    busy = _warm_engine("xception")
+    rng = np.random.default_rng(14)
+    batches = [rng.integers(0, 256, (n, 96, 96, 3), np.uint8) for n in (1, 3, 4)]
+    solo = [busy.predict(b) for b in batches]
+    stop, errors, replays = threading.Event(), [], [0]
+
+    def replay():
+        try:
+            while not stop.is_set():
+                for b, want in zip(batches, solo):
+                    np.testing.assert_array_equal(busy.predict(b), want)
+                    replays[0] += 1
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=replay)
+    t.start()
+    try:
+        fresh = _warm_engine("vit", buckets=(2, 8))
+    finally:
+        stop.set()
+        t.join(60)
+    assert not errors, errors
+    assert replays[0] > 0
+    for bucket, g in fresh._graphs.items():
+        recorded = {k: v for counts in g.launches.values() for k, v in counts.items() if v}
+        assert recorded == {"flash_attention": 2}, (bucket, g.launches)
+    imgs = rng.integers(0, 256, (5, *fresh.spec.input_shape), np.uint8)
+    padded = np.zeros((8, *fresh.spec.input_shape), np.uint8)
+    padded[:5] = imgs
+    rows = fresh.predict(imgs)
+    with torch.inference_mode():
+        eager = fresh._forward(torch.from_numpy(padded).cuda()).cpu().numpy()[:5]
+    np.testing.assert_array_equal(rows, eager)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_close_gives_its_device_memory_back():
+    """A warmed engine that served a batch, closed: ``memory_allocated`` is
+    back within 16 MiB of its value before the engine was built, its graph
+    pool is gone, and a later predict raises ``EngineClosed``.  (A first
+    engine is built and closed before the measurement: the capture
+    stream's cuBLAS workspace lives as long as the process.)"""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.runtime import EngineClosed
+
+    _warm_engine("xception").close()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = _warm_engine("xception", seed=1, buckets=(1, 4, 16))
+    imgs = np.random.default_rng(15).integers(0, 256, (3, 96, 96, 3), np.uint8)
+    engine.predict(imgs)
+    loaded = torch.cuda.memory_allocated()
+    assert engine.graph_memory_bytes() > 0 and loaded > before
+    engine.close()
+    after = torch.cuda.memory_allocated()
+    assert abs(after - before) < 16 << 20, (before, loaded, after)
+    assert engine.graph_memory_bytes() == 0
+    with pytest.raises(EngineClosed):
+        engine.predict(imgs)
+    engine.close()  # idempotent

@@ -9,13 +9,21 @@
 - importing the port loads neither jax, flax nor the JAX package;
 - the port server's error replies (400, the overload 503, the stall 503)
   carry the JAX server's JSON body keys and ``Retry-After`` header for the
-  same fault, and ``/metrics`` serves the registry.
+  same fault, and ``/metrics`` serves the registry;
+- hot reload through ``poll_versions()`` (called directly): replies and
+  ``X-Kdlt-Artifact-Hash`` switch at a reload, a reload of one model
+  leaves the other untouched, a broken version directory is skipped,
+  ``:status`` and ``/v1/models`` equal the JAX server's for the same root,
+  the new flags parse, and the unchanged JAX gateway in front drops its
+  cached answers after a reload with changed bytes and keeps them after a
+  byte-identical version bump.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -296,10 +304,10 @@ def test_model_server_routes(stack):
     base = f"http://127.0.0.1:{server.port}"
     assert _http("GET", f"{base}/healthz")[0] == 200
     assert _http("GET", f"{base}/readyz")[0] == 200
-    status, body, _ = _http("GET", f"{base}/v1/models")
-    assert status == 200 and json.loads(body)["models"] == [
-        {"name": spec.name, "version": 1, "ready": True}
-    ]
+    status, body, _ = _http("GET", f"{base}/v1/models")  # keyed by name, as in JAX
+    models = json.loads(body)
+    assert status == 200 and list(models) == [spec.name]
+    assert (models[spec.name]["version"], models[spec.name]["ready"]) == (1, True)
     status, body, _ = _http("GET", f"{base}/v1/models/{spec.name}")
     assert status == 200 and JaxModelSpec.from_json(body.decode()) == spec
     assert _http("GET", f"{base}/v1/models/nope")[0] == 404
@@ -407,6 +415,9 @@ slice12 = {"kubernetes_deep_learning_tpu_torch." + m for m in (
     "models.resnet", "serving.admission", "serving.admission.controller",
     "serving.admission.deadline", "serving.admission.limiter", "serving.admission.shed")}
 assert slice12 <= set(sys.modules), slice12 - set(sys.modules)
+multimodel = {"kubernetes_deep_learning_tpu_torch." + m for m in (
+    "runtime.scheduler", "serving.registry")}
+assert multimodel <= set(sys.modules), multimodel - set(sys.modules)
 print(len([k for k in sys.modules if k.startswith("kubernetes_deep_learning_tpu_torch.")]))
 assert not bad, bad
 """
@@ -415,7 +426,7 @@ assert not bad, bad
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 43  # every module was really imported
+    assert int(out.stdout.strip()) >= 45  # every module was really imported
 
 
 def test_model_server_gates_on_warmup(exported):
@@ -553,7 +564,7 @@ def test_model_server_routes_answer_json_errors_and_metrics(stack):
         assert set(json.loads(body)) == {"error"}
     status, body, ctype = _http("GET", f"{base}/metrics")
     assert status == 200 and ctype == "text/plain"
-    assert f'kdlt_engine_images_total{{model="{spec.name}"}}' in body.decode()
+    assert f'kdlt_engine_images_total{{model="{spec.name}",version="1"}}' in body.decode()
 
 
 # --- admission: deadlines, sheds, drain ------------------------------------------
@@ -591,16 +602,17 @@ def _image_body(spec, n=1):
     return protocol.encode_predict_request(np.zeros((n, *spec.input_shape), np.uint8))
 
 
-def _timeouts(monkeypatch, batcher) -> list:
-    """Record the timeout of every wait for a batch."""
+def _timeouts(monkeypatch, model) -> list:
+    """Record the timeout of every wait for a batch of the served model's
+    lane."""
     seen = []
-    real = batcher.predict
+    real = model._wait
 
-    def predict(image, timeout=20.0):
+    def wait(fut, timeout):
         seen.append(timeout)
-        return real(image, timeout=timeout)
+        return real(fut, timeout)
 
-    monkeypatch.setattr(batcher, "predict", predict)
+    monkeypatch.setattr(model, "_wait", wait)
     return seen
 
 
@@ -615,18 +627,19 @@ def test_exhausted_deadline_gets_504_before_the_body_is_read(exported):
             protocol.MSGPACK_CONTENT_TYPE, {_DEADLINE: "0"})
         assert status == 504 and not read and ctype == protocol.JSON_CONTENT_TYPE
         assert json.loads(body)["shed_reason"] == "deadline_exhausted"
-        before = _sample(server, "kdlt_engine_images_total", f'model="{spec.name}"')
+        served = f'model="{spec.name}",version="1"'
+        before = _sample(server, "kdlt_engine_images_total", served)
         status, headers, body = _post_raw(server.port, spec.name, _image_body(spec),
                                           {_DEADLINE: "0"})
         assert status == 504 and "Retry-After" not in headers
         assert json.loads(body)["shed_reason"] == "deadline_exhausted"
-        assert _sample(server, "kdlt_engine_images_total", f'model="{spec.name}"') == before
+        assert _sample(server, "kdlt_engine_images_total", served) == before
         assert _sample(server, "kdlt_admission_shed_total",
                        'tier="model-server",shed_reason="deadline_exhausted"') == 2.0
         # A healthy budget on the same server is served.
         assert _post_raw(server.port, spec.name, _image_body(spec),
                          {_DEADLINE: "10000"})[0] == 200
-        assert _sample(server, "kdlt_engine_images_total", f'model="{spec.name}"') == before + 1
+        assert _sample(server, "kdlt_engine_images_total", served) == before + 1
     finally:
         server.shutdown()
 
@@ -664,10 +677,10 @@ def test_drain_flips_readyz_sheds_new_work_and_completes_inflight(exported, monk
     entered, gate = threading.Event(), threading.Event()
     real = model.predict
 
-    def held(images, deadline=None):
+    def held(images, *args, **kwargs):
         entered.set()
         gate.wait(30)
-        return real(images, deadline)
+        return real(images, *args, **kwargs)
 
     monkeypatch.setattr(model, "predict", held)
     base = f"http://127.0.0.1:{server.port}"
@@ -701,8 +714,8 @@ def test_jax_gateway_deadline_budget_bounds_the_port_servers_wait(stack, monkeyp
     server: admission sees less budget than the client gave, the batcher's
     wait less again, and that wait's timeout is the budget left, not 20 s."""
     spec, server, gateway, image_url, _, _ = stack
-    timeouts = _timeouts(monkeypatch, server.models[spec.name].batcher)
-    tier, model = 'tier="model-server"', f'model="{spec.name}"'
+    timeouts = _timeouts(monkeypatch, server.models[spec.name])
+    tier, model = 'tier="model-server"', f'model="{spec.name}",version="1"'
     names = [("kdlt_admission_deadline_remaining_ms", tier),
              ("kdlt_admission_batcher_budget_ms", model)]
     before = {(n, agg): _sample(server, f"{n}_{agg}", lab) for n, lab in names
@@ -736,7 +749,7 @@ def test_no_admission_restores_the_fixed_waits(exported, monkeypatch, how):
     spec, server = _served(exported, argv=["--no-admission"] if how == "flag" else ())
     try:
         assert not server.admission.enabled and server.admission.limiter is None
-        timeouts = _timeouts(monkeypatch, server.models[spec.name].batcher)
+        timeouts = _timeouts(monkeypatch, server.models[spec.name])
         for budget in ("0", "50"):
             assert _post_raw(server.port, spec.name, _image_body(spec),
                              {_DEADLINE: budget})[0] == 200
@@ -835,3 +848,328 @@ def _http_or_none(url):
         return _http("GET", url)[:2]
     except OSError:
         return None
+
+
+# --- hot reload, artifact identity, the multi-model tier -------------------------
+
+
+def _tiny_specs(*names):
+    return [ModelSpec(name=n, family="vit-tiny", input_shape=(16, 16, 3), labels=("a", "b"),
+                      preprocessing="tf") for n in names]
+
+
+def _save(root, spec, version, seed):
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+
+    return art.save_artifact(art.version_dir(str(root), spec.name, version), spec,
+                             init_variables(spec, seed=seed), {"compute_dtype": "float32"})
+
+
+def _alone(directory, images):
+    """The version's logits, image by image, from an engine of its own."""
+    engine = InferenceEngine(art.load_artifact(directory), buckets=(1,), device="cpu")
+    return np.concatenate([engine.predict(images[i : i + 1]) for i in range(len(images))])
+
+
+def _predict(server, name, images):
+    status, body, ctype, headers = server.handle_predict(
+        f"/v1/models/{name}:predict", protocol.encode_predict_request(images),
+        protocol.MSGPACK_CONTENT_TYPE)
+    assert status == 200, body
+    return protocol.decode_predict_response(body, ctype)[0], headers
+
+
+def test_reload_switches_replies_and_hash_and_leaves_the_other_model(tmp_path):
+    """Two models on one server (one scheduler, one shared dispatcher).  A
+    new version of m0 with other weights: after ``poll_versions()`` m0's
+    replies are v2's logits under v2's hash, v1's engine is closed and its
+    series are gone, /readyz stayed 200; m1's engine, lane, replies and
+    hash are untouched.  A byte-identical v3 is adopted with no new engine."""
+    from kubernetes_deep_learning_tpu_torch.serving.registry import artifact_hash
+
+    m0, m1 = _tiny_specs("reload-m0", "reload-m1")
+    dirs = {(m0.name, 1): _save(tmp_path, m0, 1, seed=0), (m1.name, 1): _save(tmp_path, m1, 1, 1)}
+    images = np.random.default_rng(2).integers(0, 256, (3, 16, 16, 3), np.uint8)
+    server = ModelServer(str(tmp_path), port=0, buckets=(1, 2), device="cpu")
+    try:
+        server.warmup()
+        assert server.scheduler is not None and server.models[m0.name].batcher is None
+        before = {}
+        for spec in (m0, m1):
+            got, headers = _predict(server, spec.name, images[:1])
+            want = _alone(dirs[(spec.name, 1)], images[:1])
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+            assert headers[protocol.ARTIFACT_HASH_HEADER] == artifact_hash(dirs[(spec.name, 1)])
+            before[spec.name] = (got, headers)
+        old, m1_engine, m1_lane = (server.models[m0.name], server.engines[m1.name],
+                                   server.scheduler.lane(m1.name))
+        m0_lane = server.scheduler.lane(m0.name)
+        v2 = _save(tmp_path, m0, 2, seed=7)
+        assert server.poll_versions() == [f"{m0.name} v2"]
+        assert server.handle_get("/readyz")[0] == 200
+        assert old.engine._closed and server.models[m0.name] is not old
+        assert server.scheduler.lane(m0.name) is m0_lane  # the lane survived the swap
+        assert m0_lane.engine is server.engines[m0.name]
+        got, headers = _predict(server, m0.name, images)
+        np.testing.assert_allclose(got, _alone(v2, images), rtol=1e-5, atol=1e-6)
+        assert headers[protocol.ARTIFACT_HASH_HEADER] == artifact_hash(v2)
+        assert headers[protocol.ARTIFACT_HASH_HEADER] != before[m0.name][1][
+            protocol.ARTIFACT_HASH_HEADER]
+        # The other model: same engine, same lane, same replies and hash.
+        assert server.engines[m1.name] is m1_engine and server.scheduler.lane(m1.name) is m1_lane
+        got, headers = _predict(server, m1.name, images[:1])
+        np.testing.assert_array_equal(got, before[m1.name][0])
+        assert headers == before[m1.name][1]
+        text = server.registry.render()
+        assert f'model="{m0.name}",version="1"' not in text
+        assert f'kdlt_engine_images_total{{model="{m0.name}",version="2"}} 3.0' in text
+        # Byte-identical v3: adopted, no new engine, the hash unchanged.
+        engine = server.engines[m0.name]
+        shutil.copytree(v2, art.version_dir(str(tmp_path), m0.name, 3))
+        assert server.poll_versions() == []
+        status = json.loads(server.handle_get(f"/v1/models/{m0.name}:status")[1])
+        assert server.engines[m0.name] is engine and status["version"] == 3
+        assert status["artifact_hash"] == artifact_hash(v2)
+        assert _predict(server, m0.name, images[:1])[1] == headers | {
+            protocol.ARTIFACT_HASH_HEADER: artifact_hash(v2)}
+    finally:
+        server.shutdown()
+
+
+def test_a_broken_version_directory_is_skipped_and_retried(tmp_path, monkeypatch):
+    """A half-written v2 (its weights unreadable), one whose spec names
+    another model, and one whose warmup fails (its engine closed, its
+    series dropped): each skipped, v1 serves on; once v2 is whole and
+    warms, the next scan loads it."""
+    (m0,) = _tiny_specs("broken-m0")
+    v1 = _save(tmp_path, m0, 1, seed=0)
+    images = np.random.default_rng(3).integers(0, 256, (2, 16, 16, 3), np.uint8)
+    server = ModelServer(str(tmp_path), port=0, buckets=(1, 2), device="cpu")
+    try:
+        server.warmup()
+        v2 = art.version_dir(str(tmp_path), m0.name, 2)
+        os.makedirs(v2)
+        with open(os.path.join(v2, art.SPEC_FILE), "w") as f:
+            f.write(m0.to_json())
+        with open(os.path.join(v2, art.PARAMS_FILE), "wb") as f:
+            f.write(b"\xc1 not msgpack")
+        assert server.poll_versions() == []
+        assert server.models[m0.name].version == 1
+        (other,) = _tiny_specs("another-model")
+        _save(tmp_path / "elsewhere", other, 1, seed=0)
+        shutil.rmtree(v2)
+        shutil.copytree(art.version_dir(str(tmp_path / "elsewhere"), other.name, 1), v2)
+        assert server.poll_versions() == []  # declined: spec.name is not the directory's
+        got, _ = _predict(server, m0.name, images)
+        np.testing.assert_allclose(got, _alone(v1, images), rtol=1e-5, atol=1e-6)
+        text = server.registry.render()
+        assert 'version="2"' not in text  # no series of a version that never loaded
+        shutil.rmtree(v2)
+        _save(tmp_path, m0, 2, seed=5)
+        built = []
+        real_warmup = InferenceEngine.warmup
+
+        def failing_warmup(engine):
+            built.append(engine)
+            raise RuntimeError("capture failed")
+
+        monkeypatch.setattr(InferenceEngine, "warmup", failing_warmup)
+        assert server.poll_versions() == []
+        assert len(built) == 1 and built[0]._closed and server.models[m0.name].version == 1
+        assert 'version="2"' not in server.registry.render()
+        monkeypatch.setattr(InferenceEngine, "warmup", real_warmup)
+        assert server.poll_versions() == [f"{m0.name} v2"]
+        assert server.models[m0.name].version == 2
+    finally:
+        server.shutdown()
+
+
+def test_a_request_holding_a_closed_version_is_served_by_the_new_one(tmp_path):
+    """Batching off (no lane): a request that resolved v1 before a reload
+    closed v1's engine is answered by v2, under v2's hash."""
+    from kubernetes_deep_learning_tpu_torch.serving.registry import artifact_hash
+
+    (m0,) = _tiny_specs("closed-m0")
+    _save(tmp_path, m0, 1, seed=0)
+    images = np.random.default_rng(4).integers(0, 256, (2, 16, 16, 3), np.uint8)
+    server = ModelServer(str(tmp_path), port=0, buckets=(1, 2), device="cpu", use_batcher=False)
+    try:
+        server.warmup()
+        held = server.models[m0.name]
+        v2 = _save(tmp_path, m0, 2, seed=3)
+        assert server.poll_versions() == [f"{m0.name} v2"] and held.engine._closed
+        logits, digest = server._infer(held, images, None, "interactive")
+        np.testing.assert_allclose(logits, _alone(v2, images), rtol=1e-5, atol=1e-6)
+        assert digest == artifact_hash(v2)
+    finally:
+        server.shutdown()
+
+
+def test_status_and_models_routes_match_the_jax_server(exported):
+    """The JAX server and the port's over the same artifact root, the same
+    buckets: ``GET /v1/models`` and ``GET /v1/models/<name>:status`` answer
+    the same JSON (the artifact hash included); an unknown model's status
+    is a JSON 404 on both."""
+    from kubernetes_deep_learning_tpu.serving.model_server import ModelServer as JaxModelServer
+
+    spec, root, _ = exported
+    jax_server = JaxModelServer(root, port=0, buckets=(1, 2), host="127.0.0.1")
+    port_server = ModelServer(root, port=0, buckets=(1, 2), device="cpu")
+    try:
+        for s in (jax_server, port_server):
+            s.start()
+            s.warmup()
+        for path in ("/v1/models", f"/v1/models/{spec.name}:status"):
+            replies = [_http("GET", f"http://127.0.0.1:{s.port}{path}")
+                       for s in (jax_server, port_server)]
+            (want_status, want, _), (status, got, ctype) = replies
+            assert status == want_status == 200 and ctype == protocol.JSON_CONTENT_TYPE
+            assert json.loads(got) == json.loads(want), path
+        got = json.loads(_http("GET", f"http://127.0.0.1:{port_server.port}/v1/models")[1])
+        assert got[spec.name]["artifact_hash"] and got[spec.name]["sharding"] == "single"
+        for s in (jax_server, port_server):
+            status, body, _ = _http("GET", f"http://127.0.0.1:{s.port}/v1/models/nope:status")
+            assert status == 404 and set(json.loads(body)) == {"error"}
+    finally:
+        port_server.shutdown()
+        jax_server.shutdown()
+
+
+def test_watch_and_scheduler_flags_parse(exported, monkeypatch):
+    """``--watch-interval`` (10 s by default, as in JAX), ``--sched-policy``
+    and ``--sched-weights`` reach the server; without them the scheduler
+    reads ``KDLT_SCHED_POLICY`` and ``KDLT_SCHED_WEIGHTS``; ``--batcher
+    native`` and ``--no-batching`` serve without a scheduler."""
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import _parser, build_server
+
+    spec, root, _ = exported
+    args = _parser().parse_args(["--model-root", root])
+    assert (args.watch_interval, args.sched_policy, args.sched_weights) == (10.0, None, None)
+    args = _parser().parse_args(["--model-root", root, "--watch-interval", "0.5"])
+    assert args.watch_interval == 0.5
+    with pytest.raises(SystemExit):
+        _parser().parse_args(["--model-root", root, "--sched-policy", "lifo"])
+    base = ["--model-root", root, "--port", "0", "--buckets", "1", "--device", "cpu"]
+    server = build_server([*base, "--sched-policy", "fifo", "--sched-weights",
+                           f"{spec.name}=3,other=x"])
+    try:
+        assert server.scheduler.policy == "fifo"
+        assert server.scheduler.lane(spec.name).weight == 3.0
+    finally:
+        server.shutdown()
+    monkeypatch.setenv("KDLT_SCHED_POLICY", "fifo")
+    monkeypatch.setenv("KDLT_SCHED_WEIGHTS", f"{spec.name}=0.5")
+    server = build_server(base)
+    try:
+        assert server.scheduler.policy == "fifo"
+        assert server.scheduler.lane(spec.name).weight == 0.5
+    finally:
+        server.shutdown()
+    for flag in ("--no-batching", "--batcher=native"):
+        server = build_server([*base, flag])
+        try:
+            assert server.scheduler is None and server.dispatcher is None
+        finally:
+            server.shutdown()
+
+
+def test_jax_gateway_cache_learns_the_new_hash_after_a_reload(exported, tmp_path):
+    """The unchanged JAX gateway in front of the port server, its response
+    cache on: image A is cached under v1.  A reload with changed bytes:
+    the next upstream answer (image B) carries v2's hash, the gateway drops
+    v1's entries, and A is answered with v2's logits -- no cache-bust
+    header anywhere.  A byte-identical v3 keeps the entries (a hit)."""
+    from PIL import Image
+
+    from kubernetes_deep_learning_tpu.models import build_forward as jax_build_forward
+    from kubernetes_deep_learning_tpu.ops import preprocess
+    from kubernetes_deep_learning_tpu.serving.client import predict_url
+    from kubernetes_deep_learning_tpu.serving.gateway import Gateway
+
+    spec, src, _ = exported
+    root = tmp_path / "models"
+    shutil.copytree(os.path.join(src, spec.name, "1"), root / spec.name / "1")
+    server = ModelServer(str(root), port=0, buckets=(1, 2), device="cpu")
+    server.start()
+    server.warmup()
+    gateway = Gateway(serving_host=f"localhost:{server.port}", model=spec.name, port=0)
+    gateway.start()
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    rng = np.random.default_rng(8)
+    pixels = {k: rng.integers(0, 256, (64, 64, 3), np.uint8) for k in "ab"}
+    for k, px in pixels.items():
+        Image.fromarray(px).save(img_dir / f"{k}.png")
+    httpd = HTTPServer(("127.0.0.1", 0), partial(SimpleHTTPRequestHandler, directory=str(img_dir)))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = {k: f"http://127.0.0.1:{httpd.server_address[1]}/{k}.png" for k in "ab"}
+    base = f"http://localhost:{gateway.port}"
+
+    def ask(k):
+        stats: dict = {}
+        scores = predict_url(base, url[k], stats=stats)
+        return np.asarray([scores[label] for label in spec.labels], np.float32), stats["cache"]
+
+    def want(variables, k):
+        img = preprocess.resize_uint8(pixels[k], spec.input_shape[:2], "nearest")
+        return np.asarray(jax.jit(jax_build_forward(spec, dtype=None))(variables, img[None]))[0]
+
+    try:
+        v1_a, disposition = ask("a")
+        assert disposition == "miss"
+        assert ask("a")[1] == "hit"
+        v2_vars = jax_init_variables(spec, seed=6)
+        export_model(spec, v2_vars, str(root), dtype=np.float32)  # version 2
+        assert server.poll_versions() == [f"{spec.name} v2"]
+        got_b, disposition = ask("b")  # an upstream answer carrying v2's hash
+        assert disposition == "miss"
+        np.testing.assert_allclose(got_b, want(v2_vars, "b"), rtol=1e-3, atol=1e-3)
+        got_a, disposition = ask("a")
+        assert disposition == "miss" and not np.allclose(got_a, v1_a, rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(got_a, want(v2_vars, "a"), rtol=1e-3, atol=1e-3)
+        shutil.copytree(root / spec.name / "2", root / spec.name / "3")
+        assert server.poll_versions() == []  # byte-identical: adopted, no reload
+        for k in "ab":
+            assert ask(k)[1] == "hit"
+    finally:
+        gateway.shutdown()
+        server.shutdown()
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_loadgen_sends_several_images_a_request(exported, tmp_path):
+    """``--images-per-request 3``: closed loop, request k carries images
+    3k..3k+2; open loop on a shared ``--start-at``, request k the images of
+    group k mod (N // 3); each reply holds its images' logits in order."""
+    import time
+
+    from kubernetes_deep_learning_tpu_torch.serving import loadgen
+
+    spec, server = _served(exported)
+    images = np.random.default_rng(9).integers(0, 256, (12, *spec.input_shape), np.uint8)
+    url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
+    try:
+        engine = server.engines[spec.name]
+        solo = np.concatenate([engine.predict(images[i : i + 1]) for i in range(len(images))])
+        res = loadgen.run(url, images, clients=2, requests=2, per_request=3)
+        assert (res["status"] == 200).all() and res["logits"].shape == (4, 3, len(spec.labels))
+        np.testing.assert_allclose(res["logits"], solo.reshape(4, 3, -1), rtol=1e-4, atol=1e-4)
+        np.save(tmp_path / "images.npy", images[:7])  # 2 groups of 3; image 6 unused
+        out = tmp_path / "open.npz"
+        done = subprocess.run(
+            [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+             "--url", url, "--images", str(tmp_path / "images.npy"), "--rate", "20",
+             "--duration", "0.5", "--deadline-ms", "60000", "--images-per-request", "3",
+             "--processes", "2", "--start-at", repr(time.time() + 1.0), "--out", str(out)],
+            cwd=REPO, capture_output=True, text=True, timeout=120,
+            env={**os.environ, "PYTHONPATH": REPO})
+        assert done.returncode == 0, done.stderr
+        with np.load(out) as z:
+            res = {k: z[k] for k in z.files}
+        assert (res["status"] == 200).all() and len(res["status"]) == 10
+        np.testing.assert_array_equal(res["image"], (np.arange(10) % 2) * 3)
+        want = solo[:6].reshape(2, 3, -1)[np.arange(10) % 2]
+        np.testing.assert_allclose(res["logits"], want, rtol=1e-4, atol=1e-4)
+    finally:
+        server.shutdown()
