@@ -179,7 +179,30 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    unload ``memory_allocated`` must be within 16 MiB of one version's.
    ``reload-swap`` lines: swap and warmup seconds, allocated, peak and
    reserved memory; ``reload``: p99 inside the reload windows and steady;
-20. with ``--profile``: the host time by op of a few bucket-16
+20. observability: ``clothing-model`` on its own server (buckets 1-32,
+   depth 2, the scheduler's lane, admission on) with the port's tracer,
+   SLO engine, flight recorder and MFU gauges: 64 one-image requests with
+   ``X-Request-Id``, each span tree (``/debug/trace/<rid>``) held to the
+   JAX server's: nine spans, server.request over admission, decode and
+   predict, the queue wait and the four pipeline stages under predict and
+   contiguous, at least 95% of server.request covered by its children
+   (``observability-spans``: the median ms of each span); 16 closed-loop
+   clients for 6 s, after which ``/debug/slo`` must count the load
+   generator's replies, ``kdlt_mfu_pct`` must lie in (0, 100] for every
+   bucket ``/debug/profile?audit=buckets`` saw served and
+   ``kdlt_device_busy_ratio`` in (0, 1], and the bucket-16 gauge within
+   25% of 16 x FLOPs/img over the bucket graph's device ms by replay
+   (``observability-mfu``); a 2 s ``/debug/profile`` inside a second 4 s
+   load: ``trace.json`` parses, the ``kernels`` summary counts 28
+   ``sepconv_stage_kernel`` launches per forward the launch counter
+   credited between the profiler's start and stop (+-56), with the top 10
+   device operations and the p99 of requests during the capture against
+   outside it (``observability-profile``); a declared stall: two
+   requests get the stall 503, exactly one incident bundle holds the first
+   one's ``dispatch.stall`` event and pinned trace; and the host µs of the
+   accounting after a reply (10,000 synthetic requests), beside the
+   batching phase's depth-2 img/s and its 940 before the layer;
+21. with ``--profile``: the host time by op of a few bucket-16
    ``predict_async`` dispatches of the batching phase's engine
    (``batching-host``); a ``torch.profiler`` trace of a few bucket-16
    forwards of each served model (and of B3's ``fast=False`` engine, and
@@ -311,6 +334,30 @@ RELOAD_CLIENTS = 16
 RELOAD_WATCH_S = 0.5
 RELOAD_STEADY_S = 2.0
 RELOAD_MEMORY_SLACK = 16 << 20
+# The observability phase: traced one-image requests, each span tree held to
+# the JAX server's nesting and at least this share of server.request covered
+# by its children; the closed loop behind the SLO, MFU and profile checks;
+# the bucket-16 MFU gauge against an independent figure; the profile window
+# and its stage-kernel launches per forward (K1: 3 stages, K2: 2), with two
+# forwards of slack at each edge of the window; the cost loop's requests.
+OBS_TRACED = 64
+OBS_SPANS = ("server.request", "server.admission", "server.decode", "server.predict",
+             "batcher.queue_wait", "pipeline.enqueue_wait", "pipeline.dispatch",
+             "pipeline.execute", "pipeline.readback")
+OBS_COVERAGE = 0.95
+OBS_CLIENTS = 16
+OBS_LOAD_S = 6.0
+OBS_PROFILE_LOAD_S = 4.0
+OBS_PROFILE_S = 2.0
+OBS_MFU_BATCHES = 20
+OBS_MFU_TOL = 0.25
+OBS_STAGE_LAUNCHES = 8 * 3 + 2 * 2
+OBS_EDGE_LAUNCHES = 2 * OBS_STAGE_LAUNCHES
+OBS_COST_REQUESTS = 10_000
+# The depth-2 arm's median img/s of the batching phase before the
+# observability layer existed (an H100 80GB HBM3 at 700 W; another run of
+# the same tree read 1,082).
+DEPTH2_IMG_S_BEFORE = 940.0
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
                   preprocessing="tf",
@@ -889,13 +936,19 @@ def _model_value(server, name: str, model: str) -> float:
     return float(found.group(1))
 
 
-def _load_run(url: str, images_path: str, out_path: str, timeout: float) -> dict:
+def _loadgen_cmd(url: str, images_path: str, out_path: str, *args) -> list[str]:
+    """The load generator's command line (``args``: its other options)."""
+    return [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
+            "--url", url, "--images", images_path, "--out", out_path, *map(str, args)]
+
+
+def _load_run(url: str, images_path: str, out_path: str, timeout: float, *args) -> dict:
     """The load generator in a process of its own (no shared interpreter
-    lock with the server); returns its results."""
-    cmd = [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
-           "--url", url, "--images", images_path, "--clients", str(LOAD_CLIENTS),
-           "--requests", str(LOAD_REQUESTS), "--out", out_path]
-    done = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+    lock with the server); returns its results.  ``args``: its options,
+    LOAD_CLIENTS closed-loop clients of LOAD_REQUESTS requests if none."""
+    args = args or ("--clients", LOAD_CLIENTS, "--requests", LOAD_REQUESTS)
+    done = subprocess.run(_loadgen_cmd(url, images_path, out_path, *args), capture_output=True,
+                          text=True, timeout=timeout,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     if done.returncode != 0:
         _fail(f"load generator exited {done.returncode}: {done.stderr[-2000:]}")
@@ -1152,6 +1205,21 @@ def _resnet_phase(seed: int, iters: int, profile: bool, smi: str) -> dict:
                 device_ms_bucket16=device_ms, card=smi)
 
 
+def _drained(server, name: str, timeout_s: float) -> bool:
+    """Wait until no admitted request is in flight, ``name``'s lane has
+    nothing queued and none of its plans is still dispatching or on the
+    card; False on timeout."""
+    deadline = time.monotonic() + timeout_s
+    if not server.admission.wait_idle(timeout_s=timeout_s):
+        return False
+    lane = server.scheduler.lane(name)
+    while lane.pending_images:
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return server.scheduler.wait_engine_idle(lane.engine, max(deadline - time.monotonic(), 0))
+
+
 def _overload_run(url: str, images_path: str, out_path: str, rate: float) -> dict:
     """The open-loop load generator (OVERLOAD_PROCESSES processes) at
     ``rate``; returns its per-request results."""
@@ -1402,8 +1470,10 @@ def _admission_phase(spec, variables, seed: int, smi: str, depth2_img_s: float, 
                 counter.reset_launch_counts()
                 res = _overload_run(url, images_path, os.path.join(root, f"{arm}.npz"), rate)
                 # Requests the clients gave up on may still be queued: count
-                # launches and batches once every admitted one has finished.
-                if not server.admission.wait_idle(timeout_s=60):
+                # launches and batches once every admitted one has finished
+                # and the lane has run what their handlers left behind (a
+                # handler whose wait timed out leaves its unit queued).
+                if not _drained(server, spec.name, 60):
                     _fail(f"overload {arm}: requests still in flight 60 s after the load")
                 launches = counter.launch_counts()
                 forwards = int(_model_value(server, "kdlt_engine_batches_total", spec.name)
@@ -1871,6 +1941,339 @@ def _reload_phase(spec, seed: int, smi: str, *, counter, per_forward: dict) -> d
         p50_steady_ms=pct(lat[~windows], 50), p99_steady_ms=pct(lat[~windows], 99),
         p50_reload_window_ms=pct(lat[windows], 50), p99_reload_window_ms=pct(lat[windows], 99),
         requests_in_windows=int(windows.sum()), card=smi)
+
+
+def _http_json(port: int, path: str, data: bytes | None = None,
+               headers: dict | None = None) -> tuple[int, dict, dict]:
+    """(status, JSON body, headers) of one request to the server."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="POST" if data is not None else "GET",
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def _span_tree_check(rid: str, spans: list[dict]) -> dict:
+    """One traced request's spans against the JAX server's tree: the nine
+    names, server.request over admission, decode and predict, the queue
+    wait and the four stages under server.predict, the stages contiguous;
+    returns each span's ms and the share of server.request its children
+    cover."""
+    by_name = {sp["name"]: sp for sp in spans}
+    missing = [n for n in OBS_SPANS if n not in by_name]
+    if len(spans) < len(OBS_SPANS) or missing:
+        _fail(f"observability: trace {rid}: {len(spans)} spans, missing {missing}")
+    root, predict = by_name["server.request"], by_name["server.predict"]
+    wrong = [n for n in ("server.admission", "server.decode", "server.predict")
+             if by_name[n]["parent_id"] != root["span_id"]]
+    wrong += [n for n in OBS_SPANS[4:] if by_name[n]["parent_id"] != predict["span_id"]]
+    stages = [by_name[n] for n in OBS_SPANS[5:]]
+    gaps = [b["start_s"] - (a["start_s"] + a["dur_ms"] / 1e3) for a, b in zip(stages, stages[1:])]
+    if wrong or any(abs(g) > 2e-6 for g in gaps):
+        _fail(f"observability: trace {rid}: misparented {wrong}, stage gaps {gaps} s")
+    children = sum(sp["dur_ms"] for sp in spans if sp["parent_id"] == root["span_id"])
+    return {"ms": {n: by_name[n]["dur_ms"] for n in OBS_SPANS},
+            "coverage": children / root["dur_ms"]}
+
+
+def _metric_samples(text: str, name: str, model: str) -> dict[str, float]:
+    """The ``model``-labelled samples of one series: label text -> value."""
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        rf'^{name}\{{model="{re.escape(model)}"([^}}]*)\}} (\S+)$', text, re.M)}
+
+
+def _accounting_cost_us(n: int) -> float:
+    """Host microseconds of the tracing and accounting of one reply, over
+    ``n`` synthetic requests through the server's own ``_Exchange``: its
+    three stage spans with the queue wait and four pipeline spans deferred
+    under predict, the reply's id and ``X-Kdlt-Trace`` headers, then
+    ``finish()`` (the latency histogram without exemplars, ``slo.record``,
+    the root span, ``classify``)."""
+    from types import SimpleNamespace
+
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import _Exchange
+    from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
+    from kubernetes_deep_learning_tpu_torch.utils import slo as slo_lib
+    from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
+
+    registry = metrics_lib.Registry()
+    server = SimpleNamespace(
+        tracer=trace_lib.Tracer("model-server", registry=registry),
+        slo=slo_lib.SloEngine(registry, tier="model-server", enabled=True),
+        _m_errors=registry.counter("kdlt_server_errors_total"),
+        _m_latency=registry.histogram("kdlt_server_request_seconds"),
+        request_log=False, recorder=None)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ex = _Exchange(server, {"X-Request-Id": f"cost-{i}", "X-Kdlt-Parent-Span": "feedbeef"})
+        with ex.stage(trace_lib.SPAN_SERVER_ADMISSION):
+            ex.model = "clothing-model"
+        with ex.stage(trace_lib.SPAN_SERVER_DECODE, bytes=268_203):
+            pass
+        with ex.stage(trace_lib.SPAN_SERVER_PREDICT, batch=1) as pt:
+            w = trace_lib.now_s()
+            pt.defer(tuple((name, w, 1e-4, {}) for name in OBS_SPANS[4:]))
+        ex.status, ex.batch, ex.w_end = 200, 1, trace_lib.now_s()
+        ex.reply_headers()
+        ex.finish()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _observability_phase(spec, seed: int, smi: str, depth2_img_s: float, *, counter,
+                         per_forward: dict) -> dict:
+    """``spec`` (clothing-model, K1 and K2) on its own server (buckets 1-32,
+    depth 2, the scheduler's lane, admission on), with the observability
+    layer: OBS_TRACED traced one-image requests, each span tree held to the
+    JAX server's (``_span_tree_check``; at least OBS_COVERAGE of
+    server.request covered by its children); OBS_CLIENTS closed-loop clients
+    for OBS_LOAD_S, after which /debug/slo must count what the load
+    generator saw, /metrics must carry ``kdlt_mfu_pct`` in (0, 100] for every
+    bucket the audit saw served and ``kdlt_device_busy_ratio`` in (0, 1],
+    and the bucket-16 gauge (after OBS_MFU_BATCHES 16-image requests) must
+    lie within OBS_MFU_TOL of 16 x FLOPs/img / (the bucket graph's device
+    ms by replay x peak); a /debug/profile of OBS_PROFILE_S inside a second
+    load of OBS_PROFILE_LOAD_S, whose ``kernels`` must count
+    OBS_STAGE_LAUNCHES stage-kernel launches per forward the launch counter
+    credited (+- OBS_EDGE_LAUNCHES), with the p99 of requests inside the
+    window against outside; then a declared stall, after which every
+    request gets the stall 503 and exactly one incident bundle holds the
+    first one's ``dispatch.stall`` event and its pinned trace.  Also the
+    host cost of the per-reply accounting, and the batching phase's
+    depth-2 img/s beside DEPTH2_IMG_S_BEFORE."""
+    import http.client
+    import threading
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.runtime import flops as flops_lib
+    from kubernetes_deep_learning_tpu_torch.serving import protocol
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    name = spec.name
+    images = _grid_images(spec, 512, seed + 17)
+    out: dict = {"model": name, "card": smi}
+    with tempfile.TemporaryDirectory() as root:
+        art.save_artifact(art.version_dir(root, name, 1), spec, init_variables(spec, seed=seed),
+                          {"compute_dtype": "bfloat16"})
+        images_path = os.path.join(root, "images.npy")
+        np.save(images_path, images)
+        server = ModelServer(root, port=0, buckets=BATCH_BUCKETS, device="cuda",
+                             profile_base=os.path.join(root, "profiles"),
+                             incident_dir=os.path.join(root, "incidents"))
+        url = f"http://127.0.0.1:{server.port}/v1/models/{name}:predict"
+        path = f"/v1/models/{name}:predict"
+        try:
+            server.start()
+            server.warmup()
+            engine = server.engines[name]
+            # --- traced requests: the per-request breakdown ---
+            # One client, one kept-alive connection, one request at a time;
+            # the traces are fetched after the last one, so that no fetch's
+            # handler thread competes with a traced request for the
+            # interpreter lock.
+            conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=300)
+            try:
+                for i in range(OBS_TRACED):
+                    rid = f"obs-{i}"
+                    conn.request("POST", path, protocol.encode_predict_request(images[i : i + 1]),
+                                 {"Content-Type": protocol.MSGPACK_CONTENT_TYPE,
+                                  "X-Request-Id": rid, "X-Kdlt-Parent-Span": "c0ffee00"})
+                    resp = conn.getresponse()
+                    resp.read()
+                    if resp.status != 200 or resp.getheader("X-Request-Id") != rid:
+                        _fail(f"observability: traced request {rid}: {resp.status}, id "
+                              f"{resp.getheader('X-Request-Id')}")
+            finally:
+                conn.close()
+            trees = []
+            for i in range(OBS_TRACED):
+                rid, deadline = f"obs-{i}", time.monotonic() + 10
+                while True:  # the root span closes just after the reply
+                    status, info, _ = _http_json(server.port, f"/debug/trace/{rid}")
+                    if status == 200 and any(sp["name"] == "server.request"
+                                             for sp in info["spans"]):
+                        break
+                    if time.monotonic() > deadline:
+                        _fail(f"observability: no root span for {rid}")
+                    time.sleep(0.005)
+                trees.append(_span_tree_check(rid, info["spans"]))
+            coverage = [t["coverage"] for t in trees]
+            out["traced"] = dict(
+                requests=len(trees), min_spans=len(OBS_SPANS), min_coverage=min(coverage),
+                median_coverage=float(np.median(coverage)),
+                p5_coverage=float(np.percentile(coverage, 5)),
+                median_ms={n: float(np.median([t["ms"][n] for t in trees])) for n in OBS_SPANS})
+            print("observability-spans:", json.dumps({**out["traced"], "card": smi}), flush=True)
+            if min(coverage) < OBS_COVERAGE:
+                _fail(f"observability: children cover {min(coverage):.3f} of server.request "
+                      f"(at least {OBS_COVERAGE})")
+
+            # --- load: /debug/slo against the load generator's replies ---
+            def slo_counts() -> dict:
+                rows = _http_json(server.port, "/debug/slo")[1]["models"].get(name, {})
+                return rows.get("1h", {})
+
+            before = slo_counts()
+            res = _load_run(url, images_path, os.path.join(root, "load.npz"), OBS_LOAD_S + 120,
+                            *_obs_load_args(OBS_LOAD_S))
+            sent = res["status"] != 0
+            n200 = int((res["status"][sent] == 200).sum())
+            deadline = time.monotonic() + 10
+            while True:  # each request's SLO record follows its reply
+                after = slo_counts()
+                delta = {k: after.get(k, 0) - before.get(k, 0)
+                         for k in ("total", "good", "late", "shed", "error", "client")}
+                if delta["total"] >= int(sent.sum()) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.01)
+            if (delta["total"] != int(sent.sum()) or delta["good"] + delta["late"] != n200
+                    or n200 != int(sent.sum())):
+                _fail(f"observability: /debug/slo moved {delta}, the load generator saw "
+                      f"{int(sent.sum())} replies, {n200} of them 200")
+            out["load"] = dict(clients=OBS_CLIENTS, seconds=OBS_LOAD_S, requests=int(sent.sum()),
+                               replies_200=n200, slo_delta=delta,
+                               img_per_s=n200 / float(res["wall_s"]),
+                               p99_ms=float(np.percentile(res["lat_ms"][sent], 99)))
+            # --- MFU and busy gauges; the bucket audit ---
+            for _ in range(OBS_MFU_BATCHES):  # bucket-16 batches for the gauge's EWMA
+                _post(url, images[:16], "msgpack")
+            status, audit, _ = _http_json(server.port, "/debug/profile?audit=buckets")
+            served = {b: row for b, row in audit["models"][name]["buckets"].items()
+                      if row["batches"]}
+            text = server.handle_get("/metrics")[1].decode()
+            mfu = {re.search(r'bucket="(\d+)"', k).group(1): v
+                   for k, v in _metric_samples(text, "kdlt_mfu_pct", name).items()}
+            busy = list(_metric_samples(text, "kdlt_device_busy_ratio", name).values())
+            if (status != 200 or "16" not in served or any(b not in mfu for b in served)
+                    or not all(0 < mfu[b] <= 100 for b in served)
+                    or len(busy) != 1 or not 0 < busy[0] <= 1):
+                _fail(f"observability: audit {status} served {sorted(served)}, kdlt_mfu_pct "
+                      f"{mfu}, kdlt_device_busy_ratio {busy}")
+            x16 = torch.from_numpy(images[:16]).cuda()
+            with torch.inference_mode():
+                graph16_ms = _graph_ms(lambda: engine._forward(x16), ITERS)
+            flops_img = flops_lib.flops_per_image(spec)
+            peak = flops_lib.peak_tflops(engine.device, "bfloat16")
+            independent = 16 * flops_img / (graph16_ms * 1e-3 * peak * 1e12) * 100
+            if abs(mfu["16"] / independent - 1) > OBS_MFU_TOL:
+                _fail(f"observability: kdlt_mfu_pct at bucket 16 {mfu['16']} vs {independent:.3f} "
+                      f"from the graph's {graph16_ms:.3f} ms (tolerance {OBS_MFU_TOL})")
+            out["mfu"] = dict(
+                gauge_pct=mfu, bucket16_independent_pct=independent, bucket16_graph_ms=graph16_ms,
+                flops_per_image=flops_img, peak_tflops=peak, device_busy_ratio=busy[0],
+                padding_waste={b: row["padding_waste_ratio"] for b, row in served.items()},
+                mean_admitted={b: row["mean_admitted"] for b, row in served.items()})
+            print("observability-mfu:", json.dumps({**out["mfu"], "card": smi}), flush=True)
+
+            # --- /debug/profile inside a second load ---
+            proc = subprocess.Popen(
+                _loadgen_cmd(url, images_path, os.path.join(root, "profiled.npz"),
+                             *_obs_load_args(OBS_PROFILE_LOAD_S)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            # The capture starts once the load is flowing (the generator's
+            # process takes a moment to start), a quarter second in.
+            requests0, deadline = server._m_requests.value, time.monotonic() + 60
+            while server._m_requests.value < requests0 + 4 * OBS_CLIENTS:
+                if time.monotonic() > deadline or proc.poll() is not None:
+                    _fail("observability: the profiled load did not start")
+                time.sleep(0.005)
+            time.sleep(0.25)
+            # The launch counts at the profiler's own start and stop (the
+            # request's edges add its set-up and the trace's export).
+            edges: list = []
+            start, stop = torch.profiler.profile.start, torch.profiler.profile.stop
+
+            def counted_start(prof):
+                start(prof)
+                edges.append((time.time(), counter.launch_counts()))
+
+            def counted_stop(prof):
+                edges.append((time.time(), counter.launch_counts()))
+                stop(prof)
+
+            torch.profiler.profile.start, torch.profiler.profile.stop = counted_start, counted_stop
+            try:
+                status, prof, _ = _http_json(server.port,
+                                             f"/debug/profile?seconds={OBS_PROFILE_S}")
+                t_reply = time.time()  # the trace exported and summarised
+            finally:
+                torch.profiler.profile.start, torch.profiler.profile.stop = start, stop
+            if len(edges) != 2:
+                _fail(f"observability: the profiler started and stopped {len(edges)} times")
+            (t_profile, launches0), (t_done, launches1) = edges
+            _, err = proc.communicate(timeout=120)
+            if proc.returncode != 0:
+                _fail(f"observability: the profiled load exited {proc.returncode}: {err[-2000:]}")
+            with np.load(os.path.join(root, "profiled.npz")) as z:
+                res = {k: z[k] for k in z.files}
+            if status != 200:
+                _fail(f"observability: /debug/profile answered {status}: {prof}")
+            with open(os.path.join(prof["trace_dir"], "trace.json")) as f:
+                events = len(json.load(f)["traceEvents"])
+            forwards = (launches1["fused_sepconv_block"] - launches0["fused_sepconv_block"]) \
+                / per_forward["fused_sepconv_block"]
+            stage = sum(v["count"] for k, v in prof["kernels"].items()
+                        if "sepconv_stage_kernel" in k)
+            if not stage or abs(stage - OBS_STAGE_LAUNCHES * forwards) > OBS_EDGE_LAUNCHES:
+                _fail(f"observability: the profile counted {stage} sepconv_stage_kernel launches "
+                      f"for {forwards} credited forwards (x{OBS_STAGE_LAUNCHES}, +-"
+                      f"{OBS_EDGE_LAUNCHES}): {list(prof['kernels'])[:5]}")
+            sent = res["status"] != 0
+            if (res["status"][sent] != 200).any():
+                _fail(f"observability: the profiled load saw {sorted(set(res['status'][sent]))}")
+            # During the capture: from the profiler's start to the reply,
+            # whose export of the trace holds the interpreter lock too.
+            inside = sent & (res["done_at"] >= t_profile) & (res["sent_at"] <= t_reply)
+            outside = sent & ~inside
+            top = list(prof["kernels"].items())[:10]
+            out["profile"] = dict(
+                seconds=OBS_PROFILE_S, export_s=t_reply - t_done, trace_events=events,
+                forwards=forwards,
+                stage_kernel_launches=stage, per_forward=stage / max(forwards, 1),
+                top10_device_ops=[{"name": k[:120], **v} for k, v in top],
+                p99_ms_during_capture=float(np.percentile(res["lat_ms"][inside], 99)),
+                p99_ms_outside_capture=float(np.percentile(res["lat_ms"][outside], 99)),
+                requests_during=int(inside.sum()), requests_outside=int(outside.sum()))
+            print("observability-profile:", json.dumps({**out["profile"], "card": smi}),
+                  flush=True)
+
+            # --- a declared stall: one incident bundle, deduplicated ---
+            server.dispatcher.declare_stall()
+            body = protocol.encode_predict_request(images[:1])
+            for rid in ("obs-stall-1", "obs-stall-2"):
+                status, reply, headers = _http_json(
+                    server.port, path, body, {"Content-Type": protocol.MSGPACK_CONTENT_TYPE,
+                                              "X-Request-Id": rid})
+                if status != 503 or headers.get("X-Kdlt-Stalled") != "1":
+                    _fail(f"observability: stalled request {rid}: {status} {headers}")
+                if not server.recorder.wait_idle(30.0):
+                    _fail("observability: the incident capture did not finish")
+            incidents = _http_json(server.port, "/debug/incidents")[1]["incidents"]
+            bundle = (_http_json(server.port, f"/debug/incidents/{incidents[0]['id']}")[1]
+                      if len(incidents) == 1 else {})
+            if (len(incidents) != 1 or bundle["event"]["kind"] != "dispatch.stall"
+                    or bundle["event"].get("rid") != "obs-stall-1"
+                    or "obs-stall-1" not in bundle["traces"]):
+                _fail(f"observability: incidents {incidents}")
+            out["incident"] = dict(bundles=len(incidents), trigger=incidents[0]["trigger"],
+                                   pinned_traces=sorted(bundle["traces"]),
+                                   capture_latency_s=incidents[0]["capture_latency_s"])
+        finally:
+            server.shutdown()
+    out["accounting_us_per_request"] = _accounting_cost_us(OBS_COST_REQUESTS)
+    out["batching_depth2_img_s"] = depth2_img_s
+    out["depth2_img_s_before_layer"] = DEPTH2_IMG_S_BEFORE
+    return out
+
+
+def _obs_load_args(seconds: float) -> tuple:
+    """The observability phase's load: OBS_CLIENTS closed-loop clients for
+    ``seconds``."""
+    return ("--clients", OBS_CLIENTS, "--requests", 4000, "--duration", seconds)
 
 
 def _dispatch_host_profile(engine, imgs: np.ndarray, steps: int = 5) -> None:
@@ -2744,6 +3147,11 @@ def main(argv=None) -> int:
           flush=True)
     print("reload:", json.dumps(_reload_phase(
         CLOTHING_MODEL, args.seed, smi, counter=fused_sepconv,
+        per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})), flush=True)
+
+    # --- observability: span trees, SLO, MFU and busy gauges, profile, incident ---
+    print("observability:", json.dumps(_observability_phase(
+        CLOTHING_MODEL, args.seed, smi, depth2_img_s, counter=fused_sepconv,
         per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})), flush=True)
 
     print(f"card: {smi}")

@@ -36,6 +36,7 @@ from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     resolve_pipeline_depth,
 )
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
+from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
 
 
 class BatcherClosed(RuntimeError):
@@ -67,7 +68,8 @@ class DynamicBatcher:
         self.max_batch = max_batch or engine.max_batch
         self.max_delay = max_delay_ms / 1000.0
         self.queue_cap = queue_cap
-        self._queue: list[tuple[np.ndarray, Future]] = []  # guarded-by: _cond
+        # (image, future, trace, enqueue wall time)
+        self._queue: list[tuple] = []  # guarded-by: _cond
         self._cond = threading.Condition()
         self._closed = False  # guarded-by: _cond
 
@@ -90,8 +92,13 @@ class DynamicBatcher:
         self._thread = threading.Thread(target=self._run, name="kdlt-batcher", daemon=True)
         self._thread.start()
 
-    def submit(self, image: np.ndarray) -> Future:
-        """Enqueue one HWC uint8 image; resolves to its logits row."""
+    def submit(self, image: np.ndarray, trace=None) -> Future:
+        """Enqueue one HWC uint8 image; resolves to its logits row.
+
+        ``trace`` (utils.trace.RequestTrace, optional) gets a
+        ``batcher.queue_wait`` span for the time spent coalescing, then the
+        dispatcher's four pipeline-stage spans (or, without a dispatcher,
+        an ``engine.predict`` span)."""
         image = np.asarray(image)
         expected = getattr(getattr(self._engine, "spec", None), "input_shape", None)
         if expected is not None and tuple(image.shape) != tuple(expected):
@@ -101,22 +108,23 @@ class DynamicBatcher:
             # uint8 rows would skip normalization; keep the batcher single-dtype.
             raise ValueError(f"batcher takes uint8 images, got {image.dtype}")
         fut: Future = Future()
+        enq_w = trace_lib.now_s() if trace is not None else 0.0
         with self._cond:
             if self._closed:
                 raise BatcherClosed("batcher is shut down")
             if len(self._queue) >= self.queue_cap:
                 self._m_queue_full.inc()
                 raise QueueFull("request queue full")
-            self._queue.append((image, fut))
+            self._queue.append((image, fut, trace, enq_w))
             self._cond.notify()
         return fut
 
-    def predict(self, image: np.ndarray, timeout: float = 20.0) -> np.ndarray:
+    def predict(self, image: np.ndarray, timeout: float = 20.0, trace=None) -> np.ndarray:
         """Blocking single-image predict (the gateway's call).  The default
         timeout mirrors the reference's 20 s gRPC deadline."""
-        return self.submit(image).result(timeout=timeout)
+        return self.submit(image, trace=trace).result(timeout=timeout)
 
-    def _take_batch(self) -> list[tuple[np.ndarray, Future]]:
+    def _take_batch(self) -> list[tuple]:
         with self._cond:
             while not self._queue and not self._closed:
                 self._cond.wait()
@@ -139,23 +147,39 @@ class DynamicBatcher:
             if not batch:
                 return  # closed and drained
             self._m_batch_size.observe(len(batch))
+            traces = [tr for _, _, tr, _ in batch if tr is not None]
+            taken_w = 0.0
+            if traces:
+                # Queue-wait span per member: enqueue -> batch assembly.
+                taken_w = trace_lib.now_s()
+                tags = {"batch": len(batch)}
+                for _, _, tr, enq_w in batch:
+                    if tr is not None:
+                        tr.defer(((trace_lib.SPAN_BATCHER_QUEUE_WAIT, enq_w, taken_w - enq_w,
+                                   tags),))
             if self._dispatcher is not None:
                 # Pipelined path: enqueue and IMMEDIATELY go assemble the
                 # next batch.  submit() itself provides backpressure (blocks
                 # at the in-flight depth limit); the dispatcher's completion
                 # thread runs _publish via the done callback.
                 try:
-                    fut_batch = self._dispatcher.submit(np.stack([img for img, _ in batch]))
+                    fut_batch = self._dispatcher.submit(
+                        np.stack([img for img, _, _, _ in batch]), traces=traces)
                 except Exception as e:  # closed or stalled dispatcher, bad batch
                     _fail(batch, e)
                     continue
                 fut_batch.add_done_callback(lambda f, batch=batch: self._publish(batch, f))
                 continue
             try:
-                logits = self._engine.predict(np.stack([img for img, _ in batch]))
+                logits = self._engine.predict(np.stack([img for img, _, _, _ in batch]))
             except Exception as e:  # propagate to all waiters, keep serving
                 _fail(batch, e)
                 continue
+            if traces:
+                done_w = trace_lib.now_s()
+                for tr in traces:
+                    tr.defer(((trace_lib.SPAN_ENGINE_PREDICT, taken_w, done_w - taken_w,
+                               {"batch": len(batch)}),))
             _resolve(batch, logits)
 
     @staticmethod
@@ -186,12 +210,12 @@ class DynamicBatcher:
 
 
 def _resolve(batch, logits) -> None:
-    for i, (_, fut) in enumerate(batch):
+    for i, (_, fut, _, _) in enumerate(batch):
         if not fut.cancelled():
             fut.set_result(logits[i])
 
 
 def _fail(batch, exc: BaseException) -> None:
-    for _, fut in batch:
+    for _, fut, _, _ in batch:
         if not fut.cancelled():
             fut.set_exception(exc)

@@ -36,6 +36,17 @@ it until it hands it back, after ``predict_async`` has enqueued its H2D
 copy, so no other dispatch can refill it in between.  A slot is refilled
 only after the H2D copy that last read it has run (an event per slot).
 
+Accounting: every completed batch feeds the engine's counters and, through
+``runtime.flops.MfuAccountant``, the live ``kdlt_mfu_pct{bucket}`` and
+``kdlt_device_busy_ratio`` gauges, with the batch's DEVICE time -- on the
+card, the interval between a timing event recorded on the stream just
+before the graph's replay and the handle's ``done`` event (the JAX engine
+uses dispatch->sync, which at depth 2 also holds the previous batch's
+execution); on the CPU the wall interval.  ``warmup()`` counts the
+model's FLOPs per image once (``runtime.flops.flops_per_image``) before
+the engine reports ready, and ``bucket_audit()`` serves the padding waste
+per bucket over the recent batches.
+
 ``close()`` gives an unloaded version's device memory back: it waits for
 the event of the engine's last dispatch, then drops its bucket graphs,
 their pool, its staging slots and its parameters, and releases the cached
@@ -64,7 +75,9 @@ from kubernetes_deep_learning_tpu_torch import weights
 from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
 from kubernetes_deep_learning_tpu_torch.models import build_forward, resolve_device
 from kubernetes_deep_learning_tpu_torch.ops import _counts
+from kubernetes_deep_learning_tpu_torch.runtime import flops as flops_lib
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
+from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 
@@ -166,7 +179,8 @@ class InFlightDispatcher:
     engine copies it into its own pinned staging ring before returning.
 
     Per-stage latency lands in the kdlt_pipeline_*_seconds histograms
-    (utils.metrics.PIPELINE_STAGES documents the stage semantics).
+    (utils.metrics.PIPELINE_STAGES documents the stage semantics); a traced
+    member request gets the same four intervals as spans.
     """
 
     def __init__(self, engine=None, depth: int | None = None,
@@ -248,14 +262,18 @@ class InFlightDispatcher:
         spec = getattr(engine, "spec", None)
         return getattr(spec, "name", None) or id(engine)
 
-    def submit(self, images, engine=None, model: str | None = None) -> Future:
+    def submit(self, images, traces=(), engine=None, model: str | None = None) -> Future:
         """Dispatch one uint8 batch (an array, or a ``StagedBatch`` in a slot
         the engine lent); returns a Future of its logits rows.
 
         Blocks only while ``depth`` batches are in flight (backpressure) --
-        never on device execution of the batch itself.  ``engine``
-        overrides the construction-time engine for THIS batch; ``model``
-        attributes its stage times to that model's series.
+        never on device execution of the batch itself.  ``traces`` carries
+        the member requests' ``utils.trace.RequestTrace`` objects: each
+        member's waterfall gets the four pipeline-stage spans, from the same
+        boundaries that feed kdlt_pipeline_*_seconds, recorded at
+        completion.  ``engine`` overrides the construction-time engine for
+        THIS batch; ``model`` attributes its stage times to that model's
+        series.
         """
         engine = engine if engine is not None else self._engine
         if engine is None:
@@ -265,7 +283,9 @@ class InFlightDispatcher:
             # slots will never free, so blocking on one would hang the
             # caller.  Fail fast and retryably (another replica can serve).
             raise DispatchStall("dispatch pipeline is stalled")
+        traces = tuple(t for t in traces if t is not None)
         t0 = time.perf_counter()
+        w0 = trace_lib.now_s() if traces else 0.0
         self._slots.acquire()
         # The slot-semaphore handshake orders this read: close() drains
         # every slot before flipping _closed, so a submit holding a slot
@@ -278,6 +298,7 @@ class InFlightDispatcher:
             raise DispatchStall("dispatch pipeline is stalled")
         stages = self.stage_histograms(model)
         stages["enqueue_wait"].observe(time.perf_counter() - t0)
+        w1 = trace_lib.now_s() if traces else 0.0
         fut: Future = Future()
         t1 = time.perf_counter()
         try:
@@ -288,12 +309,14 @@ class InFlightDispatcher:
             return fut
         dispatched_at = time.perf_counter()
         stages["dispatch"].observe(dispatched_at - t1)
+        w2 = trace_lib.now_s() if traces else 0.0
         bkey = (self._engine_key(engine), self._bucket_of(engine, n))
         with self._inflight_lock:
             token = self._seq
             self._seq += 1
             self._inflight[token] = (fut, bkey, dispatched_at)
-        self._completions.put((handle, n, fut, dispatched_at, token, engine, bkey, stages))
+        self._completions.put((handle, n, fut, dispatched_at, token, engine, bkey, stages,
+                               traces, (w0, w1, w2)))
         return fut
 
     def _complete_loop(self) -> None:
@@ -304,10 +327,11 @@ class InFlightDispatcher:
             self._complete_one(*item)
 
     def _complete_one(self, handle, n: int, fut: Future, dispatched_at: float, token: int,
-                      engine, bkey, stages: dict) -> None:
+                      engine, bkey, stages: dict, traces=(), walls=(0.0, 0.0, 0.0)) -> None:
         """MUST NOT raise: an exception escaping here kills the completion
         thread, which strands every later batch's waiters AND deadlocks
         close() -- so anything unexpected fails THIS future instead."""
+        w3 = trace_lib.now_s() if traces else 0.0
         t0 = time.perf_counter()
         try:
             rows = np.asarray(handle)[:n]  # blocking device sync
@@ -329,9 +353,28 @@ class InFlightDispatcher:
                 # The engine accounts only its own synchronous path;
                 # pipelined batches report here after materialization
                 # succeeds (failed batches never inflate the counters).
-                engine.record_completed(n, t1 - dispatched_at)
+                engine.record_completed(n, t1 - dispatched_at,
+                                        getattr(handle, "device_seconds", None))
         except Exception:  # noqa: BLE001 - accounting must not stall results
             log.exception("record_completed failed")
+        if traces:
+            # Per-member stage spans from the SHARED perf-counter boundaries
+            # (one batch, one set of intervals): contiguous and
+            # non-overlapping in every member's waterfall.  Deferred before
+            # the future resolves, so each member's own thread records them
+            # before its reply (RequestTrace.defer): this thread, which every
+            # batch's results wait on, only hands the intervals over.
+            w0, w1, w2 = walls
+            w4 = w3 + (t1 - t0)
+            stages = ((trace_lib.SPAN_PIPELINE_ENQUEUE_WAIT, w0, w1 - w0, {}),
+                      (trace_lib.SPAN_PIPELINE_DISPATCH, w1, w2 - w1, {}),
+                      (trace_lib.SPAN_PIPELINE_EXECUTE, w2, w3 - w2, {}),
+                      (trace_lib.SPAN_PIPELINE_READBACK, w3, w4 - w3, {}))
+            try:
+                for tr in traces:
+                    tr.defer(stages)
+            except Exception:  # noqa: BLE001 - tracing must not stall results
+                log.exception("recording the pipeline spans failed")
         self._slots.release()
         try:
             if not fut.cancelled():
@@ -453,11 +496,23 @@ class InFlightDispatcher:
 class DeviceLogits:
     """An in-flight result: ``np.asarray(handle)`` waits for ``done`` (a
     CUDA event recorded after the copy of the logits into the pinned
-    ``rows``) and returns the host rows; a CPU result has no event."""
+    ``rows``) and returns the host rows; a CPU result has no event.
+    ``start``, a timing event recorded just before the forward's launch,
+    gives the batch's device time once ``done`` has completed."""
 
-    def __init__(self, rows: torch.Tensor, done: torch.cuda.Event | None = None):
+    def __init__(self, rows: torch.Tensor, done: torch.cuda.Event | None = None,
+                 start: torch.cuda.Event | None = None):
         self._rows = rows
         self._done = done
+        self._start = start
+
+    @property
+    def device_seconds(self) -> float | None:
+        """Seconds from ``start`` to ``done`` on the stream (None without a
+        start event); read after the handle was materialized."""
+        if self._start is None:
+            return None
+        return self._start.elapsed_time(self._done) / 1e3
 
     def __array__(self, dtype=None, copy=None):
         if self._done is not None:
@@ -497,9 +552,11 @@ class _BucketGraph(NamedTuple):
 # One capture at a time in the process: the buckets of an engine, and the
 # engines of a server, are captured one after another; an engine's close
 # releases memory under it too, so the release never runs during a capture.
-_capture_lock = threading.Lock()
+# The model server's /debug/profile holds it for its window, so a profiler
+# never starts or stops while a graph is being captured.
+capture_lock = threading.Lock()
 # Every capture runs on one thread and one stream per device (under
-# _capture_lock).  cuBLAS keeps a handle per thread and a workspace per
+# capture_lock).  cuBLAS keeps a handle per thread and a workspace per
 # (handle, stream) for the life of the process: captures from whichever
 # thread loads a version (the server's at start, the version watcher's at a
 # reload), each on a fresh stream, would leave one more behind every time.
@@ -515,7 +572,7 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 def _on_capture_thread(fn, *args):
-    """``fn(*args)`` on the capture thread (under _capture_lock); its
+    """``fn(*args)`` on the capture thread (under capture_lock); its
     result, or its exception."""
     global _capture_thread
     if _capture_thread is None:
@@ -577,6 +634,15 @@ class InferenceEngine:
         self._m_pad_waste = registry.counter(
             "kdlt_engine_pad_images_total", "padding rows executed (bucket waste)"
         )
+        # Live device-time attribution (runtime.flops): the registry carries
+        # this engine's model/version labels, so the gauges read
+        # kdlt_mfu_pct{model,version,bucket} on /metrics.
+        self._mfu = flops_lib.MfuAccountant(
+            registry, flops_lib.peak_tflops(self.device, name))
+        # Recent (bucket, admitted rows) per batch, for bucket_audit.
+        # deque.append is atomic; readers snapshot with list().
+        self._bucket_history: collections.deque[tuple[int, int]] = collections.deque(
+            maxlen=2048)
 
     @property
     def ready(self) -> bool:
@@ -594,13 +660,35 @@ class InferenceEngine:
 
     def warmup(self) -> float:
         """Run every bucket once, in turn (on the card: building the kernels,
-        capturing the bucket's graph and replaying it); gate readiness."""
+        capturing the bucket's graph and replaying it), count the FLOPs per
+        image for the MFU gauges (unless ``KDLT_MFU=0``); gate readiness."""
         t0 = time.perf_counter()
         for b in self.buckets:
             np.asarray(self.predict_async(np.zeros((b, *self.spec.input_shape), np.uint8))[0])
+        if flops_lib.mfu_enabled():
+            self._mfu.set_flops_per_image(flops_lib.flops_per_image(self.spec))
         dt = time.perf_counter() - t0
         self._ready.set()
         return dt
+
+    def bucket_audit(self) -> dict:
+        """Per-bucket padding waste over the recent batches, with the FLOPs
+        per image (``/debug/profile?audit=buckets``): a high
+        ``padding_waste_ratio`` means the bucket ladder, not the program, is
+        burning the flops."""
+        hist = list(self._bucket_history)
+        flops = flops_lib.flops_per_image(self.spec)  # counted at warmup, cached
+        out: dict = {"window": len(hist), "buckets": {}}
+        for b in self.buckets:
+            admitted = [n for bucket, n in hist if bucket == b]
+            total = sum(admitted)
+            out["buckets"][int(b)] = {
+                "batches": len(admitted),
+                "mean_admitted": (total / len(admitted)) if admitted else None,
+                "padding_waste_ratio": 1.0 - total / (len(admitted) * b) if admitted else None,
+                "flops_per_image": flops,
+            }
+        return out
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -657,7 +745,7 @@ class InferenceEngine:
         ``_lock``)."""
         g = self._graphs.get(bucket)
         if g is None:
-            with _capture_lock:
+            with capture_lock:
                 g = self._graphs[bucket] = _on_capture_thread(self._capture, bucket)
         return g
 
@@ -700,14 +788,22 @@ class InferenceEngine:
         bucket = g.static_in.shape[0]
         slot.array[n:bucket] = 0
         g.static_in.copy_(slot.host[:bucket], non_blocking=True)
-        slot.copied.record(torch.cuda.current_stream(self.device))
+        stream = torch.cuda.current_stream(self.device)
+        slot.copied.record(stream)
+        # The batch's device time runs from here to the handle's event: the
+        # stream runs in order, so a batch still executing ahead of this one
+        # is not in it.
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
         g.graph.replay()
         _counts.credit(g.launches)
-        return self._handle(g.static_out)
+        return self._handle(g.static_out, start)
 
-    def _handle(self, logits: torch.Tensor) -> DeviceLogits:
+    def _handle(self, logits: torch.Tensor, start: torch.cuda.Event | None = None
+                ) -> DeviceLogits:
         """On the card: the D2H copy into pinned memory, enqueued behind the
-        forward, and the event after it."""
+        forward, and the event after it (a timing event when ``start`` is
+        given)."""
         if self.device.type != "cuda":
             return DeviceLogits(logits)
         rows = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
@@ -715,10 +811,10 @@ class InferenceEngine:
         # A blocking event: the waiting thread sleeps instead of spinning
         # on a host core the HTTP threads need (``chip_smoke.py`` measures
         # the host CPU time of both waits).
-        done = torch.cuda.Event(blocking=True)
+        done = torch.cuda.Event(blocking=True, enable_timing=start is not None)
         done.record(torch.cuda.current_stream(self.device))
         self._last_done = done
-        return DeviceLogits(rows, done)
+        return DeviceLogits(rows, done, start)
 
     def predict_async(self, images: np.ndarray | StagedBatch) -> tuple[DeviceLogits, int]:
         """Dispatch a uint8 batch without waiting; returns (handle, n).
@@ -768,7 +864,7 @@ class InferenceEngine:
             last, self._last_done = self._last_done, None
         if last is not None:
             last.synchronize()
-        with _capture_lock:
+        with capture_lock:
             # No predict passes _check_open any more: nothing else reads these.
             self._graphs.clear()
             self._pool = None
@@ -779,19 +875,23 @@ class InferenceEngine:
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
 
-    def record_completed(self, n: int, seconds: float) -> None:
-        """Account a successfully synced batch (counters + latency).
+    def record_completed(self, n: int, seconds: float, device_s: float | None = None) -> None:
+        """Account a successfully synced batch (counters, latency, MFU).
 
         predict() accounts its own synchronous path; the dispatcher reports
         its batches here after materialization succeeds, so failed batches
-        never inflate the success counters.  The reported interval is
-        dispatch->sync, which under pipelining can include bounded
-        queue-wait/assembly overlap (see the histogram help).
+        never inflate the success counters.  ``seconds`` is dispatch->sync,
+        which under pipelining can include bounded queue-wait/assembly
+        overlap (see the histogram help); ``device_s``, the batch's device
+        time (the handle's), feeds the MFU and busy gauges in its place.
         """
         self._m_infer_latency.observe(seconds)
         self._m_images.inc(n)
         self._m_batches.inc()
-        self._m_pad_waste.inc(self.bucket_for(n) - n)
+        bucket = self.bucket_for(n)
+        self._m_pad_waste.inc(bucket - n)
+        self._mfu.observe(bucket, n, seconds if device_s is None else device_s)
+        self._bucket_history.append((bucket, n))
 
     def _exact_forward(self):
         with self._lock:
@@ -810,7 +910,7 @@ class InferenceEngine:
             t0 = time.perf_counter()
             handle, n = self.predict_async(images)
             out = np.asarray(handle)[:n]
-            self.record_completed(n, time.perf_counter() - t0)
+            self.record_completed(n, time.perf_counter() - t0, handle.device_seconds)
             return out
         if images.dtype != np.float32:
             raise ValueError(

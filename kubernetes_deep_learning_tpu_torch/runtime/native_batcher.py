@@ -38,6 +38,7 @@ from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     resolve_pipeline_depth,
 )
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
+from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F32P = ctypes.POINTER(ctypes.c_float)
@@ -230,10 +231,14 @@ class NativeBatcher:
             raise BatcherClosed("batcher is shut down")
         return ticket
 
-    def _collect(self, ticket: int, timeout: float) -> np.ndarray:
-        """Wait in C for the ticket's row."""
+    def _collect(self, ticket: int, timeout: float, trace=None) -> np.ndarray:
+        """Wait in C for the ticket's row; ``trace`` gets the wait as one
+        ``batcher.wait`` span."""
         out = np.empty(self._out_floats, np.float32)
+        w0 = trace_lib.now_s() if trace is not None else 0.0
         rc = self._lib.kdlt_bq_wait(self._q, ticket, out.ctypes.data_as(_F32P), timeout)
+        if trace is not None:
+            trace.record(trace_lib.SPAN_BATCHER_WAIT, w0, trace_lib.now_s() - w0, rc=rc)
         if rc == _OK:
             return out
         if rc == _TIMED_OUT:
@@ -255,10 +260,17 @@ class NativeBatcher:
             self._futures[self._enqueue(image)] = fut
         return fut
 
-    def predict(self, image: np.ndarray, timeout: float = 20.0) -> np.ndarray:
+    def predict(self, image: np.ndarray, timeout: float = 20.0, trace=None) -> np.ndarray:
         """Blocking single-image predict (the gateway's call), waiting in C.
-        The default timeout mirrors the reference's 20 s gRPC deadline."""
-        return self._collect(self._enqueue(image), timeout)
+        The default timeout mirrors the reference's 20 s gRPC deadline.
+
+        ``trace`` (utils.trace.RequestTrace, optional) records ONE coarse
+        ``batcher.wait`` span covering queue + dispatch + execute +
+        readback: the C++ ticket queue carries no per-request Python
+        objects to the dispatch loop, so this path trades per-stage
+        attribution for its GIL-free hot path (the scheduler's lane and the
+        Python batcher give the full stage breakdown)."""
+        return self._collect(self._enqueue(image), timeout, trace)
 
     # --- lifecycle ---------------------------------------------------------
 

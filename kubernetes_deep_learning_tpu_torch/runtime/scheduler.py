@@ -48,6 +48,7 @@ import numpy as np
 from kubernetes_deep_learning_tpu_torch.runtime.batcher import BatcherClosed, QueueFull
 from kubernetes_deep_learning_tpu_torch.runtime.engine import InFlightDispatcher, StagedBatch
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
+from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
 
 SCHED_POLICY_ENV = "KDLT_SCHED_POLICY"
 SCHED_WEIGHTS_ENV = "KDLT_SCHED_WEIGHTS"
@@ -117,14 +118,17 @@ class _Unit:
     """One queued unit of work: a single image or a pre-formed chunk.  Units
     are never split across batches, so a chunk's rows stay contiguous."""
 
-    __slots__ = ("images", "n", "future", "deadline_abs", "enq_t", "single", "priority")
+    __slots__ = ("images", "n", "future", "deadline_abs", "trace", "enq_t", "enq_w", "single",
+                 "priority")
 
-    def __init__(self, images, n, deadline_abs, single, priority=None):
+    def __init__(self, images, n, deadline_abs, trace, single, priority=None):
         self.images = images
         self.n = n
         self.future = UnitFuture()
         self.deadline_abs = deadline_abs  # absolute time.monotonic, or None
+        self.trace = trace  # utils.trace.RequestTrace, or None
         self.enq_t = time.monotonic()
+        self.enq_w = trace_lib.now_s() if trace is not None else 0.0
         self.single = single  # resolve to one row (True) or the row block
         self.priority = priority  # PRIORITY_SLACK_S key, or None
 
@@ -345,25 +349,28 @@ class UnifiedScheduler:
 
     # --- request intake -----------------------------------------------------
 
-    def submit(self, model: str, image: np.ndarray, deadline=None, priority=None) -> Future:
+    def submit(self, model: str, image: np.ndarray, deadline=None, trace=None,
+               priority=None) -> Future:
         """One HWC uint8 image; the future resolves to its logits row.
 
         ``deadline`` is a serving.admission Deadline (or None); its
         remaining budget becomes the request's absolute deadline in the
         arbitration order.  ``priority`` (a PRIORITY_SLACK_S key) relaxes
-        the unit's effective deadline for lower classes."""
+        the unit's effective deadline for lower classes.  ``trace`` gets
+        the ``batcher.queue_wait`` span, then the pipeline-stage spans."""
         image = np.asarray(image)
-        return self._enqueue(model, image[None], 1, deadline, single=True, priority=priority)
+        return self._enqueue(model, image[None], 1, deadline, trace, single=True,
+                             priority=priority)
 
-    def submit_batch(self, model: str, images: np.ndarray, deadline=None,
+    def submit_batch(self, model: str, images: np.ndarray, deadline=None, trace=None,
                      priority=None) -> Future:
         """A pre-formed uint8 chunk (n <= the model's max bucket); the
         future resolves to its n logits rows, contiguous and in order."""
         images = np.asarray(images)
-        return self._enqueue(model, images, images.shape[0], deadline, single=False,
+        return self._enqueue(model, images, images.shape[0], deadline, trace, single=False,
                              priority=priority)
 
-    def _enqueue(self, model, images, n, deadline, single, priority=None) -> Future:
+    def _enqueue(self, model, images, n, deadline, trace, single, priority=None) -> Future:
         if images.dtype != np.uint8:
             raise ValueError(f"scheduler takes uint8 images, got {images.dtype}")
         deadline_abs = None
@@ -384,7 +391,7 @@ class UnifiedScheduler:
             if lane.pending_images + n > lane.queue_cap:
                 lane.m["queue_full"].inc()
                 raise QueueFull(f"request queue full for model {model!r}")
-            unit = _Unit(images, n, deadline_abs, single, priority=priority)
+            unit = _Unit(images, n, deadline_abs, trace, single, priority=priority)
             lane.queue.append(unit)
             lane.pending_images += n
             lane.m["queue_depth"].set(float(lane.pending_images))
@@ -480,6 +487,14 @@ class UnifiedScheduler:
             lane, engine, units, total = plan
             lane.m["batch_size"].observe(total)
             lane.m["dispatch"].inc()
+            traces = [u.trace for u in units if u.trace is not None]
+            if traces:
+                taken_w = trace_lib.now_s()
+                tags = {"batch": total, "model": lane.name}
+                for u in units:
+                    if u.trace is not None:
+                        u.trace.defer(((trace_lib.SPAN_BATCHER_QUEUE_WAIT, u.enq_w,
+                                        taken_w - u.enq_w, tags),))
             slot = None
             t_sub = time.monotonic()
             try:
@@ -496,7 +511,8 @@ class UnifiedScheduler:
                     batch = StagedBatch(slot, total)
                 else:
                     batch = np.concatenate([u.images for u in units])
-                fut = self.dispatcher.submit(batch, engine=engine, model=lane.name)
+                fut = self.dispatcher.submit(batch, traces=traces, engine=engine,
+                                             model=lane.name)
             except Exception as e:  # noqa: BLE001 - a stalled/closed dispatcher, a bad batch
                 self._release(engine)
                 for u in units:

@@ -47,12 +47,33 @@ private C++ queue and dispatcher per model.  Routes:
 - ``GET /healthz`` (the process is up and its pipelines are not stalled),
   ``GET /readyz`` (every engine has warmed, nothing stalled, not draining)
   and ``GET /metrics`` (the registry's Prometheus text: engine, batcher,
-  dispatch-pipeline and admission series, labelled by model and tier).
+  dispatch-pipeline, admission, SLO, trace-retention, incident and MFU
+  series, labelled by model and tier; a scrape refreshes the SLO gauges);
+- observability, as the JAX server answers it: every predict reply echoes
+  its ``X-Request-Id`` (the client's, sanitized, or a minted one) and
+  carries an ``X-Kdlt-Trace`` summary of the request's spans, which nest
+  under the caller's ``X-Kdlt-Parent-Span``; ``GET /debug/trace/<rid>``
+  (the request's span tree: ``server.request`` over ``server.admission``,
+  ``server.decode`` and ``server.predict``, which holds
+  ``batcher.queue_wait`` and the four ``pipeline.*`` stages; 404 with the
+  ring's stats once evicted), ``GET /debug/slo`` (per-model goodput and
+  burn-rate windows), ``GET /debug/incidents[/<id>]`` (the flight
+  recorder's bundles: a dispatch stall captures one with the request's
+  pinned trace), ``GET|POST /debug/profile`` (``?seconds=N`` in (0, 60]: a
+  ``torch.profiler`` capture of the CPU and the card while the other
+  handler threads serve, written as ``trace.json`` into a fresh directory
+  under ``--profile-dir``, the reply naming the top device kernels by
+  time; 409 while another capture, or a CUDA graph capture, runs;
+  ``?audit=buckets``: each model's padding waste per bucket and FLOPs per
+  image) and ``GET /debug/`` (this list).
 
 Run it with ``kdlt-torch-model-server --model-root DIR --device cuda``
 (``--max-delay-ms``, ``--pipeline-depth``, ``--batcher``,
 ``--no-batching``, ``--no-admission``, ``--watch-interval``,
-``--sched-policy``, ``--sched-weights``).  ``--no-admission`` or
+``--sched-policy``, ``--sched-weights``, ``--profile-dir``,
+``--no-profiling``, ``--no-request-log``, ``--no-slo``; the JAX server's
+``KDLT_PROFILE_DIR``, ``KDLT_SLO*``, ``KDLT_INCIDENT*``, ``KDLT_MFU``,
+``KDLT_LOG_FORMAT`` and ``KDLT_METRICS_EXEMPLARS``).  ``--no-admission`` or
 ``KDLT_ADMISSION=0`` turn deadline rejection and the limiter off (every
 wait is then a fixed 20 s, or 120 s for a chunk); drain stays on.  SIGTERM
 drains: /readyz turns 503 "draining", new requests shed, admitted ones
@@ -62,15 +83,21 @@ finish (at most ``KDLT_DRAIN_TIMEOUT_S``, 25 s), then the process exits.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
 import re
+import tempfile
 import threading
+import time
 from concurrent.futures import TimeoutError as FuturesTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Sequence
+from urllib.parse import parse_qs
 
 import numpy as np
+import torch
 
 from kubernetes_deep_learning_tpu_torch.export import artifact as art
 from kubernetes_deep_learning_tpu_torch.runtime import create_batcher
@@ -82,6 +109,7 @@ from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     EngineClosed,
     InferenceEngine,
     InFlightDispatcher,
+    capture_lock,
     resolve_pipeline_depth,
 )
 from kubernetes_deep_learning_tpu_torch.runtime.scheduler import (
@@ -102,12 +130,25 @@ from kubernetes_deep_learning_tpu_torch.serving.admission import (
     install_sigterm_drain,
 )
 from kubernetes_deep_learning_tpu_torch.serving.registry import ModelRegistry
+from kubernetes_deep_learning_tpu_torch.serving.tracing import (
+    PARENT_SPAN_HEADER,
+    REQUEST_ID_HEADER,
+    TRACE_HEADER,
+    ensure_request_id,
+    ensure_span_id,
+    log_request,
+)
+from kubernetes_deep_learning_tpu_torch.utils import flightrecorder as incident_lib
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
+from kubernetes_deep_learning_tpu_torch.utils import slo as slo_lib
+from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
 
 log = logging.getLogger(__name__)
 
 _PREFIX = "/v1/models"
 _STATUS_RE = re.compile(r"^/v1/models/([^/:]+):status$")
+PROFILE_DIR_ENV = "KDLT_PROFILE_DIR"  # base dir for /debug/profile captures
+PROFILE_TOP_KERNELS = 20  # device kernels named in a /debug/profile reply
 
 # (status, body, content type, extra headers)
 Reply = tuple[int, bytes, str, dict[str, str]]
@@ -203,7 +244,8 @@ class ServedModel:
         return fut.result(timeout=timeout)
 
     def predict(self, images: np.ndarray, deadline: Deadline | None = None,
-                priority: str | None = None, engines: list | None = None) -> np.ndarray:
+                priority: str | None = None, engines: list | None = None,
+                trace: trace_lib.RequestTrace | None = None) -> np.ndarray:
         """Logits for ``images``.  Every wait below (the lane's, the
         batcher's, the chunk futures') is bounded by ``deadline``'s remaining
         budget, so a request never holds a handler thread after its caller
@@ -211,7 +253,9 @@ class ServedModel:
         ``priority`` orders the request in its lane.  ``engines``, if given,
         receives the engine that served each part: on a lane, the version
         current when the part was dispatched, which a reload may have
-        changed since this version was resolved."""
+        changed since this version was resolved.  ``trace`` (the request's
+        ``server.predict`` span) gets the queue and pipeline-stage spans, or
+        ``engine.predict`` on the unbatched path."""
         if engines is None:
             engines = []
         batcher_timeout, chunk_timeout = BATCHER_TIMEOUT_S, CHUNK_TIMEOUT_S
@@ -226,12 +270,13 @@ class ServedModel:
             try:
                 if len(images) == 1:
                     fut = self._scheduler.submit(self.name, images[0], deadline=deadline,
-                                                 priority=priority)
+                                                 trace=trace, priority=priority)
                     row = self._wait(fut, batcher_timeout)
                     engines.append(fut.engine)
                     return row[None]
                 futs = [self._scheduler.submit_batch(self.name, images[i : i + step],
-                                                     deadline=deadline, priority=priority)
+                                                     deadline=deadline, trace=trace,
+                                                     priority=priority)
                         for i in range(0, len(images), step)]
                 rows = [self._wait(f, chunk_timeout) for f in futs]
                 engines.extend(f.engine for f in futs)
@@ -245,10 +290,15 @@ class ServedModel:
         if (self.batcher is not None and images.ndim >= 1 and len(images) == 1
                 and images.dtype == np.uint8):
             try:
-                return self.batcher.predict(images[0], timeout=batcher_timeout)[None]
+                return self.batcher.predict(images[0], timeout=batcher_timeout,
+                                            trace=trace)[None]
             except BatcherClosed:
                 pass  # a shutdown race: the engine is still valid, serve directly
         if images.ndim == 0 or len(images) <= step:
+            if trace is not None:
+                with trace.span(trace_lib.SPAN_ENGINE_PREDICT,
+                                batch=int(images.shape[0]) if images.ndim else 0):
+                    return self.engine.predict(images)
             return self.engine.predict(images)
         # Batches beyond the bucket ladder are served in max-bucket chunks:
         # the client's batch size need not know the server's buckets.  With
@@ -257,7 +307,7 @@ class ServedModel:
         chunks = [images[i : i + step] for i in range(0, len(images), step)]
         if self.dispatcher is not None and images.dtype == np.uint8:
             try:
-                futs = [self.dispatcher.submit(c) for c in chunks]
+                futs = [self.dispatcher.submit(c, traces=(trace,)) for c in chunks]
                 return np.concatenate([f.result(timeout=chunk_timeout) for f in futs])
             except DispatcherClosed:
                 pass  # a shutdown race: fall through to the serial engine path
@@ -283,18 +333,156 @@ class ServedModel:
         return True
 
 
+class _ProfileBusy(RuntimeError):
+    """A /debug/profile capture was refused: another one, or a CUDA graph
+    capture, is running."""
+
+
+class _Exchange:
+    """One predict request's trace and accounting state, from its arrival
+    to ``finish()``, which runs once, after the reply went out.
+
+    The request's root span, ``server.request``, runs from its arrival to
+    the moment its reply is made (``w_end``); its children,
+    ``server.admission``, ``server.decode`` and ``server.predict``, follow
+    one another from shared boundaries (each starts where the previous one
+    ended), as the dispatcher's pipeline stages do, so they cover it."""
+
+    __slots__ = ("server", "rid", "parent", "rt", "w_start", "w_mark", "w_end", "t0", "model",
+                 "deadline", "ticket", "status", "batch", "stalled", "_spans")
+
+    def __init__(self, server: "ModelServer", headers):
+        self.t0 = time.perf_counter()
+        self.w_start = self.w_mark = trace_lib.now_s()
+        self.w_end: float | None = None
+        self._spans: list[trace_lib.Span] = []  # closed stages, recorded at the reply
+        self.server = server
+        # The caller's id (the JAX gateway's X-Request-Id) or a minted one;
+        # the gateway's upstream-attempt span id arrives in
+        # X-Kdlt-Parent-Span, so this tier's root span nests under it.
+        self.rid = ensure_request_id(headers.get(REQUEST_ID_HEADER))
+        self.parent = ensure_span_id(headers.get(PARENT_SPAN_HEADER))
+        self.rt = server.tracer.request_trace(self.rid, self.parent)
+        self.model: str | None = None  # set once the request names a served model
+        self.deadline: Deadline | None = None
+        self.ticket: Ticket | None = None
+        self.status = 500
+        self.batch = 0
+        self.stalled = False
+
+    @contextlib.contextmanager
+    def stage(self, name: str, **tags):
+        """A child span of the request from where the previous one ended to
+        the end of the block (kept even when it raises or returns), with
+        the children deferred to it; yields the child's RequestTrace, under
+        which nested spans nest.  Recorded with the reply (``_record``)."""
+        child = trace_lib.RequestTrace(self.rt.tracer, self.rid, trace_lib.new_span_id(),
+                                       self.rt.span_id)
+        try:
+            yield child
+        finally:
+            end = trace_lib.now_s()
+            self._spans += child.close()
+            self._spans.append(trace_lib.Span(
+                self.rid, child.span_id, self.rt.span_id, name, self.rt.tracer.tier,
+                self.w_mark, end - self.w_mark, {**tags, **child.tags}))
+            self.w_mark = end
+
+    def _record(self) -> None:
+        """Record the closed stages' spans, under one lock acquisition."""
+        if self._spans:
+            self.server.tracer.record_spans(self.rid, self._spans)
+            self._spans = []
+
+    def reply_headers(self) -> dict[str, str]:
+        """The id echo and the ``X-Kdlt-Trace`` summary of the spans
+        recorded so far (all but the root, which closes after the send)."""
+        self._record()
+        headers = {REQUEST_ID_HEADER: self.rid}
+        summary = self.server.tracer.summary(self.rid)
+        if summary:
+            headers[TRACE_HEADER] = summary
+        return headers
+
+    def finish(self) -> None:
+        """Release the admission ticket, then the JAX server's per-request
+        accounting: the latency histogram (with an exemplar under
+        KDLT_METRICS_EXEMPLARS=1), the SLO record, the root span, the
+        trace's retention class, the request log line, and the
+        ``dispatch.stall`` event of a request the stall failed."""
+        dt = time.perf_counter() - self.t0
+        server = self.server
+        self._record()
+        if self.ticket is not None:
+            self.ticket.release()
+        if self.status != 200:
+            server._m_errors.inc()
+        if self.model is None:
+            return
+        # "slow" for trace retention = past the tier's own p99, judged
+        # against the distribution BEFORE this sample, once it is meaningful.
+        latency = server._m_latency
+        slow = latency.count >= 100 and dt >= latency.percentile(0.99)
+        latency.observe(dt, exemplar=self.rid if metrics_lib.exemplars_enabled() else None)
+        deadline_exceeded = self.deadline is not None and self.deadline.expired
+        server.slo.record(self.model, self.status, dt, deadline_exceeded=deadline_exceeded)
+        server.tracer.record(self.rid, trace_lib.SPAN_SERVER_REQUEST, self.w_start,
+                             self.w_end - self.w_start, parent_id=self.parent,
+                             span_id=self.rt.span_id, status=self.status, batch=self.batch)
+        server.tracer.classify(
+            self.rid, trace_lib.retention_class(self.status, deadline_exceeded, slow))
+        # Sheds are left out of the always-log rule: a log line per shed is
+        # load, and kdlt_admission_shed_total counts them already.
+        if server.request_log or (self.status >= 500 and self.status not in (503, 504)):
+            log_request("model-server predict", self.rid, status=self.status, t0=self.t0,
+                        span_id=self.rt.span_id, model=self.model, batch=self.batch)
+        if self.stalled:
+            # The stall edge with its causal request, whose trace the bundle
+            # pins; the trigger's dedup window folds the storm of stalled
+            # replies into ONE bundle.
+            server.recorder.record("dispatch.stall", rid=self.rid, model=self.model)
+
+
 class ModelServer:
     def __init__(self, model_root: str, port: int = 8500, host: str = "127.0.0.1",
                  buckets: Sequence[int] = DEFAULT_BUCKETS, device: str = "cuda",
                  max_delay_ms: float = 2.0, use_batcher: bool = True,
                  pipeline_depth: int | None = None, batcher_impl: str = "auto",
                  admission: bool | None = None, sched_policy: str | None = None,
-                 sched_weights: dict[str, float] | None = None):
+                 sched_weights: dict[str, float] | None = None,
+                 profile_base: str | None = "", request_log: bool = False,
+                 slo: bool | None = None, incident_dir: str | None = None):
         """``admission``: None = ``$KDLT_ADMISSION`` (on by default); False
         turns deadline rejection and the concurrency limiter off (drain
         stays on).  ``sched_policy`` and ``sched_weights``: the scheduler's
-        (None = ``$KDLT_SCHED_POLICY`` and ``$KDLT_SCHED_WEIGHTS``)."""
+        (None = ``$KDLT_SCHED_POLICY`` and ``$KDLT_SCHED_WEIGHTS``).
+        ``profile_base``: the directory /debug/profile captures go under;
+        "" = ``$KDLT_PROFILE_DIR`` or ``<tmp>/kdlt-traces``, None turns the
+        capture off.  ``request_log``: one stdout line per predict (errors
+        are always logged).  ``slo``: None = ``$KDLT_SLO`` (on by default).
+        ``incident_dir``: where the flight recorder writes its bundles (None =
+        ``$KDLT_INCIDENT_DIR``; its other settings are its ``KDLT_INCIDENT*``
+        environment)."""
+        if profile_base == "":
+            profile_base = (os.environ.get(PROFILE_DIR_ENV, "").strip()
+                            or os.path.join(tempfile.gettempdir(), "kdlt-traces"))
+        self._profile_base = profile_base
+        self._profile_lock = threading.Lock()
+        self.request_log = request_log
         self.registry = metrics_lib.Registry()
+        # Per-request span traces (utils.trace), keyed by the propagated
+        # X-Request-Id and served at /debug/trace/<rid>; the registry gets
+        # the retention accounting (kdlt_trace_{retained,dropped}_total).
+        self.tracer = trace_lib.Tracer("model-server", registry=self.registry)
+        # Per-model goodput and burn-rate windows (utils.slo), fed from the
+        # same boundary as kdlt_server_request_seconds.
+        self.slo = slo_lib.SloEngine(self.registry, tier="model-server", enabled=slo)
+        self._m_requests = self.registry.counter("kdlt_server_requests_total",
+                                                 "predict requests")
+        self._m_errors = self.registry.counter("kdlt_server_errors_total",
+                                               "failed predict requests")
+        self._m_latency = self.registry.histogram("kdlt_server_request_seconds",
+                                                  "request handling latency")
         # The model tier's front door.  The limiter's floor is 2x the largest
         # bucket: the admitted handlers ARE the batcher's supply, so a lower
         # limit would starve batch formation without shortening anyone's
@@ -328,6 +516,16 @@ class ModelServer:
                                                  registry=self.registry)
             self.scheduler = UnifiedScheduler(registry=self.registry, policy=sched_policy,
                                               weights=sched_weights, dispatcher=self.dispatcher)
+        # The incident flight recorder (utils.flightrecorder): registry
+        # loads and unloads and dispatch stalls record into its timeline; a
+        # stall captures a bundle with the causal request's trace.  Built
+        # before the first poll, whose loads it records.
+        self.recorder = incident_lib.FlightRecorder(
+            "model-server", self.registry, tracer=self.tracer, incident_dir=incident_dir,
+            profiler=self._incident_profile)
+        self.recorder.add_snapshot_provider("slo", self.slo.debug_payload)
+        if self.scheduler is not None:
+            self.recorder.add_snapshot_provider("scheduler", self.scheduler.lanes_snapshot)
         self.model_registry = ModelRegistry(model_root, loader=self._load_model,
                                             unloader=self._unload_model)
         self._watcher: threading.Thread | None = None
@@ -335,11 +533,13 @@ class ModelServer:
         self.poll_versions()
         if not self.models:
             self._close_pipeline()
+            self.recorder.close()
             raise ValueError(f"no model versions found under {model_root!r}")
         try:
             self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
         except OSError:
             self._close_pipeline()
+            self.recorder.close()
             raise
         self._httpd.daemon_threads = True
         self._thread: threading.Thread | None = None
@@ -417,6 +617,7 @@ class ModelServer:
             self.registry.remove(child)
             raise
         fresh.activate()
+        self.recorder.record("registry.load", model=name, version=version)
         return fresh
 
     def _unload_model(self, old: ServedModel) -> None:
@@ -429,6 +630,7 @@ class ModelServer:
             log.error("%s v%s: dispatches still in flight after %.0f s; its device memory "
                       "stays allocated", old.name, old.version, UNLOAD_WAIT_S)
         self.registry.remove(old.engine.registry)
+        self.recorder.record("registry.unload", model=old.name, version=old.version)
 
     def start_version_watcher(self, interval_s: float = 10.0) -> None:
         """Scan the artifact root for new versions every ``interval_s``
@@ -460,11 +662,13 @@ class ModelServer:
             self.dispatcher.close(drain=True)
 
     def shutdown(self) -> None:
-        """Stop the version watcher, drain the pipeline, then stop HTTP."""
+        """Stop the version watcher, drain the pipeline, then stop HTTP and
+        the flight recorder."""
         self._watcher_stop.set()
         if self._watcher is not None:
             self._watcher.join(timeout=30)
         self._close_pipeline()
+        self.recorder.close()
         if self._thread is not None:  # shutdown() waits for a loop that must be running
             self._httpd.shutdown()
             self._thread.join(timeout=10)
@@ -473,6 +677,10 @@ class ModelServer:
     # --- request handling ----------------------------------------------------
 
     def handle_get(self, path: str) -> Reply:
+        """A GET by its path (a query string is read by /debug/profile)."""
+        path, _, query = path.partition("?")
+        if path.startswith("/debug"):
+            return self._handle_debug(path, parse_qs(query))
         if path == "/healthz":
             if self.stalled:
                 # A stalled dispatch pipeline is unrecoverable in-process:
@@ -490,6 +698,9 @@ class ModelServer:
                 return 503, b"warming", "text/plain", {}
             return 200, b"ready", "text/plain", {}
         if path == "/metrics":
+            # Pull-model freshness: the SLO window gauges are recomputed at
+            # scrape time, not on a timer.
+            self.slo.refresh()
             return 200, self.registry.render().encode(), protocol.METRICS_CONTENT_TYPE, {}
         if path == _PREFIX:
             return _json(200, self.model_registry.status())
@@ -508,92 +719,242 @@ class ModelServer:
         return _error(404, "not found")
 
     def handle_predict(self, path: str, body, content_type: str, headers=None) -> Reply:
-        """``serve_predict``, its ticket released once the reply is made."""
-        reply, ticket = self.serve_predict(path, body, content_type, headers)
-        if ticket is not None:
-            ticket.release()
+        """``serve_predict``, its exchange finished once the reply is made."""
+        reply, exchange = self.serve_predict(path, body, content_type, headers)
+        exchange.finish()
         return reply
 
     def serve_predict(self, path: str, body, content_type: str,
-                      headers=None) -> tuple[Reply, Ticket | None]:
-        """A ``:predict`` request -> (reply, admission ticket or None).
+                      headers=None) -> tuple[Reply, _Exchange]:
+        """A ``:predict`` request -> (reply, its exchange).
 
         ``body`` is the request's bytes, or a callable that reads them: the
         HTTP handler passes one, so the body is read only once the request
         is admitted.  ``headers`` (any mapping with ``get``) carry the
-        deadline and the priority.  The caller releases the ticket after it
-        has sent the reply.
+        request id, the parent span, the deadline and the priority.  The
+        caller sends the reply with ``exchange.reply_headers()`` added, then
+        calls ``exchange.finish()``, which releases the admission ticket and
+        does the request's accounting.
         """
-        if not (path.startswith(_PREFIX + "/") and path.endswith(":predict")):
-            return _error(404, "not found"), None
-        name = path[len(_PREFIX) + 1 : -len(":predict")]
-        model = self.models.get(name)
-        if model is None:
-            return _error(404, f"no model {name!r}"), None
-        if not model.engine.ready:
-            return _error(503, "model is warming up"), None
         headers = headers if headers is not None else {}
-        # The deadline is parsed only with admission on: off, every wait is
-        # the fixed one of a server without admission.
-        deadline = (Deadline.from_header(headers.get(DEADLINE_HEADER))
-                    if self.admission.enabled else None)
-        priority = protocol.parse_priority(headers.get(protocol.PRIORITY_HEADER))
+        ex = _Exchange(self, headers)
         try:
-            ticket = self.admission.admit(deadline, model=name, priority=priority)
+            return self._serve(path, body, content_type, headers, ex), ex
+        finally:
+            ex.w_end = trace_lib.now_s()
+
+    def _serve(self, path: str, body, content_type: str, headers, ex: _Exchange) -> Reply:
+        self._m_requests.inc()
+        # server.admission is the front door from the request's arrival:
+        # routing, the deadline and priority, the admission decision.
+        try:
+            with ex.stage(trace_lib.SPAN_SERVER_ADMISSION):
+                if not (path.startswith(_PREFIX + "/") and path.endswith(":predict")):
+                    return _error(404, "not found")
+                name = path[len(_PREFIX) + 1 : -len(":predict")]
+                model = self.models.get(name)
+                if model is None:
+                    return _error(404, f"no model {name!r}")
+                if not model.engine.ready:
+                    return _error(503, "model is warming up")
+                # Only served names reach the bounded ``model`` label.
+                metrics_lib.model_request_counter(self.registry, name).inc()
+                ex.model = name
+                # The deadline is parsed only with admission on: off, every
+                # wait is the fixed one of a server without admission.
+                deadline = (Deadline.from_header(headers.get(DEADLINE_HEADER))
+                            if self.admission.enabled else None)
+                ex.deadline = deadline
+                priority = protocol.parse_priority(headers.get(protocol.PRIORITY_HEADER))
+                ex.ticket = self.admission.admit(deadline, model=name, priority=priority)
         except Shed as e:  # a refusal, not a fault: before the body is read
+            ex.status = e.http_status
             return _json(e.http_status, {"error": str(e), "shed_reason": e.reason},
-                         e.headers()), None
-        try:
-            return self._predict(model, body, content_type, deadline, priority, ticket), ticket
-        except BaseException:
-            ticket.release()
-            raise
+                         e.headers())
+        return self._predict(model, body, content_type, deadline, priority, ex)
 
     def _infer(self, model: ServedModel, images: np.ndarray, deadline: Deadline | None,
-               priority: str) -> tuple[np.ndarray, str | None]:
+               priority: str, trace: trace_lib.RequestTrace | None = None
+               ) -> tuple[np.ndarray, str | None]:
         """(logits, the artifact hash of the version that served them, None
         if a reload split the request between two).  A request that
         resolved a version a reload has since closed is served by the new
         one."""
         engines: list = []
         try:
-            logits = model.predict(images, deadline, priority, engines=engines)
+            logits = model.predict(images, deadline, priority, engines=engines, trace=trace)
         except EngineClosed:
             fresh = self.models.get(model.name)
             if fresh is None or fresh is model:
                 raise
             engines.clear()
-            logits = fresh.predict(images, deadline, priority, engines=engines)
+            logits = fresh.predict(images, deadline, priority, engines=engines, trace=trace)
         hashes = {getattr(e, "artifact_hash", None) for e in engines}
         return logits, hashes.pop() if len(hashes) == 1 else None
 
     def _predict(self, model: ServedModel, body, content_type: str,
-                 deadline: Deadline | None, priority: str, ticket: Ticket) -> Reply:
+                 deadline: Deadline | None, priority: str, ex: _Exchange) -> Reply:
         try:
-            images = protocol.decode_predict_request(body() if callable(body) else body,
-                                                     content_type)
-            logits, digest = self._infer(model, images, deadline, priority)
+            with ex.stage(trace_lib.SPAN_SERVER_DECODE) as span:
+                raw = body() if callable(body) else body
+                span.tags["bytes"] = len(raw)
+                images = protocol.decode_predict_request(raw, content_type)
+            ex.batch = int(images.shape[0]) if images.ndim else 0
+            # server.predict runs from the images to the reply's bytes.
+            with ex.stage(trace_lib.SPAN_SERVER_PREDICT, batch=ex.batch) as span:
+                logits, digest = self._infer(model, images, deadline, priority, span)
+                out, ctype = protocol.encode_predict_response(logits, model.engine.spec.labels,
+                                                              content_type)
         except ValueError as e:  # malformed request
+            ex.status = 400
             return _error(400, str(e))
         except (QueueFull, FuturesTimeout) as e:  # transient overload
             # An admitted request still missed its budget or found the
             # batcher full: the AIMD limit is too high for the service time.
-            ticket.mark_overloaded()
+            ex.status = 503
+            ex.ticket.mark_overloaded()
             return _error(503, f"overloaded: {e or 'timed out'}",
                           protocol.retry_after_headers(self.admission.retry_after_s()))
         except DispatchStall as e:
             # Retryable for the client (another replica serves it), terminal
             # for this process: the header tells the gateway to take the
             # replica out of its pool now, not after repeated failures.
+            ex.status, ex.stalled = 503, True
             return _error(503, f"dispatch stalled: {e}", {
                 **protocol.retry_after_headers(protocol.STALL_RETRY_AFTER_S),
                 protocol.STALLED_HEADER: "1",
             })
-        out, ctype = protocol.encode_predict_response(logits, model.engine.spec.labels,
-                                                      content_type)
+        except Exception as e:  # noqa: BLE001 - a request must get an answer
+            log.exception("predict failed")
+            return _error(500, str(e))
+        ex.status = 200
         # The served artifact's identity rides every success: the gateway's
         # response cache drops a model's entries when it changes.
         return 200, out, ctype, {protocol.ARTIFACT_HASH_HEADER: digest} if digest else {}
+
+    # --- observability: /debug/* ----------------------------------------------
+
+    def debug_index(self) -> dict:
+        """GET /debug/: this tier's debug routes, one line each."""
+        return {
+            "tier": "model-server",
+            "routes": {
+                "/debug/slo": "per-model goodput and burn-rate windows as this replica "
+                "observed them",
+                "/debug/incidents": "flight-recorder bundles captured on this replica",
+                "/debug/incidents/<id>": "one full incident bundle (timeline, pinned traces, "
+                "snapshots, metrics delta)",
+                "/debug/trace/<rid>": "this tier's span waterfall for one request id",
+                "/debug/profile?seconds=N": "capture a torch.profiler trace of the CPU and "
+                "the card under KDLT_PROFILE_DIR, naming the top device kernels",
+                "/debug/profile?audit=buckets": "per-model bucket-shape audit: padding-waste "
+                "ratio + FLOPs/img per bucket",
+            },
+        }
+
+    def bucket_audit(self) -> dict:
+        """GET /debug/profile?audit=buckets: every served model's per-bucket
+        padding waste and FLOPs per image."""
+        return {"tier": "model-server",
+                "models": {name: m.engine.bucket_audit() for name, m in self.models.items()}}
+
+    def _handle_debug(self, path: str, query: dict) -> Reply:
+        if path == "/debug/slo":
+            return _json(200, self.slo.debug_payload())
+        if path in ("/debug", "/debug/"):
+            return _json(200, self.debug_index())
+        if path in ("/debug/incidents", "/debug/incidents/"):
+            return _json(200, self.recorder.debug_payload())
+        if path.startswith("/debug/incidents/"):
+            bundle_id = path.rsplit("/", 1)[-1]
+            bundle = self.recorder.get(bundle_id)
+            if bundle is None:
+                return _error(404, f"no incident bundle {bundle_id!r}")
+            return _json(200, bundle)
+        if path.startswith("/debug/trace/"):
+            rid = ensure_request_id(path.rsplit("/", 1)[-1])
+            info = self.tracer.trace_info(rid)
+            if info is None:
+                # The ring's accounting on the 404: "evicted" and "never
+                # instrumented" are different debugging paths.
+                return _json(404, {"error": f"no trace for {rid!r} (evicted from the ring "
+                                   "buffer or never seen)", "ring": self.tracer.stats()})
+            return _json(200, {"trace_id": rid, "tier": "model-server", **info})
+        if path == "/debug/profile":
+            if query.get("audit", [""])[0] == "buckets":
+                # Host-side bookkeeping: served even with profiling off.
+                return _json(200, self.bucket_audit())
+            return self.handle_profile(query.get("seconds", ["2.0"])[0])
+        return _error(404, "not found")
+
+    def handle_profile(self, seconds) -> Reply:
+        """``/debug/profile``: a ``torch.profiler`` capture of ``seconds``
+        (in (0, 60]) while the other handler threads serve.  404 with
+        profiling off; 409 while another capture, or a CUDA graph capture,
+        runs (the profiler never starts or stops during a graph capture)."""
+        if self._profile_base is None:
+            return _error(404, "profiling disabled")
+        try:
+            seconds = float(seconds)
+            if not 0 < seconds <= 60:
+                raise ValueError("seconds must be in (0, 60]")
+            # Client input never chooses the path: a fresh directory under
+            # the operator-configured base.
+            os.makedirs(self._profile_base, exist_ok=True)
+            trace_dir = tempfile.mkdtemp(prefix="kdlt-trace-", dir=self._profile_base)
+        except (ValueError, TypeError) as e:
+            return _error(400, str(e))
+        try:
+            return _json(200, self._profile(seconds, trace_dir))
+        except _ProfileBusy as e:
+            os.rmdir(trace_dir)
+            return _error(409, str(e))
+
+    def _profile(self, seconds: float, trace_dir: str) -> dict:
+        """Capture the CPU and (with a card) the device for ``seconds`` into
+        ``trace_dir/trace.json``: {"trace_dir", "seconds", "kernels"}, the
+        device kernels that took the most time in the window (name ->
+        launches and total microseconds; the CUDA graphs' replays
+        included).  Raises _ProfileBusy while another capture or a CUDA
+        graph capture holds its lock."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        if not self._profile_lock.acquire(blocking=False):
+            raise _ProfileBusy("a profile capture is already running")
+        try:
+            if not capture_lock.acquire(blocking=False):
+                raise _ProfileBusy("a CUDA graph capture is running")
+            try:
+                activities = [ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    activities.append(ProfilerActivity.CUDA)
+                with profile(activities=activities) as prof:
+                    time.sleep(seconds)
+            finally:
+                capture_lock.release()
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                             key=lambda e: e.self_device_time_total, reverse=True)
+            return {"trace_dir": trace_dir, "seconds": seconds, "kernels": {
+                e.key: {"count": e.count, "total_us": e.self_device_time_total}
+                for e in kernels[:PROFILE_TOP_KERNELS]}}
+        finally:
+            self._profile_lock.release()
+
+    def _incident_profile(self, seconds: float) -> dict:
+        """The flight recorder's profile hook (``KDLT_INCIDENT_PROFILE_S`` >
+        0): the /debug/profile capture, under the same locks; a capture
+        already running wins and the bundle notes the skip."""
+        if self._profile_base is None:
+            return {"skipped": "profiling disabled"}
+        os.makedirs(self._profile_base, exist_ok=True)
+        trace_dir = tempfile.mkdtemp(prefix="kdlt-incident-", dir=self._profile_base)
+        try:
+            return self._profile(seconds, trace_dir)
+        except _ProfileBusy as e:
+            os.rmdir(trace_dir)
+            return {"skipped": str(e)}
 
     def _handler_class(self):
         server = self
@@ -611,7 +972,9 @@ class ModelServer:
             _DRAIN_LIMIT = 1 << 20
 
             def _reply(self, status: int, body: bytes, ctype: str,
-                       headers: dict[str, str]) -> None:
+                       headers: dict[str, str], exchange: _Exchange | None = None) -> None:
+                if exchange is not None:
+                    headers = {**headers, **exchange.reply_headers()}
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
@@ -625,7 +988,7 @@ class ModelServer:
                 self.wfile.write(body)
 
             def do_GET(self):  # noqa: N802 - http.server API
-                self._reply(*server.handle_get(self.path.split("?", 1)[0]))
+                self._reply(*server.handle_get(self.path))
 
             def _read_body(self) -> bytes:
                 self._body_read = True
@@ -662,25 +1025,40 @@ class ModelServer:
                 except OSError:
                     self.close_connection = True
 
+            def _profile_request(self) -> Reply:
+                """POST /debug/profile with a JSON body {"seconds": s}."""
+                try:
+                    raw = self._read_body()
+                    req = json.loads(raw) if raw else {}
+                    if not isinstance(req, dict):
+                        raise ValueError("body must be a JSON object")
+                except ValueError as e:
+                    return _error(400, str(e))
+                return server.handle_profile(req.get("seconds", 2.0))
+
             def do_POST(self):  # noqa: N802 - http.server API
                 self._body_read = False
-                ticket = None
+                path = self.path.split("?", 1)[0]
+                if path == "/debug/profile":
+                    self._reply(*self._profile_request())
+                    return
+                exchange = None
                 try:
-                    reply, ticket = server.serve_predict(
-                        self.path.split("?", 1)[0], self._read_body,
-                        self.headers.get("Content-Type", ""), self.headers)
+                    reply, exchange = server.serve_predict(
+                        path, self._read_body, self.headers.get("Content-Type", ""),
+                        self.headers)
                 except Exception as e:  # noqa: BLE001 - a request must get an answer
                     log.exception("predict failed")
                     reply = _error(500, str(e))
                 try:
                     if not self._body_read:  # a reply made before the body was read
                         self._discard_body()
-                    self._reply(*reply)
+                    self._reply(*reply, exchange=exchange)
                 except ConnectionError:  # the client hung up (gave up waiting)
                     self.close_connection = True
                 finally:
-                    if ticket is not None:  # after the reply: drain waits for it
-                        ticket.release()
+                    if exchange is not None:  # after the reply: drain waits for it
+                        exchange.finish()
 
             def log_message(self, fmt, *args):
                 log.debug(fmt, *args)
@@ -725,6 +1103,16 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--sched-weights", default=None,
                    help='per-model scheduling weights, e.g. "clothing-model=2,vit-b16-384=1" '
                    "(default $KDLT_SCHED_WEIGHTS; unlisted models weigh 1.0)")
+    p.add_argument("--profile-dir", default="",
+                   help="base directory for /debug/profile traces (default $KDLT_PROFILE_DIR "
+                   "or a kdlt-traces dir under the system temp dir)")
+    p.add_argument("--no-profiling", action="store_true",
+                   help="disable the /debug/profile capture")
+    p.add_argument("--no-request-log", action="store_true",
+                   help="disable the per-request traced log line (rid, model, batch, status)")
+    p.add_argument("--no-slo", action="store_true",
+                   help="disable the SLO engine (per-model goodput/burn-rate windows, "
+                   "kdlt_slo_* gauges, /debug/slo); default $KDLT_SLO or enabled")
     return p
 
 
@@ -737,6 +1125,8 @@ def _server_from_args(args: argparse.Namespace) -> ModelServer:
         admission=False if args.no_admission else None, sched_policy=args.sched_policy,
         sched_weights=(None if args.sched_weights is None
                        else resolve_weights(args.sched_weights)),
+        profile_base=None if args.no_profiling else args.profile_dir,
+        request_log=not args.no_request_log, slo=False if args.no_slo else None,
     )
 
 

@@ -8,15 +8,24 @@ its series through (``pipeline_stage_histograms``,
 ``admission_model_metrics``, ``batcher_budget_histogram``), the bounded
 ``model`` label (``model_registry``), a served version's child registry
 (``model_version_registry``, dropped with ``Registry.remove`` when the
-version is unloaded) and the scheduler's lane series
-(``scheduler_lane_metrics``, ``kdlt_sched_*``), with the same series names
-and buckets.  ``Registry.render`` is the model server's ``/metrics`` page.
+version is unloaded), the scheduler's lane series
+(``scheduler_lane_metrics``, ``kdlt_sched_*``), the per-model request
+count (``model_request_counter``) and the observability layer's series:
+the SLO engine's (``slo_tier_metrics``, ``slo_model_window_metrics``), the
+tracer's retention counters (``trace_retention_metrics``), the flight
+recorder's (``incident_metrics``) and the live MFU and device-busy gauges
+(``mfu_bucket_gauge``, ``device_busy_gauge``), with the same series names
+and buckets.  Histograms carry OpenMetrics exemplars behind
+``KDLT_METRICS_EXEMPLARS=1``.  ``Registry.render`` is the model server's
+``/metrics`` page.
 """
 
 from __future__ import annotations
 
 import bisect
+import os
 import threading
+import time
 
 # Default latency buckets in seconds (sub-ms to 20 s, the reference's
 # implicit deadline ceiling).
@@ -190,6 +199,140 @@ def _mint_lane_metrics(child: "Registry") -> dict:
             "cross-model arbitration", buckets=PIPELINE_STAGE_BUCKETS),
     }
 
+
+
+def model_request_counter(registry: "Registry", model: str) -> "Counter":
+    """Per-model predict request count (the bounded ``model`` label)."""
+    return _memo_on_child(
+        model_registry(registry, model), "_kdlt_model_requests",
+        lambda c: c.counter("kdlt_model_requests_total", "predict requests by served model"))
+
+
+# --- the SLO engine's series (utils.slo) -------------------------------------
+#
+# Per-model sliding-window goodput and multi-window burn rates against
+# $KDLT_SLO_TARGET.  The ``model`` label stays bounded through
+# model_registry; the ``window`` label's values are exactly utils.slo.WINDOWS.
+
+def slo_tier_metrics(registry: "Registry") -> dict:
+    """The per-tier SLO statics: the configured objective itself."""
+    return {
+        "target": registry.gauge(
+            "kdlt_slo_target",
+            "configured SLO target (KDLT_SLO_TARGET): the fraction of "
+            "requests that must complete in-deadline"),
+    }
+
+
+def slo_model_window_metrics(registry: "Registry", model: str, window: str) -> dict:
+    """One (model, window) cell of the SLO engine's gauge matrix, minted once
+    per (model child, window)."""
+
+    def mint(c: "Registry") -> dict:
+        w = c.with_labels(window=window)
+        return {
+            "goodput_ratio": w.gauge(
+                "kdlt_slo_goodput_ratio",
+                "fraction of SLO-eligible requests completed in-deadline "
+                "over the window"),
+            "burn_rate": w.gauge(
+                "kdlt_slo_burn_rate",
+                "error-budget burn rate over the window (bad fraction / "
+                "(1 - target)); 1.0 = burning exactly at the sustainable rate"),
+            "shed_ratio": w.gauge(
+                "kdlt_slo_shed_ratio",
+                "fraction of SLO-eligible requests shed (503/504) over the window"),
+            "error_ratio": w.gauge(
+                "kdlt_slo_error_ratio",
+                "fraction of SLO-eligible requests failed server-side over the window"),
+            "requests": w.gauge(
+                "kdlt_slo_window_requests", "SLO-eligible requests observed in the window"),
+        }
+
+    return _memo_on_child(model_registry(registry, model), f"_kdlt_slo_{window}", mint)
+
+
+# Tail-based trace retention (utils.trace.Tracer): every finished trace is
+# classified into exactly one of these, and eviction drops ``routine``
+# traces first -- the label set is this tuple, nothing else.
+TRACE_RETENTION_CLASSES = (
+    ("incident", "the trace is pinned by a flight-recorder incident bundle"),
+    ("error", "the request failed server-side (5xx/disconnect)"),
+    ("shed", "the request was shed (503/504)"),
+    ("deadline", "the request completed but violated its deadline budget"),
+    ("slow", "the request landed in the tier's slowest percentile"),
+    ("routine", "an unremarkable request"),
+)
+
+
+def trace_retention_metrics(registry: "Registry") -> dict:
+    """The tracer's retention accounting: traces classified (retained) and
+    traces evicted from the ring (dropped), by retention class.  A rising
+    dropped{class!="routine"} means interesting traces are being lost."""
+    return {
+        kind: {
+            cls: registry.with_labels(**{"class": cls}).counter(name, f"{what}: {help}")
+            for cls, help in TRACE_RETENTION_CLASSES
+        }
+        for kind, name, what in (
+            ("retained", "kdlt_trace_retained_total", "traces classified for retention"),
+            ("dropped", "kdlt_trace_dropped_total", "traces evicted from the ring buffer"),
+        )
+    }
+
+
+def mfu_bucket_gauge(registry: "Registry", bucket: int) -> "Gauge":
+    """Live per-bucket MFU gauge (runtime.flops.MfuAccountant); the caller's
+    registry carries the model/version labels, ``bucket`` values are the
+    engine's ladder -- bounded by construction."""
+    return registry.with_labels(bucket=str(int(bucket))).gauge(
+        "kdlt_mfu_pct",
+        "live model FLOP/s utilization of the device's dense peak, per batch "
+        "bucket (EWMA over the batches' device times)")
+
+
+def device_busy_gauge(registry: "Registry") -> "Gauge":
+    return registry.gauge(
+        "kdlt_device_busy_ratio",
+        "decayed fraction of wall time the device spent executing this "
+        "engine's batches (the batches' device times; ~30 s half-life)")
+
+
+# The flight recorder's triggers (utils.flightrecorder.TRIGGER_RULES): the
+# ``trigger`` label's values are exactly this tuple.
+INCIDENT_TRIGGERS = ("burn-crossing", "brownout", "dispatch-stall", "replica-unhealthy")
+
+
+def incident_metrics(registry: "Registry") -> dict:
+    """The flight recorder's series: bundles captured / suppressed (dedup or
+    hysteresis swallowed a repeat fire) / dropped (the caps evicted an old
+    bundle), per trigger, plus how many bundles are currently retained.
+    Minted once per registry."""
+    return _memo_on_child(registry, "_kdlt_incident", _mint_incident)
+
+
+def _mint_incident(registry: "Registry") -> dict:
+    def per_trigger(name: str, help: str) -> dict:
+        return {trig: registry.with_labels(trigger=trig).counter(name, help)
+                for trig in INCIDENT_TRIGGERS}
+
+    return {
+        "captures": per_trigger("kdlt_incident_captures_total",
+                                "incident bundles captured, by firing trigger"),
+        "suppressed": per_trigger(
+            "kdlt_incident_suppressed_total",
+            "trigger fires suppressed inside the dedup window (a flapping "
+            "signal yields ONE bundle plus this counter)"),
+        "dropped": per_trigger(
+            "kdlt_incident_dropped_total",
+            "incident bundles evicted oldest-first by the KDLT_INCIDENT_MAX_BUNDLES / "
+            "KDLT_INCIDENT_MAX_MB caps, by the evicted bundle's trigger"),
+        "open": registry.gauge(
+            "kdlt_incident_open",
+            "incident bundles currently retained on disk under KDLT_INCIDENT_DIR"),
+    }
+
+
 # Deadline budgets are ms-scale; the request-latency buckets (seconds) would
 # collapse every remaining-budget observation into two bins.
 DEADLINE_MS_BUCKETS = (
@@ -264,6 +407,22 @@ def batcher_budget_histogram(registry: "Registry") -> "Histogram":
         buckets=DEADLINE_MS_BUCKETS)
 
 
+# --- OpenMetrics exemplars ----------------------------------------------------
+#
+# Behind $KDLT_METRICS_EXEMPLARS=1 a histogram annotates each bucket sample
+# with the trace id of a recent observation that landed there
+# (``... # {trace_id="..."} value timestamp``), linking a latency bucket to
+# /debug/trace/<rid>.  Off (the default) the exposition is the plain text
+# format.  Only histograms carry exemplars (the OpenMetrics rule).
+
+EXEMPLARS_ENV = "KDLT_METRICS_EXEMPLARS"
+
+
+def exemplars_enabled() -> bool:
+    """Read the env gate afresh (a handful of calls per request)."""
+    return os.environ.get(EXEMPLARS_ENV, "").strip() == "1"
+
+
 def _escape_label_value(v) -> str:
     """Prometheus text-format label escaping: backslash, quote, newline."""
     return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
@@ -319,14 +478,19 @@ class Histogram:
         self._counts = [0] * (len(self.buckets) + 1)  # +inf bucket
         self._sum = 0.0
         self._n = 0
+        # Last exemplar per bucket index: (trace_id, value, unix time); only
+        # callers passing ``exemplar=`` populate it.
+        self._exemplars: dict[int, tuple[str, float, float]] = {}
         self._lock = threading.Lock()
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, exemplar: str | None = None) -> None:
         i = bisect.bisect_left(self.buckets, v)
         with self._lock:
             self._counts[i] += 1
             self._sum += v
             self._n += 1
+            if exemplar is not None:
+                self._exemplars[i] = (str(exemplar), v, time.time())
 
     def percentile(self, q: float) -> float:
         """Approximate percentile from bucket upper bounds (q in [0,1])."""
@@ -350,17 +514,29 @@ class Histogram:
     def sum(self) -> float:
         return self._sum
 
+    def _exemplar_suffix(self, i: int, with_exemplars: bool) -> str:
+        """Bucket ``i``'s exemplar annotation, or "" (always "" with the env
+        gate off, so the plain exposition is unchanged)."""
+        ex = self._exemplars.get(i) if with_exemplars else None
+        if ex is None:
+            return ""
+        trace_id, value, ts = ex
+        return f' # {{trace_id="{_escape_label_value(trace_id)}"}} {value:.6g} {ts:.3f}'
+
     def sample_lines(self) -> list[str]:
         out = []
         cum = 0
+        with_ex = bool(self._exemplars) and exemplars_enabled()
         with self._lock:
-            for le, c in zip(self.buckets, self._counts):
+            for i, (le, c) in enumerate(zip(self.buckets, self._counts)):
                 cum += c
                 le_label = f'le="{le}"'
-                out.append(f"{self.name}_bucket{_fmt_labels(self.labels, le_label)} {cum}")
+                out.append(f"{self.name}_bucket{_fmt_labels(self.labels, le_label)} {cum}"
+                           + self._exemplar_suffix(i, with_ex))
             cum += self._counts[-1]
             inf_label = 'le="+Inf"'
-            out.append(f"{self.name}_bucket{_fmt_labels(self.labels, inf_label)} {cum}")
+            out.append(f"{self.name}_bucket{_fmt_labels(self.labels, inf_label)} {cum}"
+                       + self._exemplar_suffix(len(self.buckets), with_ex))
             out.append(f"{self.name}_sum{_fmt_labels(self.labels)} {self._sum}")
             out.append(f"{self.name}_count{_fmt_labels(self.labels)} {self._n}")
         return out

@@ -131,7 +131,7 @@ class ControlledEngine:
         self.handles.append(h)
         return h, n
 
-    def record_completed(self, n, seconds):
+    def record_completed(self, n, seconds, device_s=None):
         self.completed.append(n)
 
 

@@ -40,7 +40,11 @@ spent with a JSON 504, the engine untouched.  Two engines' graphs
 interleaved through one shared dispatcher equal each replayed alone; a
 capture on one thread while another replays raises nothing and leaves
 both bit-equal; and ``InferenceEngine.close()`` gives the device memory
-back (within 16 MiB).
+back (within 16 MiB).  Observability: a bucket-16 batch's device time (its
+handle's timing events) lies within 10% of its graph's replay timed alone,
+the ``kdlt_mfu_pct`` and ``kdlt_device_busy_ratio`` gauges appear after
+traffic, and a 1 s ``/debug/profile`` under traffic names the stage
+kernel's symbol.
 """
 
 from __future__ import annotations
@@ -992,3 +996,123 @@ def test_cuda_engine_close_gives_its_device_memory_back():
     with pytest.raises(EngineClosed):
         engine.predict(imgs)
     engine.close()  # idempotent
+
+
+# --- observability on the card ----------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_batch_device_time_matches_its_graph_replay():
+    """A bucket-16 batch's device time from its handle (a timing event just
+    before the graph's replay to the event after its D2H copy) lies within
+    10% of the bucket graph's replay timed alone (``clothing-model``, 299
+    px)."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
+    from kubernetes_deep_learning_tpu_torch.modelspec import CLOTHING_MODEL
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    artifact = ModelArtifact(CLOTHING_MODEL, init_variables(CLOTHING_MODEL, seed=0),
+                             {"compute_dtype": "bfloat16"})
+    engine = InferenceEngine(artifact, buckets=(16,), device="cuda")
+    try:
+        engine.warmup()
+        imgs = np.random.default_rng(16).integers(0, 256, (16, 299, 299, 3), np.uint8)
+        device_ms = []
+        for _ in range(10):
+            handle, _ = engine.predict_async(imgs)
+            np.asarray(handle)
+            device_ms.append(handle.device_seconds * 1e3)
+        graph = engine._graphs[16].graph
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        graph_ms = start.elapsed_time(end) / 10
+        assert abs(float(np.median(device_ms)) / graph_ms - 1.0) < 0.1, (device_ms, graph_ms)
+    finally:
+        engine.close()
+
+
+def _observed_server(tmp_path):
+    """A started, warmed card server of the 96-px Xception (buckets 1, 4)
+    and a one-image msgpack POST to it."""
+    import urllib.request
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.serving import protocol
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    spec, _, _ = _engine_case("xception")
+    art.save_artifact(art.version_dir(str(tmp_path), spec.name, 1), spec,
+                      init_variables(spec, seed=0), {"compute_dtype": "bfloat16"})
+    server = ModelServer(str(tmp_path), port=0, buckets=(1, 4), device="cuda",
+                         profile_base=str(tmp_path / "profiles"))
+    server.start()
+    server.warmup()
+    body = protocol.encode_predict_request(np.zeros((1, *spec.input_shape), np.uint8))
+
+    def post() -> int:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict", data=body,
+            method="POST", headers={"Content-Type": protocol.MSGPACK_CONTENT_TYPE})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status
+
+    return spec, server, post
+
+
+@pytest.mark.cuda
+def test_cuda_mfu_and_busy_gauges_appear_after_traffic(tmp_path):
+    _need_cuda()
+    import re
+
+    spec, server, post = _observed_server(tmp_path)
+    try:
+        assert all(post() == 200 for _ in range(8))
+        text = server.handle_get("/metrics")[1].decode()
+        mfu = re.findall(rf'^kdlt_mfu_pct{{model="{spec.name}",version="1",bucket="(\d+)"}} (\S+)$',
+                         text, re.M)
+        assert mfu and all(0 < float(v) <= 100 for _, v in mfu), mfu
+        busy = re.search(rf'^kdlt_device_busy_ratio{{model="{spec.name}",version="1"}} (\S+)$',
+                         text, re.M)
+        assert busy and 0 < float(busy.group(1)) <= 1
+    finally:
+        server.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_debug_profile_under_traffic_names_the_stage_kernel(tmp_path):
+    """A 1 s /debug/profile while a client sends requests: the reply's
+    ``kernels`` summary names K1/K2's symbol, and trace.json parses."""
+    _need_cuda()
+    import json
+    import os
+    import threading
+
+    spec, server, post = _observed_server(tmp_path)
+    stop = threading.Event()
+    statuses = []
+
+    def load():
+        while not stop.is_set():
+            statuses.append(post())
+
+    client = threading.Thread(target=load, daemon=True)
+    try:
+        client.start()
+        status, body, _, _ = server.handle_get("/debug/profile?seconds=1")
+        stop.set()
+        client.join(timeout=30)
+        assert status == 200 and statuses and set(statuses) == {200}
+        got = json.loads(body)
+        assert any("sepconv_stage_kernel" in k for k in got["kernels"]), got["kernels"]
+        with open(os.path.join(got["trace_dir"], "trace.json")) as f:
+            assert json.load(f)["traceEvents"]
+    finally:
+        stop.set()
+        server.shutdown()

@@ -75,10 +75,7 @@ def _unit(pkg, enq_t, deadline_in=None, priority=None, n=1):
     sched, _ = _PKGS[pkg]
     images = np.zeros((n, *_SHAPE), np.uint8)
     deadline_abs = None if deadline_in is None else NOW + deadline_in
-    if pkg == "jax":
-        u = sched._Unit(images, n, deadline_abs, None, n == 1, priority=priority)
-    else:
-        u = sched._Unit(images, n, deadline_abs, n == 1, priority=priority)
+    u = sched._Unit(images, n, deadline_abs, None, n == 1, priority=priority)
     u.enq_t = enq_t
     return u
 

@@ -391,7 +391,7 @@ def test_keep_alive_requests_do_not_stall_on_nagle(tmp_path):
 
 def test_port_imports_no_jax_flax_or_jax_package():
     """Every port module (and chip_smoke.py, mbconv_ablation.py,
-    entry_ablation.py) imports without jax, flax, optax, orbax, msgpack,
+    entry_ablation.py, observability_ab.py) imports without jax, flax, optax, orbax, msgpack,
     PIL or the JAX package: none of them is on the GPU machine.  The port's own name starts with the JAX
     package's, so match the package name exactly or with a trailing dot."""
     code = """
@@ -402,6 +402,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 import mbconv_ablation
 import entry_ablation
+import observability_ab
 bad = sorted(
     k for k in sys.modules
     for root in ("jax", "flax", "optax", "orbax", "msgpack", "PIL",
@@ -418,6 +419,9 @@ assert slice12 <= set(sys.modules), slice12 - set(sys.modules)
 multimodel = {"kubernetes_deep_learning_tpu_torch." + m for m in (
     "runtime.scheduler", "serving.registry")}
 assert multimodel <= set(sys.modules), multimodel - set(sys.modules)
+observability = {"kubernetes_deep_learning_tpu_torch." + m for m in (
+    "utils.trace", "utils.slo", "utils.flightrecorder", "serving.tracing", "runtime.flops")}
+assert observability <= set(sys.modules), observability - set(sys.modules)
 print(len([k for k in sys.modules if k.startswith("kubernetes_deep_learning_tpu_torch.")]))
 assert not bad, bad
 """
