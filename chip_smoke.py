@@ -35,7 +35,31 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    graph pool's device memory (``graph-memory``); then the p50 of a
    1-image request on a fresh connection against one kept alive, and
    img/s and p50 per bucket, replayed and eager.  (ViT and B3 below get
-   the same lines.)  Then the batching phase: the host CPU time of a
+   the same lines.)  Then the quant phase: the same model's v2
+   ``int8-weight-only`` and v3 ``int8-w8a8`` written by the port's
+   ``ops.quantize.write_quantized_version`` (v3 calibrated on the card from
+   8 noise images at percentile 100: its seconds and its 68 layers), and v4,
+   v3 with every activation scale x1000; Q1 (``int8_conv``) and Q2
+   (``int8_depthwise``, ``ops/csrc/int8_conv.cu``) on the w8a8 forward's
+   own layers at every shape it launches them (batches 16 and 3, and 1 for
+   the middle flow's), each equal to its plain version (max abs difference
+   0), timed beside the plain version, ``torch._int_mm`` on the codes (1x1
+   stride-1 shapes: the yardstick, used nowhere in the port), the bound
+   and the rate (``int8-kernel`` lines); the device bytes of the w8a8,
+   weight-only and bf16 float engines' parameters; v3 served over msgpack
+   (requests of 1, 3, 16): serving ``int8-w8a8`` after the warmup gate
+   (its drift and top-1 printed), 39 Q1 and 29 Q2 launches a forward and
+   no K1/K2, replies equal to the engine's, ``kdlt_quant_scheme`` 1 for
+   it on /metrics; v2 served: 8 K1 and 2 K2 a forward, logits bit-equal
+   to a float engine on the host-dequantized tree; v4 served: the gate
+   refuses it (``kdlt_quant_gate_failures_total`` 1, ``:status``
+   int8-w8a8 / int8-weight-only, K1/K2 and no Q1/Q2); then w8a8 against
+   weight-only on 16 grid images (drift <= KDLT_QUANT_TOL, top-1 >=
+   0.99), each w8a8 bucket graph bit-equal to eager, one traced replay
+   (39 + 29 kernels by name), and p50 at buckets 1, 4, 16 of the w8a8,
+   weight-only and bf16 fused engines in turns (``quant``; with
+   ``--profile`` each engine traced at bucket 16).  Then the batching
+   phase: the host CPU time of a
    default and a ``blocking=True`` CUDA event's wait (``event-wait``);
    then four servers of the same model with buckets (1, 2, 4, 8, 16, 32)
    -- batching off, the scheduler's lane (``runtime/scheduler.py``, the
@@ -787,12 +811,14 @@ def _graph_check(engine, name: str, seed: int) -> dict:
                 all_bit_equal=all(v["bit_equal"] for v in out.values()))
 
 
-def _trace_check(engine, name: str, seed: int) -> dict:
+def _trace_check(engine, name: str, seed: int, expected: dict | None = None) -> dict:
     """One replay of the largest bucket's graph under ``torch.profiler``: each
-    of TRACE_KERNELS[name]'s kernels must appear the expected number of times."""
+    of the ``expected`` kernels (default TRACE_KERNELS[name]) must appear the
+    expected number of times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    expected = expected if expected is not None else TRACE_KERNELS[name]
     imgs = np.random.default_rng(seed).integers(
         0, 256, (engine.max_batch, *engine.spec.input_shape), np.uint8)
     np.asarray(engine.predict_async(imgs)[0])
@@ -800,9 +826,9 @@ def _trace_check(engine, name: str, seed: int) -> dict:
         np.asarray(engine.predict_async(imgs)[0])
     seen = {k: sum(e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and k in e.key)
-            for k in TRACE_KERNELS[name]}
-    if seen != TRACE_KERNELS[name]:
-        _fail(f"{name}: one traced replay launched {seen}, expected {TRACE_KERNELS[name]}")
+            for k in expected}
+    if seen != expected:
+        _fail(f"{name}: one traced replay launched {seen}, expected {expected}")
     return dict(model=name, bucket=engine.max_batch, kernels=seen)
 
 
@@ -1128,9 +1154,10 @@ def _kernel_modules() -> tuple:
         fused_entry,
         fused_mbconv,
         fused_sepconv,
+        int8,
     )
 
-    return fused_sepconv, attention, fused_mbconv, fused_entry
+    return fused_sepconv, attention, fused_mbconv, fused_entry, int8
 
 
 def _resnet_phase(seed: int, iters: int, profile: bool, smi: str) -> dict:
@@ -2997,6 +3024,333 @@ def _gfold_phase(iters: int, gen: torch.Generator, exp_rate: float) -> dict:
     return rec
 
 
+# --- int8 quantization: Q1, Q2 and the w8a8 / weight-only servers ---------
+
+QUANT_CALIB_IMAGES = 8
+# Noise calibration images have no outliers for the 99.9 clip to remove, so
+# they calibrate at 100 (absmax), as tests/test_quantize.py does; the CLI's
+# default stays 99.9.
+QUANT_CALIB_PERCENTILE = 100.0
+QUANT_LAYERS = 68
+QUANT_PER_FORWARD = {"int8_conv": 39, "int8_depthwise": 29}
+QUANT_TRACE = {"int8_conv_kernel": 39, "int8_depthwise_kernel": 29, "sepconv_stage_kernel": 0}
+QUANT_GRID = 16
+PEAK_INT8 = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+QUANT_REPLACES_NOTE = ("no pallas_call: the JAX package's w8a8 program runs XLA's int8 "
+                       "conv_general_dilated (kubernetes_deep_learning_tpu/ops/quantize.py:358)")
+# One module per distinct shape of the 299-px clothing-model's w8a8 forward:
+# (module, input side, launches of that shape a forward).
+Q1_LAYERS = (
+    ("block1_conv2", 149, 1),
+    ("block2_res_conv", 147, 1),
+    ("block3_res_conv", 74, 1),
+    ("block4_res_conv", 37, 1),
+    ("block13_res_conv", 19, 1),
+    ("block2_sepconv1.pointwise", 147, 1),
+    ("block2_sepconv2.pointwise", 147, 1),
+    ("block3_sepconv1.pointwise", 74, 1),
+    ("block3_sepconv2.pointwise", 74, 1),
+    ("block4_sepconv1.pointwise", 37, 1),
+    ("block4_sepconv2.pointwise", 37, 1),
+    ("block5_sepconv1.pointwise", 19, 25),  # the middle flow's 24 and block13_sepconv1's
+    ("block13_sepconv2.pointwise", 19, 1),
+    ("block14_sepconv1.pointwise", 10, 1),
+    ("block14_sepconv2.pointwise", 10, 1),
+)
+Q2_LAYERS = (
+    ("block4_sepconv2.depthwise", 37, 1),
+    ("block5_sepconv1.depthwise", 19, 26),  # the middle flow's 24 and block13's 2
+    ("block14_sepconv1.depthwise", 10, 1),
+    ("block14_sepconv2.depthwise", 10, 1),
+)
+QUANT_BATCHES = (16, 3)  # every shape; batch 1 for the middle flow's two
+
+
+def _taps_read(n_in: int, n_out: int, k: int, stride: int, padding: str) -> int:
+    """Input rows (or columns) of one side that a conv's taps read: a 1x1/2
+    conv reads every second one."""
+    pad = max((n_out - 1) * stride + k - n_in, 0) // 2 if padding == "SAME" else 0
+    return len({o * stride + t - pad for o in range(n_out) for t in range(k)}
+               & set(range(n_in)))
+
+
+def _int8_case(layer, batch: int, side: int, gen, iters: int) -> dict:
+    """One Int8Conv2d of the w8a8 forward on a card input: the kernel
+    against its plain version (max abs difference must be 0); kernel
+    (eager and by graph replay), plain version and ``torch._int_mm`` on the
+    pre-quantized codes (1x1 stride-1 convs only: the yardstick, used
+    nowhere in the port), the bound and the rate."""
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+
+    x = torch.randn((batch, side, side, layer.c_in), generator=gen, device="cuda")
+    x = x * (layer.s_act * 60.0)  # codes spread over the int8 range, some clamped
+    if layer.kind == "depthwise":
+        q_w = int8_ops.unpack_depthwise(layer.packed)
+        plain = lambda: int8_ops.int8_conv_reference(  # noqa: E731
+            x, q_w, layer.s_act, layer.out_scale, 1, "SAME", layer.c_in)
+    else:
+        q_w = int8_ops.unpack_conv(layer.packed, layer.c_in, *layer.kernel_size)
+        plain = lambda: int8_ops.int8_conv_reference(  # noqa: E731
+            x, q_w, layer.s_act, layer.out_scale, layer.stride, layer.padding)
+    kernel = lambda: layer(x)  # noqa: E731
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = (got - want).abs().max().item()
+    if err != 0 or got.shape != want.shape or not torch.isfinite(got).all():
+        _fail(f"{layer.kind} {tuple(x.shape)}->{tuple(want.shape)}: kernel vs plain version: "
+              f"max abs difference {err}")
+    rec = dict(kind=layer.kind, shape=list(x.shape), out=list(got.shape),
+               kernel_size=list(layer.kernel_size), stride=layer.stride,
+               padding=layer.padding, max_abs_err=err)
+    m = got.shape[0] * got.shape[1] * got.shape[2]
+    k = layer.kernel_size[0] * layer.kernel_size[1] * (1 if layer.kind == "depthwise"
+                                                        else layer.c_in)
+    ops = 2 * m * k * layer.c_out
+    # x's bytes are those the taps read, each once.
+    rows, cols = (_taps_read(n_in, n_out, kk, layer.stride, layer.padding)
+                  for n_in, n_out, kk in zip(x.shape[1:3], got.shape[1:3], layer.kernel_size))
+    x_bytes = batch * rows * cols * layer.c_in * 4
+    nbytes = x_bytes + layer.packed.numel() + layer.c_out * 4 + got.numel() * 4
+    t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
+    library_ms = None
+    if layer.kind == "conv" and layer.kernel_size == (1, 1) and layer.stride == 1:
+        codes = int8_ops.quantize_input(x, layer.s_act).to(torch.int8).reshape(m, layer.c_in)
+        for wt in (q_w[:, :, 0, 0].t(), q_w[:, :, 0, 0].t().contiguous()):  # (C_in, C_out)
+            try:
+                library_ms = _time_ms(lambda wt=wt: torch._int_mm(codes, wt), iters)
+                break
+            except RuntimeError as e:  # a layout cuBLASLt refuses: try the other
+                rec["library_error"] = str(e).splitlines()[0]
+    rec.update(ms=_time_ms(kernel, iters), graph_ms=_graph_ms(kernel, iters),
+               plain_ms=_time_ms(plain, max(3, iters // 4)), library_ms=library_ms,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="bytes" if t_bytes > t_ops else "operations", int8_ops=ops, bytes=nbytes,
+               x_bytes_read=x_bytes)
+    rec["tops"] = ops / (rec["graph_ms"] * 1e-3) / 1e12
+    return rec
+
+
+def _int8_kernel_phase(forward, gen, iters: int, smi: str) -> list[dict]:
+    """Q1 and Q2 at every shape of the forward (batches 16 and 3; batch 1
+    for the middle flow's), against their plain versions; returns the two
+    ``kernels`` records, each summed over the calls of one bucket-16
+    forward."""
+    records = []
+    for name, layers in (("int8_conv", Q1_LAYERS), ("int8_depthwise", Q2_LAYERS)):
+        rec = dict(name=name, route="cuda", source=_CSRC + "int8_conv.cu", replaces=None,
+                   replaces_note=QUANT_REPLACES_NOTE, max_abs_err=0.0, ms=0.0, graph_ms=0.0,
+                   plain_ms=0.0, bound_ms=0.0, library_ms=None,
+                   per=f"the {sum(n for *_, n in layers)} calls of one bucket-16 forward, summed",
+                   tol_abs=0.0, shapes=[])
+        bound_t = {"bytes": 0.0, "operations": 0.0}
+        for module, side, per_forward in layers:
+            layer = forward.inner.get_submodule(module)
+            batches = QUANT_BATCHES + ((1,) if per_forward > 1 else ())
+            for b in batches:
+                t = _int8_case(layer, b, side, gen, iters)
+                print("int8-kernel:", json.dumps({"name": name, "module": module, "batch": b,
+                                                  "per_forward": per_forward, **t, "card": smi}),
+                      flush=True)
+                rec["max_abs_err"] = max(rec["max_abs_err"], t["max_abs_err"])
+                if b == 16:
+                    for key in ("ms", "graph_ms", "plain_ms", "bound_ms"):
+                        rec[key] += per_forward * t[key]
+                    bound_t[t["bound_by"]] += per_forward * t["bound_ms"]
+                    rec["shapes"].append(t["shape"])
+        rec["bound_by"] = max(bound_t, key=bound_t.get)
+        records.append(rec)
+    return records
+
+
+def _engine_bytes(make) -> tuple:
+    """(engine, device bytes its construction allocated: its parameters,
+    before any graph is captured)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = make()
+    torch.cuda.synchronize()
+    return engine, torch.cuda.memory_allocated() - before
+
+
+def _serve_checked(root: str, spec, batches, *, scheme: str, active: str, per_forward: dict,
+                   counters) -> tuple[list, dict, str]:
+    """Serve ``root`` (one version of ``spec``) on the card; the batches as
+    msgpack ``:predict`` requests must launch ``per_forward`` kernels a
+    forward (``counters``' counts, every other kernel of theirs none), and
+    ``:status`` must report the scheme requested and the one serving.
+    Returns (replies, launches, /metrics text)."""
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    server = ModelServer(root, port=0, buckets=BUCKETS, device="cuda")
+    try:
+        server.start()
+        server.warmup()
+        status = _http_json(server.port, f"/v1/models/{spec.name}:status")[1]
+        if (status["quantization"], status["quantization_active"]) != (scheme, active):
+            _fail(f"quant: {root}: :status {status['quantization']!r}/"
+                  f"{status['quantization_active']!r}, expected {scheme!r}/{active!r}")
+        url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
+        for c in counters:
+            c.reset_launch_counts()
+        replies = [_post(url, imgs, "msgpack") for imgs in batches]
+        launches = {k: v for c in counters for k, v in c.launch_counts().items()}
+        want = {k: per_forward.get(k, 0) * len(batches) for k in launches}
+        if launches != want:
+            _fail(f"quant: {active}: kernel launches {launches} != {want} "
+                  f"for {len(batches)} forwards")
+        for imgs, (got, labels, _) in zip(batches, replies):
+            if got.shape != (len(imgs), spec.num_classes) or not np.isfinite(got).all():
+                _fail(f"quant: {active}: logits {got.shape} for a batch of {len(imgs)}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        server.shutdown()
+    return [got for got, _, _ in replies], launches, metrics
+
+
+def _quant_phase(spec, seed: int, iters: int, smi: str, gen,
+                 profile: bool = False) -> tuple[dict, list[dict]]:
+    """clothing-model at 299 px as int8: v2 weight-only and v3 w8a8 written
+    by the port's ``write_quantized_version`` (calibrated on the card), v4 a
+    miscalibrated v3; Q1 and Q2 against their plain versions at every shape;
+    v3, v2 and v4 served; p50 of the w8a8, weight-only and bf16 fused
+    engines in turns (with ``profile``, each traced at bucket 16).  Returns
+    (summary, the Q1 and Q2 kernel records)."""
+    import shutil
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+    from kubernetes_deep_learning_tpu_torch.ops import quantize
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    out: dict = {"model": spec.name}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "versions")
+        art.save_artifact(art.version_dir(root, spec.name, 1), spec,
+                          init_variables(spec, seed=seed), {"compute_dtype": "bfloat16"})
+        v2 = quantize.write_quantized_version(root, spec.name, quantize.SCHEME)
+        calib = quantize.representative_images(spec, QUANT_CALIB_IMAGES, seed=seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v3 = quantize.write_quantized_version(
+            root, spec.name, quantize.SCHEME_W8A8, calib_images=calib,
+            percentile=QUANT_CALIB_PERCENTILE, from_version=1)
+        out["calibration_s"] = time.perf_counter() - t0
+        w8a8 = art.load_artifact(v3)
+        out["calibration"] = w8a8.metadata["calibration"]
+        if out["calibration"]["layers"] != QUANT_LAYERS:
+            _fail(f"quant: calibration scaled {out['calibration']['layers']} layers, "
+                  f"expected {QUANT_LAYERS}")
+        print("quant-calibration:", json.dumps({**out, "card": smi}), flush=True)
+
+        def scaled(tree):  # every activation scale x1000: a stale calibration
+            if not isinstance(tree, dict):
+                return tree
+            new = {k: scaled(v) for k, v in tree.items()}
+            if quantize.ACT_SCALE_KEY in tree:
+                new[quantize.ACT_SCALE_KEY] = np.asarray(
+                    tree[quantize.ACT_SCALE_KEY] * np.float32(1e3), np.float32)
+            return new
+
+        roots = {}
+        for tag, src in (("w8a8", v3), ("weight-only", v2)):
+            roots[tag] = os.path.join(tmp, tag)
+            shutil.copytree(src, art.version_dir(roots[tag], spec.name, 1))
+        roots["miscalibrated"] = os.path.join(tmp, "miscalibrated")
+        art.save_artifact(art.version_dir(roots["miscalibrated"], spec.name, 1), spec,
+                          scaled(w8a8.variables), w8a8.metadata)
+
+        # --- the engines: device bytes, the gate, the kernels at their shapes ---
+        wo_art = art.load_artifact(v2)
+        deq = art.ModelArtifact(spec, quantize.dequantize_variables_host(wo_art.variables),
+                                {"compute_dtype": "bfloat16"})
+        engines, param_bytes = {}, {}
+        for tag, artifact in (("w8a8", w8a8), ("weight-only", wo_art), ("bf16-fused", deq)):
+            engines[tag], param_bytes[tag] = _engine_bytes(
+                lambda a=artifact: InferenceEngine(a, buckets=BUCKETS, device="cuda"))
+            engines[tag].warmup()
+        out["param_bytes_on_device"] = param_bytes
+        e3 = engines["w8a8"]
+        if e3.quantization_active != quantize.SCHEME_W8A8 or e3.fast:
+            _fail(f"quant: v3 serves {e3.quantization_active} (gate drift "
+                  f"{e3.quant_gate_drift}, top-1 {e3.quant_gate_top1})")
+        out["gate"] = dict(drift=e3.quant_gate_drift, top1=e3.quant_gate_top1,
+                           tol=quantize.resolve_quant_tol(), top1_min=quantize.GATE_TOP1)
+        records = _int8_kernel_phase(e3._forward, gen, iters, smi)
+
+        # --- the main path: v3 (w8a8) served over msgpack ---
+        rng = np.random.default_rng(seed + 21)
+        batches = [rng.integers(0, 256, (n, *spec.input_shape), np.uint8) for n in REQUESTS]
+        replies, launches, metrics = _serve_checked(
+            roots["w8a8"], spec, batches, scheme=quantize.SCHEME_W8A8,
+            active=quantize.SCHEME_W8A8, per_forward=QUANT_PER_FORWARD,
+            counters=(int8_ops, fused_sepconv))
+        for rec in records:
+            rec["launches"] = launches[rec["name"]]
+        out["w8a8_launches"] = launches
+        for imgs, got in zip(batches, replies):
+            if not np.array_equal(got, e3.predict(imgs)):
+                _fail("quant: a w8a8 reply differs from the same artifact's engine")
+        gauge = _metric_samples(metrics, "kdlt_quant_scheme", spec.name)
+        if [v for k, v in gauge.items() if 'scheme="int8-w8a8"' in k] != [1.0]:
+            _fail(f"quant: kdlt_quant_scheme on /metrics: {gauge}")
+
+        # --- v2 (weight-only): the fused path on the dequantized tree ---
+        replies, out["weight_only_launches"], _ = _serve_checked(
+            roots["weight-only"], spec, batches, scheme=quantize.SCHEME, active=quantize.SCHEME,
+            per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2},
+            counters=(int8_ops, fused_sepconv))
+        for imgs, got in zip(batches, replies):
+            if not np.array_equal(got, engines["bf16-fused"].predict(imgs)):
+                _fail("quant: weight-only logits differ from float serving of the "
+                      "dequantized tree")
+
+        # --- v4: the gate refuses it; weight-only serves ---
+        _, out["refused_launches"], metrics = _serve_checked(
+            roots["miscalibrated"], spec, batches[:1], scheme=quantize.SCHEME_W8A8,
+            active=quantize.SCHEME, per_forward={"fused_sepconv_block": 8,
+                                                 "fused_sepconv_chain": 2},
+            counters=(int8_ops, fused_sepconv))
+        failures = _metric_samples(metrics, "kdlt_quant_gate_failures_total", spec.name)
+        if list(failures.values()) != [1.0]:
+            _fail(f"quant: kdlt_quant_gate_failures_total on /metrics: {failures}")
+        out["refused_gate_failures"] = failures
+
+        # --- w8a8 against weight-only; graphs, trace; p50 in turns ---
+        grid = _grid_images(spec, QUANT_GRID, seed + 22)
+        got, ref = e3.predict(grid), engines["weight-only"].predict(grid)
+        drift = float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-9))
+        top1 = float((got.argmax(-1) == ref.argmax(-1)).mean())
+        out["grid"] = dict(images=QUANT_GRID, drift=drift, top1=top1)
+        if drift > quantize.resolve_quant_tol() or top1 < quantize.GATE_TOP1:
+            _fail(f"quant: w8a8 vs weight-only on the grid: drift {drift:.4f}, top-1 {top1}")
+        out["graphs"] = _graph_check(e3, f"{spec.name}-w8a8", seed + 23)
+        if not out["graphs"]["all_bit_equal"]:
+            _fail(f"quant: a w8a8 bucket graph is not bit-equal to eager: {out['graphs']}")
+        out["trace_launches"] = _trace_check(e3, f"{spec.name}-w8a8", seed + 24, QUANT_TRACE)
+        lat: dict = {tag: {b: [] for b in BUCKETS} for tag in engines}
+        for b in BUCKETS:
+            imgs = rng.integers(0, 256, (b, *spec.input_shape), np.uint8)
+            for e in engines.values():
+                e.predict(imgs)
+            for _ in range(iters):
+                for tag, e in engines.items():
+                    t0 = time.perf_counter()
+                    e.predict(imgs)
+                    lat[tag][b].append((time.perf_counter() - t0) * 1e3)
+        out["p50_ms"] = {tag: {str(b): float(np.median(v)) for b, v in d.items()}
+                         for tag, d in lat.items()}
+        if profile:
+            for tag, e in engines.items():
+                _profile(f"{spec.name}-{tag}", functools.partial(e.predict, imgs), len(imgs))
+        for e in engines.values():
+            e.close()
+    return out, records
+
+
 def _print_server(summary: dict, buckets: list[dict], smi: str) -> None:
     """A served model's lines: the summary, each bucket graph against the
     eager forward, the traced replay's launches, the device memory the
@@ -3082,6 +3436,10 @@ def main(argv=None) -> int:
         k["launches"] = summary["launches"][k["name"]]
     _print_server(summary, buckets, smi)
 
+    # --- the same model as int8: Q1, Q2, w8a8 and weight-only serving, the gate ---
+    quant, int8_kernels = _quant_phase(CLOTHING_MODEL, args.seed, ITERS, smi, gen, args.profile)
+    print("quant:", json.dumps({**quant, "card": smi}), flush=True)
+
     # --- the same model behind the batcher: one-image traffic, three arms ---
     print("event-wait:", json.dumps({**_event_wait_probe(sm_mhz), "card": smi}), flush=True)
     batching = _batching_phase(CLOTHING_MODEL, variables, args.seed, smi, counter=fused_sepconv,
@@ -3129,7 +3487,7 @@ def main(argv=None) -> int:
         unfused=True)
     del variables
     k4["launches"] = summary["launches"]["fused_mbconv_block"]
-    kernels += [k4, k5, k3g]
+    kernels += [k4, k5, k3g, *int8_kernels]
     _print_server(summary, [*buckets, summary["unfused"]], smi)
 
     # --- ResNet50 at 224 px (BASELINE config 3): cuDNN convolutions, no hand kernel ---

@@ -51,20 +51,35 @@ def max_pool_same(x, k: int = 3, s: int = 2):
     return F.max_pool2d(xc, k, s).permute(0, 2, 3, 1)
 
 
+class Conv2dNHWC(nn.Conv2d):
+    """A bias-free conv called on NHWC tensors: ``conv2d_nhwc`` with its own
+    stride, "VALID"/"SAME" padding and groups, its float32 weight cast to
+    the input's dtype.  The state-dict key stays ``weight`` (OIHW).  Being a
+    module, the call has a path (``block5_sepconv1.pointwise``), which
+    ``ops.quantize`` hooks for calibration and replaces for w8a8."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1,
+                 padding: str = "VALID", groups: int = 1):
+        super().__init__(c_in, c_out, k, stride=stride, groups=groups, bias=False)
+        if padding not in ("VALID", "SAME"):
+            raise ValueError(f"unknown padding {padding!r}")
+        self.tf_padding = padding
+
+    def forward(self, x):
+        return conv2d_nhwc(x, self.weight.to(x.dtype), self.stride[0], self.tf_padding,
+                           self.groups)
+
+
 class SeparableConv2D(nn.Module):
     """Depthwise 3x3 SAME + pointwise 1x1, both bias-free (Keras SeparableConv2D)."""
 
     def __init__(self, c_in: int, features: int):
         super().__init__()
-        self.depthwise = nn.Conv2d(c_in, c_in, 3, groups=c_in, bias=False)
-        self.pointwise = nn.Conv2d(c_in, features, 1, bias=False)
+        self.depthwise = Conv2dNHWC(c_in, c_in, 3, padding="SAME", groups=c_in)
+        self.pointwise = Conv2dNHWC(c_in, features, 1)
 
     def forward(self, x):
-        dt = x.dtype
-        x = conv2d_nhwc(
-            x, self.depthwise.weight.to(dt), padding="SAME", groups=x.shape[-1]
-        )
-        return conv2d_nhwc(x, self.pointwise.weight.to(dt))
+        return self.pointwise(self.depthwise(x))
 
 
 class BatchNorm(nn.Module):

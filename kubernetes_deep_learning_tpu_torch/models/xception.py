@@ -5,6 +5,9 @@ with the same module names (block1_conv1, block4_sepconv2_bn, ...), so the
 flax variable tree maps onto it leaf for leaf (``weights.from_jax_variables``).
 Input is normalized float NHWC; the compute dtype is a constructor argument
 (float32 for exact parity, bfloat16 for serving); parameters stay float32.
+Every one of its 74 convolutions is called through its module
+(``models.layers.Conv2dNHWC``), the counterpart of a flax module's path:
+``ops.quantize`` hooks them to calibrate and swaps them for int8 ones.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ from torch import nn
 from kubernetes_deep_learning_tpu_torch.models.layers import (
     BatchNorm,
     ClassifierHead,
+    Conv2dNHWC,
     SeparableConv2D,
-    conv2d_nhwc,
     max_pool_same,
 )
 
@@ -32,19 +35,19 @@ class Xception(nn.Module):
         self.dtype = dtype
         add = self.add_module
 
-        def conv(name, c_in, c_out, k):
-            add(name, nn.Conv2d(c_in, c_out, k, bias=False))
+        def conv(name, c_in, c_out, k, stride):
+            add(name, Conv2dNHWC(c_in, c_out, k, stride))
             add(f"{name}_bn", BatchNorm(c_out))
 
         def sep(name, c_in, c_out):
             add(name, SeparableConv2D(c_in, c_out))
             add(f"{name}_bn", BatchNorm(c_out))
 
-        conv("block1_conv1", 3, 32, 3)
-        conv("block1_conv2", 32, 64, 3)
+        conv("block1_conv1", 3, 32, 3, stride=2)
+        conv("block1_conv2", 32, 64, 3, stride=1)
         c = 64
         for idx, feat in ENTRY_BLOCKS:
-            add(f"block{idx}_res_conv", nn.Conv2d(c, feat, 1, bias=False))
+            add(f"block{idx}_res_conv", Conv2dNHWC(c, feat, 1, stride=2, padding="SAME"))
             add(f"block{idx}_res_bn", BatchNorm(feat))
             sep(f"block{idx}_sepconv1", c, feat)
             sep(f"block{idx}_sepconv2", feat, feat)
@@ -52,7 +55,7 @@ class Xception(nn.Module):
         for idx in MIDDLE_BLOCKS:
             for j in (1, 2, 3):
                 sep(f"block{idx}_sepconv{j}", 728, 728)
-        add("block13_res_conv", nn.Conv2d(728, 1024, 1, bias=False))
+        add("block13_res_conv", Conv2dNHWC(728, 1024, 1, stride=2, padding="SAME"))
         add("block13_res_bn", BatchNorm(1024))
         sep("block13_sepconv1", 728, 728)
         sep("block13_sepconv2", 728, 1024)
@@ -62,18 +65,12 @@ class Xception(nn.Module):
 
     def forward(self, x):
         m = self._modules
-        dt = self.dtype
-
-        def conv(name, x, stride=1, padding="VALID"):
-            return conv2d_nhwc(x, m[name].weight.to(dt), stride, padding)
-
-        x = x.to(dt)
+        x = x.to(self.dtype)
         # --- Entry flow ---
-        x = torch.relu(m["block1_conv1_bn"](conv("block1_conv1", x, stride=2)))
-        x = torch.relu(m["block1_conv2_bn"](conv("block1_conv2", x)))
+        x = torch.relu(m["block1_conv1_bn"](m["block1_conv1"](x)))
+        x = torch.relu(m["block1_conv2_bn"](m["block1_conv2"](x)))
         for idx, _feat in ENTRY_BLOCKS:
-            residual = conv(f"block{idx}_res_conv", x, stride=2, padding="SAME")
-            residual = m[f"block{idx}_res_bn"](residual)
+            residual = m[f"block{idx}_res_bn"](m[f"block{idx}_res_conv"](x))
             if idx > 2:  # block2 has no leading activation (Keras quirk)
                 x = torch.relu(x)
             x = m[f"block{idx}_sepconv1_bn"](m[f"block{idx}_sepconv1"](x))
@@ -90,7 +87,7 @@ class Xception(nn.Module):
             x = x + residual
 
         # --- Exit flow ---
-        residual = m["block13_res_bn"](conv("block13_res_conv", x, stride=2, padding="SAME"))
+        residual = m["block13_res_bn"](m["block13_res_conv"](x))
         x = torch.relu(x)
         x = m["block13_sepconv1_bn"](m["block13_sepconv1"](x))
         x = torch.relu(x)

@@ -67,7 +67,8 @@ def _pack_ext(code: int, data: bytes, out: bytearray) -> None:
 
 
 def _ndarray_payload(arr: np.ndarray) -> bytes:
-    arr = np.ascontiguousarray(arr)
+    # tobytes() is C-ordered whatever the layout; the shape is the array's
+    # own (np.ascontiguousarray would turn a 0-d array into shape (1,)).
     return packb((list(arr.shape), arr.dtype.name, arr.tobytes()))
 
 

@@ -1,0 +1,252 @@
+"""int8 convolutions of the w8a8 serving path: Q1 (dense) and Q2 (depthwise).
+
+Each computes one calibrated layer of the JAX package's w8a8 program
+(``kubernetes_deep_learning_tpu/ops/quantize.py::build_w8a8_forward``) on
+float32 NHWC activations, bit for bit:
+
+    q   = clamp(round(x / s_act), -127, 127)          (int8 codes)
+    acc = conv(q, q_w)                                (int32, exact)
+    y   = float32(acc) * out_scale (+ bias)           (out_scale = s_act * s_w)
+
+- ``int8_conv(x, packed, s_act, out_scale, kernel_size, stride, padding)``:
+  a dense convolution (groups 1; "VALID" or TF "SAME"), the weight packed
+  by ``pack_conv`` as int8 (C_out, K_pad), taps ordered (kh, kw, C_in) and
+  zero past K = kh*kw*C_in up to a multiple of 64;
+- ``int8_depthwise(x, packed, s_act, out_scale)``: a 3x3 depthwise
+  convolution, stride 1, SAME, the weight packed by ``pack_depthwise`` as
+  int8 (9, C).
+
+On a CUDA tensor each wrapper launches its hand-written kernel in
+``csrc/int8_conv.cu`` (Q1 ``int8_conv_kernel``, Q2
+``int8_depthwise_kernel``; no TPU kernel: the JAX program runs XLA's int8
+convolution) and adds one to its launch count; there is no fallback, and a
+shape the kernel does not take raises.  On a CPU tensor it computes the
+plain PyTorch version, ``int8_conv_reference``: the products exactly, by a
+float64 convolution of the codes rounded to int32, and the quantize and
+epilogue steps as the same float32 operations.  ``Int8Conv2d`` is the module
+``ops.quantize.build_w8a8_forward`` puts in place of a calibrated conv.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from kubernetes_deep_learning_tpu_torch.models.layers import conv2d_nhwc, same_pads
+from kubernetes_deep_learning_tpu_torch.ops._counts import LaunchCounts
+
+_counts = LaunchCounts("int8_conv", "int8_depthwise")
+launch_counts = _counts.snapshot
+reset_launch_counts = _counts.reset
+_count = _counts.count
+
+K_ALIGN = 64  # Q1's k step: the packed weight's rows are padded to it
+
+
+# --- packing ------------------------------------------------------------------
+
+
+def pack_conv(q_w: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 -> (C_out, K_pad) int8, k ordered (kh, kw, C_in), zero past K."""
+    c_out, c_in, kh, kw = q_w.shape
+    k = kh * kw * c_in
+    packed = torch.zeros((c_out, -(-k // K_ALIGN) * K_ALIGN), dtype=torch.int8,
+                         device=q_w.device)
+    packed[:, :k] = q_w.permute(0, 2, 3, 1).reshape(c_out, k)
+    return packed
+
+
+def unpack_conv(packed: torch.Tensor, c_in: int, kh: int, kw: int) -> torch.Tensor:
+    """``pack_conv``'s inverse: OIHW int8."""
+    c_out = packed.shape[0]
+    k = kh * kw * c_in
+    return packed[:, :k].reshape(c_out, kh, kw, c_in).permute(0, 3, 1, 2).contiguous()
+
+
+def pack_depthwise(q_w: torch.Tensor) -> torch.Tensor:
+    """(C,1,3,3) int8 -> (9, C) int8, tap-major."""
+    return q_w[:, 0].permute(1, 2, 0).reshape(9, q_w.shape[0]).contiguous()
+
+
+def unpack_depthwise(packed: torch.Tensor) -> torch.Tensor:
+    """``pack_depthwise``'s inverse: (C,1,3,3) int8."""
+    return packed.reshape(3, 3, -1).permute(2, 0, 1).unsqueeze(1).contiguous()
+
+
+# --- the plain PyTorch version ------------------------------------------------
+
+
+def quantize_input(x: torch.Tensor, s_act: float) -> torch.Tensor:
+    """clamp(round(x / s_act), -127, 127) in float32.  The divisor is a
+    tensor on x's device: CUDA's division by a host scalar multiplies by its
+    reciprocal, which is not IEEE division."""
+    s = torch.full((1,), s_act, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x.float() / s), -127, 127)
+
+
+def int8_accumulate_reference(q, q_w, stride: int = 1, padding: str = "VALID",
+                              groups: int = 1) -> torch.Tensor:
+    """The int32 accumulators of a conv of int8 codes ``q`` (NHWC, any
+    dtype holding them) with ``q_w`` (OIHW int8), exactly: a float64
+    convolution (|acc| < 2^31 < 2^53) rounded to int32."""
+    acc = conv2d_nhwc(q.double(), q_w.double(), stride, padding, groups)
+    return torch.round(acc).to(torch.int32)
+
+
+def int8_conv_reference(x, q_w, s_act: float, out_scale, stride: int = 1,
+                        padding: str = "VALID", groups: int = 1, bias=None):
+    """One calibrated layer, plain: x f32 NHWC, q_w int8 OIHW (depthwise
+    (C,1,kh,kw)), out_scale f32 (C_out,) -> f32 NHWC."""
+    acc = int8_accumulate_reference(quantize_input(x, s_act), q_w, stride, padding, groups)
+    y = acc.float() * out_scale
+    return y + bias if bias is not None else y
+
+
+# --- kernel wrappers ----------------------------------------------------------
+
+
+def _check_x(x, c: int) -> None:
+    if x.dim() != 4 or x.dtype != torch.float32 or x.shape[-1] != c:
+        raise ValueError(f"x must be (B,H,W,{c}) float32, got {tuple(x.shape)} {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def check_cuda_layer(c_in: int, c_out: int, kernel_size, stride: int, padding: str,
+                     groups: int) -> str:
+    """Which kernel takes the layer ("conv" Q1 or "depthwise" Q2), or raise:
+    Q1 takes groups 1 and C_in a multiple of 8 (16-byte loads of 4
+    channels); Q2 a 3x3 depthwise, stride 1, SAME, C a multiple of 8."""
+    if padding not in ("VALID", "SAME"):
+        raise ValueError(f"unknown padding {padding!r}")
+    if c_in % 8:
+        raise ValueError(f"the int8 kernels take widths that are multiples of 8, got C_in {c_in}")
+    if groups == 1:
+        return "conv"
+    if (groups == c_in == c_out and tuple(kernel_size) == (3, 3) and stride == 1
+            and padding == "SAME"):
+        return "depthwise"
+    raise ValueError(f"no int8 kernel takes groups={groups} {tuple(kernel_size)}/{stride} "
+                     f"{padding} on {c_in}->{c_out} channels")
+
+
+def _check_cuda_tensors(tensors) -> None:
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors only")
+
+
+def _out_geometry(h: int, w: int, kh: int, kw: int, stride: int, padding: str):
+    """(Ho, Wo, pad_top, pad_left) of a conv with XLA's padding rules."""
+    if padding == "SAME":
+        top, _ = same_pads(h, kh, stride)
+        left, _ = same_pads(w, kw, stride)
+        return -(-h // stride), -(-w // stride), top, left
+    return (h - kh) // stride + 1, (w - kw) // stride + 1, 0, 0
+
+
+def _bias_ptr(bias):
+    return bias.data_ptr() if bias is not None else None
+
+
+def int8_conv(x, packed, s_act: float, out_scale, kernel_size, stride: int = 1,
+              padding: str = "VALID", bias=None):
+    """Q1: one calibrated dense conv layer (see module doc); f32 NHWC in and out."""
+    kh, kw = kernel_size
+    c_out = packed.shape[0]
+    c_in = x.shape[-1]
+    _check_x(x, c_in)
+    if packed.dtype != torch.int8 or packed.shape[1] < kh * kw * c_in:
+        raise ValueError(f"packed must be int8 (C_out, >= {kh * kw * c_in}), got "
+                         f"{tuple(packed.shape)} {packed.dtype}")
+    if x.device.type == "cpu":
+        return int8_conv_reference(x, unpack_conv(packed, c_in, kh, kw), s_act, out_scale,
+                                   stride, padding, 1, bias)
+    check_cuda_layer(c_in, c_out, kernel_size, stride, padding, 1)
+    x = x.contiguous()
+    b, h, w, _ = x.shape
+    ho, wo, top, left = _out_geometry(h, w, kh, kw, stride, padding)
+    if x.numel() >= 2**31 or b * ho * wo * c_out >= 2**31 or packed.shape[1] % K_ALIGN:
+        raise ValueError(f"the CUDA kernel takes < 2^31 elements a tensor and K_pad a "
+                         f"multiple of {K_ALIGN}")
+    y = torch.empty((b, ho, wo, c_out), dtype=torch.float32, device=x.device)
+    _check_cuda_tensors([x, packed, out_scale, y] + ([bias] if bias is not None else []))
+    from kubernetes_deep_learning_tpu_torch.ops import _build
+
+    lib = _build.load()
+    code = lib.kdlt_int8_conv(
+        x.data_ptr(), packed.data_ptr(), out_scale.data_ptr(), _bias_ptr(bias), y.data_ptr(),
+        float(s_act), b, h, w, c_in, ho, wo, c_out, kh, kw, stride, top, left, packed.shape[1],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "int8 conv")
+    _count("int8_conv")
+    return y
+
+
+def int8_depthwise(x, packed, s_act: float, out_scale, bias=None):
+    """Q2: one calibrated 3x3 depthwise layer, stride 1, SAME (see module
+    doc); f32 NHWC in and out."""
+    c = x.shape[-1]
+    _check_x(x, c)
+    if packed.dtype != torch.int8 or tuple(packed.shape) != (9, c):
+        raise ValueError(f"packed must be int8 (9, {c}), got {tuple(packed.shape)} "
+                         f"{packed.dtype}")
+    if x.device.type == "cpu":
+        return int8_conv_reference(x, unpack_depthwise(packed), s_act, out_scale, 1, "SAME",
+                                   c, bias)
+    check_cuda_layer(c, c, (3, 3), 1, "SAME", c)
+    x = x.contiguous()
+    if x.numel() >= 2**31:
+        raise ValueError("the CUDA kernel takes < 2^31 elements a tensor")
+    y = torch.empty_like(x)
+    _check_cuda_tensors([x, packed, out_scale, y] + ([bias] if bias is not None else []))
+    from kubernetes_deep_learning_tpu_torch.ops import _build
+
+    lib = _build.load()
+    b, h, w, _ = x.shape
+    code = lib.kdlt_int8_depthwise(
+        x.data_ptr(), packed.data_ptr(), out_scale.data_ptr(), _bias_ptr(bias), y.data_ptr(),
+        float(s_act), b, h, w, c, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, code, "int8 depthwise")
+    _count("int8_depthwise")
+    return y
+
+
+class Int8Conv2d(nn.Module):
+    """A calibrated ``models.layers.Conv2dNHWC`` as int8: its weight packed
+    once for its kernel, ``s_act`` and ``out_scale = s_act * s_w`` (f32,
+    computed here on the host as the JAX program computes it).  Called on
+    float32 NHWC activations (the exact graph's)."""
+
+    def __init__(self, conv, q_w: torch.Tensor, w_scale: torch.Tensor, act_scale,
+                 device: str | torch.device = "cpu"):
+        super().__init__()
+        self.kernel_size = tuple(conv.kernel_size)
+        self.stride = conv.stride[0]
+        self.padding = conv.tf_padding
+        self.c_in, self.c_out = conv.in_channels, conv.out_channels
+        self.kind = check_cuda_layer(self.c_in, self.c_out, self.kernel_size, self.stride,
+                                     self.padding, conv.groups)
+        if tuple(q_w.shape) != tuple(conv.weight.shape) or q_w.dtype != torch.int8:
+            raise ValueError(f"q_w must be int8 {tuple(conv.weight.shape)}, got "
+                             f"{tuple(q_w.shape)} {q_w.dtype}")
+        act = np.float32(act_scale)
+        self.s_act = float(act)
+        out_scale = act * np.asarray(w_scale.cpu().numpy(), np.float32)
+        packed = pack_depthwise(q_w) if self.kind == "depthwise" else pack_conv(q_w)
+        self.register_buffer("packed", packed.to(device))
+        self.register_buffer("out_scale", torch.from_numpy(out_scale).to(device))
+        bias = conv.bias
+        self.register_buffer("bias", None if bias is None else bias.detach().float().to(device))
+
+    def forward(self, x):
+        if self.kind == "depthwise":
+            return int8_depthwise(x.float(), self.packed, self.s_act, self.out_scale, self.bias)
+        return int8_conv(x.float(), self.packed, self.s_act, self.out_scale, self.kernel_size,
+                         self.stride, self.padding, self.bias)
+
+    def extra_repr(self) -> str:
+        return (f"{self.kind}, {self.c_in}->{self.c_out}, {self.kernel_size}/{self.stride} "
+                f"{self.padding}, s_act={self.s_act:.6g}")

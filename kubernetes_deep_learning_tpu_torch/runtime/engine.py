@@ -47,6 +47,22 @@ model's FLOPs per image once (``runtime.flops.flops_per_image``) before
 the engine reports ready, and ``bucket_audit()`` serves the padding waste
 per bucket over the recent batches.
 
+Quantized artifacts (``ops.quantize``; the JAX engine's scheme dispatch,
+gate and downgrade): ``metadata["quantization"]`` names the scheme.
+``int8-weight-only`` serves the float forward (the fused path on the card)
+on the host-dequantized parameters, dequantized once at load.
+``int8-w8a8`` serves ``ops.quantize.build_w8a8_forward`` (the exact
+float32 graph with every calibrated conv on the int8 kernels Q1/Q2; the
+fused path stays off), unless $KDLT_QUANT_SCHEME=weight-only serves it
+weight-only.  After the buckets are captured, ``warmup()`` runs the gate:
+the w8a8 replay on the bucket for min(8, max_batch) against the
+weight-only forward on seeded images must agree within $KDLT_QUANT_TOL
+(relative max-abs) with top-1 agreement >= 0.99; otherwise the engine
+logs an error, counts ``kdlt_quant_gate_failures_total``, frees the w8a8
+graphs and re-captures the weight-only forward before it reports ready.
+``quantization`` / ``quantization_active`` and ``kdlt_quant_scheme``
+report the requested and the serving scheme.
+
 ``close()`` gives an unloaded version's device memory back: it waits for
 the event of the engine's last dispatch, then drops its bucket graphs,
 their pool, its staging slots and its parameters, and releases the cached
@@ -75,6 +91,7 @@ from kubernetes_deep_learning_tpu_torch import weights
 from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
 from kubernetes_deep_learning_tpu_torch.models import build_forward, resolve_device
 from kubernetes_deep_learning_tpu_torch.ops import _counts
+from kubernetes_deep_learning_tpu_torch.ops import quantize as quant_lib
 from kubernetes_deep_learning_tpu_torch.runtime import flops as flops_lib
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
 from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
@@ -599,10 +616,32 @@ class InferenceEngine:
         if name not in _DTYPES:
             raise ValueError(f"unsupported compute dtype {name!r}")
         self.compute_dtype = _DTYPES[name]
-        self._params = weights.from_jax_variables(artifact.variables)
-        self._forward = build_forward(
-            self.spec, self._params, self.compute_dtype, fast, self.device
-        )
+        self._quantization = artifact.metadata.get("quantization") or None
+        self._quantization_active = self._quantization
+        self.quant_gate_failed = False
+        self.quant_gate_drift = self.quant_gate_top1 = None
+        self._quant_gate_checked = False
+        self._fast_request = fast
+        self._fallback = None  # the weight-only forward the gate built
+        if self._quantization is not None:
+            if self._quantization not in quant_lib.SCHEMES:
+                raise ValueError(f"unknown quantization scheme {self._quantization!r}")
+            if (self._quantization == quant_lib.SCHEME_W8A8
+                    and quant_lib.resolve_scheme_override() == "weight-only"):
+                log.warning("%s=weight-only: serving %s without int8 activations",
+                            quant_lib.QUANT_SCHEME_ENV, self.spec.name)
+                self._quantization_active = quant_lib.SCHEME
+        if self._quantization_active == quant_lib.SCHEME_W8A8:
+            # One conversion serves both forwards: the w8a8 one now, the
+            # weight-only one if the gate downgrades.
+            self._params, leaves = weights.from_jax_quantized(artifact.variables)
+            self._forward = quant_lib.build_w8a8_forward(
+                self.spec, artifact.variables, self.device, converted=(self._params, leaves))
+        else:
+            self._params = weights.from_jax_variables(
+                quant_lib.dequantize_variables_host(artifact.variables)
+                if self._quantization else artifact.variables)
+            self._forward = self._weight_forward()
         self.fast = self._forward.fast
         self._exact_f32 = None
         self._lock = threading.Lock()
@@ -643,10 +682,37 @@ class InferenceEngine:
         # deque.append is atomic; readers snapshot with list().
         self._bucket_history: collections.deque[tuple[int, int]] = collections.deque(
             maxlen=2048)
+        # The ACTIVE scheme's gauge is 1 (post-gate, post-override).
+        self._m_quant = metrics_lib.quant_metrics(registry)
+        self._refresh_scheme_gauge()
+
+    def _weight_forward(self):
+        """The float forward over ``self._params`` in the compute dtype (the
+        fused path where it resolves): unquantized and weight-only serving,
+        and the w8a8 gate's reference and fallback."""
+        return build_forward(self.spec, self._params, self.compute_dtype, self._fast_request,
+                             self.device)
+
+    def _refresh_scheme_gauge(self) -> None:
+        active = self._quantization_active or "float32"
+        for scheme, gauge in self._m_quant["scheme"].items():
+            gauge.set(1.0 if scheme == active else 0.0)
 
     @property
     def ready(self) -> bool:
         return self._ready.is_set()
+
+    @property
+    def quantization(self) -> str | None:
+        """The artifact's requested quantization scheme tag (or None)."""
+        return self._quantization
+
+    @property
+    def quantization_active(self) -> str | None:
+        """The scheme actually serving: the requested one unless the warmup
+        tolerance gate or $KDLT_QUANT_SCHEME downgraded int8-w8a8 to
+        weight-only."""
+        return self._quantization_active
 
     def sharding_info(self) -> dict:
         """The status page's sharding keys: one device, the JAX package's
@@ -661,15 +727,87 @@ class InferenceEngine:
     def warmup(self) -> float:
         """Run every bucket once, in turn (on the card: building the kernels,
         capturing the bucket's graph and replaying it), count the FLOPs per
-        image for the MFU gauges (unless ``KDLT_MFU=0``); gate readiness."""
+        image for the MFU gauges (unless ``KDLT_MFU=0``); gate readiness.  A
+        w8a8 engine runs the tolerance gate after its buckets, and on a
+        failure re-warms every bucket on the weight-only forward first."""
         t0 = time.perf_counter()
-        for b in self.buckets:
-            np.asarray(self.predict_async(np.zeros((b, *self.spec.input_shape), np.uint8))[0])
+        while True:
+            for b in self.buckets:
+                np.asarray(self.predict_async(np.zeros((b, *self.spec.input_shape), np.uint8))[0])
+            if self._quant_gate_pending() and not self._run_quant_gate():
+                self._downgrade_w8a8()
+                continue
+            break
         if flops_lib.mfu_enabled():
             self._mfu.set_flops_per_image(flops_lib.flops_per_image(self.spec))
         dt = time.perf_counter() - t0
         self._ready.set()
         return dt
+
+    # --- w8a8 tolerance gate ----------------------------------------------
+
+    def _quant_gate_pending(self) -> bool:
+        return (self._quantization_active == quant_lib.SCHEME_W8A8
+                and not self._quant_gate_checked)
+
+    def _run_quant_gate(self) -> bool:
+        """The w8a8 forward's logits on a seeded uint8 batch (the bucket for
+        min(8, max_batch), replayed from its graph on the card) against the
+        weight-only forward, the program the fallback would serve.  Passes
+        iff top-1 agreement >= GATE_TOP1 and the relative max-abs drift <=
+        $KDLT_QUANT_TOL."""
+        self._quant_gate_checked = True
+        tol = quant_lib.resolve_quant_tol()
+        b = self.bucket_for(min(8, self.max_batch))
+        x = np.random.default_rng(0).integers(0, 256, size=(b, *self.spec.input_shape),
+                                              dtype=np.uint8)
+        got = np.asarray(self.predict_async(x)[0])[:b]
+        self._fallback = self._weight_forward()
+        with torch.inference_mode():
+            ref = self._fallback(torch.from_numpy(x).to(self.device)).float().cpu().numpy()
+        drift = float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-9))
+        top1 = float((got.argmax(-1) == ref.argmax(-1)).mean())
+        ok = drift <= tol and top1 >= quant_lib.GATE_TOP1
+        if ok:
+            self._fallback = None
+            log.info("w8a8 tolerance gate PASSED for %s: top-1 agreement %.4f (>= %.2f), "
+                     "relative max-abs logit drift %.4f (<= %s=%.3g) over a %d-image golden "
+                     "batch; serving int8 activations", self.spec.name, top1,
+                     quant_lib.GATE_TOP1, drift, quant_lib.QUANT_TOL_ENV, tol, b)
+        else:
+            log.error("w8a8 tolerance gate FAILED for %s: top-1 agreement %.4f (need >= %.2f), "
+                      "relative max-abs logit drift %.4f (need <= %s=%.3g) over a %d-image "
+                      "golden batch; REFUSING int8 activations and serving weight-only -- "
+                      "re-calibrate the artifact (kdlt-torch-quantize --scheme int8-w8a8)",
+                      self.spec.name, top1, quant_lib.GATE_TOP1, drift,
+                      quant_lib.QUANT_TOL_ENV, tol, b)
+        self.quant_gate_drift = drift
+        self.quant_gate_top1 = top1
+        return ok
+
+    def _downgrade_w8a8(self) -> None:
+        """After a gate failure: serve weight-only (the gate's reference
+        forward, the fused path again where it resolves).  The w8a8 bucket
+        graphs are freed as ``close()`` frees them (after the last dispatch's
+        event, under the capture lock); warmup re-captures the buckets on the
+        capture thread."""
+        self.quant_gate_failed = True
+        self._quantization_active = quant_lib.SCHEME
+        self._m_quant["gate_failures"].inc()
+        self._refresh_scheme_gauge()
+        with self._lock:
+            last, self._last_done = self._last_done, None
+            if last is not None:
+                last.synchronize()
+            with capture_lock:
+                self._graphs.clear()
+                self._forward, self._fallback = self._fallback, None
+                self.fast = self._forward.fast
+                if self.device.type == "cuda":
+                    self._pool = torch.cuda.graph_pool_handle()
+                gc.collect()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
 
     def bucket_audit(self) -> dict:
         """Per-bucket padding waste over the recent batches, with the FLOPs
@@ -868,7 +1006,7 @@ class InferenceEngine:
             # No predict passes _check_open any more: nothing else reads these.
             self._graphs.clear()
             self._pool = None
-            self._params = self._forward = self._exact_f32 = None
+            self._params = self._forward = self._exact_f32 = self._fallback = None
             with self._free_lock:
                 self._free.clear()
             gc.collect()

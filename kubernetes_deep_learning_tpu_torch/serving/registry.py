@@ -137,10 +137,11 @@ class ModelRegistry:
         return {name: self.model_status(name, m) for name, m in self.models.items()}
 
     def model_status(self, name: str, served=None) -> dict | None:
-        """GET /v1/models/<name>:status, with the JAX server's keys.  The
-        port serves unquantized weights on one device, so the quantization
-        keys read the artifact's metadata and the sharding keys the
-        engine's ``sharding_info`` ("single", 1, None)."""
+        """GET /v1/models/<name>:status, with the JAX server's keys: the
+        engine's ``quantization`` (the artifact's scheme tag) and
+        ``quantization_active`` (the scheme actually serving, after the
+        warmup gate and $KDLT_QUANT_SCHEME), and its ``sharding_info``
+        (one device: "single", 1, None)."""
         served = served if served is not None else self.models.get(name)
         if served is None:
             return None

@@ -298,6 +298,39 @@ def device_busy_gauge(registry: "Registry") -> "Gauge":
         "engine's batches (the batches' device times; ~30 s half-life)")
 
 
+# Quantization serving state (ops.quantize + runtime.engine): the
+# ``scheme`` label's value set is exactly this tuple.
+QUANT_SCHEMES = (
+    ("float32", "unquantized float serving"),
+    ("int8-weight-only", "int8 weights dequantized inline; float activations"),
+    ("int8-w8a8", "int8 weights AND calibrated int8 activations (MXU 2x path)"),
+)
+
+
+def quant_metrics(registry: "Registry") -> dict:
+    """One engine's quantization accounting: which scheme is ACTIVE (the
+    gauge is 1 for exactly one scheme -- post-tolerance-gate, post-
+    $KDLT_QUANT_SCHEME override, so a silently-downgraded pod is
+    alertable) and how many times the warmup tolerance gate refused
+    int8 activations (kdlt_quant_gate_failures_total).  The names and help
+    are the JAX package's."""
+    return {
+        "scheme": {
+            scheme: registry.with_labels(scheme=scheme).gauge(
+                "kdlt_quant_scheme",
+                f"1 while this scheme is the one actually serving: {help}",
+            )
+            for scheme, help in QUANT_SCHEMES
+        },
+        "gate_failures": registry.counter(
+            "kdlt_quant_gate_failures_total",
+            "warmup golden-logits tolerance gate failures: a calibrated "
+            "int8-w8a8 artifact drifted past KDLT_QUANT_TOL (or top-1 "
+            "agreement) and was downgraded to weight-only serving",
+        ),
+    }
+
+
 # The flight recorder's triggers (utils.flightrecorder.TRIGGER_RULES): the
 # ``trigger`` label's values are exactly this tuple.
 INCIDENT_TRIGGERS = ("burn-crossing", "brownout", "dispatch-stall", "replica-unhealthy")

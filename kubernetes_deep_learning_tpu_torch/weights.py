@@ -18,6 +18,12 @@ params/<dg>/kernel (3-D)        <dg>.kernel                     unchanged
 params/pos_embed                pos_embed                       unchanged
 ==============================  ==============================  ===========
 
+An int8-quantized tree (``ops.quantize``: a kernel leaf
+``{_q8, _q8_scale[, _q8_act_scale]}``) loads through
+:func:`from_jax_quantized`: the float parameters of its host-dequantized
+tree, and each quantized module's int8 weight in the port's layout with
+its scales.
+
 ``<dg>`` is a ``DenseGeneral`` (ViT's attention projections): its kernel
 keeps flax's layout, (C, heads, head_dim) for query/key/value and
 (heads, head_dim, C) for out, so the round trip needs no head count.
@@ -36,10 +42,12 @@ epsilon for a family that has its own (ResNet's 1.001e-5,
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from kubernetes_deep_learning_tpu_torch.ops import quantize as quant
 
 # Keras BatchNormalization default epsilon (TF 2.3), needed for logit parity.
 KERAS_BN_EPS = 1e-3
@@ -64,6 +72,9 @@ def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
             raise ValueError(f"unknown variable collection {collection!r}")
         for path, leaf in _flatten(tree):
             *module, name = path
+            if name in (quant.QUANT_KEY, quant.SCALE_KEY, quant.ACT_SCALE_KEY):
+                raise ValueError(f"{'/'.join(path)} is an int8-quantized leaf: load a "
+                                 "quantized tree with weights.from_jax_quantized")
             arr = np.array(leaf, np.float32)  # a writable copy
             if collection == "batch_stats":
                 suffix = _STAT_KEYS.get(name)
@@ -83,6 +94,36 @@ def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
                 raise ValueError(f"unknown {collection} leaf {'/'.join(path)}")
             out[".".join((*module, suffix))] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+class Int8Leaf(NamedTuple):
+    """One quantized module: its int8 weight in the port's layout (OIHW,
+    depthwise (C,1,kh,kw), dense (out,in); a 3-D DenseGeneral kernel keeps
+    flax's), its f32 per-output-channel scale, and its activation scale
+    (None when the leaf is uncalibrated)."""
+
+    weight: torch.Tensor
+    scale: torch.Tensor
+    act_scale: np.float32 | None
+
+
+def from_jax_quantized(variables: dict) -> tuple[dict[str, torch.Tensor], dict[str, Int8Leaf]]:
+    """A quantized flax tree -> (``from_jax_variables`` of its
+    host-dequantized tree, {port module name -> ``Int8Leaf``})."""
+    params = from_jax_variables(quant.dequantize_variables_host(variables))
+    leaves = {}
+    for path, leaf in quant.quantized_leaves(variables).items():
+        q = np.asarray(leaf[quant.QUANT_KEY], np.int8)
+        if q.ndim == 4:
+            q = q.transpose(3, 2, 0, 1)
+        elif q.ndim == 2:
+            q = q.T
+        act = leaf.get(quant.ACT_SCALE_KEY)
+        leaves[".".join(path)] = Int8Leaf(
+            torch.from_numpy(np.ascontiguousarray(q)),
+            torch.from_numpy(np.array(leaf[quant.SCALE_KEY], np.float32)),
+            None if act is None else np.float32(np.asarray(act)))
+    return params, leaves
 
 
 def to_jax_variables(params: dict[str, torch.Tensor]) -> dict[str, Any]:

@@ -44,7 +44,12 @@ back (within 16 MiB).  Observability: a bucket-16 batch's device time (its
 handle's timing events) lies within 10% of its graph's replay timed alone,
 the ``kdlt_mfu_pct`` and ``kdlt_device_busy_ratio`` gauges appear after
 traffic, and a 1 s ``/debug/profile`` under traffic names the stage
-kernel's symbol.
+kernel's symbol.  int8: Q1 and Q2 (``ops/csrc/int8_conv.cu``) equal their
+plain versions exactly (max abs difference 0) at every shape of the 299-px
+clothing model's w8a8 forward at batch 3 and at K- and N-tail shapes; a
+96-px w8a8 engine passes its gate, launches 39 Q1 and 29 Q2 a replay and
+replays bit-equal to eager; a miscalibrated one is refused, re-captured
+weight-only on the capture thread, and gives its memory back on close.
 """
 
 from __future__ import annotations
@@ -1116,3 +1121,192 @@ def test_cuda_debug_profile_under_traffic_names_the_stage_kernel(tmp_path):
     finally:
         stop.set()
         server.shutdown()
+
+
+# --- int8 quantization: Q1 and Q2, the w8a8 engine --------------------------
+
+# Every (side, C_in, C_out, k, stride, padding) at which clothing-model's
+# w8a8 forward (299 px) launches Q1, and every (side, C) of Q2; then shapes
+# with a K tail (C_in 40: K = 40 and 360, neither a multiple of 64) and an N
+# tail (C_out 24 and 200).
+INT8_CONV_SHAPES = (
+    (149, 32, 64, 3, 1, "VALID"),   # block1_conv2
+    (147, 64, 128, 1, 2, "SAME"),   # residual convs, 1x1/2
+    (74, 128, 256, 1, 2, "SAME"),
+    (37, 256, 728, 1, 2, "SAME"),
+    (19, 728, 1024, 1, 2, "SAME"),
+    (147, 64, 128, 1, 1, "VALID"),  # pointwise convs
+    (147, 128, 128, 1, 1, "VALID"),
+    (74, 128, 256, 1, 1, "VALID"),
+    (74, 256, 256, 1, 1, "VALID"),
+    (37, 256, 728, 1, 1, "VALID"),
+    (37, 728, 728, 1, 1, "VALID"),
+    (19, 728, 728, 1, 1, "VALID"),
+    (19, 728, 1024, 1, 1, "VALID"),
+    (10, 1024, 1536, 1, 1, "VALID"),
+    (10, 1536, 2048, 1, 1, "VALID"),
+    (9, 40, 24, 1, 1, "VALID"),
+    (11, 40, 200, 3, 2, "SAME"),
+)
+INT8_DEPTHWISE_SHAPES = ((37, 728), (19, 728), (10, 1024), (10, 1536), (9, 40))
+
+
+def _int8_operands(rng, c_in, c_out, k, groups=1):
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+
+    q = torch.from_numpy(rng.integers(-127, 128, (c_out, c_in // groups, k, k)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, c_out).astype(np.float32)).cuda()
+    packed = (int8_ops.pack_depthwise(q) if groups > 1 else int8_ops.pack_conv(q)).cuda()
+    return q.cuda(), packed, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT8_CONV_SHAPES, ids=str)
+def test_cuda_int8_conv_equals_its_plain_version(shape):
+    """Q1 at batch 3: max abs difference 0 against ``int8_conv_reference``
+    (the quantize-in and epilogue are the same f32 operations and the int
+    products exact), on inputs whose codes reach the clamp."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+
+    side, c_in, c_out, k, stride, padding = shape
+    rng = np.random.default_rng(side * c_out)
+    x = _t(rng, (3, side, side, c_in), std=2.0)
+    q, packed, scale = _int8_operands(rng, c_in, c_out, k)
+    int8_ops.reset_launch_counts()
+    got = int8_ops.int8_conv(x, packed, 0.0173, scale, (k, k), stride, padding)
+    torch.cuda.synchronize()
+    assert int8_ops.launch_counts() == {"int8_conv": 1, "int8_depthwise": 0}
+    want = int8_ops.int8_conv_reference(x, q, 0.0173, scale, stride, padding)
+    assert got.shape == want.shape
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT8_DEPTHWISE_SHAPES, ids=str)
+def test_cuda_int8_depthwise_equals_its_plain_version(shape):
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+
+    side, c = shape
+    rng = np.random.default_rng(side * c)
+    x = _t(rng, (3, side, side, c), std=2.0)
+    q, packed, scale = _int8_operands(rng, c, c, 3, groups=c)
+    int8_ops.reset_launch_counts()
+    got = int8_ops.int8_depthwise(x, packed, 0.0173, scale)
+    torch.cuda.synchronize()
+    assert int8_ops.launch_counts() == {"int8_conv": 0, "int8_depthwise": 1}
+    want = int8_ops.int8_conv_reference(x, q, 0.0173, scale, 1, "SAME", c)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kernels_refuse_what_they_cannot_take():
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+
+    rng = np.random.default_rng(0)
+    _, packed, scale = _int8_operands(rng, 12, 16, 1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_ops.int8_conv(_t(rng, (1, 5, 5, 12)), packed, 0.01, scale, (1, 1))
+
+
+def _w8a8_engine(tmp_path, compute_dtype: str, miscalibrated: bool = False, buckets=(2, 8)):
+    """A 96-px Xception v1 and its w8a8 version (calibrated on the card from
+    8 noise images at percentile 100), served by an engine on the card."""
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.ops import quantize
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    spec, _, _ = _engine_case("xception")
+    root = str(tmp_path)
+    art.save_artifact(art.version_dir(root, spec.name, 1), spec, init_variables(spec, seed=1),
+                      {"compute_dtype": compute_dtype})
+    path = quantize.write_quantized_version(
+        root, spec.name, quantize.SCHEME_W8A8,
+        calib_images=quantize.representative_images(spec, 8, seed=7), percentile=100.0)
+    artifact = art.load_artifact(path)
+    if miscalibrated:
+        def scaled(tree):
+            if not isinstance(tree, dict):
+                return tree
+            out = {k: scaled(v) for k, v in tree.items()}
+            if quantize.ACT_SCALE_KEY in tree:
+                out[quantize.ACT_SCALE_KEY] = np.asarray(
+                    tree[quantize.ACT_SCALE_KEY] * np.float32(1e3), np.float32)
+            return out
+        artifact.variables = scaled(artifact.variables)
+    return InferenceEngine(artifact, buckets=buckets, device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_w8a8_engine_replays_its_graphs_bit_equal_to_eager(tmp_path):
+    """A w8a8 engine (float32 compute dtype, so the gate's reference is the
+    exact graph): the gate passes, every replay launches 39 Q1 and 29 Q2
+    and no stage kernel, and the replay equals the eager forward bit for
+    bit."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+    from kubernetes_deep_learning_tpu_torch.ops import quantize
+
+    engine = _w8a8_engine(tmp_path, "float32")
+    engine.warmup()
+    assert engine.quantization_active == quantize.SCHEME_W8A8, engine.quant_gate_drift
+    rng = np.random.default_rng(9)
+    for n, bucket in ((2, 2), (5, 8)):
+        imgs = rng.integers(0, 256, (n, 96, 96, 3), np.uint8)
+        int8_ops.reset_launch_counts()
+        ops.reset_launch_counts()
+        rows = np.asarray(engine.predict_async(imgs)[0])
+        assert int8_ops.launch_counts() == {"int8_conv": 39, "int8_depthwise": 29}
+        assert not any(ops.launch_counts().values())
+        padded = np.zeros((bucket, 96, 96, 3), np.uint8)
+        padded[:n] = imgs
+        with torch.inference_mode():
+            eager = engine._forward(torch.from_numpy(padded).cuda()).cpu().numpy()
+        assert np.isfinite(rows).all()
+        np.testing.assert_array_equal(rows, eager)
+    engine.close()
+
+
+@pytest.mark.cuda
+def test_cuda_gate_refusal_recaptures_weight_only_and_close_gives_memory_back(tmp_path):
+    """A miscalibrated w8a8 artifact (activation scales x1000): warmup
+    refuses it, frees the w8a8 graphs and re-captures every bucket on the
+    capture thread with the weight-only forward (8 K1 + 2 K2 a forward, no
+    Q1/Q2); ``close()`` then gives the memory back within 16 MiB."""
+    _need_cuda()
+    import threading
+
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+    from kubernetes_deep_learning_tpu_torch.ops import quantize
+    from kubernetes_deep_learning_tpu_torch.runtime import engine as engine_mod
+
+    _warm_engine("xception").close()  # the capture stream's workspace lives on
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = _w8a8_engine(tmp_path, "bfloat16", miscalibrated=True)
+    threads = []
+    capture = engine._capture
+
+    def spy(bucket):
+        threads.append(threading.current_thread().name)
+        return capture(bucket)
+
+    engine._capture = spy
+    engine.warmup()
+    assert engine.quant_gate_failed and engine.fast
+    assert engine.quantization_active == quantize.SCHEME
+    assert engine._m_quant["gate_failures"].value == 1.0
+    assert len(threads) == 4 and all(t.startswith("kdlt-capture") for t in threads), threads
+    assert engine_mod._capture_thread is not None
+    imgs = np.random.default_rng(3).integers(0, 256, (5, 96, 96, 3), np.uint8)
+    int8_ops.reset_launch_counts()
+    ops.reset_launch_counts()
+    engine.predict(imgs)
+    assert ops.launch_counts() == {"fused_sepconv_block": 8, "fused_sepconv_chain": 2}
+    assert not any(int8_ops.launch_counts().values())
+    engine.close()
+    after = torch.cuda.memory_allocated()
+    assert abs(after - before) < 16 << 20, (before, after)

@@ -422,6 +422,8 @@ assert multimodel <= set(sys.modules), multimodel - set(sys.modules)
 observability = {"kubernetes_deep_learning_tpu_torch." + m for m in (
     "utils.trace", "utils.slo", "utils.flightrecorder", "serving.tracing", "runtime.flops")}
 assert observability <= set(sys.modules), observability - set(sys.modules)
+quantization = {"kubernetes_deep_learning_tpu_torch." + m for m in ("ops.quantize", "ops.int8")}
+assert quantization <= set(sys.modules), quantization - set(sys.modules)
 print(len([k for k in sys.modules if k.startswith("kubernetes_deep_learning_tpu_torch.")]))
 assert not bad, bad
 """
