@@ -216,8 +216,9 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    bucket ``/debug/profile?audit=buckets`` saw served and
    ``kdlt_device_busy_ratio`` in (0, 1], and the bucket-16 gauge within
    25% of 16 x FLOPs/img over the bucket graph's device ms by replay
-   (``observability-mfu``); a 2 s ``/debug/profile`` inside a second 4 s
-   load: ``trace.json`` parses, the ``kernels`` summary counts 28
+   (``observability-mfu``); a 2 s ``/debug/profile`` (the port's CUPTI
+   collector) inside a second 8 s load: ``trace.json`` parses, the
+   ``kernels`` summary counts 28
    ``sepconv_stage_kernel`` launches per forward the launch counter
    credited between the profiler's start and stop (+-56), with the top 10
    device operations and the p99 of requests during the capture against
@@ -225,8 +226,32 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    requests get the stall 503, exactly one incident bundle holds the first
    one's ``dispatch.stall`` event and pinned trace; and the host µs of the
    accounting after a reply (10,000 synthetic requests), beside the
-   batching phase's depth-2 img/s and its 940 before the layer;
-21. with ``--profile``: the host time by op of a few bucket-16
+   batching phase's depth-2 img/s and its 940 before the layer.  The p99
+   during the capture must stay within 3x the p99 outside it (ROADMAP C5;
+   ``observability-stall``: the slowest requests and the longest span
+   without a reply, from the recording's start);
+21. gateway: ``POST /predict {"url"}`` through the port's own gateway.
+   The committed fixtures (``tests/ingest_fixtures``: JPEG at 4:4:4,
+   4:2:2, 4:2:0 with restarts, greyscale; PNG palette and RGBA) must decode
+   here, without PIL, to the pixels PIL gave; colour-grid PNGs written
+   with zlib are served with them from a local http.server (a process of
+   its own).  ``clothing-model`` (seed weights, buckets 1-32, depth 2, the
+   scheduler's lane) serves on ``cuda`` in this process; two gateways run
+   as processes of their own (``python -m ...serving.gateway``, the
+   ``kdlt-torch-gateway`` entry point): the bytes wire (the default: the
+   server decodes) and the tensor wire (``KDLT_INGEST=0``: the gateway
+   decodes).  One request at a time, every fixture and four grids must get
+   the 10 labels with scores bit-equal to the tensor wire's straight to the
+   server for the same locally decoded pixels, on both wires, at 8 K1 and
+   2 K2 launches a forward; the bytes gateway must have sent the bytes wire
+   (the server decoding every image) and the tensor one none; a repeated
+   URL must be a cache hit with the same body and no forward, a GIF a JSON
+   400.  Then 16 traced requests a wire (``gateway-spans``: median fetch,
+   decode, resize, upstream and the server's decode ms) and, for 16 and 32
+   closed-loop clients (384 distinct images each), img/s, p50, p99,
+   forwards and launches through each gateway and on the tensor wire
+   direct (``gateway-load``);
+22. with ``--profile``: the host time by op of a few bucket-16
    ``predict_async`` dispatches of the batching phase's engine
    (``batching-host``); a ``torch.profiler`` trace of a few bucket-16
    forwards of each served model (and of B3's ``fast=False`` engine, and
@@ -371,7 +396,7 @@ OBS_SPANS = ("server.request", "server.admission", "server.decode", "server.pred
 OBS_COVERAGE = 0.95
 OBS_CLIENTS = 16
 OBS_LOAD_S = 6.0
-OBS_PROFILE_LOAD_S = 4.0
+OBS_PROFILE_LOAD_S = 8.0  # covers the capture, its stop and its export
 OBS_PROFILE_S = 2.0
 OBS_MFU_BATCHES = 20
 OBS_MFU_TOL = 0.25
@@ -382,6 +407,36 @@ OBS_COST_REQUESTS = 10_000
 # observability layer existed (an H100 80GB HBM3 at 700 W; another run of
 # the same tree read 1,082).
 DEPTH2_IMG_S_BEFORE = 940.0
+# The gateway phase: the port's gateway (a process of its own) in front of
+# the port's model server (buckets 1-32, depth 2, the scheduler's lane),
+# on both wires: the bytes wire (the default: the server decodes) and the
+# tensor wire (KDLT_INGEST=0 on the gateway: it decodes).  Images come from
+# a local http.server: the committed JPEG/PNG fixtures (their PIL-decoded
+# pixels beside them) and colour-grid PNGs written with zlib here.
+GW_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "ingest_fixtures")
+GW_GRID_HW = (360, 480)  # the grid PNGs' size; nearest-resized to 299 x 299
+GW_GRID_CELL = 24
+GW_CHECK_GRIDS = 4       # grid PNGs held bit-equal against the tensor wire direct
+GW_TRACED = 16           # sequential traced requests a wire, each its own image
+GW_CLIENTS = (16, 32)    # closed-loop clients of the load runs
+GW_IMAGES = 384          # distinct grid PNGs a load set (one set a client count)
+# The image host, a process of its own: http.server's file handler with a
+# listen backlog of 1024 (its default 5 drops the SYNs of a burst of
+# fetches, each a new connection, and costs each a 1 s retransmit).
+GW_IMAGE_SERVER = """
+import functools, http.server, sys
+class Server(http.server.ThreadingHTTPServer):
+    request_queue_size = 1024
+    daemon_threads = True
+class Files(http.server.SimpleHTTPRequestHandler):
+    def log_message(self, *args):
+        pass
+Server(("127.0.0.1", int(sys.argv[1])), functools.partial(Files, directory=sys.argv[2])
+       ).serve_forever()
+"""
+# The C5 gate: p99 of requests during a /debug/profile capture over p99 outside.
+OBS_PROFILE_P99_RATIO = 3.0
 # ViT-B/16 at its published fine-tuning resolution: 24 x 24 = 576 tokens.
 VIT_384_KW = dict(name="vit-b16-384", family="vit-b16", input_shape=(384, 384, 3),
                   preprocessing="tf",
@@ -962,13 +1017,16 @@ def _model_value(server, name: str, model: str) -> float:
     return float(found.group(1))
 
 
-def _loadgen_cmd(url: str, images_path: str, out_path: str, *args) -> list[str]:
-    """The load generator's command line (``args``: its other options)."""
+def _loadgen_cmd(url: str, images_path: str | None, out_path: str, *args) -> list[str]:
+    """The load generator's command line (``args``: its other options; no
+    ``--images`` for its gateway mode, ``--image-urls``)."""
+    images = ["--images", images_path] if images_path is not None else []
     return [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.loadgen",
-            "--url", url, "--images", images_path, "--out", out_path, *map(str, args)]
+            "--url", url, *images, "--out", out_path, *map(str, args)]
 
 
-def _load_run(url: str, images_path: str, out_path: str, timeout: float, *args) -> dict:
+def _load_run(url: str, images_path: str | None, out_path: str, timeout: float,
+              *args) -> dict:
     """The load generator in a process of its own (no shared interpreter
     lock with the server); returns its results.  ``args``: its options,
     LOAD_CLIENTS closed-loop clients of LOAD_REQUESTS requests if none."""
@@ -2075,7 +2133,9 @@ def _observability_phase(spec, seed: int, smi: str, depth2_img_s: float, *, coun
 
     from kubernetes_deep_learning_tpu_torch.export import artifact as art
     from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.ops import _native
     from kubernetes_deep_learning_tpu_torch.runtime import flops as flops_lib
+    from kubernetes_deep_learning_tpu_torch.runtime.engine import capture_lock
     from kubernetes_deep_learning_tpu_torch.serving import protocol
     from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
 
@@ -2209,28 +2269,38 @@ def _observability_phase(spec, seed: int, smi: str, depth2_img_s: float, *, coun
                     _fail("observability: the profiled load did not start")
                 time.sleep(0.005)
             time.sleep(0.25)
-            # The launch counts at the profiler's own start and stop (the
+            # The launch counts at the recording's own start and stop (the
             # request's edges add its set-up and the trace's export).
             edges: list = []
-            start, stop = torch.profiler.profile.start, torch.profiler.profile.stop
+            write_locked: list = []  # capture_lock held while the trace was written?
+            DeviceTrace = _native.DeviceTrace  # noqa: N806 - the class patched here
+            start, stop, write = DeviceTrace.start, DeviceTrace.stop, DeviceTrace.write
 
-            def counted_start(prof):
-                start(prof)
+            def counted_start(trace):
+                start(trace)
                 edges.append((time.time(), counter.launch_counts()))
 
-            def counted_stop(prof):
+            def counted_stop(trace):
                 edges.append((time.time(), counter.launch_counts()))
-                stop(prof)
+                return stop(trace)
 
-            torch.profiler.profile.start, torch.profiler.profile.stop = counted_start, counted_stop
+            def watched_write(trace, *args):
+                write_locked.append(capture_lock.locked())
+                return write(trace, *args)
+
+            DeviceTrace.start, DeviceTrace.stop = counted_start, counted_stop
+            DeviceTrace.write = watched_write
             try:
                 status, prof, _ = _http_json(server.port,
                                              f"/debug/profile?seconds={OBS_PROFILE_S}")
                 t_reply = time.time()  # the trace exported and summarised
             finally:
-                torch.profiler.profile.start, torch.profiler.profile.stop = start, stop
+                DeviceTrace.start, DeviceTrace.stop, DeviceTrace.write = start, stop, write
             if len(edges) != 2:
-                _fail(f"observability: the profiler started and stopped {len(edges)} times")
+                _fail(f"observability: the recording started and stopped {len(edges)} times")
+            if write_locked != [False]:
+                _fail(f"observability: capture_lock held while the trace was written "
+                      f"({write_locked})")
             (t_profile, launches0), (t_done, launches1) = edges
             _, err = proc.communicate(timeout=120)
             if proc.returncode != 0:
@@ -2257,6 +2327,21 @@ def _observability_phase(spec, seed: int, smi: str, depth2_img_s: float, *, coun
             inside = sent & (res["done_at"] >= t_profile) & (res["sent_at"] <= t_reply)
             outside = sent & ~inside
             top = list(prof["kernels"].items())[:10]
+            # Where the capture's stall fell: the slowest requests (send and
+            # reply offsets from the profiler's start) and the longest span
+            # with no reply at all.
+            worst = np.argsort(-np.where(sent, res["lat_ms"], -1))[:5]
+            done = np.sort(res["done_at"][sent])
+            gap = int(np.argmax(np.diff(done))) if len(done) > 1 else 0
+            out["profile_stall"] = dict(
+                stop_edge_s=t_done - t_profile, reply_s=t_reply - t_profile,
+                slowest=[[round(float(res["sent_at"][i] - t_profile), 3),
+                          round(float(res["done_at"][i] - t_profile), 3),
+                          round(float(res["lat_ms"][i]), 1)] for i in worst],
+                longest_no_reply_ms=float(np.diff(done).max() * 1e3) if len(done) > 1 else 0.0,
+                longest_no_reply_from_s=float(done[gap] - t_profile) if len(done) else 0.0)
+            print("observability-stall:", json.dumps({**out["profile_stall"], "card": smi}),
+                  flush=True)
             out["profile"] = dict(
                 seconds=OBS_PROFILE_S, export_s=t_reply - t_done, trace_events=events,
                 forwards=forwards,
@@ -2267,6 +2352,11 @@ def _observability_phase(spec, seed: int, smi: str, depth2_img_s: float, *, coun
                 requests_during=int(inside.sum()), requests_outside=int(outside.sum()))
             print("observability-profile:", json.dumps({**out["profile"], "card": smi}),
                   flush=True)
+            ratio = out["profile"]["p99_ms_during_capture"] / out["profile"][
+                "p99_ms_outside_capture"]
+            if ratio > OBS_PROFILE_P99_RATIO:  # ROADMAP C5's gate
+                _fail(f"observability: p99 during the capture is {ratio:.2f}x the p99 outside "
+                      f"it (at most {OBS_PROFILE_P99_RATIO}x)")
 
             # --- a declared stall: one incident bundle, deduplicated ---
             server.dispatcher.declare_stall()
@@ -2294,6 +2384,312 @@ def _observability_phase(spec, seed: int, smi: str, depth2_img_s: float, *, coun
     out["accounting_us_per_request"] = _accounting_cost_us(OBS_COST_REQUESTS)
     out["batching_depth2_img_s"] = depth2_img_s
     out["depth2_img_s_before_layer"] = DEPTH2_IMG_S_BEFORE
+    return out
+
+
+def _png_bytes(img: np.ndarray) -> bytes:
+    """An RGB uint8 image as a PNG: filter 0 on every row, one zlib IDAT."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def _grid_png(seed: int) -> bytes:
+    """A colour grid of GW_GRID_CELL-pixel cells, its colours from ``seed``."""
+    h, w = GW_GRID_HW
+    cells = np.random.default_rng(seed).integers(
+        0, 256, (h // GW_GRID_CELL + 1, w // GW_GRID_CELL + 1, 3), dtype=np.uint8)
+    return _png_bytes(np.repeat(np.repeat(cells, GW_GRID_CELL, 0), GW_GRID_CELL, 1)[:h, :w])
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gw_post(port: int, body: dict, headers: dict | None = None) -> tuple[int, bytes, dict]:
+    """(status, raw body, headers) of one gateway ``POST /predict``."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                 data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _gateway_phase(spec, seed: int, smi: str, *, counter, per_forward: dict) -> dict:
+    """``POST /predict {"url"}`` through the port's gateway (ROADMAP A13,
+    A6h): ``spec`` (clothing-model, K1 and K2) on a model server in this
+    process (buckets 1-32, depth 2, the scheduler's lane), two gateways as
+    processes of their own (``python -m ...serving.gateway``, the
+    ``kdlt-torch-gateway`` entry point): the bytes wire (default) and the
+    tensor wire (``KDLT_INGEST=0``).  Checks: the committed fixtures decode
+    here (no PIL) to the pixels PIL gave; every checked image's reply, one
+    request at a time, has the 10 labels and scores bit-equal to the tensor
+    wire's straight to the server for the same locally decoded pixels, on
+    both wires; 8 K1 and 2 K2 launches a forward; the bytes wire carried
+    the bytes gateway's requests and the server decoded them; a repeated
+    URL is a cache hit with the same body and no forward; an unsupported
+    image is a JSON 400.  Then GW_TRACED traced requests a wire (span
+    medians: fetch, decode, resize, upstream, the server's decode) and,
+    for 16 and 32 closed-loop clients, img/s, p50 and p99 through each
+    gateway against the same clients on the tensor wire direct."""
+    import shutil
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    name, hw = spec.name, spec.input_shape[:2]
+    out: dict = {"model": name, "card": smi}
+    procs: list = []
+    with tempfile.TemporaryDirectory() as root:
+        img_dir = os.path.join(root, "images")
+        os.makedirs(img_dir)
+        # --- the fixtures: this machine's decode against PIL's pixels ---
+        fixtures = sorted(f for f in os.listdir(GW_FIXTURES) if not f.endswith(".npy"))
+        for f in fixtures:
+            with open(os.path.join(GW_FIXTURES, f), "rb") as fh:
+                got = preprocess.decode_image(fh.read())
+            want = np.load(os.path.join(GW_FIXTURES, f + ".npy"))
+            if got.shape != want.shape or not np.array_equal(got, want):
+                _fail(f"gateway: fixture {f} decodes to other pixels than PIL's")
+            shutil.copy(os.path.join(GW_FIXTURES, f), img_dir)
+        out["fixtures_equal_to_pil"] = fixtures
+        files: dict[str, list[str]] = {"check": [], "traced-bytes": [], "traced-tensor": [],
+                                       "load0": [], "load1": []}
+        t0 = time.perf_counter()
+        for group, count, base in (("check", GW_CHECK_GRIDS, 1000), ("traced-bytes", GW_TRACED,
+                                   2000), ("traced-tensor", GW_TRACED, 3000),
+                                   ("load0", GW_IMAGES, 10_000), ("load1", GW_IMAGES, 20_000)):
+            for i in range(count):
+                fname = f"{group}-{i}.png"
+                with open(os.path.join(img_dir, fname), "wb") as fh:
+                    fh.write(_grid_png(seed + base + i))
+                files[group].append(fname)
+        with open(os.path.join(img_dir, "bad.gif"), "wb") as fh:
+            fh.write(b"GIF89a" + bytes(64))
+        out["images_written_s"] = time.perf_counter() - t0
+        img_port = _free_port()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", GW_IMAGE_SERVER, str(img_port), img_dir],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+
+        def img_url(fname: str) -> str:
+            return f"http://127.0.0.1:{img_port}/{fname}"
+
+        art.save_artifact(art.version_dir(os.path.join(root, "models"), name, 1), spec,
+                          init_variables(spec, seed=seed), {"compute_dtype": "bfloat16"})
+        server = ModelServer(os.path.join(root, "models"), port=0, buckets=BATCH_BUCKETS,
+                             device="cuda", profile_base=None)
+        server_url = f"http://127.0.0.1:{server.port}/v1/models/{name}:predict"
+        try:
+            server.start()
+            server.warmup()
+            gws: dict[str, int] = {}
+            for wire, env in (("bytes", {}), ("tensor", {"KDLT_INGEST": "0"})):
+                port = _free_port()
+                log = open(os.path.join(root, f"gateway-{wire}.log"), "w")
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.gateway",
+                     "--serving-host", f"127.0.0.1:{server.port}", "--model", name,
+                     "--port", str(port), "--no-request-log"],
+                    env={**os.environ, **env}, stdout=log, stderr=subprocess.STDOUT,
+                    cwd=os.path.dirname(os.path.abspath(__file__))))
+                gws[wire] = port
+            deadline = time.monotonic() + 120
+            for wire, port in gws.items():
+                while True:
+                    try:
+                        with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz",
+                                                    timeout=5) as r:
+                            if r.status == 200:
+                                break
+                    except OSError:
+                        pass
+                    if time.monotonic() > deadline:
+                        with open(os.path.join(root, f"gateway-{wire}.log")) as fh:
+                            _fail(f"gateway: the {wire} gateway is not ready: {fh.read()[-2000:]}")
+                    time.sleep(0.1)
+
+            def batches() -> float:
+                return _model_value(server, "kdlt_engine_batches_total", name)
+
+            def check_launches(what: str, forwards: int) -> dict:
+                launches = counter.launch_counts()
+                want = {k: per_forward.get(k, 0) * forwards for k in launches}
+                if launches != want or not forwards:
+                    _fail(f"gateway {what}: launches {launches} != {want} for {forwards} forwards")
+                return launches
+
+            # --- one request at a time: bit-equal to the tensor wire direct ---
+            counter.reset_launch_counts()
+            b0 = batches()
+            checked = [*fixtures, *files["check"]]
+            replies: dict = {}
+            for fname in checked:
+                with open(os.path.join(img_dir, fname), "rb") as fh:
+                    pixels = preprocess.resize_uint8(preprocess.decode_image(fh.read()), hw,
+                                                     spec.resize_filter)
+                direct = _post(server_url, pixels[None], "msgpack")[0][0]
+                want = dict(zip(spec.labels, map(float, direct)))
+                for wire, port in gws.items():
+                    status, body, headers = _gw_post(port, {"url": img_url(fname)})
+                    scores = json.loads(body) if status == 200 else body
+                    if (status != 200 or list(scores) != list(spec.labels) or scores != want
+                            or not np.isfinite(list(scores.values())).all()):
+                        _fail(f"gateway {wire}: {fname}: {status} {str(scores)[:300]} != the "
+                              f"tensor wire's {want}")
+                    replies[(wire, fname)] = body
+            forwards = int(batches() - b0)
+            out["checked"] = dict(images=len(checked), wires=list(gws), bit_equal=True,
+                                  forwards=forwards,
+                                  launches=check_launches("checks", forwards))
+            # --- the wires really used ---
+            metrics = {w: urllib.request.urlopen(f"http://127.0.0.1:{p}/metrics",
+                                                 timeout=30).read().decode()
+                       for w, p in gws.items()}
+
+            def sample(text: str, series: str) -> float:
+                found = re.search(rf"^{series} (\S+)$", text, re.M)
+                return float(found.group(1)) if found else 0.0
+
+            wire_use = dict(
+                bytes_gateway_bytes_requests=sample(metrics["bytes"],
+                                                    "kdlt_ingest_bytes_requests_total"),
+                tensor_gateway_bytes_requests=sample(metrics["tensor"],
+                                                     "kdlt_ingest_bytes_requests_total"),
+                server_decoded_images=sample(server.registry.render(),
+                                             "kdlt_ingest_decoded_images_total"))
+            if (wire_use["bytes_gateway_bytes_requests"] != len(checked)
+                    or wire_use["tensor_gateway_bytes_requests"]
+                    or wire_use["server_decoded_images"] != len(checked)):
+                _fail(f"gateway: the wires were not the ones asked for: {wire_use}")
+            out["wire_use"] = wire_use
+            # --- a repeated URL: a cache hit, the same body, no forward ---
+            b0 = batches()
+            for wire, port in gws.items():
+                status, body, headers = _gw_post(port, {"url": img_url(checked[0])})
+                if (status != 200 or headers.get("X-Kdlt-Cache") != "hit"
+                        or body != replies[(wire, checked[0])]):
+                    _fail(f"gateway {wire}: a repeated URL: {status} "
+                          f"{headers.get('X-Kdlt-Cache')} (same body: "
+                          f"{body == replies[(wire, checked[0])]})")
+            if batches() != b0:
+                _fail("gateway: a cache hit reached the model server")
+            # --- an unsupported image: a JSON 400 ---
+            for wire, port in gws.items():
+                status, body, _ = _gw_post(port, {"url": img_url("bad.gif")})
+                if status != 400 or "only JPEG and PNG" not in json.loads(body).get("error", ""):
+                    _fail(f"gateway {wire}: a GIF answered {status} {body[:200]}")
+            out["cache_hit_same_body"], out["unsupported_is_400"] = True, True
+
+            # --- traced requests: where a request's time goes ---
+            spans: dict = {}
+            for wire, port in gws.items():
+                rows = []
+                for i, fname in enumerate(files[f"traced-{wire}"]):
+                    rid = f"gw-{wire}-{i}"
+                    status, body, _ = _gw_post(port, {"url": img_url(fname)},
+                                               {"X-Request-Id": rid})
+                    if status != 200:
+                        _fail(f"gateway {wire}: traced request {rid}: {status} {body[:200]}")
+                    deadline = time.monotonic() + 10
+                    while True:  # the root span closes just after the reply
+                        status, info, _ = _http_json(port, f"/debug/trace/{rid}")
+                        names = [sp["name"] for sp in info.get("spans", [])]
+                        if status == 200 and "gateway.request" in names \
+                                and "server.request" in names:
+                            break
+                        if time.monotonic() > deadline:
+                            _fail(f"gateway {wire}: trace {rid}: {status} {names}")
+                        time.sleep(0.01)
+                    by = {}
+                    for sp in info["spans"]:
+                        by.setdefault(sp["name"], sp)
+                    tags = by["gateway.preprocess"]["tags"]
+                    rows.append(dict(
+                        fetch_ms=tags["fetch_ms"], decode_ms=tags.get("decode_ms"),
+                        resize_ms=tags.get("resize_ms"),
+                        upstream_ms=by["gateway.upstream"]["dur_ms"],
+                        server_ingest_decode_ms=by.get("server.ingest_decode",
+                                                       {}).get("dur_ms"),
+                        server_request_ms=by["server.request"]["dur_ms"],
+                        gateway_request_ms=by["gateway.request"]["dur_ms"]))
+                spans[wire] = {k: (float(np.median([r[k] for r in rows]))
+                                   if rows[0][k] is not None else None) for k in rows[0]}
+                print("gateway-spans:", json.dumps({"wire": wire, "requests": len(rows),
+                                                    "median_ms": spans[wire], "card": smi}),
+                      flush=True)
+            out["span_median_ms"] = spans
+
+            # --- load: 16 and 32 closed-loop clients, gateway against direct ---
+            loads = []
+            for s, clients in enumerate(GW_CLIENTS):
+                group = files[f"load{s}"]
+                urls_path = os.path.join(root, f"urls{s}.txt")
+                with open(urls_path, "w") as fh:
+                    fh.write("\n".join(img_url(f) for f in group))
+                pixels = []
+                for fname in group:
+                    with open(os.path.join(img_dir, fname), "rb") as fh:
+                        pixels.append(preprocess.resize_uint8(
+                            preprocess.decode_image(fh.read()), hw, spec.resize_filter))
+                npy = os.path.join(root, f"pixels{s}.npy")
+                np.save(npy, np.stack(pixels))
+                per_client = GW_IMAGES // clients
+                for path in ("gateway-bytes", "gateway-tensor", "direct"):
+                    out_path = os.path.join(root, f"{path}-{clients}.npz")
+                    if path == "direct":
+                        args = (server_url, npy, out_path, 600, "--clients", clients,
+                                "--requests", per_client)
+                    else:
+                        args = (f"http://127.0.0.1:{gws[path.split('-')[1]]}/predict", None,
+                                out_path, 600, "--clients", clients, "--requests", per_client,
+                                "--image-urls", urls_path)
+                    counter.reset_launch_counts()
+                    b0 = batches()
+                    res = _load_run(*args)
+                    forwards = int(batches() - b0)
+                    launches = check_launches(f"{path} load", forwards)
+                    logits = res["logits"]
+                    if ((res["status"] != 200).any() or logits.shape[1] != len(spec.labels)
+                            or not np.isfinite(logits).all()):
+                        _fail(f"gateway {path} x{clients}: statuses "
+                              f"{sorted(set(res['status'].tolist()))}, logits {logits.shape}")
+                    lat, n = res["lat_ms"], len(res["lat_ms"])
+                    loads.append(dict(path=path, clients=clients, requests=n,
+                                      img_per_s=n / float(res["wall_s"]),
+                                      p50_ms=float(np.percentile(lat, 50)),
+                                      p99_ms=float(np.percentile(lat, 99)), forwards=forwards,
+                                      mean_batch=n / max(forwards, 1), launches=launches))
+                    print("gateway-load:", json.dumps({**loads[-1], "card": smi}), flush=True)
+            out["load"] = loads
+        finally:
+            for p in procs:
+                p.terminate()
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            server.shutdown()
     return out
 
 
@@ -3510,6 +3906,11 @@ def main(argv=None) -> int:
     # --- observability: span trees, SLO, MFU and busy gauges, profile, incident ---
     print("observability:", json.dumps(_observability_phase(
         CLOTHING_MODEL, args.seed, smi, depth2_img_s, counter=fused_sepconv,
+        per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})), flush=True)
+
+    # --- the gateway path: POST /predict {"url"} through the port's gateway ---
+    print("gateway:", json.dumps(_gateway_phase(
+        CLOTHING_MODEL, args.seed, smi, counter=fused_sepconv,
         per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})), flush=True)
 
     print(f"card: {smi}")

@@ -1,24 +1,32 @@
 """The serving engine of the port, its dispatch pipeline, its batchers and
 the multi-model scheduler."""
 
+import importlib
 import logging
 import os
 
-from kubernetes_deep_learning_tpu_torch.runtime.batcher import (
-    BatcherClosed,
-    DynamicBatcher,
-    QueueFull,
-)
-from kubernetes_deep_learning_tpu_torch.runtime.engine import (
-    DEFAULT_BUCKETS,
-    DispatcherClosed,
-    DispatchStall,
-    EngineClosed,
-    InferenceEngine,
-    InFlightDispatcher,
-    resolve_pipeline_depth,
-)
-from kubernetes_deep_learning_tpu_torch.runtime.scheduler import UnifiedScheduler
+from kubernetes_deep_learning_tpu_torch.runtime.errors import BatcherClosed, QueueFull
+
+# The rest loads on first use (PEP 562), so that importing the package for
+# its errors (the gateway does) does not import torch.
+_LAZY = {
+    "DynamicBatcher": "batcher",
+    "DEFAULT_BUCKETS": "engine",
+    "DispatcherClosed": "engine",
+    "DispatchStall": "engine",
+    "EngineClosed": "engine",
+    "InferenceEngine": "engine",
+    "InFlightDispatcher": "engine",
+    "resolve_pipeline_depth": "engine",
+    "UnifiedScheduler": "scheduler",
+}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 log = logging.getLogger(__name__)
 
@@ -47,6 +55,8 @@ def create_batcher(engine, impl: str = "auto", dispatcher=None, **kwargs):
             cores = os.cpu_count() or 1
         if cores < 2:
             impl = "python"
+    from kubernetes_deep_learning_tpu_torch.runtime.batcher import DynamicBatcher
+
     if impl in ("auto", "native"):
         from kubernetes_deep_learning_tpu_torch.runtime.native_batcher import NativeBatcher
 

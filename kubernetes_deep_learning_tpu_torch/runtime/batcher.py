@@ -31,20 +31,13 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from kubernetes_deep_learning_tpu_torch.runtime.errors import BatcherClosed, QueueFull  # noqa: F401
 from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     InFlightDispatcher,
     resolve_pipeline_depth,
 )
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
 from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
-
-
-class BatcherClosed(RuntimeError):
-    """The batcher has been permanently shut down."""
-
-
-class QueueFull(RuntimeError):
-    """Transient overload: the request queue is at capacity (retryable)."""
 
 
 class DynamicBatcher:

@@ -147,6 +147,22 @@ def resolve_pipeline_depth(depth: int | None = None) -> int:
     return max(1, int(depth))
 
 
+# KDLT_INGEST_DEVICE_RESIZE=HxW makes the JAX engine stop the bytes wire's
+# host resize at HxW and resize to the model's input on the device
+# (jax.image.resize, off by default).  The port has no device resize yet
+# (ROADMAP A13b): the knob is refused, never silently ignored.
+INGEST_DEVICE_RESIZE_ENV = "KDLT_INGEST_DEVICE_RESIZE"
+
+
+def check_ingest_device_resize() -> None:
+    """Raise if $KDLT_INGEST_DEVICE_RESIZE asks for the device resize."""
+    raw = os.environ.get(INGEST_DEVICE_RESIZE_ENV, "").strip().lower()
+    if raw and raw not in ("0", "off", "false", "no"):
+        raise NotImplementedError(
+            f"{INGEST_DEVICE_RESIZE_ENV}={raw}: the device-side ingest resize is not "
+            "ported yet (ROADMAP A13b); unset it to resize on the host")
+
+
 class DispatcherClosed(RuntimeError):
     """The in-flight dispatcher has been permanently shut down."""
 

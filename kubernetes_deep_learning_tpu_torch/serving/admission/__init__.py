@@ -1,7 +1,6 @@
-"""Admission control and overload management for the port's model tier.
+"""Admission control and overload management for the port's two tiers.
 
-The port's copy of the model-tier half of the JAX package's
-``serving/admission/``:
+The port's copy of the JAX package's ``serving/admission/``:
 
 - ``deadline``: the request's remaining budget, from
   ``X-Request-Deadline-Ms``; every wait below is computed from what is
@@ -10,13 +9,16 @@ The port's copy of the model-tier half of the JAX package's
 - ``limiter``: an AIMD adaptive concurrency limiter with a bounded
   admission queue, per-model budgets and priority classes (503 + a derived,
   jittered ``Retry-After``, with a shed reason of its own);
+- ``breaker``: the gateway's circuit breaker on the model tier, with
+  half-open probing;
 - ``controller``: the front door combining them, the ``kdlt_admission_*``
   series, and graceful drain (SIGTERM flips /readyz, sheds new work and
   lets admitted work finish).
 
-The gateway's circuit breaker and the brownout controller belong to the
-gateway tier and the generative lane, and are not ported here.
+The brownout controller comes with the generative lane (ROADMAP A12).
 """
+
+from kubernetes_deep_learning_tpu_torch.serving.admission.breaker import CircuitBreaker
 
 from kubernetes_deep_learning_tpu_torch.serving.admission.controller import (
     AdmissionController,
@@ -41,6 +43,7 @@ from kubernetes_deep_learning_tpu_torch.serving.admission.shed import (
 __all__ = [
     "AdaptiveLimiter",
     "AdmissionController",
+    "CircuitBreaker",
     "DEADLINE_HEADER",
     "Deadline",
     "RETRY_AFTER_HEADER",

@@ -1,7 +1,7 @@
 """AdmissionController: the model tier's front door, and graceful drain.
 
 The port's copy of the JAX package's ``serving/admission/controller.py``
-(the model tier's part: no breaker, no brownout, no coalescing).  Per
+(no brownout: that comes with the generative lane).  Per
 request it applies, in order: drain refusal, deadline-exhausted rejection
 (504) and the adaptive concurrency limiter's bounded queue, raising a
 typed ``Shed`` for the transport to map to 503/504 + ``Retry-After``, and
@@ -194,6 +194,34 @@ class AdmissionController:
         if cm is not None:
             cm["shed"].inc()
         raise e
+
+    def count_shed(self, reason: str, priority: str | None = None) -> None:
+        """Record a shed decided outside ``admit()``: the gateway's circuit
+        breaker refusing the upstream call, or a coalesced follower whose
+        own budget ran out."""
+        counter = self._m["shed"].get(reason)
+        if counter is not None:
+            counter.inc()
+        cm = self._class_m.get(priority) if priority is not None else None
+        if cm is not None:
+            cm["shed"].inc()
+
+    def class_stats(self) -> dict:
+        """Per-priority-class admitted/shed counts."""
+        return {cls: {"admitted": m["admitted"].value, "shed": m["shed"].value}
+                for cls, m in self._class_m.items()}
+
+    def count_coalesced(self, model: str | None = None) -> None:
+        """Record a cache-coalesced follower: admitted but not dispatched.
+        It is served (through the leader's flight), so it counts as seen
+        and admitted, but it takes no limiter slot and no in-flight entry:
+        the leader alone holds the tier's capacity for the flight."""
+        mm = self._model_metrics(model)
+        self._m["requests"].inc()
+        self._m["admitted"].inc()
+        if mm is not None:
+            mm["requests"].inc()
+            mm["admitted"].inc()
 
     def _release(self, queue_wait_s: float, overloaded: bool, headroom: bool,
                  model: str | None = None, held_s: float | None = None) -> None:

@@ -48,6 +48,16 @@ achieved, goodput (completions inside their deadline per second), p50
 and p99 of the in-deadline completions and the replies by status and
 shed reason, which ``main`` prints as one JSON line.
 
+Through a gateway (``--image-urls``, closed loop)::
+
+    python -m kubernetes_deep_learning_tpu_torch.serving.loadgen \
+        --url http://127.0.0.1:9696/predict --image-urls urls.txt \
+        --clients 16 --requests 24 --out result.npz
+
+Request k POSTs the reference's ``{"url": ...}`` JSON with line
+``k % N`` of ``urls.txt``; its reply's ``{label: score}`` values fill row k
+of ``logits``, and ``cache`` holds its ``X-Kdlt-Cache`` disposition.
+
 Run it as a process of its own, so that it does not share the server's
 interpreter lock.  Imports numpy and the standard library only.
 """
@@ -168,6 +178,60 @@ def run(url: str, images: np.ndarray, clients: int, requests: int,
     if timed:
         out.update(image=image, sent_at=sent_at, done_at=done_at, artifact_hash=artifact)
     return out
+
+
+def run_urls(url: str, image_urls: Sequence[str], clients: int, requests: int) -> dict:
+    """The closed loop through a gateway's ``/predict``: logits (N, classes)
+    from each reply's scores, lat_ms, status, cache (the ``X-Kdlt-Cache``
+    disposition) and wall_s for the N = clients * requests requests,
+    request k asking for ``image_urls[k % len(image_urls)]``."""
+    parts = urllib.parse.urlsplit(url)
+    n = clients * requests
+    logits: list = [None] * n
+    lat_ms = np.zeros(n)
+    status = np.zeros(n, np.int32)
+    cache = np.full(n, "", dtype="U16")
+    start = threading.Barrier(clients + 1)
+    errors: list[BaseException] = []
+
+    def client(c: int) -> None:
+        conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=300)
+        try:
+            conn.connect()
+            start.wait()
+            for k in range(c * requests, (c + 1) * requests):
+                body = json.dumps({"url": image_urls[k % len(image_urls)]}).encode()
+                t0 = time.perf_counter()
+                conn.request("POST", parts.path, body,
+                             {"Content-Type": protocol.JSON_CONTENT_TYPE})
+                resp = conn.getresponse()
+                reply = resp.read()
+                lat_ms[k] = (time.perf_counter() - t0) * 1e3
+                status[k] = resp.status
+                cache[k] = resp.getheader(protocol.CACHE_STATUS_HEADER, "")
+                if resp.status == 200:
+                    logits[k] = np.asarray(list(json.loads(reply).values()), np.float32)
+        except BaseException as e:  # noqa: BLE001 - reported by run_urls()
+            errors.append(e)
+            start.abort()
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+    for t in threads:
+        t.start()
+    try:
+        start.wait()
+    except threading.BrokenBarrierError:
+        pass
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError(f"{len(errors)} load client(s) failed") from errors[0]
+    return dict(logits=_logits_array(logits, 1), lat_ms=lat_ms, status=status, cache=cache,
+                wall_s=wall_s)
 
 
 DEADLINE_HEADER = "X-Request-Deadline-Ms"  # serving.admission's, spelled here
@@ -354,8 +418,11 @@ def _run_parts(args) -> dict:
 def main(argv: Sequence[str] | None = None) -> None:
     p = argparse.ArgumentParser(description=":predict load over kept-alive connections, "
                                 "closed loop (--clients) or open loop (--rate)")
-    p.add_argument("--url", required=True, help="the model's :predict URL")
-    p.add_argument("--images", required=True, help=".npy of uint8 (N, H, W, C) images")
+    p.add_argument("--url", required=True,
+                   help="the model's :predict URL (a gateway's /predict with --image-urls)")
+    p.add_argument("--images", default=None, help=".npy of uint8 (N, H, W, C) images")
+    p.add_argument("--image-urls", default=None,
+                   help="closed loop through a gateway: a file of image URLs, one a line")
     p.add_argument("--clients", type=int, default=32)
     p.add_argument("--requests", type=int, default=25, help="requests per client")
     p.add_argument("--rate", type=float, default=0.0,
@@ -378,6 +445,13 @@ def main(argv: Sequence[str] | None = None) -> None:
                    "models share one); default about a second from now")
     p.add_argument("--out", required=True, help=".npz to write the results to")
     args = p.parse_args(argv)
+    if args.image_urls is not None:
+        with open(args.image_urls) as f:
+            urls = [line.strip() for line in f if line.strip()]
+        np.savez(args.out, **run_urls(args.url, urls, args.clients, args.requests))
+        return
+    if args.images is None:
+        p.error("--images is required without --image-urls")
     if args.rate <= 0:
         images = np.load(args.images, mmap_mode="r")
         np.savez(args.out, **run(args.url, images, args.clients, args.requests,

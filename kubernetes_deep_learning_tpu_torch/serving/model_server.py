@@ -20,10 +20,15 @@ private C++ queue and dispatcher per model.  Routes:
   labels, quantization, sharding);
 - ``GET /v1/models/<name>:status``: one model's;
 - ``GET /v1/models/<name>``: the model's ``spec.json`` (what a gateway
-  reads to discover the contract; no ingest capability is advertised, so a
-  gateway keeps the tensor wire);
-- ``POST /v1/models/<name>:predict``: msgpack or JSON (``serving.protocol``);
-  uint8 images go through the model's lane in max-bucket chunks (or, with
+  reads to discover the contract), with ``X-Kdlt-Ingest: bytes`` unless
+  ``KDLT_INGEST=0``: the offer of the bytes wire;
+- ``POST /v1/models/<name>:predict``: msgpack or JSON (``serving.protocol``),
+  or the bytes wire (``application/x-kdlt-image-bytes``: the encoded
+  JPEG/PNG blobs a gateway fetched), which this tier decodes and resizes to
+  the model's input in a thread pool (``ops.preprocess.BatchDecoder``,
+  ``KDLT_DECODE_POOL`` threads) through a decoded-pixel cache
+  (``serving.cache.DecodedCache``) and answers in JSON, as the JAX server
+  does; an undecodable or unsupported image is a 400.  uint8 images go through the model's lane in max-bucket chunks (or, with
   the native batcher, a single image through it, a batch up to the largest
   bucket straight to the engine and a larger one in chunks through the
   dispatcher); every 200 carries the served artifact's hash
@@ -60,10 +65,15 @@ private C++ queue and dispatcher per model.  Routes:
   burn-rate windows), ``GET /debug/incidents[/<id>]`` (the flight
   recorder's bundles: a dispatch stall captures one with the request's
   pinned trace), ``GET|POST /debug/profile`` (``?seconds=N`` in (0, 60]: a
-  ``torch.profiler`` capture of the CPU and the card while the other
-  handler threads serve, written as ``trace.json`` into a fresh directory
-  under ``--profile-dir``, the reply naming the top device kernels by
-  time; 409 while another capture, or a CUDA graph capture, runs;
+  capture of the card's kernels and copies (the CPU's ops where there is
+  no card) while the other handler threads serve, written as
+  ``trace.json`` into a fresh directory under ``--profile-dir``, the reply
+  naming the top device kernels by time; on the card the recording is the
+  port's own CUPTI collector (``ops._native.DeviceTrace``: its stop and
+  export run in C++, off the interpreter lock), and it holds
+  ``runtime.engine.capture_lock`` only while it starts and while it stops,
+  so a reload's graph capture waits for those moments only; 409 while
+  another capture, or a CUDA graph capture, runs;
   ``?audit=buckets``: each model's padding waste per bucket and FLOPs per
   image) and ``GET /debug/`` (this list).
 
@@ -92,7 +102,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import TimeoutError as FuturesTimeout
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Sequence
 from urllib.parse import parse_qs
 
@@ -100,6 +110,8 @@ import numpy as np
 import torch
 
 from kubernetes_deep_learning_tpu_torch.export import artifact as art
+from kubernetes_deep_learning_tpu_torch.ops import _native
+from kubernetes_deep_learning_tpu_torch.ops import preprocess as preprocess_lib
 from kubernetes_deep_learning_tpu_torch.runtime import create_batcher
 from kubernetes_deep_learning_tpu_torch.runtime.batcher import BatcherClosed, QueueFull
 from kubernetes_deep_learning_tpu_torch.runtime.engine import (
@@ -110,6 +122,7 @@ from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     InferenceEngine,
     InFlightDispatcher,
     capture_lock,
+    check_ingest_device_resize,
     resolve_pipeline_depth,
 )
 from kubernetes_deep_learning_tpu_torch.runtime.scheduler import (
@@ -117,7 +130,9 @@ from kubernetes_deep_learning_tpu_torch.runtime.scheduler import (
     UnifiedScheduler,
     resolve_weights,
 )
+from kubernetes_deep_learning_tpu_torch.serving import cache as cache_lib
 from kubernetes_deep_learning_tpu_torch.serving import protocol
+from kubernetes_deep_learning_tpu_torch.serving.httpserver import ServingHTTPServer
 from kubernetes_deep_learning_tpu_torch.serving.admission import (
     DEADLINE_HEADER,
     AdaptiveLimiter,
@@ -149,6 +164,8 @@ _PREFIX = "/v1/models"
 _STATUS_RE = re.compile(r"^/v1/models/([^/:]+):status$")
 PROFILE_DIR_ENV = "KDLT_PROFILE_DIR"  # base dir for /debug/profile captures
 PROFILE_TOP_KERNELS = 20  # device kernels named in a /debug/profile reply
+# The bytes wire's image-count bound (the JAX server's).
+MAX_IMAGES_PER_REQUEST = 256
 
 # (status, body, content type, extra headers)
 Reply = tuple[int, bytes, str, dict[str, str]]
@@ -184,7 +201,9 @@ class ServedModel:
     private pipeline: ``dispatcher``, ONE in-flight dispatch pipeline shared
     by the single-image batcher and the chunked path (None at depth 1), and
     ``batcher``, the one ``runtime.create_batcher`` picks for
-    ``batcher_impl`` (None when batching is off).
+    ``batcher_impl`` (None when batching is off).  An engine without
+    ``predict_async`` (a plain ``runtime.stub.StubEngine``) has no device
+    pipeline to arbitrate, so it keeps the private pipeline, as in JAX.
     """
 
     def __init__(self, engine: InferenceEngine, max_delay_ms: float = 2.0,
@@ -199,13 +218,14 @@ class ServedModel:
         self.warmup_s: float | None = None  # how long the engine's warmup took
         self._max_delay_ms = max_delay_ms
         self._weight = weight
-        self._scheduler = scheduler if use_batcher else None
+        self._scheduler = (scheduler if use_batcher and hasattr(engine, "predict_async")
+                           else None)
         self.dispatcher = self.batcher = None
         if self._scheduler is None:
             depth = resolve_pipeline_depth(pipeline_depth)
             self.dispatcher = (
                 InFlightDispatcher(engine, depth=depth, registry=engine.registry)
-                if depth > 1 else None
+                if depth > 1 and hasattr(engine, "predict_async") else None
             )
             self.batcher = (
                 create_batcher(engine, impl=batcher_impl, max_delay_ms=max_delay_ms,
@@ -333,6 +353,26 @@ class ServedModel:
         return True
 
 
+class _CpuProfile:
+    """/debug/profile without a card (the CPU tests): torch.profiler's CPU
+    activity, its trace exported here; no device, so no kernels."""
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self._prof = profile(activities=[ProfilerActivity.CPU])
+
+    def start(self) -> None:
+        self._prof.start()
+
+    def stop(self) -> None:
+        self._prof.stop()
+
+    def write(self, path: str, top: int) -> dict:
+        self._prof.export_chrome_trace(path)
+        return {}
+
+
 class _ProfileBusy(RuntimeError):
     """A /debug/profile capture was refused: another one, or a CUDA graph
     capture, is running."""
@@ -451,7 +491,9 @@ class ModelServer:
                  admission: bool | None = None, sched_policy: str | None = None,
                  sched_weights: dict[str, float] | None = None,
                  profile_base: str | None = "", request_log: bool = False,
-                 slo: bool | None = None, incident_dir: str | None = None):
+                 slo: bool | None = None, incident_dir: str | None = None,
+                 engine_factory=None, ingest: bool | None = None,
+                 decode_pool: int | None = None):
         """``admission``: None = ``$KDLT_ADMISSION`` (on by default); False
         turns deadline rejection and the concurrency limiter off (drain
         stays on).  ``sched_policy`` and ``sched_weights``: the scheduler's
@@ -462,7 +504,12 @@ class ModelServer:
         are always logged).  ``slo``: None = ``$KDLT_SLO`` (on by default).
         ``incident_dir``: where the flight recorder writes its bundles (None =
         ``$KDLT_INCIDENT_DIR``; its other settings are its ``KDLT_INCIDENT*``
-        environment)."""
+        environment).  ``engine_factory``: what builds each version's
+        engine (``InferenceEngine``; ``runtime.stub.StubEngine`` takes the
+        device out).  ``ingest``: None = ``$KDLT_INGEST`` (on): offer and
+        accept the bytes wire, decoded by ``decode_pool`` threads (None =
+        ``$KDLT_DECODE_POOL`` or a core-scaled default)."""
+        check_ingest_device_resize()
         if profile_base == "":
             profile_base = (os.environ.get(PROFILE_DIR_ENV, "").strip()
                             or os.path.join(tempfile.gettempdir(), "kdlt-traces"))
@@ -496,6 +543,15 @@ class ModelServer:
             limiter=(AdaptiveLimiter(min_limit=floor, max_limit=max(2.0 * floor, env_max_limit()))
                      if admission_enabled(admission) else None),
         )
+        # The bytes wire: offered on spec discovery, decoded here in a pool
+        # whose native calls release the interpreter lock, through a cache
+        # of decoded pixels keyed by content and preprocessing parameters.
+        self._ingest_enabled = protocol.ingest_enabled(ingest)
+        self._ingest_decoder = preprocess_lib.BatchDecoder(decode_pool)
+        self._decoded_cache = cache_lib.DecodedCache(registry=self.registry)
+        self._m_ingest = (metrics_lib.ingest_server_metrics(self.registry)
+                          if self._ingest_enabled else None)
+        self._engine_factory = engine_factory or InferenceEngine
         self.model_root = model_root
         self._buckets = tuple(buckets)
         self._device = device
@@ -534,14 +590,15 @@ class ModelServer:
         if not self.models:
             self._close_pipeline()
             self.recorder.close()
+            self._ingest_decoder.close()
             raise ValueError(f"no model versions found under {model_root!r}")
         try:
-            self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
+            self._httpd = ServingHTTPServer((host, port), self._handler_class())
         except OSError:
             self._close_pipeline()
             self.recorder.close()
+            self._ingest_decoder.close()
             raise
-        self._httpd.daemon_threads = True
         self._thread: threading.Thread | None = None
 
     @property
@@ -599,8 +656,8 @@ class ModelServer:
         child = metrics_lib.model_version_registry(self.registry, name, version)
         engine = fresh = None
         try:
-            engine = InferenceEngine(artifact, buckets=self._buckets, device=self._device,
-                                     pipeline_depth=self._pipeline_depth, registry=child)
+            engine = self._engine_factory(artifact, buckets=self._buckets, device=self._device,
+                                          pipeline_depth=self._pipeline_depth, registry=child)
             fresh = ServedModel(engine, self._max_delay_ms, self._use_batcher,
                                 self._pipeline_depth, self._batcher_impl,
                                 scheduler=self.scheduler, artifact=artifact, version=version)
@@ -669,6 +726,7 @@ class ModelServer:
             self._watcher.join(timeout=30)
         self._close_pipeline()
         self.recorder.close()
+        self._ingest_decoder.close()
         if self._thread is not None:  # shutdown() waits for a loop that must be running
             self._httpd.shutdown()
             self._thread.join(timeout=10)
@@ -714,7 +772,11 @@ class ModelServer:
             name = path[len(_PREFIX) + 1 :]
             engine = self.engines.get(name)
             if engine is not None:
-                return 200, engine.spec.to_json().encode(), protocol.JSON_CONTENT_TYPE, {}
+                # Spec discovery doubles as the ingest offer: the header's
+                # presence is the capability.
+                offer = ({protocol.INGEST_HEADER: protocol.INGEST_BYTES_CAP}
+                         if self._ingest_enabled else {})
+                return 200, engine.spec.to_json().encode(), protocol.JSON_CONTENT_TYPE, offer
             return _error(404, f"no model {name!r}")
         return _error(404, "not found")
 
@@ -795,10 +857,24 @@ class ModelServer:
     def _predict(self, model: ServedModel, body, content_type: str,
                  deadline: Deadline | None, priority: str, ex: _Exchange) -> Reply:
         try:
+            encoded = content_type.split(";")[0].strip() == protocol.BYTES_CONTENT_TYPE
             with ex.stage(trace_lib.SPAN_SERVER_DECODE) as span:
                 raw = body() if callable(body) else body
                 span.tags["bytes"] = len(raw)
-                images = protocol.decode_predict_request(raw, content_type)
+                if not encoded:
+                    images = protocol.decode_predict_request(raw, content_type)
+                elif not self._ingest_enabled:
+                    raise ValueError(
+                        "raw-bytes ingest is disabled on this server (set "
+                        f"{protocol.INGEST_ENV}=1 or use the tensor wire)")
+                else:
+                    blobs = protocol.decode_bytes_predict_request(
+                        raw, max_images=MAX_IMAGES_PER_REQUEST)
+            if encoded:
+                spec = model.engine.spec
+                with ex.stage(trace_lib.SPAN_SERVER_INGEST_DECODE, images=len(blobs),
+                              bytes=len(raw)):
+                    images = self._decode_blobs(spec.input_shape, spec.resize_filter, blobs)
             ex.batch = int(images.shape[0]) if images.ndim else 0
             # server.predict runs from the images to the reply's bytes.
             with ex.stage(trace_lib.SPAN_SERVER_PREDICT, batch=ex.batch) as span:
@@ -832,6 +908,29 @@ class ModelServer:
         # response cache drops a model's entries when it changes.
         return 200, out, ctype, {protocol.ARTIFACT_HASH_HEADER: digest} if digest else {}
 
+    def _decode_blobs(self, shape, resize_filter: str, blobs: list[bytes]) -> np.ndarray:
+        """The bytes wire's decode stage: encoded blobs -> uint8 (N,H,W,C)
+        at ``shape``, through the decoded-pixel cache (keyed by content hash
+        and preprocessing parameters, so a repeat image skips decode and
+        resize).  Misses fan out on the decode pool; a corrupt or
+        unsupported blob raises ValueError (a 400)."""
+        t0 = time.perf_counter()
+        params = cache_lib.decoded_params(shape, resize_filter)
+        keys = [cache_lib.decoded_key(b, params) for b in blobs]
+        out: list = [self._decoded_cache.get(k) for k in keys]
+        miss = [i for i, arr in enumerate(out) if arr is None]
+        if miss:
+            decoded = self._ingest_decoder.decode_batch([blobs[i] for i in miss], shape[:2],
+                                                        filter=resize_filter)
+            for j, i in enumerate(miss):
+                self._decoded_cache.put(keys[i], decoded[j])
+                out[i] = decoded[j]
+        images = np.stack(out)
+        if self._m_ingest is not None:
+            self._m_ingest["decoded_images"].inc(len(blobs))
+            self._m_ingest["decode_seconds"].observe(time.perf_counter() - t0)
+        return images
+
     # --- observability: /debug/* ----------------------------------------------
 
     def debug_index(self) -> dict:
@@ -845,8 +944,8 @@ class ModelServer:
                 "/debug/incidents/<id>": "one full incident bundle (timeline, pinned traces, "
                 "snapshots, metrics delta)",
                 "/debug/trace/<rid>": "this tier's span waterfall for one request id",
-                "/debug/profile?seconds=N": "capture a torch.profiler trace of the CPU and "
-                "the card under KDLT_PROFILE_DIR, naming the top device kernels",
+                "/debug/profile?seconds=N": "capture a trace of the card's kernels (CUPTI) "
+                "under KDLT_PROFILE_DIR, naming the top device kernels",
                 "/debug/profile?audit=buckets": "per-model bucket-shape audit: padding-waste "
                 "ratio + FLOPs/img per bucket",
             },
@@ -888,10 +987,10 @@ class ModelServer:
         return _error(404, "not found")
 
     def handle_profile(self, seconds) -> Reply:
-        """``/debug/profile``: a ``torch.profiler`` capture of ``seconds``
-        (in (0, 60]) while the other handler threads serve.  404 with
-        profiling off; 409 while another capture, or a CUDA graph capture,
-        runs (the profiler never starts or stops during a graph capture)."""
+        """``/debug/profile``: a capture of ``seconds`` (in (0, 60]) while
+        the other handler threads serve (``_profile``).  404 with profiling
+        off; 409 while another capture, or a CUDA graph capture, runs (the
+        recording never starts or stops during a graph capture)."""
         if self._profile_base is None:
             return _error(404, "profiling disabled")
         try:
@@ -911,34 +1010,43 @@ class ModelServer:
             return _error(409, str(e))
 
     def _profile(self, seconds: float, trace_dir: str) -> dict:
-        """Capture the CPU and (with a card) the device for ``seconds`` into
+        """Capture the card (without one, the CPU) for ``seconds`` into
         ``trace_dir/trace.json``: {"trace_dir", "seconds", "kernels"}, the
         device kernels that took the most time in the window (name ->
         launches and total microseconds; the CUDA graphs' replays
-        included).  Raises _ProfileBusy while another capture or a CUDA
-        graph capture holds its lock."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        included).
 
+        Serving goes on meanwhile, on the other handler threads.
+        ``capture_lock`` is held only while the recording starts and while
+        it stops (a graph capture must not straddle either), never for the
+        window or while the trace is written, so a reload's capture, an
+        unload's close and a w8a8 downgrade wait for those moments only.
+        On the card the recording is ``ops._native.DeviceTrace`` (CUPTI
+        activity; its stop, the chrome trace and the kernel summary run in
+        C++ with the interpreter lock released): torch.profiler's stop and
+        export each held the lock 0.5-1.5 s after a busy 2 s window on the
+        H100.  Raises
+        _ProfileBusy while another capture runs, or a CUDA graph capture
+        when it starts."""
         if not self._profile_lock.acquire(blocking=False):
             raise _ProfileBusy("a profile capture is already running")
         try:
+            recording = (_native.DeviceTrace() if torch.cuda.is_available()
+                         else _CpuProfile())
             if not capture_lock.acquire(blocking=False):
                 raise _ProfileBusy("a CUDA graph capture is running")
             try:
-                activities = [ProfilerActivity.CPU]
-                if torch.cuda.is_available():
-                    activities.append(ProfilerActivity.CUDA)
-                with profile(activities=activities) as prof:
-                    time.sleep(seconds)
+                recording.start()
             finally:
                 capture_lock.release()
-            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-            kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                             key=lambda e: e.self_device_time_total, reverse=True)
-            return {"trace_dir": trace_dir, "seconds": seconds, "kernels": {
-                e.key: {"count": e.count, "total_us": e.self_device_time_total}
-                for e in kernels[:PROFILE_TOP_KERNELS]}}
+            path = os.path.join(trace_dir, "trace.json")
+            try:
+                time.sleep(seconds)
+            finally:
+                with capture_lock:  # a graph capture in progress finishes first
+                    recording.stop()
+            kernels = recording.write(path, PROFILE_TOP_KERNELS)
+            return {"trace_dir": trace_dir, "seconds": seconds, "kernels": kernels}
         finally:
             self._profile_lock.release()
 

@@ -1,11 +1,14 @@
-"""Gateway <-> model-server wire protocol (the tensor wire).
+"""Gateway <-> model-server wire protocol: the tensor wire and the bytes wire.
 
-The port's own copy of the JAX package's ``serving/protocol.py`` tensor
-wire, byte-compatible with it: msgpack bodies carrying raw little-endian
+The port's own copy of the JAX package's ``serving/protocol.py``,
+byte-compatible with it: msgpack bodies carrying raw little-endian
 tensor bytes (``{"inputs": {"shape", "dtype", "data"}}`` in,
 ``{"outputs": ..., "labels": [...]}`` out), or the TF-Serving-style JSON
 fallback (``{"instances": ...}`` in, ``{"predictions": [{label: score}]}``
-out).  msgpack goes through ``msgpack_lite``, so the wire needs no
+out).  The bytes wire (``BYTES_CONTENT_TYPE``) carries the fetched JPEG/PNG
+bytes verbatim (``{"images": [bin, ...]}``) for the model tier to decode; a
+server offers it on spec discovery (``INGEST_HEADER``) and a gateway sends
+it only to a server that offered it.  msgpack goes through ``msgpack_lite``, so the wire needs no
 third-party package.  Error replies are JSON ``{"error": ...}`` bodies, and
 a 503 carries ``Retry-After`` in the JAX admission package's format
 (``retry_after_headers``, re-exported by ``serving.admission``), which the
@@ -16,6 +19,7 @@ class set are the JAX protocol's.
 from __future__ import annotations
 
 import json
+import os
 from typing import Any
 
 import numpy as np
@@ -24,6 +28,49 @@ from kubernetes_deep_learning_tpu_torch import msgpack_lite
 
 MSGPACK_CONTENT_TYPE = "application/x-msgpack"
 JSON_CONTENT_TYPE = "application/json"
+
+# The bytes wire: the request body carries the fetched JPEG/PNG bytes
+# verbatim (a msgpack list of bin blobs) and the model tier decodes and
+# resizes them itself.  Opt-in both ways: a server advertises the
+# capability on its spec-discovery reply (INGEST_HEADER) and a gateway
+# sends this content type only to a server that advertised it, so a mixed
+# deployment falls back to the tensor wire, never to an error.
+BYTES_CONTENT_TYPE = "application/x-kdlt-image-bytes"
+
+# The capability header of GET /v1/models/<name> (comma-separated members
+# of the CLOSED set INGEST_CAPS); no header means tensor wire only.
+INGEST_HEADER = "X-Kdlt-Ingest"
+INGEST_BYTES_CAP = "bytes"
+INGEST_CAPS = (INGEST_BYTES_CAP,)
+
+# KDLT_INGEST=0 turns the bytes wire off on either tier: the server stops
+# advertising (and accepting) it, the gateway stops sending it.
+INGEST_ENV = "KDLT_INGEST"
+
+# Per-blob byte bound on the decode side, the gateway's fetch bound
+# (ops.preprocess.MAX_FETCH_BYTES): each tier bounds memory on its own.
+MAX_ENCODED_IMAGE_BYTES = 32 * 1024 * 1024
+
+# JPEG/PNG magic prefixes: only payloads identified as one of the two
+# formats ride the bytes wire; anything else decodes at the gateway (and
+# is refused there) on the tensor wire.
+_JPEG_MAGIC = b"\xff\xd8\xff"
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+# A token stream's content type; the gateway's response cache refuses to
+# store one (serving.cache.storable_response).
+EVENT_STREAM_CONTENT_TYPE = "text/event-stream"
+
+# Multi-model routing header: names the model a /predict request targets
+# when its path names none (the gateway's /predict/<model> wins).
+MODEL_HEADER = "X-Kdlt-Model"
+
+# Response-cache wire surface (serving.cache): a client salts the content
+# hash with X-Kdlt-Cache-Bust to opt out of the cache (equal salts still
+# coalesce); the gateway stamps every /predict reply with its disposition
+# (hit | miss | coalesced | stale).
+CACHE_BUST_HEADER = "X-Kdlt-Cache-Bust"
+CACHE_STATUS_HEADER = "X-Kdlt-Cache"
 
 # The model tier stamps every 200 :predict reply with the serving
 # artifact's sha256 identity (serving.registry.artifact_hash).  The JAX
@@ -59,6 +106,61 @@ PRIORITY_RANK = {name: rank for rank, name in enumerate(PRIORITY_CLASSES)}
 
 # The Prometheus text exposition the JAX server's /metrics answers with.
 METRICS_CONTENT_TYPE = "text/plain"
+
+
+def ingest_enabled(explicit: bool | None = None) -> bool:
+    """Explicit arg > $KDLT_INGEST > on (the switch turns both tiers back
+    to the tensor wire only)."""
+    if explicit is not None:
+        return bool(explicit)
+    return os.environ.get(INGEST_ENV, "").strip().lower() not in ("0", "false", "off", "no")
+
+
+def parse_ingest_caps(raw: str | None) -> tuple[str, ...]:
+    """An X-Kdlt-Ingest header as known capability tokens; unknown tokens
+    are dropped (a gateway only ever acts on capabilities it understands)."""
+    if not raw:
+        return ()
+    return tuple(tok for tok in (t.strip().lower() for t in raw.split(",")) if tok in INGEST_CAPS)
+
+
+def sniff_image_format(data: bytes) -> str | None:
+    """"jpeg" or "png" by magic bytes, None for anything else."""
+    if data.startswith(_JPEG_MAGIC):
+        return "jpeg"
+    if data.startswith(_PNG_MAGIC):
+        return "png"
+    return None
+
+
+def encode_bytes_predict_request(blobs: list[bytes]) -> bytes:
+    """Encoded image blobs -> msgpack request body (the bytes wire)."""
+    return msgpack_lite.packb({"images": [bytes(b) for b in blobs]})
+
+
+def decode_bytes_predict_request(body: bytes, max_images: int | None = None) -> list[bytes]:
+    """The inverse of ``encode_bytes_predict_request``, with a network
+    decoder's bounds: a non-empty list of non-empty bin blobs, each under
+    MAX_ENCODED_IMAGE_BYTES, at most ``max_images`` of them.  Raises
+    ValueError (a 400: a malformed body is the client's error)."""
+    try:
+        msg = msgpack_lite.unpackb(body)
+    except Exception as e:  # noqa: BLE001 - mapped to 400 by the caller
+        raise ValueError(f"invalid msgpack body: {e}") from e
+    if not isinstance(msg, dict) or "images" not in msg:
+        raise ValueError('bytes request must be a msgpack map with "images"')
+    blobs = msg["images"]
+    if not isinstance(blobs, list) or not blobs:
+        raise ValueError('"images" must be a non-empty list of image blobs')
+    if max_images is not None and len(blobs) > max_images:
+        raise ValueError(f"{len(blobs)} images exceeds the {max_images}-image limit")
+    for i, blob in enumerate(blobs):
+        if not isinstance(blob, (bytes, bytearray)) or not blob:
+            raise ValueError(f"image {i} is not a non-empty binary blob")
+        if len(blob) > MAX_ENCODED_IMAGE_BYTES:
+            raise ValueError(f"image {i} ({len(blob)} bytes) exceeds the "
+                             f"{MAX_ENCODED_IMAGE_BYTES}-byte per-image limit")
+    return [bytes(b) for b in blobs]
 
 
 def retry_after_headers(retry_after_s: float | None) -> dict[str, str]:

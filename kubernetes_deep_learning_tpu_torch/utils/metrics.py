@@ -298,6 +298,236 @@ def device_busy_gauge(registry: "Registry") -> "Gauge":
         "engine's batches (the batches' device times; ~30 s half-life)")
 
 
+
+# The gateway tier and the bytes wire (serving.gateway, serving.upstream,
+# serving.cache): the JAX package's families, minted here as there.
+
+
+def upstream_pool_metrics(registry: "Registry") -> dict:
+    """The gateway-tier replica-pool series (failover + hedging)."""
+    return {
+        "failover": registry.counter(
+            "kdlt_upstream_failover_total",
+            "upstream attempts redirected to another replica after a failure",
+        ),
+        "hedge_fired": registry.counter(
+            "kdlt_hedge_fired_total",
+            "hedged second attempts fired after the hedge delay",
+        ),
+        "hedge_won": registry.counter(
+            "kdlt_hedge_won_total",
+            "hedged attempts whose response was the one used",
+        ),
+    }
+
+
+CACHE_EVICTION_REASONS = (
+    ("lru", "evicted to fit the KDLT_CACHE_MAX_MB byte budget"),
+    ("ttl", "expired past KDLT_CACHE_TTL_S"),
+    ("reload", "dropped because the model's artifact hash changed (hot "
+               "reload with different bytes)"),
+)
+
+
+def cache_metrics(registry: "Registry") -> dict:
+    """The gateway-tier response-cache series (kdlt_cache_*).
+
+    Centralized like the helpers above so the cache, /debug/cache, and
+    bench.py --cache-ab key one set of names.  ``hits`` never touched
+    admission or the upstream; ``coalesced`` rode another request's
+    flight (admitted-but-not-dispatched); ``misses`` paid the full path.
+    """
+    return {
+        "hits": registry.counter(
+            "kdlt_cache_hits_total",
+            "requests served from the response cache (no admission slot, "
+            "no upstream call, no device work)",
+        ),
+        "misses": registry.counter(
+            "kdlt_cache_misses_total",
+            "cacheable requests that missed and led their own upstream flight",
+        ),
+        "coalesced": registry.counter(
+            "kdlt_cache_coalesced_total",
+            "requests coalesced onto another identical request's in-flight "
+            "upstream call (singleflight followers)",
+        ),
+        "stale_hits": registry.counter(
+            "kdlt_cache_stale_hits_total",
+            "requests served a TTL-expired entry under brownout "
+            "stale-while-revalidate (within KDLT_CACHE_SWR_S past expiry; "
+            "marked X-Kdlt-Cache: stale)",
+        ),
+        "neg_hits": registry.counter(
+            "kdlt_cache_negative_hits_total",
+            "requests answered from a negative-cache entry (a recent 404/"
+            "400 for the same content key, held for KDLT_CACHE_NEG_TTL_S)",
+        ),
+        "bytes": registry.counter(
+            "kdlt_cache_bytes_total",
+            "response bytes inserted into the cache",
+        ),
+        "resident": registry.gauge(
+            "kdlt_cache_resident_bytes",
+            "response bytes currently held by the cache",
+        ),
+        "entries": registry.gauge(
+            "kdlt_cache_entries", "entries currently held by the cache"
+        ),
+        "hit_ratio": registry.gauge(
+            "kdlt_cache_hit_ratio",
+            "lifetime hits / (hits + misses) of the response cache",
+        ),
+        "evictions": {
+            reason: registry.with_labels(reason=reason).counter(
+                "kdlt_cache_evictions_total", help
+            )
+            for reason, help in CACHE_EVICTION_REASONS
+        },
+    }
+
+
+def cache_decoded_metrics(registry: "Registry") -> dict:
+    """The decoded-uint8 cache tier's series (kdlt_cache_decoded_*).
+
+    Keys are (payload content hash, resolved preprocess params), so a hit
+    means a previously decoded image's pixels were reused -- across
+    requests AND across models sharing an input contract -- skipping the
+    JPEG/PNG decode + resize entirely.  Entries are content-addressed and
+    therefore immutable: there is no TTL and no artifact invalidation,
+    only the LRU byte budget (KDLT_CACHE_DECODED_MB)."""
+    return {
+        "hits": registry.counter(
+            "kdlt_cache_decoded_hits_total",
+            "decode-stage lookups served a previously decoded uint8 tensor "
+            "(no JPEG/PNG decode, no resize)",
+        ),
+        "misses": registry.counter(
+            "kdlt_cache_decoded_misses_total",
+            "decode-stage lookups that paid the full decode+resize",
+        ),
+        "resident": registry.gauge(
+            "kdlt_cache_decoded_resident_bytes",
+            "decoded uint8 tensor bytes currently held by the decoded tier",
+        ),
+        "entries": registry.gauge(
+            "kdlt_cache_decoded_entries",
+            "entries currently held by the decoded tier",
+        ),
+        "evictions": registry.counter(
+            "kdlt_cache_decoded_evictions_total",
+            "decoded entries evicted to fit the KDLT_CACHE_DECODED_MB "
+            "byte budget (content-addressed entries never expire; LRU is "
+            "the only way out)",
+        ),
+    }
+
+
+INGEST_FALLBACK_REASONS = (
+    ("format", "payload failed the JPEG/PNG magic-byte sniff (exotic "
+               "format decodes at the gateway, rides the tensor wire)"),
+    ("negotiation", "the model tier did not advertise the bytes capability "
+                    "on its spec response (old server or KDLT_INGEST=0)"),
+    ("rejected", "a bytes-wire POST came back 4xx and the request was "
+                 "re-sent decoded on the legacy tensor wire"),
+)
+
+
+def ingest_gateway_metrics(registry: "Registry") -> dict:
+    """The gateway tier's raw-bytes ingest series (kdlt_ingest_*): how
+    much traffic rides the bytes wire, why the rest fell back, and the
+    wire bytes actually shipped (the payload-diet receipt bench.py
+    --ingest-ab cross-checks)."""
+    return {
+        "bytes_requests": registry.counter(
+            "kdlt_ingest_bytes_requests_total",
+            "upstream predict calls sent on the raw-bytes wire",
+        ),
+        "wire_bytes": registry.counter(
+            "kdlt_ingest_wire_bytes_total",
+            "request-body bytes shipped on the raw-bytes wire",
+        ),
+        "fallbacks": {
+            reason: registry.with_labels(reason=reason).counter(
+                "kdlt_ingest_fallbacks_total", help
+            )
+            for reason, help in INGEST_FALLBACK_REASONS
+        },
+    }
+
+
+def ingest_server_metrics(registry: "Registry") -> dict:
+    """The model tier's decode-stage series (kdlt_ingest_*): images
+    decoded at this tier and the per-batch decode latency (the stage a
+    trace waterfall shows as server.ingest_decode)."""
+    return {
+        "decoded_images": registry.counter(
+            "kdlt_ingest_decoded_images_total",
+            "images decoded+resized by the model tier's decode stage",
+        ),
+        "decode_seconds": registry.histogram(
+            "kdlt_ingest_decode_seconds",
+            "wall seconds per bytes-wire batch in the thread-pooled "
+            "decode stage",
+            buckets=PIPELINE_STAGE_BUCKETS,
+        ),
+    }
+
+
+def pool_membership_metrics(registry: "Registry") -> dict:
+    """Pool-level dynamic-membership series (kdlt_pool_*).
+
+    Minted HERE and nowhere else (tools/check_metrics.py confines the
+    kdlt_pool_ prefix to this module) so the gateway pool and bench.py
+    --churn-ab key one set of names.  ``members`` counts replicas in
+    rotation OR quarantine (everything the resolver currently believes
+    in); joins/leaves count membership transitions, which is what the
+    churn bench's assertions and any flap alert key on.
+    """
+    return {
+        "members": registry.gauge(
+            "kdlt_pool_members",
+            "upstream replicas currently known to the pool (in rotation, "
+            "quarantined, or draining)",
+        ),
+        "joins": registry.counter(
+            "kdlt_pool_joins_total",
+            "replicas added to the pool by dynamic membership (resolver "
+            "or set_membership)",
+        ),
+        "leaves": registry.counter(
+            "kdlt_pool_leaves_total",
+            "replicas removed from the pool by dynamic membership",
+        ),
+    }
+
+
+def pool_replica_metrics(registry: "Registry", host: str) -> dict:
+    """One replica's pool series, minted under a single labeled child so
+    dynamic membership can retire ALL of a departed replica's series
+    atomically (``registry.remove(child)``) without leaving stale samples
+    on /metrics.  ``child`` is that handle; callers never mint through it
+    directly."""
+    child = registry.with_labels(replica=host)
+    return {
+        "child": child,
+        "healthy": child.gauge(
+            "kdlt_upstream_replica_healthy",
+            "1 while the upstream replica is considered healthy",
+        ),
+        "picks": child.counter(
+            "kdlt_pool_pick_total",
+            "times power-of-two-choices selection routed a primary "
+            "attempt to this replica",
+        ),
+        "ewma_ms": child.gauge(
+            "kdlt_pool_replica_ewma_ms",
+            "EWMA of this replica's observed request latency (the "
+            "power-of-two-choices ranking signal)",
+        ),
+    }
+
+
 # Quantization serving state (ops.quantize + runtime.engine): the
 # ``scheme`` label's value set is exactly this tuple.
 QUANT_SCHEMES = (

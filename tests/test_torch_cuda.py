@@ -50,9 +50,16 @@ clothing model's w8a8 forward at batch 3 and at K- and N-tail shapes; a
 96-px w8a8 engine passes its gate, launches 39 Q1 and 29 Q2 a replay and
 replays bit-equal to eager; a miscalibrated one is refused, re-captured
 weight-only on the capture thread, and gives its memory back on close.
+The ingest path: the port's decoder and resize on this host equal the
+committed fixtures' PIL pixels (``tests/ingest_fixtures``; these two need
+no card and run anywhere), and a bytes-wire request on the card is served
+by the bucket graphs' replays (no eager forward), 8 K1 and 2 K2 launches a
+forward, with the tensor wire's logits for the same pixels.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pytest
@@ -1123,6 +1130,92 @@ def test_cuda_debug_profile_under_traffic_names_the_stage_kernel(tmp_path):
         server.shutdown()
 
 
+_TRACE_VS_KINETO = r"""
+import json, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+from kubernetes_deep_learning_tpu_torch.ops import _native
+
+out_dir = sys.argv[1]
+a = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+host = torch.empty(4096, 1024, dtype=torch.bfloat16, pin_memory=True)
+
+
+def work():
+    for _ in range(16):
+        torch.mm(a, a)
+    host.copy_(a[:, :1024], non_blocking=True)
+    torch.cuda.synchronize()
+
+
+work()  # cuBLAS picks its kernels
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    work()
+prof.export_chrome_trace(out_dir + "/kineto.json")
+trace = _native.DeviceTrace()
+t0 = time.time()
+trace.start()
+work()
+trace.stop()
+t1 = time.time()
+summary = trace.write(out_dir + "/device.json", 10)
+try:
+    trace.write(out_dir + "/again.json", 10)
+    again = "written twice"
+except RuntimeError as e:
+    again = str(e)
+print(json.dumps({"t0": t0, "t1": t1, "summary": summary, "again": again}))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_device_trace_reads_the_records_as_torch_profiler_does(tmp_path):
+    """``native/cupti_trace.cc`` reads CUPTI's records through its own
+    declarations of their layouts (the card has no cupti.h): in a fresh
+    process, the same work recorded by torch.profiler (kineto) and then by
+    ``DeviceTrace`` gives the same kernels with the same counts (16 GEMMs
+    and a copy kernel), mean durations within 10%, the same copy's byte
+    count, and timestamps inside the recording's wall window (kineto runs
+    first and leaves CUPTI its own timestamp source, which the collector
+    rescales).  A fresh process, because once the collector has registered
+    its CUPTI callbacks, a later torch.profiler in that process misses
+    records."""
+    _need_cuda()
+    import json
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run([sys.executable, "-c", _TRACE_VS_KINETO, str(tmp_path)],
+                          capture_output=True, text=True, timeout=300, cwd=root,
+                          env={**os.environ, "PYTHONPATH": root})
+    assert done.returncode == 0, done.stderr[-3000:]
+    res = json.loads(done.stdout.strip().splitlines()[-1])
+
+    def events(path):
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+        kernels: dict = {}
+        for e in trace:
+            if e.get("cat") == "kernel":
+                kernels.setdefault(e["name"], []).append(e)
+        copies = sorted(e["args"]["bytes"] for e in trace if e.get("cat") == "gpu_memcpy")
+        return kernels, copies
+
+    want, want_copies = events(tmp_path / "kineto.json")
+    got, got_copies = events(tmp_path / "device.json")
+    assert {k: len(v) for k, v in got.items()} == {k: len(v) for k, v in want.items()}
+    assert sorted(len(v) for v in got.values())[-1] == 16
+    assert got_copies == want_copies == [4096 * 1024 * 2]
+    t0, t1 = res["t0"] * 1e6, res["t1"] * 1e6
+    for name, evs in got.items():
+        mean = np.mean([e["dur"] for e in evs])
+        assert abs(mean / np.mean([e["dur"] for e in want[name]]) - 1) < 0.1, name
+        assert all(t0 <= e["ts"] and e["ts"] + e["dur"] <= t1 for e in evs), name
+        assert res["summary"][name]["count"] == len(evs)
+    assert "no stopped device trace" in res["again"]
+
+
 # --- int8 quantization: Q1 and Q2, the w8a8 engine --------------------------
 
 # Every (side, C_in, C_out, k, stride, padding) at which clothing-model's
@@ -1310,3 +1403,85 @@ def test_cuda_gate_refusal_recaptures_weight_only_and_close_gives_memory_back(tm
     engine.close()
     after = torch.cuda.memory_allocated()
     assert abs(after - before) < 16 << 20, (before, after)
+
+
+# --- the ingest path: decode and resize on this host, the bytes wire --------
+
+_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ingest_fixtures")
+_FIXTURE_FILES = sorted(f for f in os.listdir(_FIXTURES) if not f.endswith(".npy"))
+
+
+@pytest.mark.parametrize("name", _FIXTURE_FILES)
+def test_host_decodes_the_committed_fixtures_to_pils_pixels(name):
+    """The port's decoder on this machine's host (which has no PIL) gives
+    the pixels PIL gave when the fixture was written (``test_torch_ingest``
+    holds the ``.npy`` to PIL where PIL is).  Needs no card."""
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+
+    with open(os.path.join(_FIXTURES, name), "rb") as f:
+        got = preprocess.decode_image(f.read())
+    np.testing.assert_array_equal(got, np.load(os.path.join(_FIXTURES, name + ".npy")))
+
+
+@pytest.mark.parametrize("filter", ["nearest", "bilinear"])
+def test_host_resize_equals_pils_on_the_committed_fixture(filter):
+    """The port's resize on this host, up and down, against PIL's pixels."""
+    import re
+
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+
+    want = [f for f in os.listdir(_FIXTURES) if f".{filter}-" in f]
+    assert len(want) == 2
+    for f in want:
+        h, w = map(int, re.search(r"-(\d+)x(\d+)\.npy$", f).groups())
+        source = np.load(os.path.join(_FIXTURES, f.split(f".{filter}-")[0] + ".npy"))
+        np.testing.assert_array_equal(preprocess.resize_uint8(source, (h, w), filter),
+                                      np.load(os.path.join(_FIXTURES, f)))
+
+
+@pytest.mark.cuda
+def test_cuda_bytes_wire_replays_the_bucket_graphs(tmp_path):
+    """A bytes-wire ``:predict`` (two encoded fixtures, decoded and resized
+    by the server) on the card: served by the bucket graphs' replays (no
+    eager forward after warmup), 8 K1 and 2 K2 launches a forward, and the
+    same logits as the tensor wire for the locally decoded pixels."""
+    _need_cuda()
+    import json
+    import urllib.request
+
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+    from kubernetes_deep_learning_tpu_torch.serving import protocol
+
+    spec, server, _ = _observed_server(tmp_path)
+    try:
+        engine = server.engines[spec.name]
+        eager = []
+        forward = engine._forward
+        engine._forward = lambda x: (eager.append(x.shape), forward(x))[1]
+        blobs = []
+        for name in ("q90_444_37x29.jpg", "palette_23x17.png"):
+            with open(os.path.join(_FIXTURES, name), "rb") as f:
+                blobs.append(f.read())
+        url = f"http://127.0.0.1:{server.port}/v1/models/{spec.name}:predict"
+
+        def post(body, ctype):
+            req = urllib.request.Request(url, data=body, method="POST",
+                                         headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, r.read(), r.headers.get("Content-Type", "")
+
+        ops.reset_launch_counts()
+        status, body, ctype = post(protocol.encode_bytes_predict_request(blobs),
+                                   protocol.BYTES_CONTENT_TYPE)
+        assert status == 200 and ctype == protocol.JSON_CONTENT_TYPE
+        assert ops.launch_counts() == {"fused_sepconv_block": 8, "fused_sepconv_chain": 2}
+        assert not eager
+        got = np.asarray([list(p.values()) for p in json.loads(body)["predictions"]], np.float32)
+        pixels = np.stack([preprocess.resize_uint8(preprocess.decode_image(b),
+                                                   spec.input_shape[:2], spec.resize_filter)
+                           for b in blobs])
+        status, body, ctype = post(protocol.encode_predict_request(pixels),
+                                   protocol.MSGPACK_CONTENT_TYPE)
+        np.testing.assert_array_equal(got, protocol.decode_predict_response(body, ctype)[0])
+    finally:
+        server.shutdown()

@@ -391,9 +391,10 @@ def test_keep_alive_requests_do_not_stall_on_nagle(tmp_path):
 
 def test_port_imports_no_jax_flax_or_jax_package():
     """Every port module (and chip_smoke.py, mbconv_ablation.py,
-    entry_ablation.py, observability_ab.py) imports without jax, flax, optax, orbax, msgpack,
-    PIL or the JAX package: none of them is on the GPU machine.  The port's own name starts with the JAX
-    package's, so match the package name exactly or with a trailing dot."""
+    entry_ablation.py, observability_ab.py, host_ab.py) imports without jax, flax, optax,
+    orbax, msgpack, PIL, requests or the JAX package: none of them is on the GPU machine.
+    The port's own name starts with the JAX package's, so match the package name exactly
+    or with a trailing dot."""
     code = """
 import importlib, pkgutil, sys
 import kubernetes_deep_learning_tpu_torch as pkg
@@ -403,9 +404,10 @@ import chip_smoke
 import mbconv_ablation
 import entry_ablation
 import observability_ab
+import host_ab
 bad = sorted(
     k for k in sys.modules
-    for root in ("jax", "flax", "optax", "orbax", "msgpack", "PIL",
+    for root in ("jax", "flax", "optax", "orbax", "msgpack", "PIL", "requests",
                  "kubernetes_deep_learning_tpu")
     if k == root or k.startswith(root + ".")
 )
@@ -424,6 +426,11 @@ observability = {"kubernetes_deep_learning_tpu_torch." + m for m in (
 assert observability <= set(sys.modules), observability - set(sys.modules)
 quantization = {"kubernetes_deep_learning_tpu_torch." + m for m in ("ops.quantize", "ops.int8")}
 assert quantization <= set(sys.modules), quantization - set(sys.modules)
+gateway = {"kubernetes_deep_learning_tpu_torch." + m for m in (
+    "runtime.stub", "ops.preprocess", "ops._native", "serving.gateway", "serving.upstream",
+    "serving.cache", "serving.microbatch", "serving.faults", "serving.admission.breaker",
+    "serving.httpserver", "runtime.errors")}
+assert gateway <= set(sys.modules), gateway - set(sys.modules)
 print(len([k for k in sys.modules if k.startswith("kubernetes_deep_learning_tpu_torch.")]))
 assert not bad, bad
 """
@@ -432,7 +439,7 @@ assert not bad, bad
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 45  # every module was really imported
+    assert int(out.stdout.strip()) >= 55  # every module was really imported
 
 
 def test_model_server_gates_on_warmup(exported):
