@@ -164,7 +164,21 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    logits lie within 2e-2 of the exact f32 graph (TF32 off), and a
    3-image msgpack ``:predict`` return the engine's logits; then graph
    and eager p50 and img/s per bucket (``resnet-bucket``), and with
-   ``--profile`` the device ms at bucket 16;
+   ``--profile`` the device ms at bucket 16.  Then ``resnet50-imagenet``
+   and ``efficientnet-b3-imagenet`` as int8 (``quant-family`` lines): v1
+   float, v2 int8-weight-only, v3 int8-w8a8 calibrated on the card (8
+   noise images at percentile 100; every quantized layer scaled: 53 and
+   102), each arm's engine on graphs at buckets (1, 4, 16); the w8a8
+   gate's drift and top-1 (``quant-family-gate``); v3 served over msgpack:
+   53 Q1 (ResNet50) or 82 Q1 and 20 Q2 (B3) launches a forward and no
+   other hand kernel, each w8a8 bucket graph bit-equal to eager, one
+   traced replay with those kernels by name and no more library
+   convolutions than float ones left (if the gate refuses w8a8 on the
+   random weights, the run says so and checks that v3 served
+   weight-only); every distinct Q1/Q2 shape of the w8a8 forward at batch
+   16 against its plain version (max abs difference 0, ``int8-kernel``
+   lines with the model), and p50 per arm and bucket in turns; the
+   phase's seconds;
 17. admission: ``clothing-model`` on the batching phase's depth-2 server
    (buckets 1-32) with admission on: a request with
    ``X-Request-Deadline-Ms: 0`` must get a JSON 504 with the engine's
@@ -341,6 +355,10 @@ TRACE_KERNELS = {
     "efficientnet-b3-imagenet": {k: 18 for k in ("mbconv_expand_dw_kernel", "mbconv_se_kernel",
                                                  "mbconv_proj_kernel")},
 }
+TRACE_MARK_CYCLES = 20_000_000  # the spin between a trace window's two replays (~10 ms)
+# A library (cuDNN) convolution kernel in a trace: a name with one of these
+# (the hand kernels' names, sepconv/mbconv/int8_conv, carry none of them).
+_LIBRARY_CONV = ("fprop", "convolve", "conv2d_", "winograd")
 # ResNet50 (BASELINE config 3) at 224 px: its buckets, and its bf16 logits'
 # tolerance against the exact f32 graph (TF32 off), relative to the largest.
 RESNET_BUCKETS = (1, 4, 16, 32)
@@ -869,7 +887,14 @@ def _graph_check(engine, name: str, seed: int) -> dict:
 def _trace_check(engine, name: str, seed: int, expected: dict | None = None) -> dict:
     """One replay of the largest bucket's graph under ``torch.profiler``: each
     of the ``expected`` kernels (default TRACE_KERNELS[name]) must appear the
-    expected number of times."""
+    expected number of times.  The window holds two replays with a spin
+    kernel and a sync between them, and counts the second replay's kernels
+    only (those that start after the spin ends, on the same stream): in a
+    process that has traced before, the profiler can lose the first kernels
+    of a window (ResNet50 w8a8's stem Q1 among them; a spin before the
+    first replay did not always prevent it).  Also returns that replay's
+    library convolution kernels by name (``library_convs``) and the CUDA
+    records before and after the spin."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -879,12 +904,23 @@ def _trace_check(engine, name: str, seed: int, expected: dict | None = None) -> 
     np.asarray(engine.predict_async(imgs)[0])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         np.asarray(engine.predict_async(imgs)[0])
-    seen = {k: sum(e.count for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and k in e.key)
-            for k in expected}
+        torch.cuda._sleep(TRACE_MARK_CYCLES)
+        torch.cuda.synchronize()
+        np.asarray(engine.predict_async(imgs)[0])
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    if not marks:
+        _fail(f"{name}: the traced window holds no spin kernel")
+    replay = [e.name for e in events if e.time_range.start >= max(marks)]
+    seen = {k: sum(k in n for n in replay) for k in expected}
     if seen != expected:
         _fail(f"{name}: one traced replay launched {seen}, expected {expected}")
-    return dict(model=name, bucket=engine.max_batch, kernels=seen)
+    library_convs: dict[str, int] = {}
+    for n in replay:
+        if any(w in n.lower() for w in _LIBRARY_CONV):
+            library_convs[n[:120]] = library_convs.get(n[:120], 0) + 1
+    return dict(model=name, bucket=engine.max_batch, kernels=seen, library_convs=library_convs,
+                records=dict(before_spin=len(events) - len(replay), replay=len(replay)))
 
 
 def _unfused_check(spec, vdir: str, batches, replies, counter, iters: int, profile: bool) -> dict:
@@ -3462,12 +3498,21 @@ Q2_LAYERS = (
 QUANT_BATCHES = (16, 3)  # every shape; batch 1 for the middle flow's two
 
 
-def _taps_read(n_in: int, n_out: int, k: int, stride: int, padding: str) -> int:
-    """Input rows (or columns) of one side that a conv's taps read: a 1x1/2
-    conv reads every second one."""
-    pad = max((n_out - 1) * stride + k - n_in, 0) // 2 if padding == "SAME" else 0
+def _taps_read(n_in: int, n_out: int, k: int, stride: int, pad: int) -> int:
+    """Input rows (or columns) of one side that a conv's taps read, ``pad``
+    the padding before it: a 1x1/2 conv reads every second one."""
     return len({o * stride + t - pad for o in range(n_out) for t in range(k)}
                & set(range(n_in)))
+
+
+def _pads_before(layer, n_in: tuple[int, int], n_out: tuple[int, int]) -> tuple[int, int]:
+    """The top and left padding of an Int8Conv2d's input."""
+    if layer.padding == "VALID":
+        return 0, 0
+    if layer.padding == "SAME":
+        return tuple(max((o - 1) * layer.stride + k - i, 0) // 2
+                     for i, o, k in zip(n_in, n_out, layer.kernel_size))
+    return layer.padding[0][0], layer.padding[1][0]
 
 
 def _int8_case(layer, batch: int, side: int, gen, iters: int) -> dict:
@@ -3483,11 +3528,11 @@ def _int8_case(layer, batch: int, side: int, gen, iters: int) -> dict:
     if layer.kind == "depthwise":
         q_w = int8_ops.unpack_depthwise(layer.packed)
         plain = lambda: int8_ops.int8_conv_reference(  # noqa: E731
-            x, q_w, layer.s_act, layer.out_scale, 1, "SAME", layer.c_in)
+            x, q_w, layer.s_act, layer.out_scale, layer.stride, "SAME", layer.c_in, layer.bias)
     else:
         q_w = int8_ops.unpack_conv(layer.packed, layer.c_in, *layer.kernel_size)
         plain = lambda: int8_ops.int8_conv_reference(  # noqa: E731
-            x, q_w, layer.s_act, layer.out_scale, layer.stride, layer.padding)
+            x, q_w, layer.s_act, layer.out_scale, layer.stride, layer.padding, 1, layer.bias)
     kernel = lambda: layer(x)  # noqa: E731
     got = kernel()
     torch.cuda.synchronize()
@@ -3498,14 +3543,16 @@ def _int8_case(layer, batch: int, side: int, gen, iters: int) -> dict:
               f"max abs difference {err}")
     rec = dict(kind=layer.kind, shape=list(x.shape), out=list(got.shape),
                kernel_size=list(layer.kernel_size), stride=layer.stride,
-               padding=layer.padding, max_abs_err=err)
+               padding=layer.padding, bias=layer.bias is not None, max_abs_err=err)
     m = got.shape[0] * got.shape[1] * got.shape[2]
     k = layer.kernel_size[0] * layer.kernel_size[1] * (1 if layer.kind == "depthwise"
                                                         else layer.c_in)
     ops = 2 * m * k * layer.c_out
     # x's bytes are those the taps read, each once.
-    rows, cols = (_taps_read(n_in, n_out, kk, layer.stride, layer.padding)
-                  for n_in, n_out, kk in zip(x.shape[1:3], got.shape[1:3], layer.kernel_size))
+    pads = _pads_before(layer, tuple(x.shape[1:3]), tuple(got.shape[1:3]))
+    rows, cols = (_taps_read(n_in, n_out, kk, layer.stride, pad)
+                  for n_in, n_out, kk, pad in zip(x.shape[1:3], got.shape[1:3],
+                                                  layer.kernel_size, pads))
     x_bytes = batch * rows * cols * layer.c_in * 4
     nbytes = x_bytes + layer.packed.numel() + layer.c_out * 4 + got.numel() * 4
     t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
@@ -3747,6 +3794,202 @@ def _quant_phase(spec, seed: int, iters: int, smi: str, gen,
     return out, records
 
 
+# int8 for ResNet50 and EfficientNet-B3 (A8c): Q1 and Q2 launches a
+# forward (one per calibrated layer: ResNet50's 53 convolutions; B3's 82
+# dense and 20 depthwise convolutions of at least 4096 weights), and the
+# timed repetitions of this phase's kernel checks and p50s, cut so the two
+# families add at most 90 s to the run.
+QUANT_FAMILIES = {
+    "resnet50-imagenet": {"int8_conv": 53, "int8_depthwise": 0},
+    "efficientnet-b3-imagenet": {"int8_conv": 82, "int8_depthwise": 20},
+}
+QUANT_FAMILY_ITERS = 3
+QUANT_FAMILY_WEIGHT_ONLY = {  # launches a forward of the weight-only (bf16) arm
+    "resnet50-imagenet": {},
+    "efficientnet-b3-imagenet": {"fused_mbconv_block": B3_FUSED_PER_FORWARD},
+}
+
+
+def _int8_layer_shapes(forward, spec, batch: int) -> dict[tuple, dict]:
+    """Every distinct Q1/Q2 call of one ``batch`` forward of the w8a8
+    ``forward``: {(kind, C_in, C_out, k, stride, padding, H, W): {"module":
+    the first module of that shape, "calls": calls of it a forward}}."""
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+
+    shapes: dict[tuple, dict] = {}
+    handles = []
+    for name, m in forward.inner.named_modules():
+        if isinstance(m, int8_ops.Int8Conv2d):
+            def hook(mod, args, name=name):
+                key = (mod.kind, mod.c_in, mod.c_out, mod.kernel_size[0], mod.stride,
+                       str(mod.padding), *args[0].shape[1:3])
+                shapes.setdefault(key, {"module": name, "calls": 0})["calls"] += 1
+            handles.append(m.register_forward_pre_hook(hook))
+    try:
+        with torch.inference_mode():
+            forward(torch.zeros((batch, *spec.input_shape), dtype=torch.uint8, device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return shapes
+
+
+def _quant_family_phase(spec, seed: int, iters: int, smi: str, gen,
+                        int8_records: list[dict]) -> dict:
+    """``spec`` (ResNet50 at 224 px or EfficientNet-B3 at 300 px, full width
+    and depth, random weights from ``seed``) as v1 float (bf16), v2
+    int8-weight-only and v3 int8-w8a8 written by the port's
+    ``write_quantized_version`` (v3 calibrated on the card from
+    QUANT_CALIB_IMAGES noise images at percentile QUANT_CALIB_PERCENTILE:
+    every quantized layer must get a scale).  The three arms' engines serve
+    from graphs at BUCKETS; the w8a8 one's warmup gate prints its drift and
+    top-1.  If the gate passes: v3 served over msgpack (the main path) must
+    launch one Q1 or Q2 per calibrated layer a forward and no other hand
+    kernel, each w8a8 bucket graph must replay bit-equal to eager, one
+    traced replay must show the Q1/Q2 kernels by name and no library
+    convolution beyond the float convolutions left (layers too small to
+    quantize).  If it refuses (seeded random weights), the run says so and
+    checks that v3 served weight-only.  Either way every distinct Q1/Q2
+    shape of the w8a8 forward at batch 16 is held against its plain version
+    (max abs difference 0) and timed (``int8-kernel`` lines), and the
+    arms' p50 at each bucket are taken in turns.  Adds this family's Q1/Q2
+    sums to ``int8_records`` under ``by_model``."""
+    import shutil
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.models.layers import Conv2dNHWC
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+    from kubernetes_deep_learning_tpu_torch.ops import quantize
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    t_phase = time.perf_counter()
+    per_forward = QUANT_FAMILIES[spec.name]
+    out: dict = {"model": spec.name, "expected_per_forward": per_forward}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "versions")
+        art.save_artifact(art.version_dir(root, spec.name, 1), spec,
+                          init_variables(spec, seed=seed), {"compute_dtype": "bfloat16"})
+        v2 = quantize.write_quantized_version(root, spec.name, quantize.SCHEME)
+        calib = quantize.representative_images(spec, QUANT_CALIB_IMAGES, seed=seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v3 = quantize.write_quantized_version(
+            root, spec.name, quantize.SCHEME_W8A8, calib_images=calib,
+            percentile=QUANT_CALIB_PERCENTILE, from_version=1)
+        out["calibration_s"] = time.perf_counter() - t0
+        w8a8 = art.load_artifact(v3)
+        out["calibration"] = w8a8.metadata["calibration"]
+        if out["calibration"]["layers"] != sum(per_forward.values()):
+            _fail(f"quant {spec.name}: calibration scaled {out['calibration']['layers']} "
+                  f"layers, expected {sum(per_forward.values())}")
+        w3 = os.path.join(tmp, "w8a8")
+        shutil.copytree(v3, art.version_dir(w3, spec.name, 1))
+
+        engines = {}
+        for tag, vdir in (("w8a8", v3), ("weight-only", v2),
+                          ("float", art.version_dir(root, spec.name, 1))):
+            engines[tag] = InferenceEngine(art.load_artifact(vdir), buckets=BUCKETS,
+                                           device="cuda")
+            engines[tag].warmup()
+        e3 = engines["w8a8"]
+        passed = e3.quantization_active == quantize.SCHEME_W8A8
+        out["gate"] = dict(passed=passed, drift=e3.quant_gate_drift, top1=e3.quant_gate_top1,
+                           tol=quantize.resolve_quant_tol(), top1_min=quantize.GATE_TOP1)
+        print("quant-family-gate:", json.dumps({"model": spec.name, **out["gate"],
+                                                "card": smi}), flush=True)
+        if not passed:
+            print(f"quant {spec.name}: the warmup gate REFUSED w8a8 on seeded random weights "
+                  f"(drift {e3.quant_gate_drift}, top-1 {e3.quant_gate_top1}); the engine "
+                  "serves weight-only and the w8a8 forward is checked directly", flush=True)
+        forward = e3._forward if passed else quantize.build_w8a8_forward(spec, w8a8.variables)
+        layers = [m for m in forward.modules() if isinstance(m, int8_ops.Int8Conv2d)]
+        kinds = {k: sum(m.kind == k.removeprefix("int8_") for m in layers) for k in per_forward}
+        if kinds != per_forward:
+            _fail(f"quant {spec.name}: the w8a8 forward holds {kinds} int8 layers, "
+                  f"expected {per_forward}")
+        float_convs = sum(isinstance(m, Conv2dNHWC) for m in forward.modules())
+        out["float_convs_left"] = float_convs
+
+        # --- the main path: v3 served over msgpack ---
+        rng = np.random.default_rng(seed + 31)
+        batches = [rng.integers(0, 256, (n, *spec.input_shape), np.uint8) for n in REQUESTS]
+        active = quantize.SCHEME_W8A8 if passed else quantize.SCHEME
+        replies, launches, _ = _serve_checked(
+            w3, spec, batches, scheme=quantize.SCHEME_W8A8, active=active,
+            per_forward=per_forward if passed else QUANT_FAMILY_WEIGHT_ONLY[spec.name],
+            counters=_kernel_modules())
+        out["launches"] = launches
+        for imgs, got in zip(batches, replies):
+            if not np.array_equal(got, e3.predict(imgs)):
+                _fail(f"quant {spec.name}: a reply differs from the same artifact's engine")
+
+        # --- w8a8 graphs against eager, the trace, against weight-only ---
+        if passed:
+            out["graphs"] = _graph_check(e3, f"{spec.name}-w8a8", seed + 32)
+            if not out["graphs"]["all_bit_equal"]:
+                _fail(f"quant {spec.name}: a w8a8 bucket graph is not bit-equal to eager: "
+                      f"{out['graphs']}")
+            trace = {f"int8_{k.removeprefix('int8_')}_kernel": v for k, v in per_forward.items()}
+            out["trace_launches"] = _trace_check(e3, f"{spec.name}-w8a8", seed + 33, trace)
+            library = out["trace_launches"]["library_convs"]
+            if sum(library.values()) > float_convs:
+                _fail(f"quant {spec.name}: one replay ran {sum(library.values())} library "
+                      f"convolution kernels for {float_convs} float convolutions: {library}")
+            grid = _grid_images(spec, QUANT_GRID, seed + 34)
+            got, ref = e3.predict(grid), engines["weight-only"].predict(grid)
+            out["grid"] = dict(images=QUANT_GRID, top1=float((got.argmax(-1) ==
+                                                              ref.argmax(-1)).mean()),
+                               drift=float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-9)))
+
+        # --- every distinct Q1/Q2 shape against its plain version ---
+        shapes = _int8_layer_shapes(forward, spec, 16)
+        sums = {name: dict(launches=launches.get(name, 0), max_abs_err=0.0, ms=0.0,
+                           graph_ms=0.0, plain_ms=0.0, bound_ms=0.0, shapes=0)
+                for name in per_forward}
+        for key, info in shapes.items():
+            layer = forward.inner.get_submodule(info["module"])
+            name = f"int8_{layer.kind}"
+            t = _int8_case(layer, 16, key[-2], gen, iters)
+            print("int8-kernel:", json.dumps({"name": name, "model": spec.name,
+                                              "module": info["module"], "batch": 16,
+                                              "per_forward": info["calls"], **t, "card": smi}),
+                  flush=True)
+            rec = sums[name]
+            rec["max_abs_err"] = max(rec["max_abs_err"], t["max_abs_err"])
+            rec["shapes"] += 1
+            for k in ("ms", "graph_ms", "plain_ms", "bound_ms"):
+                rec[k] += info["calls"] * t[k]
+        calls = {n: sum(i["calls"] for k, i in shapes.items() if f"int8_{k[0]}" == n)
+                 for n in per_forward}
+        if calls != per_forward:
+            _fail(f"quant {spec.name}: a forward called {calls} int8 layers, expected "
+                  f"{per_forward}")
+        for rec in int8_records:
+            rec.setdefault("by_model", {})[spec.name] = {
+                **sums[rec["name"]], "per": "one bucket-16 forward's calls, summed"}
+        out["kernels"] = sums
+
+        # --- p50 of the three arms at each bucket, in turns ---
+        lat: dict = {tag: {b: [] for b in BUCKETS} for tag in engines}
+        for b in BUCKETS:
+            imgs = rng.integers(0, 256, (b, *spec.input_shape), np.uint8)
+            for e in engines.values():
+                e.predict(imgs)
+            for _ in range(iters):
+                for tag, e in engines.items():
+                    t0 = time.perf_counter()
+                    e.predict(imgs)
+                    lat[tag][b].append((time.perf_counter() - t0) * 1e3)
+        out["p50_ms"] = {tag: {str(b): float(np.median(v)) for b, v in d.items()}
+                         for tag, d in lat.items()}
+        for e in engines.values():
+            e.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _print_server(summary: dict, buckets: list[dict], smi: str) -> None:
     """A served model's lines: the summary, each bucket graph against the
     eager forward, the traced replay's launches, the device memory the
@@ -3779,6 +4022,7 @@ def main(argv=None) -> int:
     from kubernetes_deep_learning_tpu_torch.modelspec import (
         CLOTHING_MODEL,
         EFFICIENTNET_B3_IMAGENET,
+        RESNET50_IMAGENET,
         VIT_B16_IMAGENET,
         ModelSpec,
     )
@@ -3888,6 +4132,14 @@ def main(argv=None) -> int:
 
     # --- ResNet50 at 224 px (BASELINE config 3): cuDNN convolutions, no hand kernel ---
     print("resnet:", json.dumps(_resnet_phase(args.seed, ITERS, args.profile, smi)), flush=True)
+
+    # --- ResNet50 and EfficientNet-B3 as int8 (A8c): Q1, Q2, the three arms ---
+    t0 = time.perf_counter()
+    for spec in (RESNET50_IMAGENET, EFFICIENTNET_B3_IMAGENET):
+        family = _quant_family_phase(spec, args.seed, QUANT_FAMILY_ITERS, smi, gen,
+                                     int8_kernels)
+        print("quant-family:", json.dumps({**family, "card": smi}), flush=True)
+    print(f"quant-family: both families took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- the admission front door on clothing-model (K1, K2): 504, overload A/B, drain ---
     admission = _admission_phase(

@@ -4,8 +4,10 @@ MBConv blocks with squeeze-excite and compound scaling (Tan & Le 2019),
 with the flax module's names (``stem_conv``, ``block{i}.expand_conv``,
 ``.dw_bn``, ``.se.reduce``, ``.project_conv``, ``top_conv``,
 ``head.logits``, ...), so the flax variable tree maps onto it leaf for
-leaf (``weights.from_jax_variables``).  Every convolution pads TF "SAME",
-as flax ``nn.Conv`` does by default: the 3x3/2 stem pads (0, 1) on 300.
+leaf (``weights.from_jax_variables``).  Every convolution is a
+``models.layers.Conv2dNHWC`` called through its module (so
+``ops.quantize`` hooks and replaces it) and pads TF "SAME", as flax
+``nn.Conv`` does by default: the 3x3/2 stem pads (0, 1) on 300.
 Input is normalized float NHWC; the compute dtype is a constructor
 argument; parameters stay float32.  Stochastic depth and the head's dropout
 are inference-inert and omitted, as in the JAX package's eval path.
@@ -22,7 +24,7 @@ from torch import nn
 from kubernetes_deep_learning_tpu_torch.models.layers import (
     BatchNorm,
     ClassifierHead,
-    conv2d_nhwc,
+    Conv2dNHWC,
 )
 
 # EfficientNet-B0 base blocks: (expand_ratio, channels, repeats, stride, kernel).
@@ -78,11 +80,10 @@ def se_features(c_in: int) -> int:
     return max(1, int(c_in * _SE_RATIO))
 
 
-def _conv(x, conv: nn.Conv2d, stride: int = 1, groups: int = 1):
-    """A flax ``nn.Conv`` in the input's dtype: SAME padding, bias added after."""
-    dt = x.dtype
-    y = conv2d_nhwc(x, conv.weight.to(dt), stride, "SAME", groups)
-    return y if conv.bias is None else y + conv.bias.to(dt)
+def _conv(c_in: int, c_out: int, k: int, stride: int = 1, groups: int = 1,
+          bias: bool = False) -> Conv2dNHWC:
+    """A flax ``nn.Conv``: SAME padding, the bias (if any) added after."""
+    return Conv2dNHWC(c_in, c_out, k, stride, "SAME", groups, bias)
 
 
 class SqueezeExcite(nn.Module):
@@ -90,13 +91,13 @@ class SqueezeExcite(nn.Module):
 
     def __init__(self, c: int, features: int):
         super().__init__()
-        self.reduce = nn.Conv2d(c, features, 1)
-        self.expand = nn.Conv2d(features, c, 1)
+        self.reduce = _conv(c, features, 1, bias=True)
+        self.expand = _conv(features, c, 1, bias=True)
 
     def forward(self, x):
         s = x.mean(dim=(1, 2), keepdim=True)
-        s = F.silu(_conv(s, self.reduce))
-        return x * torch.sigmoid(_conv(s, self.expand))
+        s = F.silu(self.reduce(s))
+        return x * torch.sigmoid(self.expand(s))
 
 
 class MBConvBlock(nn.Module):
@@ -105,24 +106,23 @@ class MBConvBlock(nn.Module):
     def __init__(self, c_in: int, features: int, expand_ratio: int, kernel: int, stride: int):
         super().__init__()
         c_mid = c_in * expand_ratio
-        self.stride = stride
         self.residual = stride == 1 and c_in == features
         if expand_ratio != 1:
-            self.expand_conv = nn.Conv2d(c_in, c_mid, 1, bias=False)
+            self.expand_conv = _conv(c_in, c_mid, 1)
             self.expand_bn = BatchNorm(c_mid)
-        self.dwconv = nn.Conv2d(c_mid, c_mid, kernel, groups=c_mid, bias=False)
+        self.dwconv = _conv(c_mid, c_mid, kernel, stride, groups=c_mid)
         self.dw_bn = BatchNorm(c_mid)
         self.se = SqueezeExcite(c_mid, se_features(c_in))
-        self.project_conv = nn.Conv2d(c_mid, features, 1, bias=False)
+        self.project_conv = _conv(c_mid, features, 1)
         self.project_bn = BatchNorm(features)
 
     def forward(self, x):
         y = x
         if "expand_conv" in self._modules:
-            y = F.silu(self.expand_bn(_conv(y, self.expand_conv)))
-        y = F.silu(self.dw_bn(_conv(y, self.dwconv, self.stride, groups=y.shape[-1])))
+            y = F.silu(self.expand_bn(self.expand_conv(y)))
+        y = F.silu(self.dw_bn(self.dwconv(y)))
         y = self.se(y)
-        y = self.project_bn(_conv(y, self.project_conv))
+        y = self.project_bn(self.project_conv(y))
         return y + x if self.residual else y
 
 
@@ -133,23 +133,23 @@ class EfficientNet(nn.Module):
         self.dtype = dtype
         self.width, self.depth = width, depth
         c = round_filters(32, width)
-        self.stem_conv = nn.Conv2d(3, c, 3, bias=False)
+        self.stem_conv = _conv(3, c, 3, stride=2)
         self.stem_bn = BatchNorm(c)
         self.plan = block_plan(width, depth)
         for name, stride, kernel, features, expand in self.plan:
             self.add_module(name, MBConvBlock(c, features, expand, kernel, stride))
             c = features
         top = round_filters(1280, width)
-        self.top_conv = nn.Conv2d(c, top, 1, bias=False)
+        self.top_conv = _conv(c, top, 1)
         self.top_bn = BatchNorm(top)
         self.head = ClassifierHead(top, num_classes, head_hidden)
 
     def forward(self, x):
         x = x.to(self.dtype)
-        x = F.silu(self.stem_bn(_conv(x, self.stem_conv, stride=2)))
+        x = F.silu(self.stem_bn(self.stem_conv(x)))
         for name, *_ in self.plan:
             x = self._modules[name](x)
-        x = F.silu(self.top_bn(_conv(x, self.top_conv)))
+        x = F.silu(self.top_bn(self.top_conv(x)))
         return self.head(x)
 
 

@@ -33,13 +33,31 @@ def _pad_nchw(x, k: int, s: int, value: float = 0.0):
     return x
 
 
-def conv2d_nhwc(x, weight, stride: int = 1, padding: str = "VALID", groups: int = 1):
-    """NHWC conv with an OIHW weight; ``padding`` "VALID" or TF "SAME"."""
+def check_padding(padding):
+    """"VALID", "SAME", or flax's explicit ((top, bottom), (left, right)) as
+    a tuple of tuples of non-negative ints."""
+    if padding in ("VALID", "SAME"):
+        return padding
+    try:
+        (top, bottom), (left, right) = padding
+        pads = ((int(top), int(bottom)), (int(left), int(right)))
+    except (TypeError, ValueError):
+        raise ValueError(f"unknown padding {padding!r}") from None
+    if min(pads[0] + pads[1]) < 0:
+        raise ValueError(f"negative padding {padding!r}")
+    return pads
+
+
+def conv2d_nhwc(x, weight, stride: int = 1, padding="VALID", groups: int = 1):
+    """NHWC conv with an OIHW weight; ``padding`` "VALID", TF "SAME", or
+    explicit ((top, bottom), (left, right)) zero rows and columns."""
+    padding = check_padding(padding)
+    if not isinstance(padding, str):
+        (top, bottom), (left, right) = padding
+        x = F.pad(x, (0, 0, left, right, top, bottom))
     xc = x.permute(0, 3, 1, 2)
     if padding == "SAME":
         xc = _pad_nchw(xc, weight.shape[-1], stride)
-    elif padding != "VALID":
-        raise ValueError(f"unknown padding {padding!r}")
     return F.conv2d(xc, weight, None, stride, 0, 1, groups).permute(0, 2, 3, 1)
 
 
@@ -52,22 +70,34 @@ def max_pool_same(x, k: int = 3, s: int = 2):
 
 
 class Conv2dNHWC(nn.Conv2d):
-    """A bias-free conv called on NHWC tensors: ``conv2d_nhwc`` with its own
-    stride, "VALID"/"SAME" padding and groups, its float32 weight cast to
-    the input's dtype.  The state-dict key stays ``weight`` (OIHW).  Being a
-    module, the call has a path (``block5_sepconv1.pointwise``), which
-    ``ops.quantize`` hooks for calibration and replaces for w8a8."""
+    """A flax ``nn.Conv`` called on NHWC tensors: ``conv2d_nhwc`` with its
+    own stride, padding ("VALID", "SAME" or explicit, see ``conv2d_nhwc``)
+    and groups, its float32 weight cast to the input's dtype, and its bias,
+    if it has one, added after in that dtype.  The state-dict keys stay
+    ``weight`` (OIHW) and ``bias``.  Being a module, the call has a path
+    (``block5_sepconv1.pointwise``) and sees the unpadded input, as flax's
+    method interceptor does: ``ops.quantize`` hooks it for calibration and
+    replaces it for w8a8."""
 
     def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1,
-                 padding: str = "VALID", groups: int = 1):
-        super().__init__(c_in, c_out, k, stride=stride, groups=groups, bias=False)
-        if padding not in ("VALID", "SAME"):
-            raise ValueError(f"unknown padding {padding!r}")
-        self.tf_padding = padding
+                 padding="VALID", groups: int = 1, bias: bool = False):
+        super().__init__(c_in, c_out, k, stride=stride, groups=groups, bias=bias)
+        self.tf_padding = check_padding(padding)
 
     def forward(self, x):
-        return conv2d_nhwc(x, self.weight.to(x.dtype), self.stride[0], self.tf_padding,
-                           self.groups)
+        dt = x.dtype
+        y = conv2d_nhwc(x, self.weight.to(dt), self.stride[0], self.tf_padding, self.groups)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class Dense(nn.Linear):
+    """A flax ``nn.Dense``: input, weight and bias cast to the input's dtype.
+    A module, so ``ops.quantize`` hooks it for calibration as flax's
+    interceptor sees ``nn.Dense``."""
+
+    def forward(self, x):
+        dt = x.dtype
+        return F.linear(x, self.weight.to(dt), self.bias.to(dt))
 
 
 class SeparableConv2D(nn.Module):
@@ -133,14 +163,12 @@ class ClassifierHead(nn.Module):
         super().__init__()
         widths = (c_in, *hidden)
         for i, width in enumerate(hidden):
-            self.add_module(f"hidden_{i}", nn.Linear(widths[i], width))
-        self.logits = nn.Linear(widths[-1], num_classes)
+            self.add_module(f"hidden_{i}", Dense(widths[i], width))
+        self.logits = Dense(widths[-1], num_classes)
         self.n_hidden = len(hidden)
 
     def forward(self, x):
-        dt = x.dtype
         x = x.mean(dim=(1, 2))
         for i in range(self.n_hidden):
-            layer = self._modules[f"hidden_{i}"]
-            x = torch.relu(F.linear(x, layer.weight.to(dt), layer.bias.to(dt)))
-        return F.linear(x, self.logits.weight.to(dt), self.logits.bias.to(dt))
+            x = torch.relu(self._modules[f"hidden_{i}"](x))
+        return self.logits(x)

@@ -5,7 +5,9 @@ flax module's names are kept (``conv1_conv``, ``conv{s}_block{b}`` with
 ``{0,1,2,3}_{conv,bn}``, ``head``), so the flax variable tree maps onto it
 leaf for leaf (``weights.from_jax_variables``); names that start with a
 digit are registered through ``add_module``.  NHWC end to end; every
-convolution has a bias, as flax ``nn.Conv`` with ``use_bias=True``; every
+convolution is a ``models.layers.Conv2dNHWC`` called through its module
+(so ``ops.quantize`` hooks and replaces it) and has a bias, as flax
+``nn.Conv`` with ``use_bias=True``; every
 BatchNorm takes ResNet's own epsilon, 1.001e-5, not Keras's 1e-3.  The JAX
 package runs this family on XLA convolutions (no Pallas kernel), so the
 port runs it on cuDNN convolutions.  Input is normalized float NHWC; the
@@ -21,7 +23,7 @@ from torch import nn
 from kubernetes_deep_learning_tpu_torch.models.layers import (
     BatchNorm,
     ClassifierHead,
-    conv2d_nhwc,
+    Conv2dNHWC,
 )
 
 # Keras ResNet50 BatchNormalization epsilon (differs from Xception's 1e-3).
@@ -31,10 +33,9 @@ RESNET_BN_EPS = 1.001e-5
 STAGES = ((64, 3), (128, 4), (256, 6), (512, 3))
 
 
-def _conv(x, conv: nn.Conv2d, stride: int = 1, padding: str = "SAME"):
-    """A flax ``nn.Conv`` with bias in the input's dtype."""
-    dt = x.dtype
-    return conv2d_nhwc(x, conv.weight.to(dt), stride, padding) + conv.bias.to(dt)
+def _conv(c_in: int, c_out: int, k: int, stride: int = 1, padding="SAME") -> Conv2dNHWC:
+    """A flax ``nn.Conv`` with bias (its padding defaults to "SAME")."""
+    return Conv2dNHWC(c_in, c_out, k, stride, padding, bias=True)
 
 
 class BottleneckBlock(nn.Module):
@@ -42,27 +43,26 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, c_in: int, features: int, stride: int = 1, project: bool = False):
         super().__init__()
-        self.stride = stride
         self.project = project
         add = self.add_module
         if project:  # downsample/widen the shortcut with a 1x1 conv
-            add("0_conv", nn.Conv2d(c_in, 4 * features, 1))
+            add("0_conv", _conv(c_in, 4 * features, 1, stride))
             add("0_bn", BatchNorm(4 * features, eps=RESNET_BN_EPS))
-        add("1_conv", nn.Conv2d(c_in, features, 1))
+        add("1_conv", _conv(c_in, features, 1, stride))
         add("1_bn", BatchNorm(features, eps=RESNET_BN_EPS))
-        add("2_conv", nn.Conv2d(features, features, 3))
+        add("2_conv", _conv(features, features, 3))
         add("2_bn", BatchNorm(features, eps=RESNET_BN_EPS))
-        add("3_conv", nn.Conv2d(features, 4 * features, 1))
+        add("3_conv", _conv(features, 4 * features, 1))
         add("3_bn", BatchNorm(4 * features, eps=RESNET_BN_EPS))
 
     def forward(self, x):
         m = self._modules
         shortcut = x
         if self.project:
-            shortcut = m["0_bn"](_conv(x, m["0_conv"], self.stride))
-        y = torch.relu(m["1_bn"](_conv(x, m["1_conv"], self.stride)))
-        y = torch.relu(m["2_bn"](_conv(y, m["2_conv"])))
-        y = m["3_bn"](_conv(y, m["3_conv"]))
+            shortcut = m["0_bn"](m["0_conv"](x))
+        y = torch.relu(m["1_bn"](m["1_conv"](x)))
+        y = torch.relu(m["2_bn"](m["2_conv"](y)))
+        y = m["3_bn"](m["3_conv"](y))
         return torch.relu(y + shortcut)
 
 
@@ -71,7 +71,8 @@ class ResNet50(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.conv1_conv = nn.Conv2d(3, 64, 7)
+        # Stem: 7x7/2 conv with explicit 3-pixel padding (Keras ZeroPadding2D).
+        self.conv1_conv = _conv(3, 64, 7, 2, ((3, 3), (3, 3)))
         self.conv1_bn = BatchNorm(64, eps=RESNET_BN_EPS)
         self.blocks = []
         c = 64
@@ -88,10 +89,9 @@ class ResNet50(nn.Module):
 
     def forward(self, x):
         x = x.to(self.dtype)
-        # Stem: 7x7/2 conv with explicit 3-pixel padding (Keras ZeroPadding2D),
-        # then a 3x3/2 max-pool padded by 1 with -inf (flax ``nn.max_pool``).
-        x = F.pad(x, (0, 0, 3, 3, 3, 3))
-        x = torch.relu(self.conv1_bn(_conv(x, self.conv1_conv, 2, "VALID")))
+        # Stem: the padded 7x7/2 conv, then a 3x3/2 max-pool padded by 1 with
+        # -inf (flax ``nn.max_pool``).
+        x = torch.relu(self.conv1_bn(self.conv1_conv(x)))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
         for name in self.blocks:
             x = self._modules[name](x)

@@ -9,7 +9,11 @@ Dense head.  Numerics follow flax:
 - LayerNorm (epsilon 1e-6) runs in f32 on an f32 copy of its input; the
   blocks cast the result back to the compute dtype;
 - patch embedding, Dense and DenseGeneral layers cast input, kernel and
-  bias to the compute dtype; ``pos_embed`` is cast before the add;
+  bias to the compute dtype; ``pos_embed`` is cast before the add.  The
+  patch embedding (``models.layers.Conv2dNHWC``) and the MLP's Dense layers
+  (``models.layers.Dense``) are called through their modules, the
+  counterparts of flax's ``nn.Conv`` and ``nn.Dense``, so ``ops.quantize``
+  calibrates them as JAX's interceptor does;
 - the final LayerNorm, token mean and head run in f32 (the head has no
   compute dtype).
 
@@ -30,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kubernetes_deep_learning_tpu_torch.models.layers import conv2d_nhwc
+from kubernetes_deep_learning_tpu_torch.models.layers import Conv2dNHWC, Dense
 from kubernetes_deep_learning_tpu_torch.ops import attention
 
 FLAX_LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
@@ -89,11 +93,6 @@ class DenseGeneral(nn.Module):
         return y.reshape(*lead, *self.out_shape)
 
 
-def _dense(layer: nn.Linear, x):
-    dt = x.dtype
-    return F.linear(x, layer.weight.to(dt), layer.bias.to(dt))
-
-
 class SelfAttention(nn.Module):
     """Multi-head self-attention over (B, S, C) tokens."""
 
@@ -122,14 +121,14 @@ class TransformerBlock(nn.Module):
         self.ln_attn = LayerNorm(width)
         self.attn = SelfAttention(width, heads)
         self.ln_mlp = LayerNorm(width)
-        self.mlp_in = nn.Linear(width, width * mlp_ratio)
-        self.mlp_out = nn.Linear(width * mlp_ratio, width)
+        self.mlp_in = Dense(width, width * mlp_ratio)
+        self.mlp_out = Dense(width * mlp_ratio, width)
 
     def forward(self, x, train: bool = False):
         x = x + self.attn(self.ln_attn(x).to(x.dtype), train=train)
         y = self.ln_mlp(x).to(x.dtype)
-        y = F.gelu(_dense(self.mlp_in, y), approximate="tanh")  # flax nn.gelu
-        return x + _dense(self.mlp_out, y)
+        y = F.gelu(self.mlp_in(y), approximate="tanh")  # flax nn.gelu
+        return x + self.mlp_out(y)
 
 
 class ViT(nn.Module):
@@ -142,19 +141,18 @@ class ViT(nn.Module):
         self.config = config
         self.dtype = dtype
         self.grid = (h // config.patch, w // config.patch)
-        self.patch_embed = nn.Conv2d(c, config.width, config.patch, stride=config.patch)
+        self.patch_embed = Conv2dNHWC(c, config.width, config.patch, config.patch, bias=True)
         self.pos_embed = nn.Parameter(torch.zeros(1, self.grid[0] * self.grid[1], config.width))
         for i in range(config.depth):
             self.add_module(
                 f"block_{i}", TransformerBlock(config.width, config.heads, config.mlp_ratio)
             )
         self.ln_final = LayerNorm(config.width)
-        self.head = nn.Linear(config.width, num_classes)
+        self.head = Dense(config.width, num_classes)
 
     def forward(self, x, train: bool = False):
         dt, cfg = self.dtype, self.config
-        x = conv2d_nhwc(x.to(dt), self.patch_embed.weight.to(dt), stride=cfg.patch)
-        x = x + self.patch_embed.bias.to(dt)
+        x = self.patch_embed(x.to(dt))
         if x.shape[1:3] != self.grid:
             raise ValueError(f"input gives a {tuple(x.shape[1:3])} patch grid, "
                              f"the model was built for {self.grid}")
@@ -162,4 +160,4 @@ class ViT(nn.Module):
         for i in range(cfg.depth):
             x = self._modules[f"block_{i}"](x, train=train)
         x = self.ln_final(x).mean(dim=1)  # f32 from here on
-        return F.linear(x, self.head.weight, self.head.bias)
+        return self.head(x)

@@ -147,7 +147,7 @@ def load() -> ctypes.CDLL:
             f32 = ctypes.c_float
             lib.kdlt_int8_conv.argtypes = [ptr] * 5 + [f32] + [i32] * 13 + [ptr]
             lib.kdlt_int8_conv.restype = i32
-            lib.kdlt_int8_depthwise.argtypes = [ptr] * 5 + [f32] + [i32] * 4 + [ptr]
+            lib.kdlt_int8_depthwise.argtypes = [ptr] * 5 + [f32] + [i32] * 10 + [ptr]
             lib.kdlt_int8_depthwise.restype = i32
             lib.kdlt_error_string.argtypes = [i32]
             lib.kdlt_error_string.restype = ctypes.c_char_p

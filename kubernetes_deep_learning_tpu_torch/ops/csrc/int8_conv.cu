@@ -1,7 +1,9 @@
 // int8 convolutions of the w8a8 serving path, for Hopper (sm_90a):
 //   Q1 int8_conv_kernel      -- a dense convolution (any kernel size, stride,
-//       VALID or TF "SAME" padding, groups = 1) as an implicit GEMM;
-//   Q2 int8_depthwise_kernel -- a 3x3 depthwise convolution, stride 1, SAME.
+//       C_in and C_out; VALID, TF "SAME" or explicit pads; groups = 1) as an
+//       implicit GEMM;
+//   Q2 int8_depthwise_kernel -- a k x k depthwise convolution, k 3 or 5,
+//       stride 1 or 2, TF "SAME" (the odd pixel of the padding after).
 //
 // Replaces no TPU kernel: the JAX package's w8a8 program
 // (kubernetes_deep_learning_tpu/ops/quantize.py::build_w8a8_forward) runs
@@ -16,7 +18,8 @@
 //                 (__fdiv_rn; never build with --use_fast_math, which turns
 //                 it into a multiply by the reciprocal) and round half to
 //                 even, as jnp.round and torch.round;
-//   accumulate    int32, exact (|acc| <= 127^2 * 9 * 1536 < 2^31);
+//   accumulate    int32, exact (|acc| <= 127^2 * K, K = kh*kw*C_in < 2^17 for
+//                 every layer of the served families, so < 2^31);
 //   epilogue      y = float(acc) * out_scale[o] (+ bias[o]): __int2float_rn,
 //                 then __fmul_rn / __fadd_rn so no multiply-add is fused;
 //                 out_scale = s_act * s_w was computed in f32 on the host.
@@ -34,8 +37,13 @@
 //     C_out channels) and walks K = kh*kw*C_in in steps of 64, the taps
 //     ordered (dh, dw, c) so 4 consecutive k are 4 channels of one tap;
 //   * A (the pixels' taps) is gathered from x by stride and padding with
-//     16-byte loads, quantized in registers and stored as int8 in shared
-//     memory; the next step's loads are in flight while this step computes;
+//     16-byte loads when C_in is a multiple of 4 (4 consecutive k are then 4
+//     channels of one tap), else with 4 predicated scalar loads whose k may
+//     span two taps (ResNet's stem, C_in 3; EfficientNet's squeeze-excite
+//     convs, C_in 34 and the like); quantized in registers and stored as
+//     int8 in shared memory; the next step's loads are in flight while this
+//     step computes.  The pads are explicit top/left offsets, the
+//     bottom/right follow from Ho and Wo (a tap past the input reads 0);
 //   * B is the weight pre-packed at build as int8 [C_out][K_pad] (K_pad a
 //     multiple of 64, zero past K) and comes in by cp.async (zero-filled
 //     past C_out);
@@ -45,9 +53,11 @@
 //     32 different banks;
 //   * the epilogue scales the int32 accumulators from registers and stores
 //     f32, masked past M and C_out.
-// Q2's design: one thread per (pixel, 4 channels): the 9 neighbours' float4
-// through the read-only cache, quantized on load, 9 int8 taps a channel
-// (packed [9][C] at build), int32 multiply-adds, the same epilogue.
+// Q2's design: one thread per (output pixel, 4 channels): the k*k
+// neighbours' float4 (at stride s, from the SAME pads' top/left offset)
+// through the read-only cache, quantized on load, k*k int8 taps a channel
+// (packed [k*k][C] at build), int32 multiply-adds, the same epilogue; k is a
+// template parameter (3 or 5) so the tap loops unroll.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,6 +120,9 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, ui
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// VEC: C % 4 == 0, so 4 consecutive k are 4 channels of one tap (one
+// 16-byte load); else 4 scalar loads, each with its own tap.
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS) int8_conv_kernel(ConvParams p) {
   __shared__ __align__(16) uint8_t sA[2][A_BYTES];
   __shared__ __align__(16) uint8_t sB[2][B_BYTES];
@@ -146,24 +159,52 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(ConvParams p) {
 
   auto gather = [&](int kt) {
     const int k = kt * BK + g * 4;
-    int dh = 0, dw = 0, c = 0;
-    const bool k_ok = k < p.K;
-    if (k_ok) {
-      const int tap = k / p.C;
-      c = k - tap * p.C;
-      dh = tap / p.kw;
-      dw = tap - dh * p.kw;
-    }
+    if constexpr (VEC) {
+      int dh = 0, dw = 0, c = 0;
+      const bool k_ok = k < p.K;
+      if (k_ok) {
+        const int tap = k / p.C;
+        c = k - tap * p.C;
+        dh = tap / p.kw;
+        dw = tap - dh * p.kw;
+      }
 #pragma unroll
-    for (int i = 0; i < A_ITERS; ++i) {
-      const int r = r0 + i * (THREADS / (BK / 4));
-      const int ih = row_ih[r] + dh;
-      const int iw = row_iw[r] + dw;
-      if (k_ok && (unsigned)ih < (unsigned)p.H && (unsigned)iw < (unsigned)p.W) {
-        const float* src = p.x + row_base[r] + ((long long)ih * p.W + iw) * p.C + c;
-        a_regs[i] = __ldg(reinterpret_cast<const float4*>(src));
-      } else {
-        a_regs[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = 0; i < A_ITERS; ++i) {
+        const int r = r0 + i * (THREADS / (BK / 4));
+        const int ih = row_ih[r] + dh;
+        const int iw = row_iw[r] + dw;
+        if (k_ok && (unsigned)ih < (unsigned)p.H && (unsigned)iw < (unsigned)p.W) {
+          const float* src = p.x + row_base[r] + ((long long)ih * p.W + iw) * p.C + c;
+          a_regs[i] = __ldg(reinterpret_cast<const float4*>(src));
+        } else {
+          a_regs[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    } else {
+      int dh[4], dw[4], c[4];
+      bool k_ok[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k + j;
+        k_ok[j] = kj < p.K;
+        const int tap = k_ok[j] ? kj / p.C : 0;
+        c[j] = k_ok[j] ? kj - tap * p.C : 0;
+        dh[j] = tap / p.kw;
+        dw[j] = tap - dh[j] * p.kw;
+      }
+#pragma unroll
+      for (int i = 0; i < A_ITERS; ++i) {
+        const int r = r0 + i * (THREADS / (BK / 4));
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int ih = row_ih[r] + dh[j];
+          const int iw = row_iw[r] + dw[j];
+          v[j] = (k_ok[j] && (unsigned)ih < (unsigned)p.H && (unsigned)iw < (unsigned)p.W)
+                     ? __ldg(p.x + row_base[r] + ((long long)ih * p.W + iw) * p.C + c[j])
+                     : 0.f;
+        }
+        a_regs[i] = make_float4(v[0], v[1], v[2], v[3]);
       }
     }
   };
@@ -267,36 +308,40 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(ConvParams p) {
 
 struct DwParams {
   const float* x;
-  const int8_t* w;  // [9][C]
+  const int8_t* w;  // [k*k][C]
   const float* out_scale;
   const float* bias;
   float* y;
   float s_act;
   int N, H, W, C;
+  int Ho, Wo, stride, pad_top, pad_left;
 };
 
+template <int K>
 __global__ void __launch_bounds__(256) int8_depthwise_kernel(DwParams p) {
   const int groups = p.C / 4;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)p.N * p.H * p.W * groups;
+  const long long total = (long long)p.N * p.Ho * p.Wo * groups;
   if (idx >= total) return;
   const int c = (int)(idx % groups) * 4;
-  const long long pix = idx / groups;
-  const int w = (int)(pix % p.W);
-  const int h = (int)((pix / p.W) % p.H);
-  const long long img = pix / ((long long)p.W * p.H);
+  const long long pix = idx / groups;  // the output pixel
+  const int wo = (int)(pix % p.Wo);
+  const int ho = (int)((pix / p.Wo) % p.Ho);
+  const long long img = pix / ((long long)p.Wo * p.Ho);
+  const int h0 = ho * p.stride - p.pad_top;
+  const int w0 = wo * p.stride - p.pad_left;
   int acc[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int dh = 0; dh < 3; ++dh) {
-    const int ih = h + dh - 1;
+  for (int dh = 0; dh < K; ++dh) {
+    const int ih = h0 + dh;
     if ((unsigned)ih >= (unsigned)p.H) continue;
 #pragma unroll
-    for (int dw = 0; dw < 3; ++dw) {
-      const int iw = w + dw - 1;
+    for (int dw = 0; dw < K; ++dw) {
+      const int iw = w0 + dw;
       if ((unsigned)iw >= (unsigned)p.W) continue;
       const float4 v = __ldg(reinterpret_cast<const float4*>(
           p.x + ((img * p.H + ih) * p.W + iw) * p.C + c));
-      const char4 t = __ldg(reinterpret_cast<const char4*>(p.w + (dh * 3 + dw) * p.C + c));
+      const char4 t = __ldg(reinterpret_cast<const char4*>(p.w + (dh * K + dw) * p.C + c));
       acc[0] += quantize(v.x, p.s_act) * t.x;
       acc[1] += quantize(v.y, p.s_act) * t.y;
       acc[2] += quantize(v.z, p.s_act) * t.z;
@@ -314,8 +359,9 @@ __global__ void __launch_bounds__(256) int8_depthwise_kernel(DwParams p) {
 }  // namespace
 
 // Q1: x (N,H,W,C) f32, w (C_out, K_pad) int8, out_scale (C_out) f32, bias
-// (C_out) f32 or null -> y (N,Ho,Wo,C_out) f32.  C a multiple of 4; x, w
-// and y 16-byte aligned (the wrapper checks).
+// (C_out) f32 or null -> y (N,Ho,Wo,C_out) f32.  Any C >= 1 and C_out >= 1;
+// the top/left pads given, the bottom/right implied by Ho and Wo; x, w and
+// y 16-byte aligned (the wrapper checks).
 extern "C" int kdlt_int8_conv(const void* x, const void* w, const void* out_scale,
                               const void* bias, void* y, float s_act, int N, int H, int W,
                               int C, int Ho, int Wo, int C_out, int kh, int kw, int stride,
@@ -333,18 +379,25 @@ extern "C" int kdlt_int8_conv(const void* x, const void* w, const void* out_scal
   p.K = kh * kw * C;
   p.K_pad = K_pad;
   p.M = N * Ho * Wo;
-  if (C % 4 || K_pad % BK || K_pad < p.K || p.M <= 0 || C_out <= 0)
+  if (C <= 0 || K_pad % BK || K_pad < p.K || p.M <= 0 || C_out <= 0 || stride <= 0 ||
+      pad_top < 0 || pad_left < 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((p.M + BM - 1) / BM, (C_out + BN - 1) / BN);
-  int8_conv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C % 4 == 0)
+    int8_conv_kernel<true><<<grid, THREADS, 0, s>>>(p);
+  else
+    int8_conv_kernel<false><<<grid, THREADS, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Q2: x (N,H,W,C) f32, w (9, C) int8, out_scale (C) f32, bias (C) f32 or
-// null -> y (N,H,W,C) f32.  C a multiple of 4.
+// Q2: x (N,H,W,C) f32, w (k*k, C) int8, out_scale (C) f32, bias (C) f32 or
+// null -> y (N,Ho,Wo,C) f32.  C a multiple of 4, k 3 or 5; the top/left
+// pads given, the bottom/right implied by Ho and Wo.
 extern "C" int kdlt_int8_depthwise(const void* x, const void* w, const void* out_scale,
                                    const void* bias, void* y, float s_act, int N, int H, int W,
-                                   int C, void* stream) {
+                                   int C, int Ho, int Wo, int k, int stride, int pad_top,
+                                   int pad_left, void* stream) {
   DwParams p;
   p.x = static_cast<const float*>(x);
   p.w = static_cast<const int8_t*>(w);
@@ -353,10 +406,17 @@ extern "C" int kdlt_int8_depthwise(const void* x, const void* w, const void* out
   p.y = static_cast<float*>(y);
   p.s_act = s_act;
   p.N = N, p.H = H, p.W = W, p.C = C;
-  if (C % 4 || N <= 0 || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const long long threads = (long long)N * H * W * (C / 4);
+  p.Ho = Ho, p.Wo = Wo, p.stride = stride, p.pad_top = pad_top, p.pad_left = pad_left;
+  if (C % 4 || N <= 0 || H <= 0 || W <= 0 || Ho <= 0 || Wo <= 0 || stride <= 0 ||
+      pad_top < 0 || pad_left < 0 || (k != 3 && k != 5))
+    return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)N * Ho * Wo * (C / 4);
   const int block = 256;
-  int8_depthwise_kernel<<<(unsigned)((threads + block - 1) / block), block, 0,
-                          static_cast<cudaStream_t>(stream)>>>(p);
+  const unsigned grid = (unsigned)((threads + block - 1) / block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k == 3)
+    int8_depthwise_kernel<3><<<grid, block, 0, s>>>(p);
+  else
+    int8_depthwise_kernel<5><<<grid, block, 0, s>>>(p);
   return (int)cudaGetLastError();
 }

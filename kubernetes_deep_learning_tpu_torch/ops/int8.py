@@ -9,12 +9,13 @@ float32 NHWC activations, bit for bit:
     y   = float32(acc) * out_scale (+ bias)           (out_scale = s_act * s_w)
 
 - ``int8_conv(x, packed, s_act, out_scale, kernel_size, stride, padding)``:
-  a dense convolution (groups 1; "VALID" or TF "SAME"), the weight packed
-  by ``pack_conv`` as int8 (C_out, K_pad), taps ordered (kh, kw, C_in) and
+  a dense convolution (groups 1, any C_in and C_out; "VALID", TF "SAME" or
+  explicit ((top, bottom), (left, right)) pads), the weight packed by
+  ``pack_conv`` as int8 (C_out, K_pad), taps ordered (kh, kw, C_in) and
   zero past K = kh*kw*C_in up to a multiple of 64;
-- ``int8_depthwise(x, packed, s_act, out_scale)``: a 3x3 depthwise
-  convolution, stride 1, SAME, the weight packed by ``pack_depthwise`` as
-  int8 (9, C).
+- ``int8_depthwise(x, packed, s_act, out_scale, bias, stride)``: a k x k
+  depthwise convolution, k 3 or 5, stride 1 or 2, TF "SAME", C a multiple
+  of 4, the weight packed by ``pack_depthwise`` as int8 (k*k, C).
 
 On a CUDA tensor each wrapper launches its hand-written kernel in
 ``csrc/int8_conv.cu`` (Q1 ``int8_conv_kernel``, Q2
@@ -29,11 +30,13 @@ epilogue steps as the same float32 operations.  ``Int8Conv2d`` is the module
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 from torch import nn
 
-from kubernetes_deep_learning_tpu_torch.models.layers import conv2d_nhwc, same_pads
+from kubernetes_deep_learning_tpu_torch.models.layers import check_padding, conv2d_nhwc, same_pads
 from kubernetes_deep_learning_tpu_torch.ops._counts import LaunchCounts
 
 _counts = LaunchCounts("int8_conv", "int8_depthwise")
@@ -65,13 +68,23 @@ def unpack_conv(packed: torch.Tensor, c_in: int, kh: int, kw: int) -> torch.Tens
 
 
 def pack_depthwise(q_w: torch.Tensor) -> torch.Tensor:
-    """(C,1,3,3) int8 -> (9, C) int8, tap-major."""
-    return q_w[:, 0].permute(1, 2, 0).reshape(9, q_w.shape[0]).contiguous()
+    """(C,1,k,k) int8 -> (k*k, C) int8, tap-major."""
+    c, _, kh, kw = q_w.shape
+    return q_w[:, 0].permute(1, 2, 0).reshape(kh * kw, c).contiguous()
+
+
+def depthwise_size(packed: torch.Tensor) -> int:
+    """k of a (k*k, C) packed depthwise weight."""
+    k = math.isqrt(packed.shape[0])
+    if k * k != packed.shape[0]:
+        raise ValueError(f"a packed depthwise weight has k*k rows, got {packed.shape[0]}")
+    return k
 
 
 def unpack_depthwise(packed: torch.Tensor) -> torch.Tensor:
-    """``pack_depthwise``'s inverse: (C,1,3,3) int8."""
-    return packed.reshape(3, 3, -1).permute(2, 0, 1).unsqueeze(1).contiguous()
+    """``pack_depthwise``'s inverse: (C,1,k,k) int8."""
+    k = depthwise_size(packed)
+    return packed.reshape(k, k, -1).permute(2, 0, 1).unsqueeze(1).contiguous()
 
 
 # --- the plain PyTorch version ------------------------------------------------
@@ -85,7 +98,7 @@ def quantize_input(x: torch.Tensor, s_act: float) -> torch.Tensor:
     return torch.clamp(torch.round(x.float() / s), -127, 127)
 
 
-def int8_accumulate_reference(q, q_w, stride: int = 1, padding: str = "VALID",
+def int8_accumulate_reference(q, q_w, stride: int = 1, padding="VALID",
                               groups: int = 1) -> torch.Tensor:
     """The int32 accumulators of a conv of int8 codes ``q`` (NHWC, any
     dtype holding them) with ``q_w`` (OIHW int8), exactly: a float64
@@ -95,7 +108,7 @@ def int8_accumulate_reference(q, q_w, stride: int = 1, padding: str = "VALID",
 
 
 def int8_conv_reference(x, q_w, s_act: float, out_scale, stride: int = 1,
-                        padding: str = "VALID", groups: int = 1, bias=None):
+                        padding="VALID", groups: int = 1, bias=None):
     """One calibrated layer, plain: x f32 NHWC, q_w int8 OIHW (depthwise
     (C,1,kh,kw)), out_scale f32 (C_out,) -> f32 NHWC."""
     acc = int8_accumulate_reference(quantize_input(x, s_act), q_w, stride, padding, groups)
@@ -113,19 +126,29 @@ def _check_x(x, c: int) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
-def check_cuda_layer(c_in: int, c_out: int, kernel_size, stride: int, padding: str,
+DEPTHWISE_SIZES = (3, 5)
+DEPTHWISE_STRIDES = (1, 2)
+
+
+def check_cuda_layer(c_in: int, c_out: int, kernel_size, stride: int, padding,
                      groups: int) -> str:
     """Which kernel takes the layer ("conv" Q1 or "depthwise" Q2), or raise:
-    Q1 takes groups 1 and C_in a multiple of 8 (16-byte loads of 4
-    channels); Q2 a 3x3 depthwise, stride 1, SAME, C a multiple of 8."""
-    if padding not in ("VALID", "SAME"):
-        raise ValueError(f"unknown padding {padding!r}")
-    if c_in % 8:
-        raise ValueError(f"the int8 kernels take widths that are multiples of 8, got C_in {c_in}")
+    Q1 takes groups 1, any C_in and C_out, any kernel and stride and any
+    padding (VALID, SAME, explicit); Q2 a k x k depthwise, k in
+    DEPTHWISE_SIZES, stride in DEPTHWISE_STRIDES, SAME, C a multiple of 4
+    (16-byte loads of 4 channels)."""
+    padding = check_padding(padding)
+    if min(c_in, c_out, stride, *kernel_size) < 1:
+        raise ValueError(f"no int8 kernel takes {c_in}->{c_out} channels, "
+                         f"{tuple(kernel_size)}/{stride}")
     if groups == 1:
         return "conv"
-    if (groups == c_in == c_out and tuple(kernel_size) == (3, 3) and stride == 1
-            and padding == "SAME"):
+    kh, kw = kernel_size
+    if (groups == c_in == c_out and kh == kw and kh in DEPTHWISE_SIZES
+            and stride in DEPTHWISE_STRIDES and padding == "SAME"):
+        if c_in % 4:
+            raise ValueError(f"the int8 depthwise kernel takes widths that are multiples "
+                             f"of 4, got {c_in}")
         return "depthwise"
     raise ValueError(f"no int8 kernel takes groups={groups} {tuple(kernel_size)}/{stride} "
                      f"{padding} on {c_in}->{c_out} channels")
@@ -136,13 +159,21 @@ def _check_cuda_tensors(tensors) -> None:
         raise ValueError("the CUDA kernel takes contiguous, 16-byte aligned tensors only")
 
 
-def _out_geometry(h: int, w: int, kh: int, kw: int, stride: int, padding: str):
-    """(Ho, Wo, pad_top, pad_left) of a conv with XLA's padding rules."""
+def _out_geometry(h: int, w: int, kh: int, kw: int, stride: int, padding):
+    """(Ho, Wo, pad_top, pad_left) of a conv with XLA's padding rules: the
+    bottom and right pads follow from Ho and Wo."""
+    padding = check_padding(padding)
     if padding == "SAME":
-        top, _ = same_pads(h, kh, stride)
-        left, _ = same_pads(w, kw, stride)
-        return -(-h // stride), -(-w // stride), top, left
-    return (h - kh) // stride + 1, (w - kw) // stride + 1, 0, 0
+        (top, bottom), (left, right) = same_pads(h, kh, stride), same_pads(w, kw, stride)
+    elif padding == "VALID":
+        (top, bottom), (left, right) = (0, 0), (0, 0)
+    else:
+        (top, bottom), (left, right) = padding
+    ho = (h + top + bottom - kh) // stride + 1
+    wo = (w + left + right - kw) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"a {kh}x{kw}/{stride} conv of {h}x{w} padded {padding} is empty")
+    return ho, wo, top, left
 
 
 def _bias_ptr(bias):
@@ -150,7 +181,7 @@ def _bias_ptr(bias):
 
 
 def int8_conv(x, packed, s_act: float, out_scale, kernel_size, stride: int = 1,
-              padding: str = "VALID", bias=None):
+              padding="VALID", bias=None):
     """Q1: one calibrated dense conv layer (see module doc); f32 NHWC in and out."""
     kh, kw = kernel_size
     c_out = packed.shape[0]
@@ -184,30 +215,33 @@ def int8_conv(x, packed, s_act: float, out_scale, kernel_size, stride: int = 1,
     return y
 
 
-def int8_depthwise(x, packed, s_act: float, out_scale, bias=None):
-    """Q2: one calibrated 3x3 depthwise layer, stride 1, SAME (see module
-    doc); f32 NHWC in and out."""
+def int8_depthwise(x, packed, s_act: float, out_scale, bias=None, stride: int = 1):
+    """Q2: one calibrated k x k depthwise layer, SAME (see module doc), k
+    from the packed weight's k*k rows; f32 NHWC in and out."""
     c = x.shape[-1]
     _check_x(x, c)
-    if packed.dtype != torch.int8 or tuple(packed.shape) != (9, c):
-        raise ValueError(f"packed must be int8 (9, {c}), got {tuple(packed.shape)} "
+    if packed.dtype != torch.int8 or packed.dim() != 2 or packed.shape[1] != c:
+        raise ValueError(f"packed must be int8 (k*k, {c}), got {tuple(packed.shape)} "
                          f"{packed.dtype}")
+    k = depthwise_size(packed)
     if x.device.type == "cpu":
-        return int8_conv_reference(x, unpack_depthwise(packed), s_act, out_scale, 1, "SAME",
-                                   c, bias)
-    check_cuda_layer(c, c, (3, 3), 1, "SAME", c)
+        return int8_conv_reference(x, unpack_depthwise(packed), s_act, out_scale, stride,
+                                   "SAME", c, bias)
+    check_cuda_layer(c, c, (k, k), stride, "SAME", c)
     x = x.contiguous()
-    if x.numel() >= 2**31:
+    b, h, w, _ = x.shape
+    ho, wo, top, left = _out_geometry(h, w, k, k, stride, "SAME")
+    if x.numel() >= 2**31 or b * ho * wo * c >= 2**31:
         raise ValueError("the CUDA kernel takes < 2^31 elements a tensor")
-    y = torch.empty_like(x)
+    y = torch.empty((b, ho, wo, c), dtype=torch.float32, device=x.device)
     _check_cuda_tensors([x, packed, out_scale, y] + ([bias] if bias is not None else []))
     from kubernetes_deep_learning_tpu_torch.ops import _build
 
     lib = _build.load()
-    b, h, w, _ = x.shape
     code = lib.kdlt_int8_depthwise(
         x.data_ptr(), packed.data_ptr(), out_scale.data_ptr(), _bias_ptr(bias), y.data_ptr(),
-        float(s_act), b, h, w, c, torch.cuda.current_stream(x.device).cuda_stream,
+        float(s_act), b, h, w, c, ho, wo, k, stride, top, left,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "int8 depthwise")
     _count("int8_depthwise")
@@ -243,7 +277,8 @@ class Int8Conv2d(nn.Module):
 
     def forward(self, x):
         if self.kind == "depthwise":
-            return int8_depthwise(x.float(), self.packed, self.s_act, self.out_scale, self.bias)
+            return int8_depthwise(x.float(), self.packed, self.s_act, self.out_scale, self.bias,
+                                  self.stride)
         return int8_conv(x.float(), self.packed, self.s_act, self.out_scale, self.kernel_size,
                          self.stride, self.padding, self.bias)
 

@@ -17,7 +17,7 @@ per quantized layer, a static per-tensor activation scale from a
 percentile of |input|; it is stored beside the weight leaf.  The w8a8
 forward (:func:`build_w8a8_forward`) runs every calibrated conv as int8 x
 int8 -> int32 on the hand-written CUDA kernels of ``ops.int8`` (Q1 for
-dense convs, Q2 for 3x3 depthwise), each fusing the quantize-in
+dense convs, Q2 for 3x3 and 5x5 depthwise), each fusing the quantize-in
 ``clamp(round(x / s_act), -127, 127)`` and the requantize-out ``acc *
 (s_act * s_w)``; BatchNorm, residuals, pooling and the head stay float32.
 The engine gates it at warmup against the weight-only forward
@@ -27,13 +27,16 @@ Wire format: each quantized kernel leaf is a dict in the same tree
 position, ``{"_q8": int8, "_q8_scale": f32[out]}``, plus ``"_q8_act_scale":
 f32[]`` once calibrated.
 
-Module paths: the port's Xception calls every convolution through its
-module (``models.layers.Conv2dNHWC``), so a flax module path such as
-``("block5_sepconv1", "pointwise")`` names the port module
-``block5_sepconv1.pointwise``: calibration hooks it and the w8a8 forward
-replaces it.  The other families do not route their convolutions through
-modules yet, so their w8a8 raises ``NotImplementedError`` (ROADMAP A8c);
-their weight-only artifacts serve.
+Module paths: every family calls its convolutions through their modules
+(``models.layers.Conv2dNHWC``) and ViT its MLP through ``models.layers.Dense``,
+so a flax module path such as ``("block5_sepconv1", "pointwise")`` names the
+port module ``block5_sepconv1.pointwise``.  Calibration hooks the modules
+JAX's interceptor sees (``nn.Conv`` and ``nn.Dense``: ``Conv2dNHWC`` and
+``Dense``); the w8a8 forward replaces each calibrated convolution.  A
+quantized kernel of any other module (ViT's ``DenseGeneral`` attention
+projections) makes :func:`build_w8a8_forward` raise a ``ValueError``: the
+JAX package's w8a8 program fails on the same layer, so such an artifact
+serves in neither package (its float and weight-only versions do).
 """
 
 from __future__ import annotations
@@ -74,10 +77,6 @@ SCALE_FLOOR = 1e-6
 
 # Leaves eligible for quantization: conv/dense kernels.
 _KERNEL_NAMES = ("kernel",)
-
-A8C = ("int8-w8a8 in the port runs only the xception family, whose convolutions are "
-       "modules; the others are ROADMAP A8c")
-
 
 def resolve_quant_tol(explicit: float | None = None) -> float:
     """Explicit arg > $KDLT_QUANT_TOL > 0.1 (relative max-abs logit drift)."""
@@ -238,25 +237,23 @@ def _percentile(a, percentile: float) -> float:
     return float(out)
 
 
-def _require_xception(spec) -> None:
-    if spec.family != "xception":
-        raise NotImplementedError(f"{A8C}; got family {spec.family!r}")
+def _layer_modules(model, paths) -> dict[tuple, Any]:
+    """The port module of each flax module path, in the model's module
+    order (the order of the forward's calls)."""
+    by_name = {tuple(name.split(".")): m for name, m in model.named_modules() if name}
+    missing = [p for p in paths if p not in by_name]
+    if missing:
+        raise ValueError(f"quantized kernels name no module of the model: "
+                         f"{['/'.join(p) for p in missing]}")
+    return {path: m for path, m in by_name.items() if path in paths}
 
 
-def _conv_modules(spec, model, paths) -> dict[tuple, Any]:
-    """The port module of each flax module path: every one must be a
-    convolution the Xception graph calls through its module."""
-    from kubernetes_deep_learning_tpu_torch.models.layers import Conv2dNHWC
+def _intercepted(module) -> bool:
+    """Whether JAX's interceptor sees the module's flax counterpart
+    (``nn.Conv`` or ``nn.Dense``)."""
+    from kubernetes_deep_learning_tpu_torch.models.layers import Conv2dNHWC, Dense
 
-    _require_xception(spec)
-    out = {}
-    for path in paths:
-        module = model.get_submodule(".".join(path))
-        if not isinstance(module, Conv2dNHWC):
-            raise NotImplementedError(
-                f"{'/'.join(path)} is a {type(module).__name__}, not a convolution: {A8C}")
-        out[path] = module
-    return out
+    return isinstance(module, (Conv2dNHWC, Dense))
 
 
 def calibrate_activation_scales(
@@ -272,9 +269,12 @@ def calibrate_activation_scales(
     (TF32 off) on ``device``; return {flax module path -> static per-tensor
     activation scale} for every layer whose kernel ``qvars`` quantized.
 
-    A forward pre-hook on each such module takes the |input| percentile of
-    each batch (numpy's "linear" rule); the scale is the max over batches,
-    floored, over 127.  Offline only (artifact build time).
+    A forward pre-hook on each such module that JAX's interceptor sees (a
+    convolution or a Dense layer; ViT's quantized DenseGeneral kernels get
+    no scale, as in JAX) takes the |input| percentile of each batch (numpy's
+    "linear" rule); the scale is the max over batches, floored, over 127.
+    The hook sees the module's input before its padding, as flax's
+    interceptor does.  Offline only (artifact build time).
     """
     import torch
 
@@ -286,13 +286,13 @@ def calibrate_activation_scales(
     )
     from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
 
-    _require_xception(spec)
     dev = resolve_device(device)
     exact_float32(dev)
     model = create_model(spec, dtype=torch.float32)
     model.load_state_dict(weights.from_jax_variables(variables))
     model = model.to(dev).eval()
-    modules = _conv_modules(spec, model, quantized_leaves(qvars))
+    modules = {path: m for path, m in _layer_modules(model, quantized_leaves(qvars)).items()
+               if _intercepted(m)}
     observed: dict[tuple, float] = {}
 
     def hook_for(path):
@@ -352,15 +352,21 @@ def is_calibrated(variables: Any) -> bool:
 
 def build_w8a8_forward(spec, qvars: Any, device: str = "cuda", converted: tuple | None = None):
     """``models.Forward`` (uint8 or normalized-float NHWC -> float32
-    logits) over the calibrated quantized tree ``qvars``: the exact float32
-    Xception (whatever the artifact's compute dtype, as the JAX program)
-    on the dequantized parameters, each module with a calibrated leaf
-    replaced by an ``ops.int8.Int8Conv2d`` (its int8 weight packed for the
-    kernels once, here); an uncalibrated leaf stays a float conv on its
-    dequantized weight.  On the card every replaced conv launches Q1 or Q2
-    and nothing in its place: a shape the kernels do not take raises here.
-    ``converted`` is ``weights.from_jax_quantized(qvars)`` when the caller
-    already holds it.
+    logits) over the calibrated quantized tree ``qvars``: the family's
+    exact float32 graph (whatever the artifact's compute dtype, as the JAX
+    program) on the dequantized parameters, each convolution with a
+    calibrated leaf replaced by an ``ops.int8.Int8Conv2d`` (its int8 weight
+    packed for the kernels once, here); an uncalibrated leaf stays a float
+    layer on its dequantized weight.  On the card every replaced conv
+    launches Q1 or Q2 and nothing in its place: a shape the kernels do not
+    take raises here.  ``converted`` is ``weights.from_jax_quantized(qvars)``
+    when the caller already holds it.
+
+    Raises ``ValueError`` at the first quantized kernel of a module JAX's
+    interceptor does not see (ViT's ``DenseGeneral``: the JAX program fails
+    there too, flax reading the int8 leaf as the layer's kernel), and at a
+    calibrated Dense layer (no int8 kernel takes one; no family the JAX
+    package serves in w8a8 has one, the head is never quantized).
     """
     import torch
 
@@ -373,14 +379,27 @@ def build_w8a8_forward(spec, qvars: Any, device: str = "cuda", converted: tuple 
     )
     from kubernetes_deep_learning_tpu_torch.ops.int8 import Int8Conv2d
 
-    _require_xception(spec)
+    from kubernetes_deep_learning_tpu_torch.models.layers import Conv2dNHWC
+
     dev = resolve_device(device)
     exact_float32(dev)
     params, leaves = converted or weights.from_jax_quantized(qvars)
     model = create_model(spec, dtype=torch.float32)
     model.load_state_dict(params)
     paths = {tuple(name.split(".")): leaf for name, leaf in leaves.items()}
-    for path, module in _conv_modules(spec, model, paths).items():
+    modules = _layer_modules(model, paths)
+    for path, module in modules.items():
+        if not _intercepted(module):
+            raise ValueError(
+                f"int8-w8a8 cannot serve {spec.name!r} ({spec.family}): "
+                f"{'/'.join(path)} is a quantized {type(module).__name__} kernel, which the "
+                "w8a8 program does not intercept; the JAX package's build_w8a8_forward fails "
+                "at this layer too (flax reads the int8 leaf as its kernel). Serve the float "
+                "or int8-weight-only version")
+        if paths[path].act_scale is not None and not isinstance(module, Conv2dNHWC):
+            raise ValueError(f"int8-w8a8: {'/'.join(path)} is a calibrated "
+                             f"{type(module).__name__}; the int8 kernels take convolutions only")
+    for path, module in modules.items():
         leaf = paths[path]
         if leaf.act_scale is None:  # uncalibrated: weight-only for this layer
             continue

@@ -113,7 +113,7 @@ def from_jax_quantized(variables: dict) -> tuple[dict[str, torch.Tensor], dict[s
     params = from_jax_variables(quant.dequantize_variables_host(variables))
     leaves = {}
     for path, leaf in quant.quantized_leaves(variables).items():
-        q = np.asarray(leaf[quant.QUANT_KEY], np.int8)
+        q = np.array(leaf[quant.QUANT_KEY], np.int8)  # a writable copy (3-D leaves too)
         if q.ndim == 4:
             q = q.transpose(3, 2, 0, 1)
         elif q.ndim == 2:

@@ -1240,8 +1240,21 @@ INT8_CONV_SHAPES = (
     (10, 1536, 2048, 1, 1, "VALID"),
     (9, 40, 24, 1, 1, "VALID"),
     (11, 40, 200, 3, 2, "SAME"),
+    (224, 3, 64, 7, 2, ((3, 3), (3, 3))),  # ResNet50's stem: C_in 3, explicit pads
+    (56, 64, 64, 3, 1, "SAME"),             # ResNet50's 3x3s, its 1x1/2 projections
+    (56, 256, 512, 1, 2, "SAME"),
+    (1, 34, 816, 1, 1, "SAME"),             # EfficientNet-B3's squeeze-excite convs
+    (1, 816, 34, 1, 1, "SAME"),
+    (17, 10, 40, 3, 2, "SAME"),             # a K chunk across two taps
+    (12, 6, 20, 5, 1, ((2, 1), (0, 3))),    # asymmetric explicit pads
 )
-INT8_DEPTHWISE_SHAPES = ((37, 728), (19, 728), (10, 1024), (10, 1536), (9, 40))
+# (side, C, k, stride): Xception's 3x3s, then EfficientNet-B3's stride-2 5x5s
+# at 300 px (symmetric pads) and on even sides (pads (1, 2)).
+INT8_DEPTHWISE_SHAPES = (
+    (37, 728, 3, 1), (19, 728, 3, 1), (10, 1024, 3, 1), (10, 1536, 3, 1), (9, 40, 3, 1),
+    (75, 192, 5, 2), (19, 816, 5, 2), (20, 96, 5, 2), (19, 576, 5, 1), (16, 144, 3, 2),
+    (10, 1392, 3, 1),
+)
 
 
 def _int8_operands(rng, c_in, c_out, k, groups=1):
@@ -1281,15 +1294,16 @@ def test_cuda_int8_depthwise_equals_its_plain_version(shape):
     _need_cuda()
     from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
 
-    side, c = shape
+    side, c, k, stride = shape
     rng = np.random.default_rng(side * c)
     x = _t(rng, (3, side, side, c), std=2.0)
-    q, packed, scale = _int8_operands(rng, c, c, 3, groups=c)
+    q, packed, scale = _int8_operands(rng, c, c, k, groups=c)
     int8_ops.reset_launch_counts()
-    got = int8_ops.int8_depthwise(x, packed, 0.0173, scale)
+    got = int8_ops.int8_depthwise(x, packed, 0.0173, scale, stride=stride)
     torch.cuda.synchronize()
     assert int8_ops.launch_counts() == {"int8_conv": 0, "int8_depthwise": 1}
-    want = int8_ops.int8_conv_reference(x, q, 0.0173, scale, 1, "SAME", c)
+    want = int8_ops.int8_conv_reference(x, q, 0.0173, scale, stride, "SAME", c)
+    assert got.shape == want.shape
     assert torch.equal(got, want), (got - want).abs().max().item()
 
 
@@ -1299,20 +1313,28 @@ def test_cuda_int8_kernels_refuse_what_they_cannot_take():
     from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
 
     rng = np.random.default_rng(0)
-    _, packed, scale = _int8_operands(rng, 12, 16, 1)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        int8_ops.int8_conv(_t(rng, (1, 5, 5, 12)), packed, 0.01, scale, (1, 1))
+    _, packed, scale = _int8_operands(rng, 16, 16, 7, groups=16)
+    with pytest.raises(ValueError, match="no int8 kernel"):
+        int8_ops.int8_depthwise(_t(rng, (1, 9, 9, 16)), packed, 0.01, scale)
+    _, packed, scale = _int8_operands(rng, 6, 6, 3, groups=6)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        int8_ops.int8_depthwise(_t(rng, (1, 9, 9, 6)), packed, 0.01, scale)
+    _, packed, scale = _int8_operands(rng, 16, 16, 3, groups=16)
+    with pytest.raises(ValueError, match="no int8 kernel"):
+        int8_ops.int8_depthwise(_t(rng, (1, 9, 9, 16)), packed, 0.01, scale, stride=3)
 
 
-def _w8a8_engine(tmp_path, compute_dtype: str, miscalibrated: bool = False, buckets=(2, 8)):
-    """A 96-px Xception v1 and its w8a8 version (calibrated on the card from
-    8 noise images at percentile 100), served by an engine on the card."""
+def _w8a8_engine(tmp_path, compute_dtype: str, miscalibrated: bool = False, buckets=(2, 8),
+                 spec=None):
+    """A model v1 (default the 96-px Xception) and its w8a8 version
+    (calibrated on the card from 8 noise images at percentile 100), served
+    by an engine on the card."""
     from kubernetes_deep_learning_tpu_torch.export import artifact as art
     from kubernetes_deep_learning_tpu_torch.models import init_variables
     from kubernetes_deep_learning_tpu_torch.ops import quantize
     from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
 
-    spec, _, _ = _engine_case("xception")
+    spec = spec or _engine_case("xception")[0]
     root = str(tmp_path)
     art.save_artifact(art.version_dir(root, spec.name, 1), spec, init_variables(spec, seed=1),
                       {"compute_dtype": compute_dtype})
@@ -1355,6 +1377,47 @@ def test_cuda_w8a8_engine_replays_its_graphs_bit_equal_to_eager(tmp_path):
         assert int8_ops.launch_counts() == {"int8_conv": 39, "int8_depthwise": 29}
         assert not any(ops.launch_counts().values())
         padded = np.zeros((bucket, 96, 96, 3), np.uint8)
+        padded[:n] = imgs
+        with torch.inference_mode():
+            eager = engine._forward(torch.from_numpy(padded).cuda()).cpu().numpy()
+        assert np.isfinite(rows).all()
+        np.testing.assert_array_equal(rows, eager)
+    engine.close()
+
+
+# family -> (side, preprocessing, Q1 and Q2 launches a forward)
+W8A8_FAMILIES = {
+    "resnet50": (64, "caffe", {"int8_conv": 53, "int8_depthwise": 0}),
+    "efficientnet-b0": (64, "torch", {"int8_conv": 46, "int8_depthwise": 11}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(W8A8_FAMILIES))
+def test_cuda_w8a8_engine_of_another_family_replays_bit_equal_to_eager(tmp_path, family):
+    """ResNet50 and EfficientNet-B0 as w8a8 (float32 compute dtype): the
+    gate passes, every replay launches one Q1 or Q2 per calibrated layer and
+    no K4, and equals the eager forward bit for bit."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+    from kubernetes_deep_learning_tpu_torch.ops import quantize
+
+    side, preprocessing, per_forward = W8A8_FAMILIES[family]
+    spec = ModelSpec(name=f"w8a8-{family}", family=family, input_shape=(side, side, 3),
+                     labels=("a", "b", "c"), preprocessing=preprocessing)
+    engine = _w8a8_engine(tmp_path, "float32", spec=spec)
+    engine.warmup()
+    assert engine.quantization_active == quantize.SCHEME_W8A8, engine.quant_gate_drift
+    rng = np.random.default_rng(9)
+    for n, bucket in ((2, 2), (5, 8)):
+        imgs = rng.integers(0, 256, (n, side, side, 3), np.uint8)
+        int8_ops.reset_launch_counts()
+        fused_mbconv.reset_launch_counts()
+        rows = np.asarray(engine.predict_async(imgs)[0])
+        assert int8_ops.launch_counts() == per_forward
+        assert not any(fused_mbconv.launch_counts().values())
+        padded = np.zeros((bucket, side, side, 3), np.uint8)
         padded[:n] = imgs
         with torch.inference_mode():
             eager = engine._forward(torch.from_numpy(padded).cuda()).cpu().numpy()

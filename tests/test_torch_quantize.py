@@ -235,6 +235,15 @@ LAYERS = {
     "C 40 (a K tail)": (3, 9, 40, 24, 1, 1, "VALID", 1),
     "C 40, 3x3/2 SAME": (2, 11, 40, 200, 3, 2, "SAME", 1),
     "depthwise C 40": (3, 9, 40, 40, 3, 1, "SAME", 40),
+    # ResNet50's stem: C_in 3, flax's explicit pads.
+    "stem 7x7/2, C_in 3, pads (3,3)": (2, 20, 3, 64, 7, 2, ((3, 3), (3, 3)), 1),
+    # EfficientNet's squeeze-excite convs, on (N, 1, 1, C).
+    "1x1 C_in 34 on 1x1 (SE expand)": (3, 1, 34, 136, 1, 1, "SAME", 1),
+    "1x1 C_out 34 on 1x1 (SE reduce)": (3, 1, 136, 34, 1, 1, "SAME", 1),
+    # EfficientNet's depthwise convs: 5x5, stride 2, SAME pads (1, 2) on an even side.
+    "depthwise 5x5/1 SAME": (2, 10, 48, 48, 5, 1, "SAME", 48),
+    "depthwise 5x5/2 SAME, even side": (2, 10, 48, 48, 5, 2, "SAME", 48),
+    "depthwise 3x3/2 SAME, even side": (3, 12, 24, 24, 3, 2, "SAME", 24),
 }
 
 
@@ -252,6 +261,7 @@ def _jax_layer(x, q, sw, s_act, geometry):
     """JAX's interceptor math (ops/quantize.py build_w8a8_forward): (int32
     accumulators, f32 output)."""
     _, s, pad, groups = geometry
+    pad = pad if isinstance(pad, str) else list(pad)
 
     @jax.jit
     def f(x, q, sw, s_act):
@@ -301,17 +311,30 @@ def test_packing_round_trips_and_pads_k_with_zeros():
     packed = int8_ops.pack_conv(q)
     assert packed.shape == (24, 384) and not packed[:, 360:].any()
     torch.testing.assert_close(int8_ops.unpack_conv(packed, 40, 3, 3), q, rtol=0, atol=0)
-    dw = torch.from_numpy(rng.integers(-127, 128, (40, 1, 3, 3)).astype(np.int8))
-    assert int8_ops.pack_depthwise(dw).shape == (9, 40)
-    torch.testing.assert_close(int8_ops.unpack_depthwise(int8_ops.pack_depthwise(dw)), dw,
-                               rtol=0, atol=0)
+    for k in (3, 5):
+        dw = torch.from_numpy(rng.integers(-127, 128, (40, 1, k, k)).astype(np.int8))
+        assert int8_ops.pack_depthwise(dw).shape == (k * k, 40)
+        torch.testing.assert_close(int8_ops.unpack_depthwise(int8_ops.pack_depthwise(dw)), dw,
+                                   rtol=0, atol=0)
 
 
 def test_int8_layer_refuses_what_no_kernel_takes():
-    with pytest.raises(ValueError, match="multiples of 8"):
-        int8_ops.check_cuda_layer(3, 32, (3, 3), 2, "VALID", 1)
+    # Q1 takes any width and explicit pads; Q2 3x3 and 5x5, stride 1 and 2.
+    assert int8_ops.check_cuda_layer(3, 64, (7, 7), 2, ((3, 3), (3, 3)), 1) == "conv"
+    assert int8_ops.check_cuda_layer(34, 136, (1, 1), 1, "SAME", 1) == "conv"
+    assert int8_ops.check_cuda_layer(48, 48, (5, 5), 2, "SAME", 48) == "depthwise"
     with pytest.raises(ValueError, match="no int8 kernel"):
-        int8_ops.check_cuda_layer(64, 64, (5, 5), 2, "SAME", 64)
+        int8_ops.check_cuda_layer(64, 64, (7, 7), 1, "SAME", 64)
+    with pytest.raises(ValueError, match="no int8 kernel"):
+        int8_ops.check_cuda_layer(64, 64, (3, 3), 1, "SAME", 2)
+    with pytest.raises(ValueError, match="no int8 kernel"):
+        int8_ops.check_cuda_layer(64, 64, (3, 3), 3, "SAME", 64)
+    with pytest.raises(ValueError, match="no int8 kernel"):
+        int8_ops.check_cuda_layer(64, 64, (3, 3), 1, "VALID", 64)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        int8_ops.check_cuda_layer(6, 6, (3, 3), 1, "SAME", 6)
+    with pytest.raises(ValueError, match="negative padding"):
+        int8_ops.check_cuda_layer(8, 8, (3, 3), 1, ((-1, 0), (0, 0)), 1)
 
 
 # --- weights and the model ------------------------------------------------------
@@ -374,16 +397,6 @@ def test_uncalibrated_leaf_stays_a_float_conv(tspec, w8a8_tree):
     deq = tq.dequantize_variables_host({"params": {"k": leaf}})["params"]["k"]
     np.testing.assert_array_equal(module.weight.detach().numpy(), deq.transpose(3, 2, 0, 1))
     assert sum(isinstance(m, int8_ops.Int8Conv2d) for m in fwd.modules()) == 67
-
-
-def test_w8a8_of_another_family_names_a8c():
-    spec = ModelSpec(name="q-resnet", family="resnet50", input_shape=(64, 64, 3),
-                     labels=("a", "b"), preprocessing="caffe")
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tq.build_w8a8_forward(spec, {"params": {}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8c"):
-        tq.calibrate_activation_scales(spec, {"params": {}}, {"params": {}},
-                                       np.zeros((1, 64, 64, 3), np.uint8), device="cpu")
 
 
 # --- the engine -------------------------------------------------------------------
