@@ -244,10 +244,19 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    during the capture must stay within 3x the p99 outside it (ROADMAP C5;
    ``observability-stall``: the slowest requests and the longest span
    without a reply, from the recording's start);
-21. gateway: ``POST /predict {"url"}`` through the port's own gateway.
+21. ingest-formats: every fixture of ``tests/ingest_fixtures/formats``
+   (progressive JPEG of several scan scripts, Adobe CMYK, YCCK and
+   marker-less 4-component JPEG, 4:4:0, 4:1:1, 16-bit PNG of colour types
+   0/2/4/6, Adam7 PNG at depths 1-16 and in palette, four JPEGs of 512 px
+   and more) must decode on this host, without PIL, to the shape and pixel
+   SHA-256 PIL gave (``digests.json``); prints the count per format and
+   the host ms per megapixel of the 800x600 photo from its progressive and
+   its baseline file;
+22. gateway: ``POST /predict {"url"}`` through the port's own gateway.
    The committed fixtures (``tests/ingest_fixtures``: JPEG at 4:4:4,
-   4:2:2, 4:2:0 with restarts, greyscale; PNG palette and RGBA) must decode
-   here, without PIL, to the pixels PIL gave; colour-grid PNGs written
+   4:2:2, 4:2:0 with restarts, greyscale; PNG palette and RGBA; and from
+   ``formats/`` two progressive JPEGs, a CMYK JPEG and a 16-bit Adam7 PNG)
+   must decode here, without PIL, to the pixels PIL gave; colour-grid PNGs written
    with zlib are served with them from a local http.server (a process of
    its own).  ``clothing-model`` (seed weights, buckets 1-32, depth 2, the
    scheduler's lane) serves on ``cuda`` in this process; two gateways run
@@ -265,7 +274,24 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    closed-loop clients (384 distinct images each), img/s, p50, p99,
    forwards and launches through each gateway and on the tensor wire
    direct (``gateway-load``);
-22. with ``--profile``: the host time by op of a few bucket-16
+23. device-resize: ``clothing-model`` on two servers of one artifact, the
+   default (the bytes wire decodes and resizes to 299 on the host) and
+   ``KDLT_INGEST_DEVICE_RESIZE=512x512`` (the host resizes to 512x512, the
+   engine's staged bucket graph resizes to 299 on the card: nearest, as
+   the model's filter).  The four large fixtures and 12 generated PNGs
+   (640x480, 1024x768), one request an image and one of 16, on both
+   servers' bytes wire: every staged reply must be the staged engine's own
+   dispatch of the same pixels, every staged chunk 8 K1 and 2 K2 launches,
+   each staged bucket graph its eager form (bit-equal or 1e-3); top-1
+   agreement and the max abs logit difference against the default route
+   are printed, not gated.  A traced bucket-16 replay of each route (28
+   stage-kernel launches in both; the staged one's extra kernels are the
+   resize's), and of a linear-resize variant (the resize's two float32
+   GEMMs among them: ``device-resize-trace``); the resize's device ms at
+   bucket 16 for each method beside its bytes bound; the p50 of each
+   route's dispatch at buckets 1, 4 and 16 in turns; the host decode ms an
+   image at 512x512 against at 299;
+24. with ``--profile``: the host time by op of a few bucket-16
    ``predict_async`` dispatches of the batching phase's engine
    (``batching-host``); a ``torch.profiler`` trace of a few bucket-16
    forwards of each served model (and of B3's ``fast=False`` engine, and
@@ -280,6 +306,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import itertools
 import json
 import os
@@ -433,6 +460,19 @@ DEPTH2_IMG_S_BEFORE = 940.0
 # pixels beside them) and colour-grid PNGs written with zlib here.
 GW_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                            "ingest_fixtures")
+# The decoder-breadth fixtures (progressive and 4-component JPEG, 4:4:0,
+# 4:1:1, 16-bit and Adam7 PNG, large JPEGs) and their PIL digests.
+FORMATS_DIR = os.path.join(GW_FIXTURES, "formats")
+# Of them, served through both gateways beside the baseline fixtures.
+GW_FORMAT_FIXTURES = ("prog_q75_420_123x77.jpg", "large_800x600_prog.jpg", "cmyk_q90_45x37.jpg",
+                      "adam7_d16_type6_27x21.png")
+FORMAT_DECODE_REPS = 15  # decodes of each large fixture timed, in turns (median)
+# Device-resize staging (KDLT_INGEST_DEVICE_RESIZE) on clothing-model.
+DR_STAGING = "512x512"
+DR_BUCKETS = (1, 4, 16)
+DR_ITERS = 20            # timed dispatches a bucket and route, in turns
+DR_EXTRA_HW = ((480, 640), (768, 1024))  # generated PNG sizes beside the large fixtures
+DR_EXTRA = 12            # generated PNGs (16 images with the four large fixtures)
 GW_GRID_HW = (360, 480)  # the grid PNGs' size; nearest-resized to 299 x 299
 GW_GRID_CELL = 24
 GW_CHECK_GRIDS = 4       # grid PNGs held bit-equal against the tensor wire direct
@@ -2477,7 +2517,8 @@ def _gateway_phase(spec, seed: int, smi: str, *, counter, per_forward: dict) -> 
     here (no PIL) to the pixels PIL gave; every checked image's reply, one
     request at a time, has the 10 labels and scores bit-equal to the tensor
     wire's straight to the server for the same locally decoded pixels, on
-    both wires; 8 K1 and 2 K2 launches a forward; the bytes wire carried
+    both wires (among them progressive, CMYK and 16-bit Adam7 fixtures,
+    held to PIL's digests first); 8 K1 and 2 K2 launches a forward; the bytes wire carried
     the bytes gateway's requests and the server decoded them; a repeated
     URL is a cache hit with the same body and no forward; an unsupported
     image is a JSON 400.  Then GW_TRACED traced requests a wire (span
@@ -2498,7 +2539,8 @@ def _gateway_phase(spec, seed: int, smi: str, *, counter, per_forward: dict) -> 
         img_dir = os.path.join(root, "images")
         os.makedirs(img_dir)
         # --- the fixtures: this machine's decode against PIL's pixels ---
-        fixtures = sorted(f for f in os.listdir(GW_FIXTURES) if not f.endswith(".npy"))
+        fixtures = sorted(f for f in os.listdir(GW_FIXTURES) if not f.endswith(".npy")
+                          and os.path.isfile(os.path.join(GW_FIXTURES, f)))
         for f in fixtures:
             with open(os.path.join(GW_FIXTURES, f), "rb") as fh:
                 got = preprocess.decode_image(fh.read())
@@ -2506,6 +2548,15 @@ def _gateway_phase(spec, seed: int, smi: str, *, counter, per_forward: dict) -> 
             if got.shape != want.shape or not np.array_equal(got, want):
                 _fail(f"gateway: fixture {f} decodes to other pixels than PIL's")
             shutil.copy(os.path.join(GW_FIXTURES, f), img_dir)
+        digests = _format_digests()
+        for f in GW_FORMAT_FIXTURES:  # progressive, CMYK, 16-bit Adam7: PIL's digests
+            with open(os.path.join(FORMATS_DIR, f), "rb") as fh:
+                got = preprocess.decode_image(fh.read())
+            if (list(got.shape) != digests[f]["shape"]
+                    or hashlib.sha256(got.tobytes()).hexdigest() != digests[f]["sha256"]):
+                _fail(f"gateway: fixture {f} decodes to other pixels than PIL's")
+            shutil.copy(os.path.join(FORMATS_DIR, f), img_dir)
+        fixtures += GW_FORMAT_FIXTURES
         out["fixtures_equal_to_pil"] = fixtures
         files: dict[str, list[str]] = {"check": [], "traced-bytes": [], "traced-tensor": [],
                                        "load0": [], "load1": []}
@@ -2726,6 +2777,298 @@ def _gateway_phase(spec, seed: int, smi: str, *, counter, per_forward: dict) -> 
                     p.kill()
                     p.wait()
             server.shutdown()
+    return out
+
+
+def _format_digests() -> dict:
+    with open(os.path.join(FORMATS_DIR, "digests.json")) as fh:
+        return json.load(fh)
+
+
+def _ingest_formats_phase(smi: str) -> dict:
+    """The decoder's breadth on this machine's host (no PIL here): every
+    fixture of ``tests/ingest_fixtures/formats`` must decode to the shape
+    and pixel digest PIL gave.  Then the host ms per megapixel of the
+    800x600 photo decoded from its progressive and its baseline file (the
+    same pixels), and of every large fixture, each the median of
+    FORMAT_DECODE_REPS decodes taken in turns (the order reversed every
+    round: the host's speed drifts)."""
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+
+    digests = _format_digests()
+    counts: dict[str, int] = {}
+    for name, entry in sorted(digests.items()):
+        with open(os.path.join(FORMATS_DIR, name), "rb") as fh:
+            got = preprocess.decode_image(fh.read())
+        if (list(got.shape) != entry["shape"]
+                or hashlib.sha256(got.tobytes()).hexdigest() != entry["sha256"]):
+            _fail(f"ingest-formats: {name} ({entry['format']}) decodes to {got.shape}, not to "
+                  f"PIL's {entry['shape']} pixels")
+        counts[entry["format"]] = counts.get(entry["format"], 0) + 1
+    large = {}
+    for name in sorted(n for n, e in digests.items() if e["format"] == "large"):
+        with open(os.path.join(FORMATS_DIR, name), "rb") as fh:
+            large[name] = fh.read()
+        preprocess.decode_image(large[name])
+    times: dict[str, list[float]] = {n: [] for n in large}
+    for r in range(FORMAT_DECODE_REPS):
+        for name in (sorted(large) if r % 2 == 0 else sorted(large, reverse=True)):
+            t0 = time.perf_counter()
+            preprocess.decode_image(large[name])
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    ms_per_mp = {n: float(np.median(times[n])) / (digests[n]["shape"][0] * digests[n]["shape"][1]
+                                                 / 1e6) for n in large}
+    out = dict(fixtures=len(digests), equal_to_pil_digest=len(digests), per_format=counts,
+               host_decode_ms_per_mp=ms_per_mp,
+               progressive_ms_per_mp=ms_per_mp["large_800x600_prog.jpg"],
+               baseline_ms_per_mp=ms_per_mp["large_800x600.jpg"],
+               progressive_over_baseline=(ms_per_mp["large_800x600_prog.jpg"]
+                                          / ms_per_mp["large_800x600.jpg"]),
+               host_cores=len(os.sched_getaffinity(0)), card=smi)
+    return out
+
+
+def _photo_png(h: int, w: int, seed: int) -> bytes:
+    """A smooth photo-like RGB PNG (blurred blobs and noise) from ``seed``."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.zeros((h, w, 3))
+    for _ in range(12):
+        cy, cx, r = rng.random(), rng.random(), 0.05 + 0.3 * rng.random()
+        img += rng.random(3) * np.exp(-((y - cy) ** 2 + (x - cx) ** 2) / r**2)[..., None]
+    img = img / img.max() * 255 + rng.normal(0, 2, (h, w, 3))
+    return _png_bytes(np.clip(img, 0, 255).astype(np.uint8))
+
+
+def _staged_trace(staged, plain, seed: int) -> dict:
+    """One traced replay of the staged engine's largest bucket graph and one
+    of the plain engine's, each the second of two replays with a spin
+    between (as ``_trace_check``): the staged one must launch the plain
+    one's kernels plus the resize's (the kernels it has beyond them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(seed)
+    b = staged.max_batch
+    imgs = {"staged": rng.integers(0, 256, (b, *staged.ingest_source_shape), np.uint8),
+            "plain": rng.integers(0, 256, (b, *plain.spec.input_shape), np.uint8)}
+    run = {"staged": lambda: np.asarray(staged.predict_ingest_async(imgs["staged"])[0]),
+           "plain": lambda: np.asarray(plain.predict_async(imgs["plain"])[0])}
+    names = {}
+    for route, fn in run.items():
+        fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda._sleep(TRACE_MARK_CYCLES)
+            torch.cuda.synchronize()
+            fn()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+        if not marks:
+            _fail(f"device-resize: the {route} trace holds no spin kernel")
+        names[route] = [e.name for e in events if e.time_range.start >= max(marks)]
+    count = lambda ns, key: sum(key in n for n in ns)  # noqa: E731
+    stage = {r: count(ns, "sepconv_stage_kernel") for r, ns in names.items()}
+    extra: dict[str, int] = {}
+    rest = list(names["plain"])
+    for n in names["staged"]:
+        if n in rest:
+            rest.remove(n)
+        else:
+            extra[n[:120]] = extra.get(n[:120], 0) + 1
+    return dict(bucket=b, stage_kernels=stage, resize_kernels=extra,
+                resize_products=sum(v for k, v in extra.items()
+                                    if any(w in k.lower() for w in ("gemm", "xmma", "cutlass"))),
+                records=dict(staged=len(names["staged"]), plain=len(names["plain"])))
+
+
+def _device_resize_phase(spec, seed: int, smi: str, *, counter, per_forward: dict) -> dict:
+    """Device-resize staging (ROADMAP A13b) on ``spec`` (clothing-model,
+    nearest): two servers of the same artifact, the default route (the
+    bytes wire decodes and resizes to 299 on the host) and the staged one
+    (``KDLT_INGEST_DEVICE_RESIZE`` = DR_STAGING: the host decodes and
+    resizes to 512x512, the engine's staged graph resizes to 299 on the
+    card).  The large fixtures and DR_EXTRA generated PNGs, one request an
+    image and one of 16, on the bytes wire of both: the staged replies must
+    equal the staged engine's own dispatch of the locally staged pixels
+    bit for bit, the staged graphs must replay their eager form (bit-equal
+    or within GRAPH_TOL), and every staged chunk must launch 8 K1 and 2 K2;
+    top-1 agreement and the max abs logit difference against the default
+    route are reported.  Then a traced replay of each route's bucket-16
+    graph (the staged one: K1/K2 and the resize's kernels), the same for a
+    linear-resize variant of the model (the resize as two float32
+    products), the resize's device ms per method, p50 at buckets 1/4/16 of
+    each route's dispatch in turns, and the host decode ms per image at
+    512x512 against 299."""
+    import dataclasses
+
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+    from kubernetes_deep_learning_tpu_torch.ops import resize as resize_lib
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+    from kubernetes_deep_learning_tpu_torch.serving import protocol
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    name, hw = spec.name, tuple(spec.input_shape[:2])
+    sh, sw = map(int, DR_STAGING.split("x"))
+    out: dict = {"model": name, "staging": DR_STAGING, "resize": spec.resize_filter, "card": smi}
+    digests = _format_digests()
+    blobs = {}
+    for f in sorted(n for n, e in digests.items() if e["format"] == "large"):
+        with open(os.path.join(FORMATS_DIR, f), "rb") as fh:
+            blobs[f] = fh.read()
+    for i in range(DR_EXTRA):
+        h, w = DR_EXTRA_HW[i % len(DR_EXTRA_HW)]
+        blobs[f"photo-{h}x{w}-{i}.png"] = _photo_png(h, w, seed + 500 + i)
+    names = list(blobs)
+    # Host decode: at the staging size against at the model's size.
+    host = {}
+    for size in ((sh, sw), hw):
+        preprocess.preprocess_bytes(blobs[names[0]], size, filter=spec.resize_filter)
+        per = []
+        for n in names:
+            t0 = time.perf_counter()
+            preprocess.preprocess_bytes(blobs[n], size, filter=spec.resize_filter)
+            per.append((time.perf_counter() - t0) * 1e3)
+        host[f"{size[0]}x{size[1]}"] = float(np.median(per))
+    out["host_decode_ms_per_image"] = host
+    staged_px = np.stack([preprocess.preprocess_bytes(blobs[n], (sh, sw),
+                                                      filter=spec.resize_filter) for n in names])
+    with tempfile.TemporaryDirectory() as root:
+        art.save_artifact(art.version_dir(root, name, 1), spec, init_variables(spec, seed=seed),
+                          {"compute_dtype": "bfloat16"})
+        servers = {
+            "default": ModelServer(root, port=0, buckets=DR_BUCKETS, device="cuda",
+                                   profile_base=None),
+            "staged": ModelServer(root, port=0, buckets=DR_BUCKETS, device="cuda",
+                                  profile_base=None, engine_factory=lambda a, **kw:
+                                  InferenceEngine(a, ingest_resize=DR_STAGING, **kw))}
+        linear = None
+        try:
+            torch.cuda.synchronize()
+            allocated = {"before": torch.cuda.memory_allocated()}
+            for route, server in servers.items():
+                server.start()
+                server.warmup()
+                torch.cuda.synchronize()
+                allocated[route] = torch.cuda.memory_allocated()
+            out["allocated_by_server_bytes"] = {
+                "default": allocated["default"] - allocated["before"],
+                "staged": allocated["staged"] - allocated["default"]}
+            engines = {r: s.models[name].engine for r, s in servers.items()}
+            if (engines["staged"].ingest_source_shape != (sh, sw, 3)
+                    or sorted(engines["staged"]._staged_graphs) != list(DR_BUCKETS)
+                    or engines["default"]._staged_graphs
+                    or engines["default"]._resize is not None):
+                _fail("device-resize: the staged engine's graphs or the default engine's "
+                      "absence of them are not as configured")
+            # --- the bytes wire on both routes ---
+            replies: dict = {r: {} for r in servers}
+            requests = [[n] for n in names] + [names[:16]]
+            counter.reset_launch_counts()
+            for route, server in servers.items():
+                url = f"http://127.0.0.1:{server.port}/v1/models/{name}:predict"
+                for group in requests:
+                    body = protocol.encode_bytes_predict_request([blobs[n] for n in group])
+                    req = urllib.request.Request(url, data=body, method="POST", headers={
+                        "Content-Type": protocol.BYTES_CONTENT_TYPE})
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        status, payload = r.status, json.loads(r.read())
+                    logits = np.array([[row[k] for k in spec.labels]
+                                       for row in payload["predictions"]], np.float32)
+                    if status != 200 or logits.shape != (len(group), len(spec.labels)) \
+                            or not np.isfinite(logits).all():
+                        _fail(f"device-resize {route}: {group[:2]}...: {status} {logits.shape}")
+                    for n, row in zip(group, logits):
+                        replies[route].setdefault(n, []).append(row)
+                if route == "default":  # the staged route's launches alone below
+                    counter.reset_launch_counts()
+            launches = counter.launch_counts()
+            want = {k: per_forward.get(k, 0) * len(requests) for k in launches}
+            if launches != want:
+                _fail(f"device-resize: staged launches {launches} != {want} for "
+                      f"{len(requests)} staged chunks")
+            # The staged replies against the engine's own dispatch of the
+            # same staged pixels (one request a chunk, as the server sent).
+            eng = engines["staged"]
+            for i, n in enumerate(names):
+                direct = np.asarray(eng.predict_ingest_async(staged_px[i:i + 1])[0])[0]
+                if any(not np.array_equal(row, direct) for row in replies["staged"][n][:1]):
+                    _fail(f"device-resize: the staged reply for {n} is not the engine's")
+            default = np.stack([replies["default"][n][0] for n in names])
+            staged = np.stack([replies["staged"][n][0] for n in names])
+            batched = np.stack([replies["staged"][n][-1] for n in names[:16]])
+            out["bytes_wire"] = dict(
+                images=len(names), requests=len(requests), launches=launches,
+                staged_equal_engine=True,
+                top1_agreement=float((staged.argmax(1) == default.argmax(1)).mean()),
+                max_abs_logit_diff=float(np.abs(staged - default).max()),
+                logit_scale=float(np.abs(default).max()),
+                bucket16_vs_single_max_abs=float(np.abs(batched - staged[:16]).max()))
+            # --- the staged graphs against their eager form ---
+            graph = {}
+            rng = np.random.default_rng(seed + 7)
+            for b in DR_BUCKETS:
+                x = rng.integers(0, 256, (b, sh, sw, 3), np.uint8)
+                rows = np.asarray(eng.predict_ingest_async(x)[0]).copy()
+                with torch.inference_mode():
+                    ref = eng._staged_forward(torch.from_numpy(x).cuda()).float().cpu().numpy()
+                rel = float(np.abs(rows - ref).max() / (np.abs(ref).max() + 1e-6))
+                if not np.isfinite(rows).all() or rel > GRAPH_TOL:
+                    _fail(f"device-resize: bucket {b}'s staged graph vs eager: {rel:.3e}")
+                graph[str(b)] = dict(bit_equal=bool(np.array_equal(rows, ref)), rel=rel)
+            out["staged_graph_vs_eager"] = graph
+            # --- traced replays: K1/K2 and the resize's kernels ---
+            trace = _staged_trace(eng, engines["default"], seed)
+            if trace["stage_kernels"] != {"staged": 28, "plain": 28} or not trace["resize_kernels"]:
+                _fail(f"device-resize: traced bucket-16 replays: {trace}")
+            linear_spec = dataclasses.replace(spec, name=f"{name}-linear",
+                                              resize_filter="bilinear")
+            linear = InferenceEngine(
+                art.ModelArtifact(linear_spec, init_variables(spec, seed=seed),
+                                  {"compute_dtype": "bfloat16"}),
+                buckets=(DR_BUCKETS[-1],), device="cuda", ingest_resize=DR_STAGING)
+            linear.warmup()
+            trace_linear = _staged_trace(linear, engines["default"], seed)
+            if trace_linear["stage_kernels"] != {"staged": 28, "plain": 28} \
+                    or trace_linear["resize_products"] < 2:
+                _fail(f"device-resize: traced linear bucket-16 replays: {trace_linear}")
+            out["trace"] = {"nearest": trace, "linear": trace_linear}
+            print("device-resize-trace:", json.dumps({**out["trace"], "card": smi}), flush=True)
+            # --- the resize alone: device ms by graph replay ---
+            x16 = torch.from_numpy(rng.integers(0, 256, (16, sh, sw, 3), np.uint8)).cuda()
+            resize_ms = {}
+            for method in ("nearest", "linear"):
+                rz = resize_lib.Resize((sh, sw), hw, method, "cuda")
+                resize_ms[method] = _graph_ms(lambda: resize_lib.resize_to_uint8(rz, x16), ITERS)
+            moved = 16 * 3 * (sh * sw + hw[0] * hw[1])  # uint8 in, uint8 out
+            out["resize_device_ms_bucket16"] = resize_ms
+            out["resize_bytes_bound_ms"] = moved / PEAK_BYTES * 1e3
+            # --- p50 a bucket, staged against default, in turns ---
+            p50 = {}
+            for b in DR_BUCKETS:
+                xs = rng.integers(0, 256, (b, sh, sw, 3), np.uint8)
+                xd = rng.integers(0, 256, (b, *spec.input_shape), np.uint8)
+                fns = {"staged": lambda: np.asarray(eng.predict_ingest_async(xs)[0]),
+                       "default": lambda: np.asarray(engines["default"].predict_async(xd)[0])}
+                lat = {r: [] for r in fns}
+                for _ in range(2):
+                    for fn in fns.values():
+                        fn()
+                for _ in range(DR_ITERS):
+                    for r, fn in fns.items():
+                        t0 = time.perf_counter()
+                        fn()
+                        lat[r].append((time.perf_counter() - t0) * 1e3)
+                p50[str(b)] = {r: float(np.median(v)) for r, v in lat.items()}
+            out["dispatch_p50_ms"] = p50
+            out["graph_memory_bytes"] = {r: e.graph_memory_bytes() for r, e in engines.items()}
+        finally:
+            if linear is not None:
+                linear.close()
+            for server in servers.values():
+                server.shutdown()
     return out
 
 
@@ -4160,8 +4503,16 @@ def main(argv=None) -> int:
         CLOTHING_MODEL, args.seed, smi, depth2_img_s, counter=fused_sepconv,
         per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})), flush=True)
 
+    # --- the decoder's breadth on this host: every format fixture vs PIL's digest ---
+    print("ingest-formats:", json.dumps(_ingest_formats_phase(smi)), flush=True)
+
     # --- the gateway path: POST /predict {"url"} through the port's gateway ---
     print("gateway:", json.dumps(_gateway_phase(
+        CLOTHING_MODEL, args.seed, smi, counter=fused_sepconv,
+        per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})), flush=True)
+
+    # --- device-resize staging: the staged bucket graphs, against host resize ---
+    print("device-resize:", json.dumps(_device_resize_phase(
         CLOTHING_MODEL, args.seed, smi, counter=fused_sepconv,
         per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})), flush=True)
 

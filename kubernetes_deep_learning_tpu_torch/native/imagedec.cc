@@ -1,4 +1,4 @@
-// kdlt image decode: baseline JPEG and the PNG row filters, without PIL.
+// kdlt image decode: JPEG and the PNG row filters, without PIL.
 //
 // The JAX package decodes with PIL (ops/preprocess.py::decode_image), which
 // decodes JPEG with libjpeg-turbo's defaults.  This decoder follows those
@@ -7,19 +7,32 @@
 //
 // - Huffman decode of baseline and extended-sequential (SOF0/SOF1) 8-bit
 //   scans, interleaved or not, with restart intervals;
+// - progressive (SOF2) scans as jdphuff.c decodes them: DC first and DC
+//   refinement, AC first with end-of-band runs, AC refinement with its
+//   correction bits, into a coefficient buffer over the whole frame
+//   (jdcoefct.c's multi-scan mode), inverse-transformed after the last
+//   scan;
 // - the integer "islow" inverse DCT of jidctint.c (13-bit constants, two
 //   passes, PASS1_BITS = 2) and its post-IDCT range-limit table;
-// - "fancy" (triangle) chroma upsampling of jdsample.c for h2v1 (4:2:2) and
-//   h2v2 (4:2:0), with its rounding biases (1/2 and 8/7) and edge rules,
-//   and plain replication where libjpeg-turbo takes it (a component two or
-//   fewer samples wide);
-// - the fixed-point YCbCr -> RGB tables of jdcolor.c (16 fraction bits).
+// - the upsampling of jdsample.c with "fancy" upsampling on: the triangle
+//   filters for h2v1 (4:2:2), h2v2 (4:2:0) and h1v2 (4:4:0) with their
+//   rounding biases and edge rules, plain replication where libjpeg-turbo
+//   takes it (h2v1 and h2v2 components two or fewer samples wide, and every
+//   other integral ratio, such as h4v1, 4:1:1);
+// - the fixed-point YCbCr -> RGB tables of jdcolor.c (16 fraction bits);
+// - 4-component frames as PIL reads them: libjpeg's CMYK output (YCCK
+//   turned into CMYK first, as jdcolor.c does for an Adobe transform other
+//   than 0), inverted (PIL's "CMYK;I"), then Pillow's own CMYK -> RGB
+//   (libImaging/Convert.c cmyk2rgb).
 //
-// Progressive, arithmetic-coded, lossless, hierarchical, 12-bit and
-// 4-component JPEGs, and sampling ratios other than 1x1, 2x1 and 2x2, are
-// refused with a message naming what is unsupported.  So is a frame of
-// more than kMaxPixels pixels, PIL's decompression-bomb bound, before
-// anything of its size is allocated: the header alone never allocates.
+// Arithmetic-coded, lossless, hierarchical and 12-bit JPEGs, fractional
+// sampling ratios, and a progressive file whose scans leave one of the
+// first ten coefficients unrefined (libjpeg-turbo would then apply its
+// block smoothing, jdcoefct.c decompress_smooth_data, which this decoder
+// does not) are refused with a message naming what is unsupported.  So is
+// a frame of more than kMaxPixels pixels, PIL's decompression-bomb bound,
+// before anything of its size is allocated: the header alone never
+// allocates.
 //
 // PNG's inflate stays in Python (zlib); kdlt_png_unfilter undoes the five
 // row filters here, where the per-byte loops are cheap.
@@ -49,6 +62,16 @@ constexpr int kZigzag[64] = {
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// The same with 16 extra entries (jutils.c keeps them too): a corrupt
+// progressive run past the band lands on coefficient 63, as in libjpeg.
+struct NaturalExt {
+  int t[80];
+  NaturalExt() {
+    for (int i = 0; i < 80; ++i) t[i] = i < 64 ? kZigzag[i] : 63;
+  }
+};
+const NaturalExt kNatural;
 
 constexpr int kLookBits = 9;
 
@@ -193,16 +216,29 @@ inline int extend(uint32_t v, int s) {
   return (s && v < (1u << (s - 1))) ? static_cast<int>(v) - (1 << s) + 1 : static_cast<int>(v);
 }
 
+// The DC predictor plus a difference; past int's range is a corrupt file
+// (libjpeg's JERR_BAD_DCT_COEF), never an overflow.
+inline int add_dc(int pred, int diff) {
+  const int64_t v = int64_t{pred} + diff;
+  if (v > INT32_MAX || v < INT32_MIN) fail("corrupt JPEG: DC coefficient out of range");
+  return static_cast<int>(v);
+}
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;
   int bw = 0, bh = 0;  // blocks per line / column, padded to whole MCUs
   int dw = 0, dh = 0;  // downsampled width / height in samples
   int stride = 0;
-  bool seen = false;
+  bool seen = false;  // in a scan; its quantization table is latched then
   int dc_pred = 0;
-  uint16_t quant[64] = {};  // natural order, latched at the component's scan
+  uint16_t quant[64] = {};  // natural order, latched at the component's first scan
   std::vector<uint8_t> plane;
+  // Progressive only: the frame's coefficients (bw x bh blocks of 64, in
+  // natural order, libjpeg's 16-bit JCOEF), and for each coefficient the Al
+  // of the last scan that coded it (-1: none), jdphuff.c's coef_bits.
+  std::vector<int16_t> coef;
+  int coef_bits[64];
 };
 
 // The post-IDCT range limit of jdmaster.c prepare_range_limit_table, indexed
@@ -227,10 +263,11 @@ constexpr int64_t FIX_0_298631336 = 2446, FIX_0_390180644 = 3196, FIX_0_54119610
 
 inline int64_t descale(int64_t x, int n) { return (x + (int64_t{1} << (n - 1))) >> n; }
 
-void idct_islow(const int32_t* coef, const uint16_t* quant, uint8_t* out, int stride) {
+template <typename Coef>
+void idct_islow(const Coef* coef, const uint16_t* quant, uint8_t* out, int stride) {
   int64_t ws[64];
   for (int col = 0; col < 8; ++col) {
-    const int32_t* in = coef + col;
+    const Coef* in = coef + col;
     const uint16_t* q = quant + col;
     if (!in[8] && !in[16] && !in[24] && !in[32] && !in[40] && !in[48] && !in[56]) {
       const int64_t dc = static_cast<int64_t>(in[0]) * q[0] * (1 << kPass1Bits);
@@ -368,7 +405,13 @@ class JpegDecoder {
 
   void decode(uint8_t* out) {
     header();
-    for (auto& c : comps_) c.plane.assign(static_cast<size_t>(c.stride) * c.bh * 8, 0);
+    for (auto& c : comps_) {
+      c.plane.assign(static_cast<size_t>(c.stride) * c.bh * 8, 0);
+      if (progressive_) {
+        c.coef.assign(static_cast<size_t>(c.bw) * c.bh * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      }
+    }
     bool scanned = false;
     for (;;) {
       const int m = pos_ < len_ ? next_marker() : 0xD9;
@@ -385,6 +428,18 @@ class JpegDecoder {
     if (!scanned) fail("corrupt JPEG: no scan");
     for (auto& c : comps_)
       if (!c.seen) fail("corrupt JPEG: a component has no scan");
+    if (progressive_) {
+      if (smoothing_wanted())
+        fail("unsupported JPEG: progressive scans leave low-frequency coefficients unrefined "
+             "(libjpeg's block smoothing is not supported)");
+      for (auto& c : comps_) {
+        const int rows = (c.dh + 7) / 8, cols = (c.dw + 7) / 8;
+        for (int r = 0; r < rows; ++r)
+          for (int b = 0; b < cols; ++b)
+            idct_islow(c.coef.data() + (static_cast<size_t>(r) * c.bw + b) * 64, c.quant,
+                       c.plane.data() + static_cast<size_t>(r) * 8 * c.stride + b * 8, c.stride);
+      }
+    }
     convert(out);
   }
 
@@ -397,6 +452,8 @@ class JpegDecoder {
   std::vector<Component> comps_;
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_interval_ = 0;
+  bool progressive_ = false;
+  int eobrun_ = 0;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
   uint16_t qt_[4][64] = {};
@@ -424,10 +481,10 @@ class JpegDecoder {
     switch (m) {
       case 0xC0:
       case 0xC1:
+      case 0xC2:
+        progressive_ = m == 0xC2;
         frame();
         return true;
-      case 0xC2:
-        fail("unsupported JPEG: progressive (SOF2) is not supported");
       case 0xC3:
         fail("unsupported JPEG: lossless (SOF3) is not supported");
       case 0xC5:
@@ -521,8 +578,8 @@ class JpegDecoder {
     if (static_cast<int64_t>(width) * height > kMaxPixels)
       fail("image too large: " + std::to_string(width) + "x" + std::to_string(height) +
            " pixels exceeds the limit of " + std::to_string(kMaxPixels));
-    if (nc != 1 && nc != 3)
-      fail("unsupported JPEG: " + std::to_string(nc) + " components (1 or 3 only)");
+    if (nc != 1 && nc != 3 && nc != 4)
+      fail("unsupported JPEG: " + std::to_string(nc) + " components (1, 3 or 4 only)");
     if (n < 6 + 3 * nc) fail("corrupt JPEG: SOF length");
     comps_.assign(nc, Component{});
     for (int i = 0; i < nc; ++i) {
@@ -536,12 +593,11 @@ class JpegDecoder {
       hmax_ = std::max(hmax_, c.h);
       vmax_ = std::max(vmax_, c.v);
     }
-    for (auto& c : comps_) {
-      const int rh = hmax_ / c.h, rv = vmax_ / c.v;
-      if (hmax_ % c.h || vmax_ % c.v || !((rh == 1 && rv == 1) || (rh == 2 && rv == 1) ||
-                                          (rh == 2 && rv == 2)))
-        fail("unsupported JPEG: chroma sampling other than 4:4:4, 4:2:2 or 4:2:0");
-    }
+    for (auto& c : comps_)
+      if (hmax_ % c.h || vmax_ % c.v)
+        fail("unsupported JPEG: fractional sampling ratios (" + std::to_string(hmax_) + "/" +
+             std::to_string(c.h) + " x " + std::to_string(vmax_) + "/" + std::to_string(c.v) +
+             ")");
     mcux_ = (width + 8 * hmax_ - 1) / (8 * hmax_);
     mcuy_ = (height + 8 * vmax_ - 1) / (8 * vmax_);
     for (auto& c : comps_) {
@@ -559,7 +615,7 @@ class JpegDecoder {
     const Huffman& ac = ac_[c.ta];
     const int s = br.decode(dc);
     if (s > 15) fail("corrupt JPEG: DC magnitude");
-    c.dc_pred += extend(br.get(s), s);
+    c.dc_pred = add_dc(c.dc_pred, extend(br.get(s), s));
     coef[0] = c.dc_pred;
     for (int k = 1; k < 64;) {
       const int rs = br.decode(ac);
@@ -585,7 +641,18 @@ class JpegDecoder {
     if (n < 1) fail("corrupt JPEG: SOS");
     const int ns = p[0];
     if (ns < 1 || ns > 4 || n < 4 + 2 * ns) fail("corrupt JPEG: SOS length");
+    const uint8_t* sp = p + 1 + 2 * ns;
+    const int ss = sp[0], se = sp[1], ah = sp[2] >> 4, al = sp[2] & 15;
+    if (!progressive_ && (ss != 0 || se != 63 || ah != 0 || al != 0))
+      fail("corrupt JPEG: spectral selection in a sequential scan");
+    // jdphuff.c start_pass_phuff_decoder's checks.
+    if (progressive_ && ((ss == 0 && se != 0) || (ss != 0 && (ss > se || se > 63 || ns != 1)) ||
+                         (ah != 0 && al != ah - 1) || al > 13))
+      fail("corrupt JPEG: invalid progressive scan parameters");
+    const bool need_dc = !progressive_ || (ss == 0 && ah == 0);
+    const bool need_ac = !progressive_ || ss != 0;
     std::vector<Component*> sc;
+    int blocks = 0;
     for (int i = 0; i < ns; ++i) {
       Component* found = nullptr;
       for (auto& c : comps_)
@@ -593,17 +660,22 @@ class JpegDecoder {
       if (!found) fail("corrupt JPEG: SOS names an unknown component");
       found->td = p[2 + 2 * i] >> 4;
       found->ta = p[2 + 2 * i] & 15;
-      if (found->td > 3 || found->ta > 3 || !dc_[found->td].defined || !ac_[found->ta].defined)
+      if (found->td > 3 || found->ta > 3 || (need_dc && !dc_[found->td].defined) ||
+          (need_ac && !ac_[found->ta].defined))
         fail("corrupt JPEG: scan uses an undefined Huffman table");
-      if (!qt_defined_[found->tq]) fail("corrupt JPEG: undefined quantization table");
-      std::memcpy(found->quant, qt_[found->tq], sizeof(found->quant));
+      if (!found->seen) {  // jdinput.c latch_quant_tables: once, at the first scan
+        if (!qt_defined_[found->tq]) fail("corrupt JPEG: undefined quantization table");
+        std::memcpy(found->quant, qt_[found->tq], sizeof(found->quant));
+      }
       found->dc_pred = 0;
       found->seen = true;
+      if (progressive_)
+        for (int k = ss; k <= se; ++k) found->coef_bits[k] = al;
+      blocks += found->h * found->v;
       sc.push_back(found);
     }
-    const uint8_t* sp = p + 1 + 2 * ns;
-    if (sp[0] != 0 || sp[1] != 63 || sp[2] != 0)
-      fail("unsupported JPEG: spectral selection (a progressive scan)");
+    if (ns > 1 && blocks > 10) fail("corrupt JPEG: more than 10 blocks in an MCU");
+    eobrun_ = 0;
     BitReader br{d_ + pos_, d_ + len_};
     int mx, my;
     if (ns == 1) {
@@ -621,23 +693,132 @@ class JpegDecoder {
         br.restart(rst);
         rst = (rst + 1) & 7;
         for (Component* c : sc) c->dc_pred = 0;
+        eobrun_ = 0;
       }
       const int row = static_cast<int>(m / mx), col = static_cast<int>(m % mx);
       if (col == 0) br.check();  // truncated data fails at the row, not after the frame
       if (ns == 1) {
-        decode_block(br, *sc[0], row, col);
+        block(br, *sc[0], row, col, ss, se, ah, al);
       } else {
         for (Component* c : sc)
           for (int v = 0; v < c->v; ++v)
-            for (int h = 0; h < c->h; ++h) decode_block(br, *c, row * c->v + v, col * c->h + h);
+            for (int h = 0; h < c->h; ++h)
+              block(br, *c, row * c->v + v, col * c->h + h, ss, se, ah, al);
       }
     }
     br.check();
     pos_ = br.p - d_;
   }
 
+  void block(BitReader& br, Component& c, int brow, int bcol, int ss, int se, int ah, int al) {
+    if (!progressive_) return decode_block(br, c, brow, bcol);
+    int16_t* blk = c.coef.data() + (static_cast<size_t>(brow) * c.bw + bcol) * 64;
+    if (ss == 0) {
+      if (ah == 0) {
+        dc_first(br, c, blk, al);
+      } else if (br.get(1)) {
+        blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      }
+    } else if (ah == 0) {
+      ac_first(br, c, blk, ss, se, al);
+    } else {
+      ac_refine(br, c, blk, ss, se, al);
+    }
+  }
+
+  // jdphuff.c decode_mcu_DC_first, one block.
+  void dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    const int s = br.decode(dc_[c.td]);
+    if (s > 15) fail("corrupt JPEG: DC magnitude");
+    c.dc_pred = add_dc(c.dc_pred, extend(br.get(s), s));
+    blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.dc_pred) << al);
+  }
+
+  // jdphuff.c decode_mcu_AC_first, one block.
+  void ac_first(BitReader& br, Component& c, int16_t* blk, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    const Huffman& tbl = ac_[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      const int rs = br.decode(tbl);
+      const int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        blk[kNatural.t[k]] = static_cast<int16_t>(static_cast<uint32_t>(extend(br.get(sz), sz))
+                                                  << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = (1 << r) + static_cast<int>(br.get(r)) - 1;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_refine, one block: newly nonzero coefficients
+  // of magnitude 1 << al, and a correction bit for each one already nonzero.
+  void ac_refine(BitReader& br, Component& c, int16_t* blk, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t& coef) {
+      if (br.get(1) && (coef & p1) == 0) coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun_ == 0) {
+      const Huffman& tbl = ac_[c.ta];
+      for (; k <= se; ++k) {
+        const int rs = br.decode(tbl);
+        int r = rs >> 4;
+        int s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;  // a new coefficient's magnitude is always 1
+        } else if (r != 15) {
+          eobrun_ = (1 << r) + static_cast<int>(br.get(r));
+          break;
+        }
+        do {
+          int16_t& coef = blk[kNatural.t[k]];
+          if (coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural.t[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kNatural.t[k]];
+        if (coef != 0) correct(coef);
+      }
+      --eobrun_;
+    }
+  }
+
+  // jdcoefct.c smoothing_ok: libjpeg-turbo smooths the blocks of a
+  // progressive frame when one of the first ten coefficients (natural
+  // positions below) was never coded to its last bit (Al != 0, or no scan),
+  // provided every component's DC arrived and none of those quantizers is 0.
+  bool smoothing_wanted() const {
+    static constexpr int kSaved[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (const auto& c : comps_) {
+      for (int pos : kSaved)
+        if (c.quant[pos] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
   // One output row of component c at full width, upsampled as libjpeg-turbo
-  // does it (jdsample.c: fullsize, h2v1 / h2v2 fancy, or replication).
+  // does it with fancy upsampling on (jdsample.c: fullsize; h2v1, h2v2 and
+  // h1v2 fancy; h2v1/h2v2 replication when two or fewer samples wide;
+  // int_upsample's replication for every other integral ratio).
   void upsample_row(const Component& c, int y, uint8_t* out) const {
     const int rh = hmax_ / c.h, rv = vmax_ / c.v;
     const uint8_t* pl = c.plane.data();
@@ -647,7 +828,7 @@ class JpegDecoder {
     }
     const bool fancy = c.dw > 2;
     const int last = c.dw - 1;
-    if (rv == 1) {  // h2v1
+    if (rh == 2 && rv == 1) {
       const uint8_t* s = pl + static_cast<size_t>(y) * c.stride;
       for (int x = 0; x < width; ++x) {
         const int j = x >> 1;
@@ -661,15 +842,21 @@ class JpegDecoder {
       }
       return;
     }
-    // h2v2
-    const int iy = y >> 1;
+    const int iy = y / rv;
     const uint8_t* s0 = pl + static_cast<size_t>(iy) * c.stride;
-    if (!fancy) {
-      for (int x = 0; x < width; ++x) out[x] = s0[x >> 1];
-      return;
-    }
+    // The nearer neighbouring input row (above for an even output row,
+    // below for an odd one); past the edges, the edge row itself.
     const int ny = (y & 1) ? (iy + 1 < c.dh ? iy + 1 : c.dh - 1) : (iy > 0 ? iy - 1 : 0);
     const uint8_t* s1 = pl + static_cast<size_t>(ny) * c.stride;
+    if (rh == 1 && rv == 2) {  // h1v2 fancy, at any width
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < width; ++x) out[x] = static_cast<uint8_t>((3 * s0[x] + s1[x] + bias) >> 2);
+      return;
+    }
+    if (!(rh == 2 && rv == 2 && fancy)) {  // replication (int_upsample, h2v2_upsample)
+      for (int x = 0; x < width; ++x) out[x] = s0[x / rh];
+      return;
+    }
     auto colsum = [&](int j) { return 3 * s0[j] + s1[j]; };
     for (int x = 0; x < width; ++x) {
       const int j = x >> 1;
@@ -679,6 +866,12 @@ class JpegDecoder {
         out[x] = static_cast<uint8_t>((3 * colsum(j) + colsum(j > 0 ? j - 1 : 0) + 8) >> 4);
       }
     }
+  }
+
+  // Pillow's MULDIV255 (libImaging/ImagingUtils.h).
+  static int muldiv255(int a, int b) {
+    const int t = a * b + 128;
+    return ((t >> 8) + t) >> 8;
   }
 
   void convert(uint8_t* out) const {
@@ -694,6 +887,9 @@ class JpegDecoder {
         rgb = comps_[0].id == 'R' && comps_[1].id == 'G' && comps_[2].id == 'B';
       }
     }
+    // jdapimin.c: four components are YCCK under an Adobe marker whose
+    // transform is not 0, else CMYK.
+    const bool ycck = nc == 4 && adobe_ && adobe_transform_ != 0;
     for (int y = 0; y < height; ++y) {
       for (int i = 0; i < nc; ++i) upsample_row(comps_[i], y, rows.data() + i * width);
       uint8_t* o = out + static_cast<size_t>(y) * width * 3;
@@ -704,6 +900,25 @@ class JpegDecoder {
       }
       const uint8_t* r1 = r0 + width;
       const uint8_t* r2 = r1 + width;
+      if (nc == 4) {
+        const uint8_t* r3 = r2 + width;
+        for (int x = 0; x < width; ++x) {
+          int c0 = r0[x], c1 = r1[x], c2 = r2[x];
+          if (ycck) {  // jdcolor.c ycck_cmyk_convert: 255 - the YCbCr -> RGB result
+            const int yy = c0, cb = c1, cr = c2;
+            c0 = 255 - clamp8(yy + kYcc.cr_r[cr]);
+            c1 = 255 - clamp8(yy + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+            c2 = 255 - clamp8(yy + kYcc.cb_b[cb]);
+          }
+          // PIL reads libjpeg's CMYK inverted ("CMYK;I"), so its C is
+          // 255 - c0 and its K 255 - r3; cmyk2rgb then takes nk = 255 - K.
+          const int nk = r3[x];
+          o[3 * x] = static_cast<uint8_t>(nk - muldiv255(255 - c0, nk));
+          o[3 * x + 1] = static_cast<uint8_t>(nk - muldiv255(255 - c1, nk));
+          o[3 * x + 2] = static_cast<uint8_t>(nk - muldiv255(255 - c2, nk));
+        }
+        continue;
+      }
       if (rgb) {
         for (int x = 0; x < width; ++x) {
           o[3 * x] = r0[x];

@@ -163,9 +163,12 @@ _ERR_LEN = 256
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Baseline JPEG bytes -> RGB uint8 (H, W, 3), byte-equal to PIL's
-    ``convert("RGB")`` (``imagedec.cc``).  Raises ValueError naming what is
-    unsupported or corrupt."""
+    """JPEG bytes (baseline, extended or progressive; 1, 3 or 4
+    components; any integral sampling) -> RGB uint8 (H, W, 3), byte-equal
+    to PIL's ``convert("RGB")`` (``imagedec.cc``).  Raises ValueError
+    naming what is unsupported (arithmetic, lossless, hierarchical, 12-bit,
+    a progressive file libjpeg-turbo would block-smooth) or corrupt.  Both
+    native calls release the interpreter lock."""
     lib = load_hostops()
     err = ctypes.create_string_buffer(_ERR_LEN)
     h, w = ctypes.c_int(0), ctypes.c_int(0)

@@ -5,12 +5,17 @@ The host half is the port's copy of the JAX package's ``ops/preprocess.py``
 without PIL, which the card's machine does not have:
 
 - ``decode_image``: JPEG or PNG bytes -> RGB uint8 HWC, byte-equal to
-  ``PIL.Image.open(...).convert("RGB")``.  Baseline JPEG goes through the
-  C++ decoder of ``native/imagedec.cc``, which follows libjpeg-turbo's
-  defaults (PIL's); PNG is inflated with ``zlib`` and unfiltered in the same
-  library, and its colour types are converted as PIL converts them.
-  Anything else (progressive or arithmetic JPEG, 16-bit or interlaced PNG,
-  any other format) raises a ValueError naming what is unsupported, which
+  ``PIL.Image.open(...).convert("RGB")``.  JPEG (baseline, extended and
+  progressive; 1, 3 or 4 components, CMYK and YCCK among them; any integral
+  sampling ratio) goes through the C++ decoder of ``native/imagedec.cc``,
+  which follows libjpeg-turbo's defaults (PIL's); PNG (every colour type
+  and bit depth, 16-bit and Adam7-interlaced included) is inflated with
+  ``zlib`` and unfiltered in the same library, and its colour types are
+  converted as PIL converts them.  What PIL opens and this does not --
+  arithmetic-coded, lossless, hierarchical and 12-bit JPEG, a progressive
+  JPEG that libjpeg-turbo would block-smooth (scans that stop before the
+  low-frequency coefficients are complete), GIF, BMP, WebP, TIFF and every
+  other format -- raises a ValueError naming what is unsupported, which
   both tiers answer with a 400; it is never handed to another decoder.
   So does an image of more than ``MAX_IMAGE_PIXELS`` pixels (PIL's
   decompression-bomb bound), before anything of its size is allocated;
@@ -107,6 +112,23 @@ def _png_chunks(data: bytes):
     raise ValueError("truncated PNG: no IEND chunk")
 
 
+# Adam7's passes: (first column, first row, column step, row step).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png_samples(rows: np.ndarray, h: int, w: int, spp: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines (h, rowbytes) -> samples (h, w, spp): uint8, or
+    uint16 at depth 16 (big-endian on the wire)."""
+    if depth < 8:
+        # Sub-byte samples (one per pixel), most significant first.
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        return ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w, None]
+    if depth == 16:
+        return rows.view(">u2").reshape(h, w, spp).astype(np.uint16)
+    return rows.reshape(h, w, spp)
+
+
 def _decode_png(data: bytes) -> np.ndarray:
     header = palette = None
     idat = []
@@ -122,31 +144,42 @@ def _decode_png(data: bytes) -> np.ndarray:
     w, h, depth, ctype, _comp, _filt, interlace = header
     if ctype not in _PNG_TYPES:
         raise ValueError(f"corrupt PNG: colour type {ctype}")
-    if depth == 16:
-        raise ValueError("unsupported PNG: 16-bit samples are not supported")
-    if depth not in (1, 2, 4, 8) or (depth != 8 and ctype not in (0, 3)):
+    allowed = (1, 2, 4, 8, 16) if ctype == 0 else (1, 2, 4, 8) if ctype == 3 else (8, 16)
+    if depth not in allowed:
         raise ValueError(f"corrupt PNG: bit depth {depth} with colour type {ctype}")
-    if interlace:
-        raise ValueError("unsupported PNG: Adam7 interlacing is not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"corrupt PNG: interlace method {interlace}")
     if w == 0 or h == 0:
         raise ValueError("corrupt PNG: zero width or height")
     if w * h > MAX_IMAGE_PIXELS:
         raise ValueError(f"image too large: {w}x{h} pixels exceeds the limit of "
                          f"{MAX_IMAGE_PIXELS}")
     spp = _PNG_TYPES[ctype][0]
-    rowbytes = (w * spp * depth + 7) // 8
+    bpp = max(1, spp * depth // 8)
+    rowbytes = lambda width: (width * spp * depth + 7) // 8  # noqa: E731
+    # Each pass a sub-image of its own, filtered on its own; empty ones
+    # have no bytes at all.  A plain image is one pass over every pixel.
+    passes = []
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        ph, pw = (h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx
+        if ph and pw:
+            passes.append((x0, y0, dx, dy, ph, pw))
+    need = sum(ph * (rowbytes(pw) + 1) for *_, ph, pw in passes)
     # Inflate no more than the rows hold; like PIL, ignore what follows.
     try:
-        raw = zlib.decompressobj().decompress(b"".join(idat), h * (rowbytes + 1))
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
     except zlib.error as e:
         raise ValueError(f"corrupt PNG: {e}") from e
-    rows = _native.png_unfilter(raw, h, rowbytes, spp * depth // 8)
-    if depth < 8:
-        # Sub-byte samples, most significant first: unpack to one per byte.
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        samples = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+    if not interlace:
+        samples = _png_samples(_native.png_unfilter(raw, h, rowbytes(w), bpp), h, w, spp, depth)
     else:
-        samples = rows.reshape(h, w, spp)
+        samples = np.empty((h, w, spp), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy, ph, pw in passes:
+            size = ph * (rowbytes(pw) + 1)
+            rows = _native.png_unfilter(raw[at:at + size], ph, rowbytes(pw), bpp)
+            samples[y0::dy, x0::dx] = _png_samples(rows, ph, pw, spp, depth)
+            at += size
     if ctype == 3:
         if palette is None:
             raise ValueError("corrupt PNG: palette image without a PLTE chunk")
@@ -154,9 +187,16 @@ def _decode_png(data: bytes) -> np.ndarray:
         lut = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
         entries = np.frombuffer(palette[: len(palette) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
         lut[: len(entries)] = entries
-        return lut[samples.reshape(h, w)]
+        return lut[samples[:, :, 0]]
+    if depth == 16:
+        # PIL opens 16-bit grey as "I;16", whose convert("RGB") clips at
+        # 255; every other colour type keeps each sample's high byte.
+        if ctype == 0:
+            samples = np.minimum(samples, 255).astype(np.uint8)
+        else:
+            samples = (samples >> 8).astype(np.uint8)
     if ctype == 0:
-        grey = samples.reshape(h, w)
+        grey = samples[:, :, 0]
         if depth < 8:  # PIL: 1-bit -> 0/255, 2-bit x85, 4-bit x17
             grey = (grey * (255 // ((1 << depth) - 1))).astype(np.uint8)
         return np.repeat(grey[:, :, None], 3, axis=2)

@@ -36,6 +36,15 @@ it until it hands it back, after ``predict_async`` has enqueued its H2D
 copy, so no other dispatch can refill it in between.  A slot is refilled
 only after the H2D copy that last read it has run (an event per slot).
 
+Device-resize staging (``$KDLT_INGEST_DEVICE_RESIZE=HxW``, off by
+default; the JAX engine's knob): ``predict_ingest_async`` takes the bytes
+wire's uint8 batches at HxW, and the staged program resizes them on the
+device to the model's input (``ops.resize``, what ``jax.image.resize``
+computes), rounds and clips them back to uint8 and runs the forward.  On
+the card it is a CUDA graph per bucket of its own, captured by ``warmup()``
+after the plain buckets on the same capture thread, stream and pool, and
+fed from pinned slots at HxW.  Off, none of it exists.
+
 Accounting: every completed batch feeds the engine's counters and, through
 ``runtime.flops.MfuAccountant``, the live ``kdlt_mfu_pct{bucket}`` and
 ``kdlt_device_busy_ratio`` gauges, with the batch's DEVICE time -- on the
@@ -92,6 +101,7 @@ from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
 from kubernetes_deep_learning_tpu_torch.models import build_forward, resolve_device
 from kubernetes_deep_learning_tpu_torch.ops import _counts
 from kubernetes_deep_learning_tpu_torch.ops import quantize as quant_lib
+from kubernetes_deep_learning_tpu_torch.ops import resize as resize_lib
 from kubernetes_deep_learning_tpu_torch.runtime import flops as flops_lib
 from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
 from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
@@ -147,20 +157,33 @@ def resolve_pipeline_depth(depth: int | None = None) -> int:
     return max(1, int(depth))
 
 
-# KDLT_INGEST_DEVICE_RESIZE=HxW makes the JAX engine stop the bytes wire's
-# host resize at HxW and resize to the model's input on the device
-# (jax.image.resize, off by default).  The port has no device resize yet
-# (ROADMAP A13b): the knob is refused, never silently ignored.
+# Device-resize staging for the bytes wire: KDLT_INGEST_DEVICE_RESIZE=HxW
+# makes the decode stage stop its host resize at HxW and hands the engine
+# that staging resolution; the engine's staged program (a CUDA graph per
+# bucket on the card) resizes to spec.input_shape on the device
+# (ops.resize, what jax.image.resize computes) ahead of the forward.  Off
+# by default: the device resize is not bit-exact with the host's (PIL's),
+# and bytes-wire logits equal tensor-wire logits only with the host resize.
 INGEST_DEVICE_RESIZE_ENV = "KDLT_INGEST_DEVICE_RESIZE"
 
 
-def check_ingest_device_resize() -> None:
-    """Raise if $KDLT_INGEST_DEVICE_RESIZE asks for the device resize."""
-    raw = os.environ.get(INGEST_DEVICE_RESIZE_ENV, "").strip().lower()
-    if raw and raw not in ("0", "off", "false", "no"):
-        raise NotImplementedError(
-            f"{INGEST_DEVICE_RESIZE_ENV}={raw}: the device-side ingest resize is not "
-            "ported yet (ROADMAP A13b); unset it to resize on the host")
+def ingest_device_resize(explicit: str | None = None) -> tuple[int, int] | None:
+    """Parse the staging resolution: 'HxW' -> (H, W); unset/off -> None.
+    An explicit argument beats the environment; a bad value raises
+    ValueError."""
+    raw = explicit if explicit is not None else os.environ.get(INGEST_DEVICE_RESIZE_ENV, "")
+    raw = (raw or "").strip().lower()
+    if not raw or raw in ("0", "off", "false", "no"):
+        return None
+    try:
+        h_s, w_s = raw.split("x")
+        h, w = int(h_s), int(w_s)
+    except ValueError:
+        raise ValueError(
+            f"{INGEST_DEVICE_RESIZE_ENV} must be 'HxW' (e.g. 512x512), got {raw!r}") from None
+    if h <= 0 or w <= 0:
+        raise ValueError(f"{INGEST_DEVICE_RESIZE_ENV} dims must be positive, got {raw!r}")
+    return (h, w)
 
 
 class DispatcherClosed(RuntimeError):
@@ -565,6 +588,37 @@ class StagingSlot:
         self.copied = torch.cuda.Event(blocking=True)
 
 
+class _SlotRing:
+    """Pinned staging slots of one shape in a FIFO free list, the oldest
+    handed out first: ``first`` of them at first use, one more whenever the
+    list is empty."""
+
+    def __init__(self, shape: tuple[int, ...], first: int):
+        self.shape = shape
+        self.first = first
+        self._free: collections.deque[StagingSlot] = collections.deque()  # guarded-by: _lock
+        self._made = 0  # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    def lend(self) -> StagingSlot:
+        with self._lock:
+            if not self._free:
+                fresh = 1 if self._made else self.first
+                self._free.extend(StagingSlot(self.shape) for _ in range(fresh))
+                self._made += fresh
+            slot = self._free.popleft()
+        slot.copied.synchronize()  # the H2D copy that last read this slot has run
+        return slot
+
+    def give_back(self, slot: StagingSlot) -> None:
+        with self._lock:
+            self._free.append(slot)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._free.clear()
+
+
 class StagedBatch(NamedTuple):
     """``n`` images a borrower wrote into rows ``[:n]`` of a lent slot."""
 
@@ -617,10 +671,13 @@ class InferenceEngine:
     def __init__(self, artifact: ModelArtifact, buckets: Sequence[int] = DEFAULT_BUCKETS,
                  device: str | torch.device = "cuda", fast: bool | str = "auto",
                  registry: metrics_lib.Registry | None = None,
-                 pipeline_depth: int | None = None):
+                 pipeline_depth: int | None = None, ingest_resize: str | None = None):
         """``pipeline_depth`` (None = $KDLT_PIPELINE_DEPTH or 2) sizes the
         per-bucket staging ring: depth + 1 pinned buffers, so a dispatcher
-        of that depth never waits for a buffer."""
+        of that depth never waits for a buffer.  ``ingest_resize``: the
+        bytes wire's staging resolution, 'HxW' (None =
+        $KDLT_INGEST_DEVICE_RESIZE, off by default; see
+        ``predict_ingest_async``)."""
         self.spec = artifact.spec
         # The served artifact's identity (serving.registry.artifact_hash),
         # set when a registry serves this engine.
@@ -666,11 +723,23 @@ class InferenceEngine:
         # it has completed, the device has finished every replay of it.
         self._last_done: torch.cuda.Event | None = None  # guarded-by: _lock
         self._ready = threading.Event()
-        self._staging_buffers = resolve_pipeline_depth(pipeline_depth) + 1
-        self._free: collections.deque[StagingSlot] = collections.deque()  # guarded-by: _free_lock
-        self._slots_made = 0  # guarded-by: _free_lock
-        self._free_lock = threading.Lock()
+        depth = resolve_pipeline_depth(pipeline_depth)
+        self._slots = _SlotRing((self.max_batch, *self.spec.input_shape), depth + 1)
         self._graphs: dict[int, _BucketGraph] = {}  # guarded-by: _lock
+        # The device-resize staging (off: None, and nothing below exists).
+        staging = ingest_device_resize(ingest_resize)
+        if staging == tuple(self.spec.input_shape[:2]):
+            staging = None  # a no-op resize: the plain forward serves it
+        self._ingest_staging = staging
+        self._resize = self._staged_slots = None
+        self._staged_graphs: dict[int, _BucketGraph] = {}  # guarded-by: _lock
+        if staging is not None:
+            self._resize = resize_lib.Resize(staging, self.spec.input_shape[:2],
+                                             resize_lib.method_for(self.spec.resize_filter),
+                                             self.device)
+            if self.device.type == "cuda":
+                self._staged_slots = _SlotRing((self.max_batch, *self.ingest_source_shape),
+                                               depth + 1)
         # One memory pool for all of this engine's bucket graphs.  Safe only
         # because replays never overlap: every replay, and the copy of its
         # output into pinned rows, is enqueued on the one current stream
@@ -754,6 +823,10 @@ class InferenceEngine:
                 self._downgrade_w8a8()
                 continue
             break
+        if self._ingest_staging is not None:
+            for b in self.buckets:
+                np.asarray(self.predict_ingest_async(
+                    np.zeros((b, *self.ingest_source_shape), np.uint8))[0])
         if flops_lib.mfu_enabled():
             self._mfu.set_flops_per_image(flops_lib.flops_per_image(self.spec))
         dt = time.perf_counter() - t0
@@ -817,6 +890,7 @@ class InferenceEngine:
                 last.synchronize()
             with capture_lock:
                 self._graphs.clear()
+                self._staged_graphs.clear()
                 self._forward, self._fallback = self._fallback, None
                 self.fast = self._forward.fast
                 if self.device.type == "cuda":
@@ -864,7 +938,7 @@ class InferenceEngine:
         n = images.shape[0]
         bucket = self.bucket_for(n)
         if bucket != n:
-            pad = np.zeros((bucket - n, *self.spec.input_shape), images.dtype)
+            pad = np.zeros((bucket - n, *images.shape[1:]), images.dtype)
             images = np.concatenate([images, pad], axis=0)
         # Wire arrays are read-only views of the request body; torch wants a
         # writable buffer, so np.require copies those (and only those).
@@ -877,53 +951,44 @@ class InferenceEngine:
         H2D copy that last read the slot (on the card only)."""
         if not self.lends_staging:
             raise RuntimeError("staging slots are pinned memory for the card")
-        with self._free_lock:
-            if not self._free:
-                # At first use the pipeline's slots; later, while every slot
-                # is lent or being filled, one more.
-                fresh = 1 if self._slots_made else self._staging_buffers
-                shape = (self.max_batch, *self.spec.input_shape)
-                self._free.extend(StagingSlot(shape) for _ in range(fresh))
-                self._slots_made += fresh
-            slot = self._free.popleft()
-        slot.copied.synchronize()  # the H2D copy that last read this slot has run
-        return slot
+        return self._slots.lend()
 
     def return_staging(self, slot: StagingSlot) -> None:
         """Hand a lent slot back, once any dispatch of it has been enqueued."""
-        with self._free_lock:
-            self._free.append(slot)
+        self._slots.give_back(slot)
 
-    def _graph(self, bucket: int) -> _BucketGraph:
-        """The bucket's captured forward, captured on first use (under
-        ``_lock``)."""
-        g = self._graphs.get(bucket)
+    def _graph(self, bucket: int, staged: bool = False) -> _BucketGraph:
+        """The bucket's captured forward (``staged``: its staged program),
+        captured on first use (under ``_lock``)."""
+        graphs = self._staged_graphs if staged else self._graphs
+        g = graphs.get(bucket)
         if g is None:
             with capture_lock:
-                g = self._graphs[bucket] = _on_capture_thread(self._capture, bucket)
+                g = graphs[bucket] = _on_capture_thread(self._capture, bucket, staged)
         return g
 
-    def _capture(self, bucket: int) -> _BucketGraph:
+    def _capture(self, bucket: int, staged: bool) -> _BucketGraph:
         """The bucket's forward captured, on the capture thread (the caller's
         inference mode and device do not carry over to it)."""
         with torch.inference_mode(), torch.cuda.device(self.device):
-            return self._capture_on(bucket)
+            return self._capture_on(bucket, staged)
 
-    def _capture_on(self, bucket: int) -> _BucketGraph:
-        static_in = torch.zeros((bucket, *self.spec.input_shape), dtype=torch.uint8,
-                                device=self.device)
+    def _capture_on(self, bucket: int, staged: bool = False) -> _BucketGraph:
+        shape = self.ingest_source_shape if staged else self.spec.input_shape
+        forward = self._staged_forward if staged else self._forward
+        static_in = torch.zeros((bucket, *shape), dtype=torch.uint8, device=self.device)
         current = torch.cuda.current_stream(self.device)
         side = _capture_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self._forward(static_in)  # builds the kernels, warms cuDNN and cuBLAS
+            forward(static_in)  # builds the kernels, warms cuDNN and cuBLAS
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # thread_local: CUDA calls of other threads (another engine serving)
         # neither break this capture nor are captured into it.
         with _counts.recording() as launches, torch.cuda.graph(
                 graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
-            static_out = self._forward(static_in)
+            static_out = forward(static_in)
         return _BucketGraph(graph, static_in, static_out, launches)
 
     def graph_memory_bytes(self) -> int:
@@ -934,11 +999,12 @@ class InferenceEngine:
         return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
                    if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
 
-    def _replay(self, slot: StagingSlot, n: int) -> DeviceLogits:
-        """Rows ``[:n]`` of a staging slot through the bucket's graph: the pad
-        rows zeroed, the H2D copy into the static input, the replay and the
-        D2H copy, enqueued without waiting (under ``_lock``)."""
-        g = self._graph(self.bucket_for(n))
+    def _replay(self, slot: StagingSlot, n: int, staged: bool = False) -> DeviceLogits:
+        """Rows ``[:n]`` of a staging slot through the bucket's graph (its
+        staged program's when ``staged``): the pad rows zeroed, the H2D copy
+        into the static input, the replay and the D2H copy, enqueued without
+        waiting (under ``_lock``)."""
+        g = self._graph(self.bucket_for(n), staged)
         bucket = g.static_in.shape[0]
         slot.array[n:bucket] = 0
         g.static_in.copy_(slot.host[:bucket], non_blocking=True)
@@ -996,6 +1062,55 @@ class InferenceEngine:
             finally:
                 self.return_staging(slot)
 
+    @property
+    def ingest_source_shape(self) -> tuple[int, int, int]:
+        """Per-image (H, W, C) the bytes wire's decode stage must produce:
+        ``spec.input_shape``, or the staging resolution when
+        $KDLT_INGEST_DEVICE_RESIZE (or ``ingest_resize``) sets one."""
+        if self._ingest_staging is None:
+            return tuple(self.spec.input_shape)
+        return (*self._ingest_staging, self.spec.input_shape[2])
+
+    def _staged_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The staged program: a uint8 batch at the staging resolution ->
+        float32, resized to ``spec.input_shape`` (``ops.resize``, the JAX
+        engine's ``jax.image.resize``), rounded half to even, clipped to
+        0..255, uint8 -> the engine's own forward."""
+        return self._forward(resize_lib.resize_to_uint8(self._resize, x))
+
+    def predict_ingest_async(self, images: np.ndarray) -> tuple[DeviceLogits, int]:
+        """The bytes wire's dispatch: a uint8 batch at ``ingest_source_shape``.
+
+        Without staging this is ``predict_async``: the decode stage already
+        resized to ``spec.input_shape`` on the host, bit-exact with the
+        tensor wire.  With $KDLT_INGEST_DEVICE_RESIZE=HxW the batch is at
+        HxW and the staged program resizes it on the device ahead of the
+        forward (approximate numerics; an opt-in).  On the card every
+        bucket's staged program is a CUDA graph of its own, captured as the
+        plain buckets' are, fed from pinned slots at the staging shape.  The
+        same handle and aliasing contract as ``predict_async``: the images
+        are copied before this returns."""
+        if self._ingest_staging is None:
+            return self.predict_async(images)
+        src = self.ingest_source_shape
+        images = np.asarray(images)
+        if images.ndim != 4 or images.shape[1:] != src:
+            raise ValueError(f"expected (N, {src}), got {images.shape}")
+        if images.dtype != np.uint8:
+            raise ValueError(f"predict_ingest_async takes uint8 images, got {images.dtype}")
+        n = images.shape[0]
+        with self._lock, torch.inference_mode():
+            self._check_open()
+            if self.device.type != "cuda":
+                return self._handle(self._staged_forward(self._padded(images))), n
+            self.bucket_for(n)  # a batch past the largest bucket fails before staging
+            slot = self._staged_slots.lend()
+            try:
+                slot.array[:n] = images
+                return self._replay(slot, n, staged=True), n
+            finally:
+                self._staged_slots.give_back(slot)
+
     def _check_open(self) -> None:
         if self._closed:
             raise EngineClosed(f"the engine of {self.spec.name!r} is closed")
@@ -1021,10 +1136,13 @@ class InferenceEngine:
         with capture_lock:
             # No predict passes _check_open any more: nothing else reads these.
             self._graphs.clear()
+            self._staged_graphs.clear()
             self._pool = None
             self._params = self._forward = self._exact_f32 = self._fallback = None
-            with self._free_lock:
-                self._free.clear()
+            self._resize = None
+            self._slots.clear()
+            if self._staged_slots is not None:
+                self._staged_slots.clear()
             gc.collect()
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()

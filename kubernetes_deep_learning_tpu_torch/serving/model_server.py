@@ -28,7 +28,11 @@ private C++ queue and dispatcher per model.  Routes:
   the model's input in a thread pool (``ops.preprocess.BatchDecoder``,
   ``KDLT_DECODE_POOL`` threads) through a decoded-pixel cache
   (``serving.cache.DecodedCache``) and answers in JSON, as the JAX server
-  does; an undecodable or unsupported image is a 400.  uint8 images go through the model's lane in max-bucket chunks (or, with
+  does; an undecodable or unsupported image is a 400.  With
+  ``KDLT_INGEST_DEVICE_RESIZE=HxW`` the decode stops at HxW and the batch
+  goes, in max-bucket chunks, straight to the engine's staged program,
+  which resizes on the device (bypassing the lanes, as the JAX server's
+  staged dispatch does).  uint8 images go through the model's lane in max-bucket chunks (or, with
   the native batcher, a single image through it, a batch up to the largest
   bucket straight to the engine and a larger one in chunks through the
   dispatcher); every 200 carries the served artifact's hash
@@ -122,7 +126,6 @@ from kubernetes_deep_learning_tpu_torch.runtime.engine import (
     InferenceEngine,
     InFlightDispatcher,
     capture_lock,
-    check_ingest_device_resize,
     resolve_pipeline_depth,
 )
 from kubernetes_deep_learning_tpu_torch.runtime.scheduler import (
@@ -509,7 +512,6 @@ class ModelServer:
         device out).  ``ingest``: None = ``$KDLT_INGEST`` (on): offer and
         accept the bytes wire, decoded by ``decode_pool`` threads (None =
         ``$KDLT_DECODE_POOL`` or a core-scaled default)."""
-        check_ingest_device_resize()
         if profile_base == "":
             profile_base = (os.environ.get(PROFILE_DIR_ENV, "").strip()
                             or os.path.join(tempfile.gettempdir(), "kdlt-traces"))
@@ -870,15 +872,24 @@ class ModelServer:
                 else:
                     blobs = protocol.decode_bytes_predict_request(
                         raw, max_images=MAX_IMAGES_PER_REQUEST)
+            staged = False
             if encoded:
                 spec = model.engine.spec
+                # Device-resize staging ($KDLT_INGEST_DEVICE_RESIZE): decode
+                # stops at the staging resolution, and the engine's staged
+                # program resizes on the device ahead of the forward.
+                src = tuple(getattr(model.engine, "ingest_source_shape", spec.input_shape))
+                staged = src != tuple(spec.input_shape)
                 with ex.stage(trace_lib.SPAN_SERVER_INGEST_DECODE, images=len(blobs),
                               bytes=len(raw)):
-                    images = self._decode_blobs(spec.input_shape, spec.resize_filter, blobs)
+                    images = self._decode_blobs(src, spec.resize_filter, blobs)
             ex.batch = int(images.shape[0]) if images.ndim else 0
             # server.predict runs from the images to the reply's bytes.
             with ex.stage(trace_lib.SPAN_SERVER_PREDICT, batch=ex.batch) as span:
-                logits, digest = self._infer(model, images, deadline, priority, span)
+                if staged:
+                    logits, digest = self._predict_staged(model, images)
+                else:
+                    logits, digest = self._infer(model, images, deadline, priority, span)
                 out, ctype = protocol.encode_predict_response(logits, model.engine.spec.labels,
                                                               content_type)
         except ValueError as e:  # malformed request
@@ -907,6 +918,32 @@ class ModelServer:
         # The served artifact's identity rides every success: the gateway's
         # response cache drops a model's entries when it changes.
         return 200, out, ctype, {protocol.ARTIFACT_HASH_HEADER: digest} if digest else {}
+
+    def _predict_staged(self, model: ServedModel, images: np.ndarray
+                        ) -> tuple[np.ndarray, str | None]:
+        """Device-resize staging dispatch: staging-resolution uint8 batches go
+        straight to the engine's staged program, chunked to the bucket
+        ladder.  The scheduler's lanes and the batchers carry input_shape
+        tensors only, so this opt-in path bypasses them (serial, as the JAX
+        server's).  (logits, the artifact hash of the engine that served
+        them); a request that resolved a version a reload has since closed
+        is served by the new one."""
+        try:
+            return self._staged_on(model.engine, images)
+        except EngineClosed:
+            fresh = self.models.get(model.name)
+            if fresh is None or fresh is model:
+                raise
+            return self._staged_on(fresh.engine, images)
+
+    @staticmethod
+    def _staged_on(eng, images: np.ndarray) -> tuple[np.ndarray, str | None]:
+        outs = []
+        for i in range(0, images.shape[0], eng.max_batch):
+            handle, n = eng.predict_ingest_async(images[i:i + eng.max_batch])
+            outs.append(np.asarray(handle)[:n])
+        logits = np.concatenate(outs) if len(outs) > 1 else outs[0]
+        return logits, getattr(eng, "artifact_hash", None)
 
     def _decode_blobs(self, shape, resize_filter: str, blobs: list[bytes]) -> np.ndarray:
         """The bytes wire's decode stage: encoded blobs -> uint8 (N,H,W,C)

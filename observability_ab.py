@@ -46,8 +46,8 @@ def _bare() -> None:
     from kubernetes_deep_learning_tpu_torch.serving import model_server
     from kubernetes_deep_learning_tpu_torch.utils import trace as trace_lib
 
-    def replay(self, slot, n):  # the replay without its timing event
-        g = self._graph(self.bucket_for(n))
+    def replay(self, slot, n, staged=False):  # the replay without its timing event
+        g = self._graph(self.bucket_for(n), staged)
         bucket = g.static_in.shape[0]
         slot.array[n:bucket] = 0
         g.static_in.copy_(slot.host[:bucket], non_blocking=True)

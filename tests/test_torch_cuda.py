@@ -54,7 +54,13 @@ The ingest path: the port's decoder and resize on this host equal the
 committed fixtures' PIL pixels (``tests/ingest_fixtures``; these two need
 no card and run anywhere), and a bytes-wire request on the card is served
 by the bucket graphs' replays (no eager forward), 8 K1 and 2 K2 launches a
-forward, with the tensor wire's logits for the same pixels.
+forward, with the tensor wire's logits for the same pixels; the decoder
+gives every breadth fixture (``tests/ingest_fixtures/formats``: progressive
+and 4-component JPEG, 4:4:0, 4:1:1, 16-bit and Adam7 PNG) its PIL digest.
+Device-resize staging: the staged program's bucket graphs replay its eager
+form's bits with 8 K1 and 2 K2 launches, the resize captured in a graph
+stays within 1e-3 of its float64 products (no TF32), and closing a staged
+engine gives its memory back.
 """
 
 from __future__ import annotations
@@ -1446,9 +1452,9 @@ def test_cuda_gate_refusal_recaptures_weight_only_and_close_gives_memory_back(tm
     threads = []
     capture = engine._capture
 
-    def spy(bucket):
+    def spy(bucket, staged):
         threads.append(threading.current_thread().name)
-        return capture(bucket)
+        return capture(bucket, staged)
 
     engine._capture = spy
     engine.warmup()
@@ -1471,7 +1477,16 @@ def test_cuda_gate_refusal_recaptures_weight_only_and_close_gives_memory_back(tm
 # --- the ingest path: decode and resize on this host, the bytes wire --------
 
 _FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ingest_fixtures")
-_FIXTURE_FILES = sorted(f for f in os.listdir(_FIXTURES) if not f.endswith(".npy"))
+_FIXTURE_FILES = sorted(f for f in os.listdir(_FIXTURES)
+                        if not f.endswith(".npy") and os.path.isfile(os.path.join(_FIXTURES, f)))
+_FORMATS = os.path.join(_FIXTURES, "formats")
+
+
+def _format_digests() -> dict:
+    import json
+
+    with open(os.path.join(_FORMATS, "digests.json")) as f:
+        return json.load(f)
 
 
 @pytest.mark.parametrize("name", _FIXTURE_FILES)
@@ -1484,6 +1499,23 @@ def test_host_decodes_the_committed_fixtures_to_pils_pixels(name):
     with open(os.path.join(_FIXTURES, name), "rb") as f:
         got = preprocess.decode_image(f.read())
     np.testing.assert_array_equal(got, np.load(os.path.join(_FIXTURES, name + ".npy")))
+
+
+@pytest.mark.parametrize("name", sorted(_format_digests()))
+def test_host_decodes_the_format_fixtures_to_their_pil_digests(name):
+    """Progressive and 4-component JPEG, 4:4:0, 4:1:1, 16-bit and Adam7 PNG
+    (``tests/ingest_fixtures/formats``) decode on this host to the shape and
+    pixel digest PIL gave (``test_torch_ingest_formats`` recomputes them
+    with PIL).  Needs no card."""
+    import hashlib
+
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+
+    entry = _format_digests()[name]
+    with open(os.path.join(_FORMATS, name), "rb") as f:
+        got = preprocess.decode_image(f.read())
+    assert list(got.shape) == entry["shape"]
+    assert hashlib.sha256(got.tobytes()).hexdigest() == entry["sha256"]
 
 
 @pytest.mark.parametrize("filter", ["nearest", "bilinear"])
@@ -1548,3 +1580,98 @@ def test_cuda_bytes_wire_replays_the_bucket_graphs(tmp_path):
         np.testing.assert_array_equal(got, protocol.decode_predict_response(body, ctype)[0])
     finally:
         server.shutdown()
+
+
+# --- device-resize staging (KDLT_INGEST_DEVICE_RESIZE) ---------------------------
+
+
+def _staged_engine(resize_filter: str = "bilinear", staging: str = "150x131"):
+    """A warmed 96-px Xception engine on the card (buckets 1 and 4) with
+    device-resize staging at ``staging``."""
+    from kubernetes_deep_learning_tpu_torch.export.artifact import ModelArtifact
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    spec = ModelSpec(name="tiny-staged", family="xception", input_shape=(96, 96, 3),
+                     labels=("a", "b", "c"), preprocessing="tf", resize_filter=resize_filter)
+    artifact = ModelArtifact(spec, init_variables(spec, seed=0), {"compute_dtype": "bfloat16"})
+    engine = InferenceEngine(artifact, buckets=(1, 4), device="cuda", ingest_resize=staging)
+    engine.warmup()
+    return engine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resize_filter", ["bilinear", "nearest"])
+def test_cuda_staged_graph_replays_its_eager_form_bit_equal(resize_filter):
+    """The staged program's bucket graphs (captured by warmup, one per
+    bucket, beside the plain ones) replay the eager staged forward's bits
+    on the same padded batch, and each replay credits 8 K1 and 2 K2
+    launches: the forward inside it is the fused path."""
+    _need_cuda()
+    engine = _staged_engine(resize_filter)
+    assert sorted(engine._staged_graphs) == sorted(engine._graphs) == [1, 4]
+    imgs = np.random.default_rng(21).integers(0, 256, (3, 150, 131, 3), np.uint8)
+    ops.reset_launch_counts()
+    handle, n = engine.predict_ingest_async(imgs)
+    got = np.asarray(handle)[:n]
+    assert ops.launch_counts() == {"fused_sepconv_block": 8, "fused_sepconv_chain": 2}
+    padded = np.concatenate([imgs, np.zeros((1, 150, 131, 3), np.uint8)])
+    with torch.inference_mode():
+        eager = engine._staged_forward(torch.from_numpy(padded).cuda()).float().cpu().numpy()
+    np.testing.assert_array_equal(got, eager[:3])
+    engine.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+def test_cuda_resize_in_a_graph_stays_in_true_float32(method):
+    """The resize captured into a CUDA graph, as the staged program holds
+    it, against its float64 products on the CPU: within 1e-3 at 512 -> 299
+    (TF32 products would miss by ~0.1 at pixel values up to 255)."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.ops import resize as resize_lib
+
+    rz = resize_lib.Resize((512, 384), (299, 299), method, "cuda")
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (4, 512, 384, 3)).astype(
+        np.float32)).cuda()
+    rz(x)  # warm cuBLAS outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rz(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    if method == "linear":
+        wh = torch.from_numpy(resize_lib.weight_matrix(512, 299)).double()
+        ww = torch.from_numpy(resize_lib.weight_matrix(384, 299)).double()
+        want = torch.einsum("nhwc,ho,wp->nopc", x.double().cpu(), wh, ww)
+    else:
+        hi = torch.from_numpy(resize_lib.nearest_indices(512, 299).copy())
+        wi = torch.from_numpy(resize_lib.nearest_indices(384, 299).copy())
+        want = x.double().cpu()[:, hi][:, :, wi]
+    assert float((out.double().cpu() - want).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_engine_close_gives_the_staged_graphs_memory_back():
+    """An engine with device-resize staging, warmed and served, closed:
+    ``memory_allocated`` is back within 16 MiB of its value before it was
+    built, and its plain and staged graphs are gone."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.runtime import EngineClosed
+
+    _staged_engine().close()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = _staged_engine(staging="512x512")
+    imgs = np.random.default_rng(16).integers(0, 256, (3, 512, 512, 3), np.uint8)
+    np.asarray(engine.predict_ingest_async(imgs)[0])
+    assert engine.graph_memory_bytes() > 0 and torch.cuda.memory_allocated() > before
+    engine.close()
+    after = torch.cuda.memory_allocated()
+    assert abs(after - before) < 16 << 20, (before, after)
+    assert engine.graph_memory_bytes() == 0 and not engine._staged_graphs
+    with pytest.raises(EngineClosed):
+        engine.predict_ingest_async(imgs)

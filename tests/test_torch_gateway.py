@@ -8,8 +8,10 @@
 - its reply is byte-identical to the unchanged JAX gateway's in front of
   the same server, on the bytes wire and on the tensor wire, and the two
   wires give the same reply (each wire the one asked for);
-- an unsupported image, or one over PIL's pixel limit, is a 400 naming
-  what is refused, on both wires;
+- a progressive JPEG is answered on both wires with the logits of the
+  pixels PIL decodes; an unsupported image (an arithmetic-coded JPEG, a
+  GIF), or one over PIL's pixel limit, is a 400 naming what is refused, on
+  both wires;
 - the response cache: miss, hit (the same body, no upstream call), a
   cache-bust salt, and concurrent identical requests coalesced onto one
   upstream call;
@@ -94,7 +96,10 @@ def images(tmp_path_factory):
     png = bytearray(open(os.path.join(d, "pants.png"), "rb").read())
     png[16:24] = struct.pack(">II", 65535, 65535)
     png[29:33] = struct.pack(">I", zlib.crc32(bytes(png[12:29])))
-    for name, data in (("bomb.jpg", jpeg), ("bomb.png", png)):
+    # The same photo marked arithmetic-coded (SOF9), which stays refused.
+    arith = bytearray(open(os.path.join(d, "photo.jpg"), "rb").read())
+    arith[arith.index(b"\xff\xc0") + 1] = 0xC9
+    for name, data in (("bomb.jpg", jpeg), ("bomb.png", png), ("arith.jpg", arith)):
         with open(os.path.join(d, name), "wb") as f:
             f.write(data)
     httpd = ThreadingHTTPServer(("127.0.0.1", 0),
@@ -228,7 +233,7 @@ def test_tensor_wire_equals_bytes_wire(tier, images):
 
 
 @pytest.mark.parametrize("ingest", [True, False], ids=["bytes-wire", "tensor-wire"])
-@pytest.mark.parametrize("name, match", [("prog.jpg", "progressive"),
+@pytest.mark.parametrize("name, match", [("arith.jpg", "arithmetic"),
                                          ("anim.gif", "only JPEG and PNG"),
                                          ("bomb.jpg", "image too large"),
                                          ("bomb.png", "image too large")])
@@ -240,6 +245,20 @@ def test_unsupported_image_is_a_named_400(tier, images, ingest, name, match):
         fallbacks = gw._m_ingest["fallbacks"]
         if ingest:  # the server refused a JPEG or PNG (rejected); a GIF never left (format)
             assert fallbacks["format" if name.endswith(".gif") else "rejected"].value == 1
+    finally:
+        gw.shutdown()
+
+
+@pytest.mark.parametrize("ingest", [True, False], ids=["bytes-wire", "tensor-wire"])
+def test_progressive_jpeg_is_answered_on_both_wires(tier, images, ingest):
+    """The JAX package decodes with PIL, which opens progressive JPEG: the
+    port's gateway answers it with 200 and the logits of PIL's pixels."""
+    gw = _gateway(Gateway, tier.port, ingest=ingest)
+    try:
+        status, body, _ = _post(gw.port, {"url": images[0]("prog.jpg")})
+        assert status == 200, body
+        assert json.loads(body) == _want(images, "prog.jpg")
+        assert gw._m_ingest["bytes_requests"].value == (1 if ingest else 0)
     finally:
         gw.shutdown()
 

@@ -7,7 +7,9 @@
   greyscale, qualities 50/75/95, odd sizes down to 1x1, restart intervals,
   optimized Huffman tables; PNG in every 8-bit colour type and the sub-byte
   palette and greyscale depths.  What it does not decode raises a
-  ValueError naming what is unsupported;
+  ValueError naming what is unsupported (``tests/test_torch_ingest_formats.py``
+  covers progressive and 4-component JPEG, 4:4:0 and 4:1:1, 16-bit and
+  Adam7 PNG);
 - ``resize_uint8`` is byte-equal to the JAX package's (and PIL's), both
   filters, up and down;
 - the bytes wire's bodies are byte-equal to the JAX protocol's, and its
@@ -140,30 +142,26 @@ def test_png_palette_with_transparency_decodes_byte_equal_to_pil():
 # --- refusals -------------------------------------------------------------------
 
 
-def _progressive() -> bytes:
-    return _encode(Image.fromarray(_pixels(16, 16)), "JPEG", progressive=True)
-
-
-def _cmyk() -> bytes:
-    return _encode(Image.fromarray(_pixels(16, 16)).convert("CMYK"), "JPEG")
-
-
-def _png16() -> bytes:
-    return _encode(Image.fromarray(np.arange(25, dtype=np.uint16).reshape(5, 5) * 2000), "PNG")
-
-
-def _interlaced() -> bytes:
-    data = bytearray(_encode(Image.fromarray(_pixels(8, 8)), "PNG"))
-    data[28] = 1  # IHDR's interlace byte; fix the chunk's CRC so only the method is wrong
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+def _patched_sof(offset: int, value: int, *more: int) -> bytes:
+    """A baseline PIL JPEG with bytes of its SOF0 segment replaced from
+    ``offset`` on (1: the marker's kind; 4: the sample precision; 11, 14,
+    17: the components' sampling factors), every third byte from the
+    second value on (``more``)."""
+    data = bytearray(_encode(Image.fromarray(_pixels(16, 16)), "JPEG", subsampling=2))
+    at = data.index(b"\xff\xc0") + offset
+    for i, v in enumerate((value, *more)):
+        data[at + 3 * i] = v
     return bytes(data)
 
 
+# What PIL opens and the port still refuses, each a byte patch of a
+# baseline file (ROADMAP A13d).
 @pytest.mark.parametrize("make, match", [
-    (_progressive, "progressive"),
-    (_cmyk, "4 components"),
-    (_png16, "16-bit"),
-    (_interlaced, "interlac"),
+    (lambda: _patched_sof(1, 0xC9), "arithmetic"),
+    (lambda: _patched_sof(1, 0xC3), "lossless"),
+    (lambda: _patched_sof(4, 12), "12-bit"),
+    (lambda: _patched_sof(1, 0xC5), "hierarchical"),
+    (lambda: _patched_sof(11, 0x31, 0x21), "fractional sampling"),
     (lambda: _encode(Image.fromarray(_pixels(8, 8)), "GIF"), "only JPEG and PNG"),
     (lambda: _encode(Image.fromarray(_pixels(8, 8)), "JPEG")[:300], "truncated"),
     (lambda: _encode(Image.fromarray(_pixels(8, 8)), "PNG")[:-20], "truncated"),
@@ -313,8 +311,8 @@ def test_batch_decoder_names_the_failing_image_and_decodes_the_rest():
     try:
         out = dec.decode_batch([good, good], (8, 8), filter="nearest")
         assert out.shape == (2, 8, 8, 3)
-        with pytest.raises(ValueError, match="image 1: unsupported JPEG: progressive"):
-            dec.decode_batch([good, _progressive()], (8, 8))
+        with pytest.raises(ValueError, match="image 1: unsupported JPEG: arithmetic"):
+            dec.decode_batch([good, _patched_sof(1, 0xC9)], (8, 8))
     finally:
         dec.close()
 
