@@ -44,8 +44,9 @@ def exact_float32(device: torch.device) -> None:
 def create_model(spec: ModelSpec, dtype: torch.dtype = torch.float32):
     """The exact-graph module for a spec (dtype = compute dtype): families
     ``xception``, ``resnet50``, ``efficientnet-b0``..``-b7`` and the ViTs
-    of ``models.vit.VIT_CONFIGS``.  A ViT trains through ``forward(x, train=True)``; the BatchNorm families have
-    no train mode in the port yet."""
+    of ``models.vit.VIT_CONFIGS``.  Every family trains through
+    ``forward(x, train=True)``, flax's ``apply(..., train=True)``: the
+    BatchNorm families on batch statistics (``layers.BatchNorm``)."""
     if spec.family == "xception":
         from kubernetes_deep_learning_tpu_torch.models.xception import Xception
 

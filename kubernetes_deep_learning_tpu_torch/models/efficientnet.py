@@ -9,8 +9,11 @@ leaf (``weights.from_jax_variables``).  Every convolution is a
 ``ops.quantize`` hooks and replaces it) and pads TF "SAME", as flax
 ``nn.Conv`` does by default: the 3x3/2 stem pads (0, 1) on 300.
 Input is normalized float NHWC; the compute dtype is a constructor
-argument; parameters stay float32.  Stochastic depth and the head's dropout
-are inference-inert and omitted, as in the JAX package's eval path.
+argument; parameters stay float32.  ``forward(x, train=True)`` runs every
+BatchNorm on batch statistics (``layers.BatchNorm``).  Like the JAX
+package, it has no stochastic depth; the head carries the variant's
+dropout rate, which only a head with hidden layers reaches, and which
+fails in train mode in both packages (``layers.ClassifierHead``).
 """
 
 from __future__ import annotations
@@ -116,19 +119,20 @@ class MBConvBlock(nn.Module):
         self.project_conv = _conv(c_mid, features, 1)
         self.project_bn = BatchNorm(features)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         y = x
         if "expand_conv" in self._modules:
-            y = F.silu(self.expand_bn(self.expand_conv(y)))
-        y = F.silu(self.dw_bn(self.dwconv(y)))
+            y = F.silu(self.expand_bn(self.expand_conv(y), train=train))
+        y = F.silu(self.dw_bn(self.dwconv(y), train=train))
         y = self.se(y)
-        y = self.project_bn(self.project_conv(y))
+        y = self.project_bn(self.project_conv(y), train=train)
         return y + x if self.residual else y
 
 
 class EfficientNet(nn.Module):
     def __init__(self, num_classes: int, width: float = 1.0, depth: float = 1.0,
-                 head_hidden: tuple[int, ...] = (), dtype: torch.dtype = torch.float32):
+                 head_hidden: tuple[int, ...] = (), dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.width, self.depth = width, depth
@@ -142,15 +146,15 @@ class EfficientNet(nn.Module):
         top = round_filters(1280, width)
         self.top_conv = _conv(c, top, 1)
         self.top_bn = BatchNorm(top)
-        self.head = ClassifierHead(top, num_classes, head_hidden)
+        self.head = ClassifierHead(top, num_classes, head_hidden, dropout_rate)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = x.to(self.dtype)
-        x = F.silu(self.stem_bn(self.stem_conv(x)))
+        x = F.silu(self.stem_bn(self.stem_conv(x), train=train))
         for name, *_ in self.plan:
-            x = self._modules[name](x)
-        x = F.silu(self.top_bn(self.top_conv(x)))
-        return self.head(x)
+            x = self._modules[name](x, train=train)
+        x = F.silu(self.top_bn(self.top_conv(x), train=train))
+        return self.head(x, train=train)
 
 
 def build_efficientnet(variant: str, num_classes: int, dtype: torch.dtype = torch.float32,
@@ -158,5 +162,5 @@ def build_efficientnet(variant: str, num_classes: int, dtype: torch.dtype = torc
     """Any B0-B7 variant by name ("b0".."b7")."""
     if variant not in SCALING:
         raise KeyError(f"unknown EfficientNet variant {variant!r}; supported: {sorted(SCALING)}")
-    width, depth, _dropout = SCALING[variant]
-    return EfficientNet(num_classes, width, depth, head_hidden, dtype)
+    width, depth, dropout = SCALING[variant]
+    return EfficientNet(num_classes, width, depth, head_hidden, dtype, dropout)

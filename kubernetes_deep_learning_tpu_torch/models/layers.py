@@ -5,7 +5,8 @@ the NHWC tensor (a channels-last layout, which cuDNN takes as is).  Layers
 hold float32 parameters and compute in the dtype they are called with,
 as flax modules with ``dtype=`` do: operands are cast to the compute dtype,
 except BatchNorm, which flax evaluates in float32 (its float32 statistics
-promote the input) and casts back to the compute dtype.
+promote the input) and casts back to the compute dtype.  BatchNorm and the
+head take flax's ``train`` flag as a keyword.
 """
 
 from __future__ import annotations
@@ -113,9 +114,21 @@ class SeparableConv2D(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis (Keras's epsilon unless the
+    """flax ``BatchNorm`` over the last axis (Keras's epsilon unless the
     family gives its own), computed in float32 and returned in the input's
-    dtype (flax ``BatchNorm`` semantics)."""
+    dtype.
+
+    ``train=False`` normalises with the running statistics.  ``train=True``
+    normalises with the batch's own, as flax's ``use_running_average=False``:
+    the mean and the variance ``max(0, mean(x^2) - mean(x)^2)`` (flax's fast
+    variance) in float32 over every axis but the last, differentiated
+    through.  The running statistics then take ``MOMENTUM * old + (1 -
+    MOMENTUM) * batch`` with the batch's biased variance, in place and
+    outside autograd (flax's ``mutable=["batch_stats"]``).  Not
+    ``F.batch_norm(training=True)``: its running variance is the unbiased
+    one and its momentum is 1 - flax's."""
+
+    MOMENTUM = 0.99  # flax's, for the running statistics
 
     def __init__(self, c: int, eps: float = KERAS_BN_EPS):
         super().__init__()
@@ -125,9 +138,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(x.dtype)
+    def forward(self, x, train: bool = False):
+        mean, var = self.running_mean, self.running_var
+        if train:
+            xf = x.float()
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x.float() - mean) * mul + self.bias).to(x.dtype)
 
 
 def lowp_batchnorms(cast: dict, dtype: torch.dtype,
@@ -157,17 +180,30 @@ def lowp_bn(x, stats: tuple):
 
 
 class ClassifierHead(nn.Module):
-    """Global-average-pool head: hidden Dense+relu layers, then logits."""
+    """Global-average-pool head: hidden Dense+relu layers, then logits.
 
-    def __init__(self, c_in: int, num_classes: int, hidden: tuple[int, ...] = ()):
+    ``dropout_rate`` is the JAX head's: flax applies dropout after each
+    hidden layer only when ``train`` and the rate is above 0, and then needs
+    a ``"dropout"`` PRNG key, which the JAX package's train step never
+    passes (flax raises ``InvalidRngError``).  Such a train-mode call raises
+    a ``ValueError`` here instead of training without the dropout."""
+
+    def __init__(self, c_in: int, num_classes: int, hidden: tuple[int, ...] = (),
+                 dropout_rate: float = 0.0):
         super().__init__()
         widths = (c_in, *hidden)
         for i, width in enumerate(hidden):
             self.add_module(f"hidden_{i}", Dense(widths[i], width))
         self.logits = Dense(widths[-1], num_classes)
         self.n_hidden = len(hidden)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train and self.dropout_rate > 0 and self.n_hidden:
+            raise ValueError(
+                f"head: dropout {self.dropout_rate} after hidden_0 in train mode is not "
+                "trained: the JAX package's train step passes no 'dropout' PRNG key and "
+                "fails there (flax InvalidRngError: Dropout_0 needs PRNG for \"dropout\")")
         x = x.mean(dim=(1, 2))
         for i in range(self.n_hidden):
             x = torch.relu(self._modules[f"hidden_{i}"](x))

@@ -55,14 +55,16 @@ class BottleneckBlock(nn.Module):
         add("3_conv", _conv(features, 4 * features, 1))
         add("3_bn", BatchNorm(4 * features, eps=RESNET_BN_EPS))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         m = self._modules
-        shortcut = x
-        if self.project:
-            shortcut = m["0_bn"](m["0_conv"](x))
-        y = torch.relu(m["1_bn"](m["1_conv"](x)))
-        y = torch.relu(m["2_bn"](m["2_conv"](y)))
-        y = m["3_bn"](m["3_conv"](y))
+
+        def conv_bn(i, y):
+            return m[f"{i}_bn"](m[f"{i}_conv"](y), train=train)
+
+        shortcut = conv_bn(0, x) if self.project else x
+        y = torch.relu(conv_bn(1, x))
+        y = torch.relu(conv_bn(2, y))
+        y = conv_bn(3, y)
         return torch.relu(y + shortcut)
 
 
@@ -87,12 +89,14 @@ class ResNet50(nn.Module):
                 c = 4 * features
         self.head = ClassifierHead(c, num_classes, head_hidden)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """``train`` as flax's: BatchNorm on batch statistics, see
+        ``layers.BatchNorm``."""
         x = x.to(self.dtype)
         # Stem: the padded 7x7/2 conv, then a 3x3/2 max-pool padded by 1 with
         # -inf (flax ``nn.max_pool``).
-        x = torch.relu(self.conv1_bn(self.conv1_conv(x)))
+        x = torch.relu(self.conv1_bn(self.conv1_conv(x), train=train))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
         for name in self.blocks:
-            x = self._modules[name](x)
-        return self.head(x)
+            x = self._modules[name](x, train=train)
+        return self.head(x, train=train)

@@ -63,19 +63,25 @@ class Xception(nn.Module):
         sep("block14_sepconv2", 1536, 2048)
         self.head = ClassifierHead(2048, num_classes, head_hidden)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """``train`` as flax's: every BatchNorm on batch statistics (see
+        ``layers.BatchNorm``) and the head in train mode."""
         m = self._modules
+
+        def conv_bn(name, y, bn=None):
+            return m[bn or f"{name}_bn"](m[name](y), train=train)
+
         x = x.to(self.dtype)
         # --- Entry flow ---
-        x = torch.relu(m["block1_conv1_bn"](m["block1_conv1"](x)))
-        x = torch.relu(m["block1_conv2_bn"](m["block1_conv2"](x)))
+        x = torch.relu(conv_bn("block1_conv1", x))
+        x = torch.relu(conv_bn("block1_conv2", x))
         for idx, _feat in ENTRY_BLOCKS:
-            residual = m[f"block{idx}_res_bn"](m[f"block{idx}_res_conv"](x))
+            residual = conv_bn(f"block{idx}_res_conv", x, f"block{idx}_res_bn")
             if idx > 2:  # block2 has no leading activation (Keras quirk)
                 x = torch.relu(x)
-            x = m[f"block{idx}_sepconv1_bn"](m[f"block{idx}_sepconv1"](x))
+            x = conv_bn(f"block{idx}_sepconv1", x)
             x = torch.relu(x)
-            x = m[f"block{idx}_sepconv2_bn"](m[f"block{idx}_sepconv2"](x))
+            x = conv_bn(f"block{idx}_sepconv2", x)
             x = max_pool_same(x) + residual
 
         # --- Middle flow: 8 residual blocks of 3 separable convs ---
@@ -83,17 +89,17 @@ class Xception(nn.Module):
             residual = x
             for j in (1, 2, 3):
                 x = torch.relu(x)
-                x = m[f"block{idx}_sepconv{j}_bn"](m[f"block{idx}_sepconv{j}"](x))
+                x = conv_bn(f"block{idx}_sepconv{j}", x)
             x = x + residual
 
         # --- Exit flow ---
-        residual = m["block13_res_bn"](m["block13_res_conv"](x))
+        residual = conv_bn("block13_res_conv", x, "block13_res_bn")
         x = torch.relu(x)
-        x = m["block13_sepconv1_bn"](m["block13_sepconv1"](x))
+        x = conv_bn("block13_sepconv1", x)
         x = torch.relu(x)
-        x = m["block13_sepconv2_bn"](m["block13_sepconv2"](x))
+        x = conv_bn("block13_sepconv2", x)
         x = max_pool_same(x) + residual
 
-        x = torch.relu(m["block14_sepconv1_bn"](m["block14_sepconv1"](x)))
-        x = torch.relu(m["block14_sepconv2_bn"](m["block14_sepconv2"](x)))
-        return self.head(x)
+        x = torch.relu(conv_bn("block14_sepconv1", x))
+        x = torch.relu(conv_bn("block14_sepconv2", x))
+        return self.head(x, train=train)

@@ -1,10 +1,12 @@
 """Training for the port: ``fit`` on one device, checkpoint and resume,
-export of the trained parameters (the port of ``training/``).  Only the
-ViT families train; see ``trainer``."""
+export of the trained parameters, batches from an image folder (the port
+of ``training/``).  Every family trains: ViT, and the BatchNorm families
+on batch statistics; see ``trainer``."""
 
 from kubernetes_deep_learning_tpu_torch.training.checkpoint import Checkpointer
 from kubernetes_deep_learning_tpu_torch.training.data import (
     PrefetchIterator,
+    image_folder_batches,
     map_batches,
     synthetic_batches,
 )
@@ -26,6 +28,7 @@ __all__ = [
     "evaluate",
     "fit",
     "fit_and_export",
+    "image_folder_batches",
     "map_batches",
     "synthetic_batches",
 ]

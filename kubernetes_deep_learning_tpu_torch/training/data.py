@@ -1,5 +1,6 @@
-"""Input pipeline: background host-to-device prefetch for the training loop
-(the port of ``training/data.py``).
+"""Input pipeline: background host-to-device prefetch for the training loop,
+synthetic batches and an image-folder reader (the port of
+``training/data.py``).
 
 A daemon thread stages the next batches on the device while the current
 step runs.  On CUDA it copies from pinned host memory on a side stream of
@@ -12,6 +13,7 @@ so no host buffer is overwritten while a copy from it is in flight.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Any, Callable, Iterable, Iterator
@@ -21,6 +23,7 @@ import torch
 
 from kubernetes_deep_learning_tpu_torch.models import resolve_device
 from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+from kubernetes_deep_learning_tpu_torch.ops.preprocess import preprocess_bytes
 
 
 DEPTH = 2  # batches staged ahead of the consumer
@@ -133,3 +136,82 @@ def map_batches(source: Iterable, fn: Callable[[Any], Any]) -> Iterator[Any]:
     """Lazy per-batch transform (augmentation hook) on the host side."""
     for batch in source:
         yield fn(batch)
+
+
+# The JAX reader's extension set: the scan (and so each epoch's order) is
+# the same; files outside JPEG and PNG are refused when they are read.
+IMAGE_EXTS = frozenset({".jpg", ".jpeg", ".png", ".bmp", ".gif", ".webp"})
+
+
+def _read_image(path: str, size: tuple[int, int], resize_filter: str) -> np.ndarray:
+    """The gateway's host pipeline (decode, then resize with the spec's
+    filter) on one file; a file it cannot decode raises naming the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return preprocess_bytes(data, size, filter=resize_filter)
+    except ValueError as e:
+        ext = os.path.splitext(path)[1].lower()
+        raise ValueError(f"cannot read {path!r} ({ext} file): {e}") from e
+
+
+def image_folder_batches(
+    root: str,
+    spec: ModelSpec,
+    batch: int,
+    epochs: int | None = None,
+    seed: int = 0,
+    drop_remainder: bool = True,
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """(uint8 images, int32 labels) batches from a ``<root>/<label>/<file>``
+    tree (one directory per class, as the clothing dataset is laid out).
+
+    As the JAX reader: labels map through ``spec.labels`` (any other
+    directory raises ``ValueError``), an empty tree raises
+    ``FileNotFoundError``, fewer images than ``batch`` with
+    ``drop_remainder`` raises ``ValueError``; each epoch is
+    ``default_rng(seed)``'s next permutation; ``epochs=None`` repeats
+    forever.  Images are decoded and resized on the host as the gateway
+    does (``ops.preprocess.preprocess_bytes``, pixel-equal to PIL for JPEG
+    and PNG); a BMP, GIF or WebP file, which the JAX reader opens with
+    PIL, raises a ``ValueError`` naming it.
+    """
+    label_to_index = {label: i for i, label in enumerate(spec.labels)}
+    samples: list[tuple[str, int]] = []
+    for entry in sorted(os.listdir(root)):
+        class_dir = os.path.join(root, entry)
+        if not os.path.isdir(class_dir):
+            continue
+        if entry not in label_to_index:
+            raise ValueError(f"directory {entry!r} is not a spec label; expected one of "
+                             f"{list(spec.labels)}")
+        for fname in sorted(os.listdir(class_dir)):
+            path = os.path.join(class_dir, fname)
+            # Filtered at scan time: a stray README or subdirectory must not
+            # stop an epoch half way.
+            if os.path.splitext(fname)[1].lower() in IMAGE_EXTS and os.path.isfile(path):
+                samples.append((path, label_to_index[entry]))
+    if not samples:
+        raise FileNotFoundError(f"no class directories with images under {root!r}")
+    if drop_remainder and len(samples) < batch:
+        # Every epoch would yield nothing, and with epochs=None the
+        # generator would spin forever inside fit()'s next().
+        raise ValueError(f"drop_remainder=True but only {len(samples)} sample(s) under "
+                         f"{root!r} < batch={batch}: every epoch would yield zero batches")
+
+    rng = np.random.default_rng(seed)
+    size = spec.input_shape[:2]
+    epoch = 0
+    while epochs is None or epoch < epochs:
+        order = rng.permutation(len(samples))
+        for start in range(0, len(order), batch):
+            idx = order[start:start + batch]
+            if drop_remainder and len(idx) < batch:
+                break
+            images = np.empty((len(idx), *spec.input_shape), np.uint8)
+            labels = np.empty(len(idx), np.int32)
+            for row, i in enumerate(idx):
+                path, labels[row] = samples[i]
+                images[row] = _read_image(path, size, spec.resize_filter)
+            yield images, labels
+        epoch += 1

@@ -13,10 +13,13 @@ Optimizers: ``tx`` is a factory ``params -> torch.optim.Optimizer``.
 and ``functools.partial(torch.optim.Adam, lr=..., eps=1e-8)`` for
 ``optax.adam``: their update rules are the same.
 
-Only the ViT family trains.  The BatchNorm families (Xception, ResNet,
-EfficientNet) need the batch-statistics update of flax's
-``mutable=["batch_stats"]`` and raise ``NotImplementedError``.  There is
-no mesh: one device.
+Every family trains.  The BatchNorm families (Xception, ResNet50,
+EfficientNet) normalise on batch statistics in train mode and update the
+state's running statistics in place, outside autograd, as flax's
+``mutable=["batch_stats"]`` returns them (``models.layers.BatchNorm``).  A
+head with dropout (an EfficientNet spec with ``head_hidden``) raises a
+``ValueError``: the JAX package's step passes no dropout key and fails
+there.  There is no mesh: one device.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ Optimizer = Callable[[Any], torch.optim.Optimizer]
 class TrainState:
     """``step`` (optimizer steps taken), ``params`` (port key -> f32 leaf
     tensor with ``requires_grad``, updated in place), ``batch_stats``
-    (empty for ViT) and ``optimizer``, which holds the optimizer state."""
+    (port key -> f32 running mean or variance, updated in place by each
+    train step; empty for ViT) and ``optimizer``, which holds the optimizer
+    state."""
 
     step: int
     params: dict[str, torch.Tensor]
@@ -60,21 +65,11 @@ class TrainState:
         return to_jax_variables({**self.params, **self.batch_stats})
 
 
-def _check_trainable(spec: ModelSpec) -> None:
-    from kubernetes_deep_learning_tpu_torch.models.vit import VIT_CONFIGS
-
-    if spec.family not in VIT_CONFIGS:
-        raise NotImplementedError(
-            f"train mode of the {spec.family!r} family is not ported yet: its BatchNorm "
-            "needs the batch-statistics update (only ViT families train in the port)")
-
-
 def create_train_state(spec: ModelSpec, tx: Optimizer, seed: int = 0,
                        variables: dict | None = None,
                        device: str | torch.device = "cuda") -> TrainState:
     """Adopt ``variables`` (a flax tree; ``models.init_variables(spec,
     seed)`` when None) on ``device`` and build the optimizer over them."""
-    _check_trainable(spec)
     device = resolve_device(device)
     exact_float32(device)
     if variables is None:
@@ -99,23 +94,33 @@ def build_train_step(spec: ModelSpec, dtype: torch.dtype | None = None) -> Calla
     Images are raw uint8 batches, normalised on the device; the loss is the
     mean cross-entropy of the f32 logits (optax's
     ``softmax_cross_entropy_with_integer_labels(...).mean()``).  ``dtype``
-    is the compute dtype (None: float32).  ``metrics`` holds device
-    tensors (``loss``, ``accuracy``); reading them waits for the device.
+    is the compute dtype (None: float32); parameters and BatchNorm
+    statistics stay float32 (the statistics are computed in float32 from
+    the bf16 activations, as flax's).  The step updates ``state.params``
+    and ``state.batch_stats`` in place.  ``metrics`` holds device tensors
+    (``loss``, ``accuracy``); reading them waits for the device.
     """
-    _check_trainable(spec)
     model = _architecture(spec, dtype)
 
     def train_step(state: TrainState, images, labels):
         device = state.device
         x = normalize(torch.as_tensor(images, device=device), spec.preprocessing)
         y = torch.as_tensor(labels, device=device).long()
+        # The BatchNorms update copies of the running statistics, taken
+        # into the state only once the whole step has run: a step that
+        # raises (the dropout refusal, an error in the backward) leaves the
+        # state as it was.
+        stats = {k: t.clone() for k, t in state.batch_stats.items()}
         logits = torch.func.functional_call(
-            model, {**state.params, **state.batch_stats}, (x,), {"train": True})
+            model, {**state.params, **stats}, (x,), {"train": True})
         logits = logits.float()
         loss = F.cross_entropy(logits, y)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
+        with torch.no_grad():
+            for k, t in stats.items():
+                state.batch_stats[k].copy_(t)
         state.step += 1
         acc = (logits.detach().argmax(-1) == y).float().mean()
         return state, {"loss": loss.detach(), "accuracy": acc}

@@ -1675,3 +1675,54 @@ def test_cuda_engine_close_gives_the_staged_graphs_memory_back():
     assert engine.graph_memory_bytes() == 0 and not engine._staged_graphs
     with pytest.raises(EngineClosed):
         engine.predict_ingest_async(imgs)
+
+
+@pytest.mark.cuda
+def test_cuda_xception_train_step_matches_the_cpu_step():
+    """One f32 Xception train step (the clothing model's family at full
+    width, a hidden head layer, 32 px, batch 16, SGD) on the card with TF32
+    off (``create_train_state`` calls ``models.exact_float32``) against the
+    same step on the CPU: the loss within 1e-5, every new running statistic
+    within 1e-4 of its update, and each tensor's SGD update within 1e-3 of
+    its largest element plus 2e-2 of the largest update in the model.
+    These are ``tests/test_torch_training_bn_xception.py``'s tolerances
+    against float64, the floor doubled: both sides here carry float32
+    error (cuDNN and the CPU sum in other orders).  The images differ as
+    photographs do, as in that file."""
+    _need_cuda()
+    import functools
+
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.training import build_train_step, create_train_state
+
+    spec = ModelSpec(name="cuda-train-xception", family="xception", input_shape=(32, 32, 3),
+                     labels=("a", "b", "c"), preprocessing="tf", head_hidden=(8,))
+    tree = init_variables(spec, seed=3)
+    rng = np.random.default_rng(1)
+    yy, xx = np.meshgrid(np.linspace(-1, 1, 32), np.linspace(-1, 1, 32), indexing="ij")
+    tilt = rng.uniform(-60, 60, (16, 2, 1, 1, 3))
+    images = (rng.uniform(40, 215, (16, 1, 1, 3)) + tilt[:, 0] * yy[..., None]
+              + tilt[:, 1] * xx[..., None] + rng.normal(0, 20, (16, 32, 32, 3)))
+    images = np.clip(np.rint(images), 0, 255).astype(np.uint8)
+    labels = rng.integers(0, 3, (16,), np.int32)
+    tx = functools.partial(torch.optim.SGD, lr=0.5)
+    out = {}
+    for device in ("cpu", "cuda"):
+        state = create_train_state(spec, tx, variables=tree, device=device)
+        old = {k: t.detach().cpu().clone() for k, t in {**state.params,
+                                                         **state.batch_stats}.items()}
+        state, m = build_train_step(spec)(state, images, labels)
+        new = {k: t.detach().cpu() for k, t in {**state.params, **state.batch_stats}.items()}
+        out[device] = (float(m["loss"]), new)
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    (want_loss, want), (got_loss, got) = out["cpu"], out["cuda"]
+    assert abs(got_loss - want_loss) <= 1e-5 * want_loss
+    top = max(float((want[k] - old[k]).abs().max()) for k in want if "running" not in k)
+    for k in want:
+        step = float((want[k] - old[k]).abs().max())
+        err = float((got[k] - want[k]).abs().max())
+        if k.endswith(("running_mean", "running_var")):
+            assert err <= 1e-4 * step, (k, err)
+        else:
+            assert err <= 1e-3 * step + 2e-2 * top, (k, err)

@@ -56,7 +56,7 @@ from kubernetes_deep_learning_tpu.training import loop as jax_loop
 from kubernetes_deep_learning_tpu.training import trainer as jax_trainer
 from kubernetes_deep_learning_tpu_torch.export import artifact as art
 from kubernetes_deep_learning_tpu_torch.export.exporter import export_model
-from kubernetes_deep_learning_tpu_torch.modelspec import CLOTHING_MODEL, ModelSpec
+from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
 from kubernetes_deep_learning_tpu_torch.models import build_forward, create_model
 from kubernetes_deep_learning_tpu_torch.ops import attention
 from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
@@ -375,9 +375,3 @@ def test_fit_and_export_serves_in_both_packages(tiny16, tmp_path):
         exact = engine.predict(x)
     assert _rel(exact, jax_engine.predict(images)) < 1e-4
 
-
-def test_bn_families_do_not_train_yet():
-    with pytest.raises(NotImplementedError, match="'xception'"):
-        build_train_step(CLOTHING_MODEL)
-    with pytest.raises(NotImplementedError, match="'xception'"):
-        create_train_state(CLOTHING_MODEL, _sgd(0.1), device="cpu")
