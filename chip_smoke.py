@@ -314,7 +314,32 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    timing and profile lines, and the export served once (ResNet50 with no
    hand kernel, within 2e-2; B3 on 18 K4 launches a forward, within
    5e-2).  One ``train-bn`` JSON line;
-25. with ``--profile``: the host time by op of a few bucket-16
+25. export: the reference's lifecycle at full width, each step through
+   its console script's module as a process of its own (``python -m``):
+   ``clothing-model`` seeded and written as a Keras-layout ``.h5``
+   (``model_weights/xception/<layer>/<layer>/<w>:0``, about 84 MB) by
+   ``_write_h5``, the superblock-0 subset h5py writes, with no h5py;
+   imported by ``h5lite`` bit-equal to the written variables;
+   ``kdlt-torch-export --weights --calibrate 8`` (v1 bf16, v2 w8a8
+   calibrated on the card at percentile 100); ``kdlt-torch-inspect
+   --root``; ``kdlt-torch-warm`` into an empty build directory (every
+   native library built, v2's bucket graphs captured); a
+   ``kdlt-torch-model-server`` booted against that directory (v1 alone
+   under its root) behind a ``kdlt-torch-gateway``; ``kdlt-torch-client``
+   on a committed JPEG fixture over a local http.server, its printed
+   scores bit-equal to the tensor wire's for the same pixels, 8 K1 + 2 K2
+   a forward (``kdlt_kernel_launches`` on the server's /metrics); v2
+   linked into the root, swapped in by the watcher, the client again
+   (``--cache-bust``): 39 Q1 + 29 Q2 a forward, no K1/K2; the server built
+   no library (``kdlt_native_builds`` 0 and its boot line);
+   ``kdlt-torch-verify-golden`` exits 1 (seeded weights are not the
+   golden ones) with scores within 1e-3 of the exact f32 forward; then,
+   in this process, its two engine checks both pass on the same model
+   with the pants bias raised to lead by 8, against that model's exact
+   f32 scores as the golden dict: the served one (bf16, ``fast="auto"``)
+   within its 0.2 on 8 K1 + 2 K2 a forward.  One ``export`` JSON line
+   with each step's seconds;
+26. with ``--profile``: the host time by op of a few bucket-16
    ``predict_async`` dispatches of the batching phase's engine
    (``batching-host``); a ``torch.profiler`` trace of a few bucket-16
    forwards of each served model (and of B3's ``fast=False`` engine, and
@@ -322,7 +347,8 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    bf16 training steps, printed as device time by kernel and the device's
    busy share.
 
-The last two lines are a JSON ``kernels`` record and the device record.
+Before them, a ``smoke`` line gives the script's own wall time.  The last
+two lines are a JSON ``kernels`` record and the device record.
 """
 
 from __future__ import annotations
@@ -4655,6 +4681,482 @@ def _quant_family_phase(spec, seed: int, iters: int, smi: str, gen,
     return out
 
 
+# --- the lifecycle from a Keras .h5 to the client's reply (ROADMAP A14, A6h2) ---
+
+EXPORT_CALIBRATE = 8          # noise images kdlt-torch-export --calibrate runs (percentile 100)
+EXPORT_BUCKETS = "1,4,16"
+EXPORT_FIXTURE = "q95_420_299x299.jpg"  # the client's image and verify-golden's
+EXPORT_GOLDEN_TOL = 1e-3      # verify-golden's printed scores (3 decimals) vs exact f32
+EXPORT_SWAP_S = 180.0         # the watcher's load and warmup of the w8a8 version
+EXPORT_GOLDEN_LEAD = 8.0      # the raised pants logit's lead (the reference's golden: 6.7)
+H5_LEAF_K, H5_INTERNAL_K = 4, 16  # a superblock-0 file's group node K values (HDF5's)
+_H5_UNDEF = (1 << 64) - 1
+
+
+def _write_h5(path: str, tree: dict) -> int:
+    """Write ``tree`` (nested dicts are groups, float arrays datasets) as the
+    HDF5 subset ``h5py.File(path, "w")`` writes, without ``h5py``:
+    superblock 0, 8-byte offsets and lengths, symbol-table groups (a local
+    heap, one B-tree leaf node, a symbol-table node for every 8 links),
+    version-1 object headers, contiguous little-endian datasets.  A group
+    holds at most 256 links (one B-tree leaf).  Returns the file's size."""
+    import struct
+
+    def u(fmt: str, v: int) -> bytes:
+        return struct.pack("<" + fmt, v)
+
+    snod_size = 8 + 2 * H5_LEAF_K * 40
+    tree_size = 8 + 16 + (2 * H5_INTERNAL_K + 1) * 8 + 2 * H5_INTERNAL_K * 8
+    out = bytearray(96)  # the superblock, written last
+
+    def pad8(b: bytes) -> bytes:
+        return b + bytes(-len(b) % 8)
+
+    def message(kind: int, body: bytes) -> bytes:
+        body = pad8(body)
+        return u("H", kind) + u("H", len(body)) + bytes(4) + body
+
+    def header(messages: list[bytes]) -> bytes:
+        data = b"".join(messages)
+        return (u("B", 1) + bytes(1) + u("H", len(messages)) + u("I", 1) + u("I", len(data))
+                + bytes(4) + data)
+
+    def alloc(n: int) -> int:
+        pos = len(out)
+        out.extend(bytes(n + (-n % 8)))
+        return pos
+
+    def put(pos: int, b: bytes) -> None:
+        out[pos:pos + len(b)] = b
+
+    def dataset(arr: np.ndarray) -> int:
+        arr = np.ascontiguousarray(arr, np.dtype(arr.dtype).newbyteorder("<"))
+        size = arr.dtype.itemsize
+        if arr.dtype.kind != "f" or size not in (2, 4, 8):
+            raise ValueError(f"no writer for {arr.dtype}")
+        exp_loc, exp_size, mant, bias = {2: (10, 5, 10, 15), 4: (23, 8, 23, 127),
+                                         8: (52, 11, 52, 1023)}[size]
+        dtype = (u("B", 0x11) + u("B", 0x20) + u("B", 8 * size - 1) + bytes(1) + u("I", size)
+                 + u("H", 0) + u("H", 8 * size) + u("B", exp_loc) + u("B", exp_size) + bytes(1)
+                 + u("B", mant) + u("I", bias))
+        space = u("B", 1) + u("B", arr.ndim) + bytes(6) + b"".join(u("Q", d) for d in arr.shape)
+        msgs = [message(0x0001, space), message(0x0003, dtype), message(0x0008, bytes(18))]
+        head = alloc(len(header(msgs)))
+        data = alloc(arr.nbytes) if arr.nbytes else _H5_UNDEF
+        msgs[2] = message(0x0008, u("B", 3) + u("B", 1) + u("Q", data) + u("Q", arr.nbytes))
+        put(head, header(msgs))
+        if arr.nbytes:
+            put(data, arr.tobytes())
+        return head
+
+    def group(members: dict) -> tuple[int, int, int]:
+        names = sorted(members, key=str.encode)
+        if len(names) > 4 * H5_INTERNAL_K * H5_LEAF_K:
+            raise ValueError(f"a group of {len(names)} links needs a deeper B-tree")
+        heap_data, offsets = bytearray(8), []  # offset 0: the empty name
+        for n in names:
+            offsets.append(len(heap_data))
+            heap_data += pad8(n.encode() + b"\x00")
+        stab = [message(0x0011, bytes(16))]
+        head, heap, heap_seg, btree = (alloc(len(header(stab))), alloc(32), alloc(len(heap_data)),
+                                       alloc(tree_size))
+        nodes = [range(i, min(i + 2 * H5_LEAF_K, len(names)))
+                 for i in range(0, len(names), 2 * H5_LEAF_K)]
+        snods = [alloc(snod_size) for _ in nodes]
+        put(head, header([message(0x0011, u("Q", btree) + u("Q", heap))]))
+        # The free list's head 1 is HDF5's "no free block".
+        put(heap, b"HEAP" + bytes(4) + u("Q", len(heap_data)) + u("Q", 1) + u("Q", heap_seg))
+        put(heap_seg, bytes(heap_data))
+        # Key i+1 of the B-tree node: the heap offset of node i's last name.
+        put(btree, b"TREE" + bytes(2) + u("H", len(nodes)) + u("Q", _H5_UNDEF) + u("Q", _H5_UNDEF)
+            + u("Q", 0) + b"".join(u("Q", s) + u("Q", offsets[r[-1]]) for s, r in zip(snods, nodes)))
+        for snod, members_of in zip(snods, nodes):
+            entries = b""
+            for i in members_of:
+                child = members[names[i]]
+                if isinstance(child, dict):  # cache type 1: the child's B-tree and heap
+                    addr, c_btree, c_heap = group(child)
+                    entries += (u("Q", offsets[i]) + u("Q", addr) + u("I", 1) + bytes(4)
+                                + u("Q", c_btree) + u("Q", c_heap))
+                else:
+                    entries += u("Q", offsets[i]) + u("Q", dataset(child)) + bytes(24)
+            put(snod, b"SNOD" + u("B", 1) + bytes(1) + u("H", len(members_of)) + entries)
+        return head, btree, heap
+
+    root, btree, heap = group(tree)
+    size = len(out)
+    put(0, b"\x89HDF\r\n\x1a\n" + bytes(5) + u("B", 8) + u("B", 8) + bytes(1) + u("H", H5_LEAF_K)
+        + u("H", H5_INTERNAL_K) + bytes(4) + u("Q", 0) + u("Q", _H5_UNDEF) + u("Q", size)
+        + u("Q", _H5_UNDEF) + u("Q", 0) + u("Q", root) + u("I", 1) + bytes(4) + u("Q", btree)
+        + u("Q", heap))
+    with open(path, "wb") as f:
+        f.write(out)
+    return size
+
+
+def _keras_tree(variables: dict) -> dict:
+    """Xception's flax tree in the reference .h5's layout:
+    ``model_weights/xception/<layer>/<layer>/<weight>:0``, with the layers
+    Keras auto-names -- the four residual convs (``conv2d`` ..
+    ``conv2d_3``), their BatchNorms and the head's Dense layers
+    (``dense_5`` ..., beside the base model) -- named as Keras names them."""
+    params, stats = variables["params"], variables["batch_stats"]
+    residual = {"block2_res": 0, "block3_res": 1, "block4_res": 2, "block13_res": 3}
+
+    def keras(base: str, n: int) -> str:
+        return base if n == 0 else f"{base}_{n}"
+
+    def bn(name: str, p: dict) -> dict:
+        return {"gamma:0": p["scale"], "beta:0": p["bias"], "moving_mean:0": stats[name]["mean"],
+                "moving_variance:0": stats[name]["var"]}
+
+    base: dict = {}
+    for name, p in params.items():
+        if name == "head":
+            continue
+        if name.endswith("_res_conv"):
+            layer, weights = keras("conv2d", residual[name[:-5]]), {"kernel:0": p["kernel"]}
+        elif name.endswith("_res_bn"):
+            layer, weights = keras("batch_normalization", residual[name[:-3]]), bn(name, p)
+        elif name.endswith("_bn"):
+            layer, weights = name, bn(name, p)
+        elif "sepconv" in name:
+            layer, weights = name, {
+                "depthwise_kernel:0": np.transpose(p["depthwise"]["kernel"], (0, 1, 3, 2)),
+                "pointwise_kernel:0": p["pointwise"]["kernel"]}
+        else:
+            layer, weights = name, {"kernel:0": p["kernel"]}
+        base[layer] = {layer: weights}
+    tree = {"xception": base}
+    head = params["head"]
+    hidden = sorted(k for k in head if k.startswith("hidden_"))
+    for i, k in enumerate([*hidden, "logits"]):
+        tree[f"dense_{5 + i}"] = {f"dense_{5 + i}": {"kernel:0": head[k]["kernel"],
+                                                     "bias:0": head[k]["bias"]}}
+    return {"model_weights": tree}
+
+
+def _pants_leads(spec, variables: dict, exact, lead: float) -> dict:
+    """A copy of ``variables`` with the head's pants bias raised so that,
+    on the image whose exact logits are ``exact``, pants leads every other
+    label by ``lead``: a seeded model whose golden check can pass."""
+    i = list(spec.labels).index("pants")
+    others = max(float(v) for j, v in enumerate(exact) if j != i)
+
+    def copy(t):
+        return {k: copy(v) for k, v in t.items()} if isinstance(t, dict) else np.array(t)
+
+    out = copy(variables)
+    out["params"]["head"]["logits"]["bias"][i] += np.float32(others + lead - float(exact[i]))
+    return out
+
+
+def _golden_both_checks(h5: str, image: str, want: dict, device: str) -> tuple[int, str]:
+    """``kdlt-torch-verify-golden --weights h5 --image image`` in this
+    process against ``want`` as its golden dict: the exit code and what it
+    printed."""
+    import contextlib
+    import io
+
+    from kubernetes_deep_learning_tpu_torch import golden
+
+    saved, golden.GOLDEN_LOGITS = golden.GOLDEN_LOGITS, want
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            code = golden.main(["--weights", h5, "--image", image, "--device", device])
+    finally:
+        golden.GOLDEN_LOGITS = saved
+    return code, printed.getvalue()
+
+
+def _flat_leaves(tree: dict, path: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat_leaves(v, (*path, k)) if isinstance(v, dict) else {(*path, k): v})
+    return out
+
+
+def _cli_start(module: str, args: list) -> tuple[subprocess.Popen, float]:
+    """Start ``python -m kubernetes_deep_learning_tpu_torch.<module>`` (a
+    console script's module) from the checkout."""
+    return subprocess.Popen(
+        [sys.executable, "-m", f"kubernetes_deep_learning_tpu_torch.{module}", *map(str, args)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))), time.perf_counter()
+
+
+def _cli_finish(started: tuple[subprocess.Popen, float], *, timeout: float,
+                expect: int = 0) -> tuple[str, float]:
+    """(stdout, seconds) of a ``_cli_start``-ed process; any other exit code
+    than ``expect`` fails the run."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    if proc.returncode != expect:
+        _fail(f"export: {' '.join(proc.args[2:4])} exited {proc.returncode}, not {expect}:\n"
+              f"{out[-2000:]}\n{err[-4000:]}")
+    return out, time.perf_counter() - t0
+
+
+def _cli(module: str, args: list, *, timeout: float, expect: int = 0) -> tuple[str, float]:
+    return _cli_finish(_cli_start(module, args), timeout=timeout, expect=expect)
+
+
+def _native_metrics(port: int) -> tuple[float, dict[str, float]]:
+    """A port server's ``kdlt_native_builds`` and ``kdlt_kernel_launches``
+    by kernel, off its /metrics."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    builds = re.search(r"^kdlt_native_builds (\S+)$", text, re.M)
+    launches = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^kdlt_kernel_launches\{kernel="(\w+)"\} (\S+)$', text, re.M)}
+    return (float(builds.group(1)) if builds else float("nan")), launches
+
+
+def _wait_ready(port: int, what: str, log_path: str, timeout: float) -> float:
+    t0 = time.perf_counter()
+    while True:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=5) as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+            with open(log_path) as fh:
+                _fail(f"export: the {what} is not ready after {timeout} s: {fh.read()[-3000:]}")
+        time.sleep(0.1)
+
+
+def _export_phase(spec, seed: int, smi: str, *, per_forward: dict) -> dict:
+    """The reference's lifecycle, end to end, each step through its console
+    script's module (ROADMAP A14, A6h2): ``spec`` (clothing-model, full
+    width) seeded from ``seed`` and written as a Keras-layout .h5 by
+    ``_write_h5`` (no h5py here), imported by ``h5lite`` bit-equal;
+    ``kdlt-torch-export --weights --calibrate 8`` (v1 bf16, v2 w8a8);
+    ``kdlt-torch-inspect --root``; ``kdlt-torch-warm`` into a fresh build
+    directory; ``kdlt-torch-model-server`` booted against it (v1 alone under
+    a root of its own, v2 linked in later for the watcher to swap to) and
+    ``kdlt-torch-gateway`` in front; ``kdlt-torch-client`` on a committed
+    JPEG over a local http.server, its scores bit-equal to the tensor wire's
+    for the same pixels, with 8 K1 + 2 K2 launches a forward on v1 and 39 Q1
+    + 29 Q2 (no K1/K2) on v2, read off the server's ``kdlt_kernel_launches``;
+    the server compiled nothing (``kdlt_native_builds`` 0 and its boot
+    line); ``kdlt-torch-verify-golden`` exits 1 (seeded weights are not the
+    golden ones) with scores within 1e-3 of the exact f32 forward."""
+    from kubernetes_deep_learning_tpu_torch.models import build_forward, init_variables
+    from kubernetes_deep_learning_tpu_torch.models.keras_import import load_keras_h5
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+    from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables
+
+    name, labels = spec.name, list(spec.labels)
+    out: dict = {"model": name, "card": smi}
+    secs: dict = {}
+    procs: list = []
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            # --- the .h5: written and read back without h5py ---
+            variables = init_variables(spec, seed=seed)
+            h5 = os.path.join(root, f"{name}.h5")
+            t0 = time.perf_counter()
+            out["h5_bytes"] = _write_h5(h5, _keras_tree(variables))
+            secs["write_h5"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            imported = load_keras_h5(spec, h5)
+            secs["import"] = time.perf_counter() - t0
+            want, got = _flat_leaves(variables), _flat_leaves(imported)
+            unequal = sorted(set(want) ^ set(got)) + [
+                k for k in want.keys() & got.keys()
+                if got[k].dtype != np.float32 or got[k].shape != want[k].shape
+                or got[k].tobytes() != np.ascontiguousarray(want[k]).tobytes()]
+            if unequal:
+                _fail(f"export: the .h5 imports other leaves than were written: {unequal[:5]}")
+            out["import"] = {"leaves": len(got), "bit_equal": True}
+            # --- kdlt-torch-export: v1 (bf16 compute), v2 (w8a8, calibrated on the card) ---
+            models = os.path.join(root, "models")
+            text, secs["export_cli"] = _cli(
+                "export.exporter", ["--model", name, "--weights", h5, "--output", models,
+                                    "--calibrate", EXPORT_CALIBRATE, "--calibrate-percentile",
+                                    100, "--device", "cuda"], timeout=600)
+            for step, pattern in (("export", r"^exported .* in (\S+) s$"),
+                                  ("calibrate", r"^calibrated .* in (\S+) s$")):
+                found = re.search(pattern, text, re.M)
+                if not found:
+                    _fail(f"export: no {step} line in kdlt-torch-export's output: {text[-1000:]}")
+                secs[step] = float(found.group(1))
+            meta = {}
+            for v in (1, 2):
+                with open(os.path.join(models, name, str(v), "metadata.json")) as fh:
+                    meta[v] = json.load(fh)
+            if (meta[1].get("compute_dtype"), meta[1].get("init"), meta[2].get("quantization")) \
+                    != ("bfloat16", "keras-h5", "int8-w8a8"):
+                _fail(f"export: unexpected metadata {meta}")
+            # --- kdlt-torch-inspect ---
+            text, secs["inspect"] = _cli("export.inspect", ["--root", models], timeout=300)
+            for need in (f"Artifact: {os.path.join(models, name, '1')}",
+                         f"Artifact: {os.path.join(models, name, '2')}",
+                         "meta.quantization: int8-w8a8", "params-only"):
+                if need not in text:
+                    _fail(f"export: kdlt-torch-inspect printed no {need!r}: {text[-2000:]}")
+            # --- kdlt-torch-warm: the libraries into a fresh directory, v2 warmed ---
+            build = os.path.join(root, "build")
+            text, secs["warm"] = _cli("export.warm", ["--models", models, "--build-dir", build,
+                                                      "--buckets", EXPORT_BUCKETS, "--json"],
+                                      timeout=900)
+            report = json.loads(text[text.index("{"):])
+            model = report["models"].get(name, {})
+            if (model.get("version") != 2 or "error" in model or report["failed_libraries"]
+                    or not all(r.get("built") for r in report["libraries"].values())):
+                _fail(f"export: kdlt-torch-warm: {report}")
+            out["warm"] = {"libraries_s": {k: r["seconds"] for k, r in report["libraries"].items()},
+                           "model_s": model["seconds"], "built": report["built"]}
+            # --- the image host, the server (v1 alone) and the gateway ---
+            img_dir = os.path.join(root, "images")
+            os.makedirs(img_dir)
+            with open(os.path.join(GW_FIXTURES, EXPORT_FIXTURE), "rb") as fh:
+                jpeg = fh.read()
+            with open(os.path.join(img_dir, EXPORT_FIXTURE), "wb") as fh:
+                fh.write(jpeg)
+            img_port, port, gw_port = _free_port(), _free_port(), _free_port()
+            procs.append(subprocess.Popen([sys.executable, "-c", GW_IMAGE_SERVER, str(img_port),
+                                           img_dir], stdout=subprocess.DEVNULL,
+                                          stderr=subprocess.DEVNULL))
+            serve = os.path.join(root, "serve")
+            os.makedirs(os.path.join(serve, name))
+            os.symlink(os.path.join(models, name, "1"), os.path.join(serve, name, "1"))
+            logs = {k: os.path.join(root, f"{k}.log") for k in ("server", "gateway")}
+            here = os.path.dirname(os.path.abspath(__file__))
+            # verify-golden runs beside the server's boot (its own engines,
+            # on the default build directory): exit 1, read at the end.
+            fixture = os.path.join(img_dir, EXPORT_FIXTURE)
+            golden_run = _cli_start("golden", ["--weights", h5, "--image", fixture,
+                                               "--device", "cuda"])
+            procs.append(golden_run[0])
+            t0 = time.perf_counter()
+            with open(logs["server"], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.model_server",
+                     "--model-root", serve, "--port", str(port), "--buckets", EXPORT_BUCKETS,
+                     "--device", "cuda", "--watch-interval", "0.5", "--no-request-log"],
+                    env={**os.environ, "KDLT_TORCH_BUILD_DIR": build}, stdout=log,
+                    stderr=subprocess.STDOUT, cwd=here))
+            with open(logs["gateway"], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "kubernetes_deep_learning_tpu_torch.serving.gateway",
+                     "--serving-host", f"127.0.0.1:{port}", "--model", name, "--port",
+                     str(gw_port), "--no-request-log"],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=here))
+            secs["boot"] = _wait_ready(port, "model server", logs["server"], 300)
+            _wait_ready(gw_port, "gateway", logs["gateway"], 120)
+            pixels = preprocess.preprocess_bytes(jpeg, spec.input_shape[:2],
+                                                 filter=spec.resize_filter)
+            server_url = f"http://127.0.0.1:{port}/v1/models/{name}:predict"
+
+            def served(version: int, expect: dict, *flags) -> dict:
+                """One kdlt-torch-client request through the gateway and one on
+                the tensor wire direct: equal scores, the launches of two
+                forwards."""
+                _, before = _native_metrics(port)
+                text, client_s = _cli("serving.client", [
+                    "--gateway", f"http://127.0.0.1:{gw_port}", "--image-url",
+                    f"http://127.0.0.1:{img_port}/{EXPORT_FIXTURE}", *flags], timeout=120)
+                scores = json.loads(text)
+                direct = _post(server_url, pixels[None], "msgpack")[0][0]
+                _, after = _native_metrics(port)
+                launches = {k: after[k] - before.get(k, 0.0) for k in after}
+                want = {k: 2 * n for k, n in expect.items()}
+                if (list(scores) != labels or scores != dict(zip(labels, map(float, direct)))
+                        or not np.isfinite(list(scores.values())).all()):
+                    _fail(f"export: v{version}: the client printed {scores}, the tensor wire "
+                          f"gave {direct.tolist()}")
+                if {k: v for k, v in launches.items() if v or k in want} != want:
+                    _fail(f"export: v{version}: launches {launches} for 2 forwards, want {want}")
+                return {"client_s": client_s, "bit_equal": True, "launches": launches,
+                        "top1": max(scores, key=scores.get)}
+
+            out["v1"] = served(1, per_forward)
+            # --- v2 joins the root: the watcher swaps to the w8a8 version ---
+            t0 = time.perf_counter()
+            os.symlink(os.path.join(models, name, "2"), os.path.join(serve, name, "2"))
+            while True:
+                _, status, _ = _http_json(port, f"/v1/models/{name}:status")
+                if status.get("version") == 2 and status.get("ready"):
+                    break
+                if time.perf_counter() - t0 > EXPORT_SWAP_S:
+                    _fail(f"export: the server did not swap to v2: {status}")
+                time.sleep(0.2)
+            secs["swap"] = time.perf_counter() - t0
+            out["v2"] = served(2, QUANT_PER_FORWARD, "--cache-bust")
+            builds, _ = _native_metrics(port)
+            with open(logs["server"]) as fh:
+                boot = [ln for ln in fh.read().splitlines() if "native libraries from" in ln]
+            if builds != 0 or not boot or f"from {build}: 0 built here" not in boot[0]:
+                _fail(f"export: the warmed server compiled: kdlt_native_builds {builds}, {boot}")
+            out["server"] = {"native_builds": builds,
+                             "boot_line": boot[0][boot[0].index("native libraries"):]}
+            # --- kdlt-torch-verify-golden: exit 1, scores at the exact f32 forward ---
+            text, secs["verify_golden"] = _cli_finish(golden_run, timeout=300, expect=1)
+            found = re.search(r"^scores: (\{.*\})$", text, re.M)
+            if not found:
+                _fail(f"export: verify-golden printed no scores: {text[-1000:]}")
+            import ast
+
+            golden = ast.literal_eval(found.group(1))
+            forward = build_forward(spec, from_jax_variables(variables), torch.float32,
+                                    fast=False, device="cuda")
+            with torch.inference_mode():
+                exact = forward(torch.from_numpy(pixels[None]).cuda())[0].cpu().numpy()
+            err = max(abs(golden[k] - float(v)) for k, v in zip(labels, exact))
+            if sorted(golden) != sorted(labels) or not err <= EXPORT_GOLDEN_TOL:
+                _fail(f"export: verify-golden scores {golden} vs exact f32 {exact.tolist()}: "
+                      f"{err} > {EXPORT_GOLDEN_TOL}")
+            out["verify_golden"] = {"exit_code": 1, "max_abs_err": err, "tol": EXPORT_GOLDEN_TOL}
+            # --- its served check: both checks pass on a model with a known golden ---
+            t0 = time.perf_counter()
+            raised = _pants_leads(spec, variables, exact, EXPORT_GOLDEN_LEAD)
+            golden_h5 = os.path.join(root, "golden.h5")
+            _write_h5(golden_h5, _keras_tree(raised))
+            forward = build_forward(spec, from_jax_variables(raised), torch.float32,
+                                    fast=False, device="cuda")
+            with torch.inference_mode():
+                want = dict(zip(labels, map(float, forward(
+                    torch.from_numpy(pixels[None]).cuda())[0].cpu().numpy())))
+            for m in _kernel_modules():
+                m.reset_launch_counts()
+            code, text = _golden_both_checks(golden_h5, fixture, want, "cuda")
+            launches = {k: v for m in _kernel_modules() for k, v in m.launch_counts().items()}
+            found = re.search(r"^served-config scores: (\{.*\})$", text, re.M)
+            if code != 0 or not found:
+                _fail(f"export: verify-golden against its own exact scores exited {code}: {text}")
+            served_scores = ast.literal_eval(found.group(1))
+            served_err = max(abs(served_scores[k] - want[k]) for k in labels)
+            # The served engine is fresh: its bucket-1 graph's capture runs one
+            # forward before it, and the replay is credited one more.
+            want_launches = {k: 0 for k in launches} | {k: 2 * v for k, v in per_forward.items()}
+            if launches != want_launches:
+                _fail(f"export: verify-golden's two checks launched {launches}, "
+                      f"want {want_launches}")
+            secs["verify_golden_served"] = time.perf_counter() - t0
+            out["verify_golden"]["served"] = {
+                "exit_code": 0, "pants_lead": EXPORT_GOLDEN_LEAD, "max_abs_err": served_err,
+                "tol": 0.2, "launches": launches}
+        finally:
+            for p in procs:
+                p.terminate()
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    out["seconds"] = secs
+    return out
+
+
 def _print_server(summary: dict, buckets: list[dict], smi: str) -> None:
     """A served model's lines: the summary, each bucket graph against the
     eager forward, the traced replay's launches, the device memory the
@@ -4675,6 +5177,7 @@ def _card(query: str, fmt: str = "csv,noheader") -> str:
 
 
 def main(argv=None) -> int:
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -4850,6 +5353,14 @@ def main(argv=None) -> int:
     train_bn["seconds"] = time.perf_counter() - t0
     print("train-bn:", json.dumps(train_bn), flush=True)
 
+    # --- the lifecycle: Keras .h5 -> export, inspect, warm -> server, gateway -> client ---
+    t0 = time.perf_counter()
+    export = _export_phase(CLOTHING_MODEL, args.seed, smi,
+                           per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})
+    export["phase_s"] = time.perf_counter() - t0
+    print("export:", json.dumps(export), flush=True)
+
+    print("smoke:", json.dumps({"seconds": time.perf_counter() - t_script, "card": smi}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     name = torch.cuda.get_device_name(0)

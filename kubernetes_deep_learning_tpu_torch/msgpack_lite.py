@@ -11,7 +11,9 @@ package (which the GPU machines do not carry):
 
 Only what those formats use is implemented: nil, bool, int, float, str,
 bin, array, map and ext.  bfloat16 arrays (which numpy cannot hold) are
-widened to float32 on decode, exactly.
+widened to float32 on decode, exactly, and written from a
+:class:`Bfloat16` (a float32 array rounded to nearest even, as
+``astype(jnp.bfloat16)`` rounds it).
 """
 
 from __future__ import annotations
@@ -26,6 +28,20 @@ EXT_NPSCALAR = 3
 
 
 # --- encoder ------------------------------------------------------------------
+
+
+class Bfloat16:
+    """A float32 array to be written as a bfloat16 ndarray: the top half of
+    each value rounded to nearest even (NaN stays a quiet NaN)."""
+
+    def __init__(self, arr: np.ndarray):
+        arr = np.asarray(arr, np.float32)
+        u = arr.view(np.uint32).astype(np.uint64)
+        bits = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+        nan = np.isnan(arr)
+        bits[nan] = ((u[nan] >> 16) | 0x40).astype(np.uint16)
+        self.shape = arr.shape
+        self.bits = bits
 
 
 def packb(obj: Any) -> bytes:
@@ -93,6 +109,8 @@ def _pack(o: Any, out: bytearray) -> None:
         out += b
     elif isinstance(o, np.ndarray):
         _pack_ext(EXT_NDARRAY, _ndarray_payload(o), out)
+    elif isinstance(o, Bfloat16):
+        _pack_ext(EXT_NDARRAY, packb((list(o.shape), "bfloat16", o.bits.tobytes())), out)
     elif isinstance(o, np.generic):
         _pack_ext(EXT_NPSCALAR, _ndarray_payload(np.asarray(o)), out)
     elif isinstance(o, (list, tuple)):

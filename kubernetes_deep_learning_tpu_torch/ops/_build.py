@@ -9,7 +9,9 @@ this file, listed in ``.gitignore``; override with
 ``$KDLT_TORCH_BUILD_DIR``), named by a hash of every source, every header
 (``csrc/*.cuh``) and the flags, so an edited source or header never loads
 a stale library.  A failed build raises:
-there is no fallback to another implementation.
+there is no fallback to another implementation.  ``BUILT`` lists the
+kernels' library if this process compiled it: empty in a process that
+found it built (``export.warm``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output of the last build (ptxas registers/spills)
+BUILT: list[str] = []  # the kernels' library, if this process compiled it
 
 
 def sources() -> list[str]:
@@ -105,6 +108,7 @@ def _compile(target: str) -> str:
             if os.path.exists(obj):
                 os.remove(obj)
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    BUILT.append(os.path.basename(target))
     return log
 
 

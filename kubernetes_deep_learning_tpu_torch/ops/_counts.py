@@ -13,12 +13,14 @@ import contextlib
 import threading
 
 _local = threading.local()
+_ALL: list["LaunchCounts"] = []  # every wrapper module's counts, in import order
 
 
 class LaunchCounts:
     def __init__(self, *names: str):
         self._lock = threading.Lock()
         self._counts = dict.fromkeys(names, 0)  # guarded-by: _lock
+        _ALL.append(self)
 
     def count(self, name: str) -> None:
         recorded = getattr(_local, "recorded", None)
@@ -44,6 +46,14 @@ class LaunchCounts:
         with self._lock:
             for k, n in counts.items():
                 self._counts[k] += n
+
+
+def totals() -> dict[str, int]:
+    """Every imported wrapper's launches since its last reset, by name."""
+    out: dict[str, int] = {}
+    for counts in list(_ALL):
+        out.update(counts.snapshot())
+    return out
 
 
 @contextlib.contextmanager

@@ -42,8 +42,12 @@ TRACE_SOURCES = (os.path.join(NATIVE_DIR, "cupti_trace.cc"),)
 CXX_ENV = "CXX"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra", "-pthread")
 
+# One lock per library, so kdlt-torch-warm builds them side by side.
 _lock = threading.Lock()
+_hostops_lock = threading.Lock()
+_trace_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+BUILT: list[str] = []  # the host libraries this process compiled (file names)
 _hostops_lib: ctypes.CDLL | None = None
 _trace_lib: ctypes.CDLL | None = None
 
@@ -71,6 +75,14 @@ def _compile(cxx: str, target: str, sources: tuple[str, ...] = (SOURCE,),
         raise RuntimeError(f"{cxx} failed ({done.returncode}) building {', '.join(sources)}:\n"
                            f"{done.stdout}{done.stderr}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    BUILT.append(os.path.basename(target))
+
+
+def built() -> list[str]:
+    """Every native library this process compiled: the kernels' (nvcc) and
+    the host ones (g++).  Empty after a boot against a warmed build
+    directory."""
+    return [*_build.BUILT, *BUILT]
 
 
 def _bind(stem: str, sources: tuple[str, ...], symbols,
@@ -118,7 +130,7 @@ def load() -> ctypes.CDLL:
 def load_hostops() -> ctypes.CDLL:
     """The host image ops' shared library, built on first use."""
     global _hostops_lib
-    with _lock:
+    with _hostops_lock:
         if _hostops_lib is None:
             _hostops_lib = _bind("kdlt_hostops", HOSTOPS_SOURCES, (
                 ("kdlt_resize_bilinear", [_u8p, _i32, _i32, _i32, _u8p, _i32, _i32], _i32),
@@ -198,7 +210,7 @@ def load_trace() -> ctypes.CDLL:
     """The device trace's shared library (``cupti_trace.cc``), built on
     first use."""
     global _trace_lib
-    with _lock:
+    with _trace_lock:
         if _trace_lib is None:
             cp, i32 = ctypes.c_char_p, _i32
             _trace_lib = _bind("kdlt_trace", TRACE_SOURCES, (

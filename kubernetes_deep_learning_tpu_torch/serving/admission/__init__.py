@@ -27,7 +27,11 @@ from kubernetes_deep_learning_tpu_torch.serving.admission.controller import (
     drain_timeout_s,
     install_sigterm_drain,
 )
-from kubernetes_deep_learning_tpu_torch.serving.admission.deadline import DEADLINE_HEADER, Deadline
+from kubernetes_deep_learning_tpu_torch.serving.admission.deadline import (
+    DEADLINE_HEADER,
+    WSGI_DEADLINE_KEY,
+    Deadline,
+)
 from kubernetes_deep_learning_tpu_torch.serving.admission.limiter import (
     AdaptiveLimiter,
     env_budgets,
@@ -45,6 +49,7 @@ __all__ = [
     "AdmissionController",
     "CircuitBreaker",
     "DEADLINE_HEADER",
+    "WSGI_DEADLINE_KEY",
     "Deadline",
     "RETRY_AFTER_HEADER",
     "Shed",

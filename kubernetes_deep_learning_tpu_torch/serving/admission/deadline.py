@@ -21,6 +21,7 @@ import os
 import time
 
 DEADLINE_HEADER = "X-Request-Deadline-Ms"
+WSGI_DEADLINE_KEY = "HTTP_X_REQUEST_DEADLINE_MS"  # the header's WSGI environ key
 
 DEFAULT_DEADLINE_MS_ENV = "KDLT_ADMISSION_DEFAULT_DEADLINE_MS"
 MAX_DEADLINE_MS_ENV = "KDLT_ADMISSION_MAX_DEADLINE_MS"

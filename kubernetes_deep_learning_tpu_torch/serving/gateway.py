@@ -93,9 +93,11 @@ DEFAULT_MODEL = "clothing-model"
 # X-Kdlt-Model header route to any other model the tier's registry serves.
 # Path wins over header (the more explicit signal).
 MODEL_HEADER = protocol.MODEL_HEADER
+WSGI_MODEL_KEY = "HTTP_X_KDLT_MODEL"  # the same headers as WSGI environ keys
 # Priority classes: bounded X-Kdlt-Priority values, parsed once at the
 # transport edge (unknown/absent -> interactive) and propagated upstream.
 PRIORITY_HEADER = protocol.PRIORITY_HEADER
+WSGI_PRIORITY_KEY = "HTTP_X_KDLT_PRIORITY"
 # Model names are path/label material: constrain them before they touch
 # URLs, metrics labels, or upstream requests.
 _MODEL_NAME_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
@@ -206,9 +208,8 @@ class Gateway:
         self._microbatcher = None
         if upstream_batch > 0:
             self._microbatcher = self._make_microbatcher(None)
-        # bind=False skips the in-tree HTTP server entirely (the JAX
-        # package's serving.wsgi wraps its gateway so; the port's wsgi.py is
-        # ROADMAP work).
+        # bind=False skips the in-tree HTTP server entirely (serving.wsgi
+        # wraps the gateway so, for gunicorn).
         self.serving_host = serving_host or os.environ.get(
             SERVING_HOST_ENV, DEFAULT_SERVING_HOST
         )

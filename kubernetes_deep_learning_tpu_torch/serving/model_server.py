@@ -87,7 +87,11 @@ Run it with ``kdlt-torch-model-server --model-root DIR --device cuda``
 ``--sched-policy``, ``--sched-weights``, ``--profile-dir``,
 ``--no-profiling``, ``--no-request-log``, ``--no-slo``; the JAX server's
 ``KDLT_PROFILE_DIR``, ``KDLT_SLO*``, ``KDLT_INCIDENT*``, ``KDLT_MFU``,
-``KDLT_LOG_FORMAT`` and ``KDLT_METRICS_EXEMPLARS``).  ``--no-admission`` or
+``KDLT_LOG_FORMAT`` and ``KDLT_METRICS_EXEMPLARS``; ``--aot-warm`` runs
+``export.warm``'s pass and exits).  The boot line and
+``kdlt_native_builds`` on /metrics say which native libraries the process
+compiled (none after a warmed boot); ``kdlt_kernel_launches{kernel}``
+counts each hand-written kernel's launches.  ``--no-admission`` or
 ``KDLT_ADMISSION=0`` turn deadline rejection and the limiter off (every
 wait is then a fixed 20 s, or 120 s for a chunk); drain stays on.  SIGTERM
 drains: /readyz turns 503 "draining", new requests shed, admitted ones
@@ -102,6 +106,7 @@ import json
 import logging
 import os
 import re
+import sys
 import tempfile
 import threading
 import time
@@ -532,6 +537,14 @@ class ModelServer:
                                                "failed predict requests")
         self._m_latency = self.registry.histogram("kdlt_server_request_seconds",
                                                   "request handling latency")
+        # The native libraries this process compiled (0 after a boot against a
+        # build directory kdlt-torch-warm filled), and every kernel wrapper's
+        # launches; both read at scrape time.
+        self._m_builds = self.registry.gauge(
+            "kdlt_native_builds", "kernel and host libraries this process compiled "
+            "(nvcc, g++); 0 when it booted against a warmed build directory")
+        self._m_launches: dict[str, metrics_lib.Gauge] = {}  # guarded-by: _launches_lock
+        self._launches_lock = threading.Lock()
         # The model tier's front door.  The limiter's floor is 2x the largest
         # bucket: the admitted handlers ARE the batcher's supply, so a lower
         # limit would starve batch formation without shortening anyone's
@@ -736,6 +749,20 @@ class ModelServer:
 
     # --- request handling ----------------------------------------------------
 
+    def _refresh_native_metrics(self) -> None:
+        from kubernetes_deep_learning_tpu_torch.ops import _counts, _native
+
+        self._m_builds.set(len(_native.built()))
+        with self._launches_lock:  # concurrent scrapes mint each series once
+            for name, n in _counts.totals().items():
+                gauge = self._m_launches.get(name)
+                if gauge is None:
+                    gauge = self.registry.with_labels(kernel=name).gauge(
+                        "kdlt_kernel_launches", "hand-written kernel launches by wrapper "
+                        "(graph replays credited)")
+                    self._m_launches[name] = gauge
+                gauge.set(n)
+
     def handle_get(self, path: str) -> Reply:
         """A GET by its path (a query string is read by /debug/profile)."""
         path, _, query = path.partition("?")
@@ -761,6 +788,7 @@ class ModelServer:
             # Pull-model freshness: the SLO window gauges are recomputed at
             # scrape time, not on a timer.
             self.slo.refresh()
+            self._refresh_native_metrics()
             return 200, self.registry.render().encode(), protocol.METRICS_CONTENT_TYPE, {}
         if path == _PREFIX:
             return _json(200, self.model_registry.status())
@@ -1211,6 +1239,16 @@ class ModelServer:
         return Handler
 
 
+def native_libraries_line() -> str:
+    """The boot line's account of the native libraries: where they load
+    from and which this process had to compile."""
+    from kubernetes_deep_learning_tpu_torch.ops import _build, _native
+
+    built = _native.built()
+    names = ", ".join(built) or "none: no nvcc, no g++"
+    return f"native libraries from {_build.build_dir()}: {len(built)} built here ({names})"
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="PyTorch/CUDA model server (tensor wire)")
     p.add_argument("--model-root", required=True, help="directory of <name>/<version>/ artifacts")
@@ -1258,6 +1296,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-slo", action="store_true",
                    help="disable the SLO engine (per-model goodput/burn-rate windows, "
                    "kdlt_slo_* gauges, /debug/slo); default $KDLT_SLO or enabled")
+    p.add_argument("--aot-warm", action="store_true",
+                   help="run the kdlt-torch-warm pass (build the kernels' and host "
+                   "libraries into $KDLT_TORCH_BUILD_DIR, warm every model's latest "
+                   "version over --buckets) and EXIT: at image build or in an init "
+                   "container sharing the build volume; a server booted with "
+                   "$KDLT_TORCH_BUILD_DIR on that volume compiles nothing")
     return p
 
 
@@ -1281,9 +1325,16 @@ def build_server(argv: Sequence[str] | None = None) -> ModelServer:
     return _server_from_args(_parser().parse_args(argv))
 
 
-def main(argv: Sequence[str] | None = None) -> None:
+def main(argv: Sequence[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = _parser().parse_args(argv)
+    if args.aot_warm:  # image build / init container: the pass is the job
+        from kubernetes_deep_learning_tpu_torch.export.warm import warm_models
+
+        report = warm_models(args.model_root, buckets=[int(b) for b in args.buckets.split(",")],
+                             device=args.device)
+        failed = [n for n, m in report["models"].items() if "error" in m]
+        return 1 if failed or report["failed_libraries"] or not report["models"] else 0
     server = _server_from_args(args)
     stopped = threading.Event()
 
@@ -1299,6 +1350,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     if args.watch_interval > 0:
         server.start_version_watcher(args.watch_interval)
     log.info("serving %s on port %d", sorted(server.engines), server.port)
+    log.info("%s", native_libraries_line())
     try:
         # A signal handler runs only when the main thread executes bytecode,
         # and the kernel may deliver SIGTERM to any thread (the CUDA runtime
@@ -1308,7 +1360,8 @@ def main(argv: Sequence[str] | None = None) -> None:
             pass
     except KeyboardInterrupt:
         stop()
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1726,3 +1726,101 @@ def test_cuda_xception_train_step_matches_the_cpu_step():
             assert err <= 1e-4 * step, (k, err)
         else:
             assert err <= 1e-3 * step + 2e-2 * top, (k, err)
+
+
+@pytest.mark.cuda
+def test_cuda_h5lite_reads_the_smoke_writers_keras_file(tmp_path):
+    """On the card's machine (no h5py): a 96-px Xception written as the
+    reference .h5's layout by ``chip_smoke._write_h5`` and imported by
+    ``models.keras_import`` (``h5lite``) gives back every leaf bit-equal."""
+    _need_cuda()
+    import chip_smoke
+    from kubernetes_deep_learning_tpu_torch.models import init_variables
+    from kubernetes_deep_learning_tpu_torch.models.keras_import import load_keras_h5
+    from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
+
+    spec = ModelSpec(name="h5-cuda-xception", family="xception", input_shape=(96, 96, 3),
+                     labels=("a", "b", "c"), preprocessing="tf", head_hidden=(16,))
+    tree = init_variables(spec, seed=4)
+    path = str(tmp_path / "model.h5")
+    chip_smoke._write_h5(path, chip_smoke._keras_tree(tree))
+    want, got = chip_smoke._flat_leaves(tree), chip_smoke._flat_leaves(load_keras_h5(spec, path))
+    assert sorted(want) == sorted(got)
+    for k, v in want.items():
+        assert got[k].dtype == np.float32 and got[k].tobytes() == np.ascontiguousarray(v).tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_exported_artifact_serves_on_the_stage_kernels(tmp_path):
+    """``kdlt-torch-export --seed`` (bf16 compute): the artifact serves on
+    the card through its bucket graphs, 8 K1 and 2 K2 launches a forward,
+    within 5e-2 (relative) of the same version on the exact float32 graph."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch import modelspec
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.export import exporter
+    from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+
+    spec = modelspec.register_spec(modelspec.ModelSpec(
+        name="cuda-export-xception", family="xception", input_shape=(96, 96, 3),
+        labels=("a", "b", "c"), preprocessing="tf"))
+    root = str(tmp_path)
+    assert exporter.main(["--model", spec.name, "--seed", "2", "--output", root]) == 0
+    a = art.load_artifact(art.version_dir(root, spec.name, 1))
+    assert a.metadata["compute_dtype"] == "bfloat16" and a.metadata["init"] == "port-seeded"
+    engine = InferenceEngine(a, buckets=(1, 4), device="cuda")
+    engine.warmup()
+    imgs = np.random.default_rng(5).integers(0, 256, (3, *spec.input_shape), np.uint8)
+    ops.reset_launch_counts()
+    got = engine.predict(imgs)
+    assert ops.launch_counts() == {"fused_sepconv_block": 8, "fused_sepconv_chain": 2}
+    exact = InferenceEngine(art.ModelArtifact(a.spec, a.variables, {"compute_dtype": "float32"}),
+                            buckets=(4,), device="cuda", fast=False).predict(imgs)
+    assert np.isfinite(got).all()
+    assert np.abs(got - exact).max() <= 5e-2 * np.abs(exact).max()
+
+
+@pytest.mark.cuda
+def test_cuda_verify_golden_runs_both_checks_on_the_stage_kernels(tmp_path, monkeypatch):
+    """``kdlt-torch-verify-golden``'s two engine checks on the card, both
+    passing: a 96-px clothing-labelled Xception with its pants bias raised
+    to lead by 8 (``chip_smoke._pants_leads``), written by
+    ``chip_smoke._write_h5``, against its own exact float32 scores.  The
+    served check (bfloat16, ``fast="auto"``) runs on K1/K2: a fresh engine's
+    bucket-1 graph makes one forward before its capture and is credited one
+    replay, so 2 x (8 K1 + 2 K2); the exact check launches neither."""
+    _need_cuda()
+    import chip_smoke
+    from kubernetes_deep_learning_tpu_torch import modelspec
+    from kubernetes_deep_learning_tpu_torch.models import build_forward, init_variables
+    from kubernetes_deep_learning_tpu_torch.ops import preprocess
+    from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables
+
+    spec = modelspec.ModelSpec(name="cuda-golden-xception", family="xception",
+                               input_shape=(96, 96, 3), labels=modelspec.CLOTHING_MODEL.labels,
+                               preprocessing="tf", head_hidden=(100,))
+    image = str(tmp_path / "image.png")
+    with open(image, "wb") as f:
+        f.write(chip_smoke._png_bytes(
+            np.random.default_rng(6).integers(0, 256, spec.input_shape, np.uint8)))
+    with open(image, "rb") as f:
+        pixels = torch.from_numpy(preprocess.preprocess_bytes(
+            f.read(), spec.input_shape[:2], filter=spec.resize_filter)[None]).cuda()
+
+    def exact(tree) -> np.ndarray:
+        forward = build_forward(spec, from_jax_variables(tree), torch.float32, fast=False,
+                                device="cuda")
+        with torch.inference_mode():
+            return forward(pixels)[0].cpu().numpy()
+
+    variables = init_variables(spec, seed=7)
+    raised = chip_smoke._pants_leads(spec, variables, exact(variables), 8.0)
+    h5 = str(tmp_path / "golden.h5")
+    chip_smoke._write_h5(h5, chip_smoke._keras_tree(raised))
+    want = dict(zip(spec.labels, map(float, exact(raised))))
+    monkeypatch.setattr(modelspec, "get_spec", lambda name: spec)
+    ops.reset_launch_counts()
+    code, text = chip_smoke._golden_both_checks(h5, image, want, "cuda")
+    assert code == 0, text
+    assert ops.launch_counts() == {"fused_sepconv_block": 16, "fused_sepconv_chain": 4}
+    assert "OK: served config (bf16, fast=auto) within atol=0.2" in text

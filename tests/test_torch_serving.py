@@ -392,7 +392,8 @@ def test_keep_alive_requests_do_not_stall_on_nagle(tmp_path):
 def test_port_imports_no_jax_flax_or_jax_package():
     """Every port module (and chip_smoke.py, mbconv_ablation.py,
     entry_ablation.py, observability_ab.py, host_ab.py) imports without jax, flax, optax,
-    orbax, msgpack, PIL, requests or the JAX package: none of them is on the GPU machine.
+    orbax, msgpack, PIL, requests, h5py or the JAX package: none of them is on the GPU
+    machine.
     The port's own name starts with the JAX package's, so match the package name exactly
     or with a trailing dot."""
     code = """
@@ -407,7 +408,7 @@ import observability_ab
 import host_ab
 bad = sorted(
     k for k in sys.modules
-    for root in ("jax", "flax", "optax", "orbax", "msgpack", "PIL", "requests",
+    for root in ("jax", "flax", "optax", "orbax", "msgpack", "PIL", "requests", "h5py",
                  "kubernetes_deep_learning_tpu")
     if k == root or k.startswith(root + ".")
 )
@@ -431,6 +432,10 @@ gateway = {"kubernetes_deep_learning_tpu_torch." + m for m in (
     "serving.cache", "serving.microbatch", "serving.faults", "serving.admission.breaker",
     "serving.httpserver", "runtime.errors")}
 assert gateway <= set(sys.modules), gateway - set(sys.modules)
+lifecycle = {"kubernetes_deep_learning_tpu_torch." + m for m in (
+    "h5lite", "models.keras_import", "export.exporter", "export.inspect", "export.warm",
+    "golden", "serving.client", "serving.wsgi", "serving.doctor")}
+assert lifecycle <= set(sys.modules), lifecycle - set(sys.modules)
 print(len([k for k in sys.modules if k.startswith("kubernetes_deep_learning_tpu_torch.")]))
 assert not bad, bad
 """
