@@ -38,14 +38,17 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    the same lines.)  Then the quant phase: the same model's v2
    ``int8-weight-only`` and v3 ``int8-w8a8`` written by the port's
    ``ops.quantize.write_quantized_version`` (v3 calibrated on the card from
-   8 noise images at percentile 100: its seconds and its 68 layers), and v4,
-   v3 with every activation scale x1000; Q1 (``int8_conv``) and Q2
-   (``int8_depthwise``, ``ops/csrc/int8_conv.cu``) on the w8a8 forward's
-   own layers at every shape it launches them (batches 16 and 3, and 1 for
-   the middle flow's), each equal to its plain version (max abs difference
-   0), timed beside the plain version, ``torch._int_mm`` on the codes (1x1
-   stride-1 shapes: the yardstick, used nowhere in the port), the bound
-   and the rate (``int8-kernel`` lines); the device bytes of the w8a8,
+   8 noise images at percentile 100: its seconds and its 68 layers; the
+   committed fixtures read as ``--calibrate-dir`` does, without PIL), and
+   v4, v3 with every activation scale x1000; Q1 (``int8_conv``: a quantize
+   pass and a wgmma s8 GEMM) and Q2 (``int8_depthwise``,
+   ``ops/csrc/int8_conv.cu``) on the w8a8 forward's own layers at every
+   shape it launches them (batches 16 and 3, and 1 for the middle flow's),
+   each equal to its plain version (max abs difference 0), timed beside
+   the plain version, ``torch._int_mm`` on the codes (1x1 stride-1 shapes:
+   the yardstick, used nowhere in the port), the bound and the rate, and
+   for Q1 its quantize pass's time and share and the GEMM instance
+   (``int8-kernel`` lines); the device bytes of the w8a8,
    weight-only and bf16 float engines' parameters; v3 served over msgpack
    (requests of 1, 3, 16): serving ``int8-w8a8`` after the warmup gate
    (its drift and top-1 printed), 39 Q1 and 29 Q2 launches a forward and
@@ -56,7 +59,7 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    int8-w8a8 / int8-weight-only, K1/K2 and no Q1/Q2); then w8a8 against
    weight-only on 16 grid images (drift <= KDLT_QUANT_TOL, top-1 >=
    0.99), each w8a8 bucket graph bit-equal to eager, one traced replay
-   (39 + 29 kernels by name), and p50 at buckets 1, 4, 16 of the w8a8,
+   (39 + 39 + 29 kernels by name: Q1's two), and p50 at buckets 1, 4, 16 of the w8a8,
    weight-only and bf16 fused engines in turns (``quant``; with
    ``--profile`` each engine traced at bucket 16).  Then the batching
    phase: the host CPU time of a
@@ -4156,8 +4159,12 @@ QUANT_CALIB_IMAGES = 8
 QUANT_CALIB_PERCENTILE = 100.0
 QUANT_LAYERS = 68
 QUANT_PER_FORWARD = {"int8_conv": 39, "int8_depthwise": 29}
-QUANT_TRACE = {"int8_conv_kernel": 39, "int8_depthwise_kernel": 29, "sepconv_stage_kernel": 0}
+# Kernels of one traced w8a8 replay by name: Q1 is two launches a call, its
+# quantize pass (int8_codes_kernel) and its GEMM.
+QUANT_TRACE = {"int8_codes_kernel": 39, "int8_conv_kernel": 39, "int8_depthwise_kernel": 29,
+               "sepconv_stage_kernel": 0}
 QUANT_GRID = 16
+CALIB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "ingest_fixtures")
 PEAK_INT8 = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
 QUANT_REPLACES_NOTE = ("no pallas_call: the JAX package's w8a8 program runs XLA's int8 "
                        "conv_general_dilated (kubernetes_deep_learning_tpu/ops/quantize.py:358)")
@@ -4211,7 +4218,9 @@ def _int8_case(layer, batch: int, side: int, gen, iters: int) -> dict:
     against its plain version (max abs difference must be 0); kernel
     (eager and by graph replay), plain version and ``torch._int_mm`` on the
     pre-quantized codes (1x1 stride-1 convs only: the yardstick, used
-    nowhere in the port), the bound and the rate."""
+    nowhere in the port), the bound and the rate.  For Q1 also its quantize
+    pass alone as Q1 runs it (bit-equal to its plain version, its device ms
+    by replay and its share of Q1's) and the GEMM instance its shape takes."""
     from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
 
     x = torch.randn((batch, side, side, layer.c_in), generator=gen, device="cuda")
@@ -4239,13 +4248,25 @@ def _int8_case(layer, batch: int, side: int, gen, iters: int) -> dict:
     k = layer.kernel_size[0] * layer.kernel_size[1] * (1 if layer.kind == "depthwise"
                                                         else layer.c_in)
     ops = 2 * m * k * layer.c_out
-    # x's bytes are those the taps read, each once.
     pads = _pads_before(layer, tuple(x.shape[1:3]), tuple(got.shape[1:3]))
+    if layer.kind == "conv":
+        # The quantize pass as Q1 runs it: a 1x1 conv's pixels only.
+        sample = ((layer.stride, *pads, *got.shape[1:3]) if layer.kernel_size == (1, 1)
+                  else None)
+        q8 = int8_ops.int8_codes(x, layer.s_act, sample=sample)
+        if not torch.equal(q8.cpu(), int8_ops.int8_codes(x.cpu(), layer.s_act, sample=sample)):
+            _fail(f"int8 codes {tuple(x.shape)}: the quantize pass differs from its plain version")
+        rec["codes_graph_ms"] = _graph_ms(
+            lambda: int8_ops.int8_codes(x, layer.s_act, sample=sample), iters)
+        rec["instance"] = list(int8_ops.q1_instance(
+            m, layer.c_out, layer.packed.shape[1], tuple(layer.kernel_size),
+            torch.cuda.get_device_properties(0).multi_processor_count))
+    # x's bytes are those the taps read, each once.
     rows, cols = (_taps_read(n_in, n_out, kk, layer.stride, pad)
                   for n_in, n_out, kk, pad in zip(x.shape[1:3], got.shape[1:3],
                                                   layer.kernel_size, pads))
     x_bytes = batch * rows * cols * layer.c_in * 4
-    nbytes = x_bytes + layer.packed.numel() + layer.c_out * 4 + got.numel() * 4
+    nbytes = x_bytes + layer.c_out * k + layer.c_out * 4 + got.numel() * 4
     t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
     library_ms = None
     if layer.kind == "conv" and layer.kernel_size == (1, 1) and layer.stride == 1:
@@ -4262,6 +4283,8 @@ def _int8_case(layer, batch: int, side: int, gen, iters: int) -> dict:
                bound_by="bytes" if t_bytes > t_ops else "operations", int8_ops=ops, bytes=nbytes,
                x_bytes_read=x_bytes)
     rec["tops"] = ops / (rec["graph_ms"] * 1e-3) / 1e12
+    if "codes_graph_ms" in rec:
+        rec["codes_share"] = rec["codes_graph_ms"] / rec["graph_ms"]
     return rec
 
 
@@ -4274,7 +4297,7 @@ def _int8_kernel_phase(forward, gen, iters: int, smi: str) -> list[dict]:
     for name, layers in (("int8_conv", Q1_LAYERS), ("int8_depthwise", Q2_LAYERS)):
         rec = dict(name=name, route="cuda", source=_CSRC + "int8_conv.cu", replaces=None,
                    replaces_note=QUANT_REPLACES_NOTE, max_abs_err=0.0, ms=0.0, graph_ms=0.0,
-                   plain_ms=0.0, bound_ms=0.0, library_ms=None,
+                   plain_ms=0.0, bound_ms=0.0, library_ms=None, **_int8_extra_sums(name),
                    per=f"the {sum(n for *_, n in layers)} calls of one bucket-16 forward, summed",
                    tol_abs=0.0, shapes=[])
         bound_t = {"bytes": 0.0, "operations": 0.0}
@@ -4290,11 +4313,38 @@ def _int8_kernel_phase(forward, gen, iters: int, smi: str) -> list[dict]:
                 if b == 16:
                     for key in ("ms", "graph_ms", "plain_ms", "bound_ms"):
                         rec[key] += per_forward * t[key]
+                    _add_int8_extra(rec, t, per_forward)
                     bound_t[t["bound_by"]] += per_forward * t["bound_ms"]
                     rec["shapes"].append(t["shape"])
         rec["bound_by"] = max(bound_t, key=bound_t.get)
+        _finish_int8_extra(rec)
         records.append(rec)
     return records
+
+
+def _int8_extra_sums(name: str) -> dict:
+    """Q1's extra fields: its two device kernels a wrapper call (its count
+    is the wrapper's), and sums over a forward's calls of its quantize
+    pass's device ms and of ``torch._int_mm`` on pre-quantized codes over
+    the 1x1 stride-1 calls (int8 GEMM with int32 out only: no quantize-in,
+    no f32 epilogue; not the layer's function, so not its ``library_ms``)."""
+    if name != "int8_conv":
+        return {}
+    return dict(device_kernels=["int8_codes_kernel", "int8_conv_kernel"], codes_graph_ms=0.0,
+                int_mm_ms=0.0, int_mm_calls=0)
+
+
+def _add_int8_extra(rec: dict, t: dict, calls: int) -> None:
+    if "codes_graph_ms" in rec:
+        rec["codes_graph_ms"] += calls * t["codes_graph_ms"]
+        if t["library_ms"] is not None:
+            rec["int_mm_ms"] += calls * t["library_ms"]
+            rec["int_mm_calls"] += calls
+
+
+def _finish_int8_extra(rec: dict) -> None:
+    if "codes_graph_ms" in rec and rec["graph_ms"]:
+        rec["codes_share"] = rec["codes_graph_ms"] / rec["graph_ms"]
 
 
 def _engine_bytes(make) -> tuple:
@@ -4366,6 +4416,13 @@ def _quant_phase(spec, seed: int, iters: int, smi: str, gen,
         art.save_artifact(art.version_dir(root, spec.name, 1), spec,
                           init_variables(spec, seed=seed), {"compute_dtype": "bfloat16"})
         v2 = quantize.write_quantized_version(root, spec.name, quantize.SCHEME)
+        # --calibrate-dir's images on this machine, which has no PIL (C8):
+        # the committed JPEG and PNG fixtures, decoded and resized as the
+        # gateway does them, cycled.
+        real = quantize.representative_images(spec, QUANT_CALIB_IMAGES, image_dir=CALIB_DIR)
+        if real.shape != (QUANT_CALIB_IMAGES, *spec.input_shape) or real.dtype != np.uint8:
+            _fail(f"quant: calibration images from {CALIB_DIR}: {real.shape} {real.dtype}")
+        out["calibrate_dir"] = dict(images=len(real), mean=float(real.mean()))
         calib = quantize.representative_images(spec, QUANT_CALIB_IMAGES, seed=seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4623,6 +4680,7 @@ def _quant_family_phase(spec, seed: int, iters: int, smi: str, gen,
                 _fail(f"quant {spec.name}: a w8a8 bucket graph is not bit-equal to eager: "
                       f"{out['graphs']}")
             trace = {f"int8_{k.removeprefix('int8_')}_kernel": v for k, v in per_forward.items()}
+            trace["int8_codes_kernel"] = per_forward["int8_conv"]  # Q1's quantize pass
             out["trace_launches"] = _trace_check(e3, f"{spec.name}-w8a8", seed + 33, trace)
             library = out["trace_launches"]["library_convs"]
             if sum(library.values()) > float_convs:
@@ -4637,7 +4695,8 @@ def _quant_family_phase(spec, seed: int, iters: int, smi: str, gen,
         # --- every distinct Q1/Q2 shape against its plain version ---
         shapes = _int8_layer_shapes(forward, spec, 16)
         sums = {name: dict(launches=launches.get(name, 0), max_abs_err=0.0, ms=0.0,
-                           graph_ms=0.0, plain_ms=0.0, bound_ms=0.0, shapes=0)
+                           graph_ms=0.0, plain_ms=0.0, bound_ms=0.0, shapes=0,
+                           **_int8_extra_sums(name))
                 for name in per_forward}
         for key, info in shapes.items():
             layer = forward.inner.get_submodule(info["module"])
@@ -4652,6 +4711,9 @@ def _quant_family_phase(spec, seed: int, iters: int, smi: str, gen,
             rec["shapes"] += 1
             for k in ("ms", "graph_ms", "plain_ms", "bound_ms"):
                 rec[k] += info["calls"] * t[k]
+            _add_int8_extra(rec, t, info["calls"])
+        for rec in sums.values():
+            _finish_int8_extra(rec)
         calls = {n: sum(i["calls"] for k, i in shapes.items() if f"int8_{k[0]}" == n)
                  for n in per_forward}
         if calls != per_forward:

@@ -149,7 +149,9 @@ def load() -> ctypes.CDLL:
             lib.kdlt_entry_block_rows.argtypes = [i32] * 3
             lib.kdlt_entry_block_rows.restype = i32
             f32 = ctypes.c_float
-            lib.kdlt_int8_conv.argtypes = [ptr] * 5 + [f32] + [i32] * 13 + [ptr]
+            lib.kdlt_int8_codes.argtypes = [ptr, ptr, f32] + [i32] * 10 + [ptr]
+            lib.kdlt_int8_codes.restype = i32
+            lib.kdlt_int8_conv.argtypes = [ptr] * 5 + [i32] * 15 + [ptr]
             lib.kdlt_int8_conv.restype = i32
             lib.kdlt_int8_depthwise.argtypes = [ptr] * 5 + [f32] + [i32] * 10 + [ptr]
             lib.kdlt_int8_depthwise.restype = i32

@@ -11,25 +11,31 @@ float32 NHWC activations, bit for bit:
 - ``int8_conv(x, packed, s_act, out_scale, kernel_size, stride, padding)``:
   a dense convolution (groups 1, any C_in and C_out; "VALID", TF "SAME" or
   explicit ((top, bottom), (left, right)) pads), the weight packed by
-  ``pack_conv`` as int8 (C_out, K_pad), taps ordered (kh, kw, C_in) and
-  zero past K = kh*kw*C_in up to a multiple of 64;
+  ``pack_conv`` as int8 (C_out, K_pad), taps ordered (kh, kw, C_pad) with
+  C_pad = ``code_width(C_in)`` (C_in rounded up to 16, the codes' channel
+  stride) and zero past C_in and past K = kh*kw*C_pad up to a multiple of
+  128;
 - ``int8_depthwise(x, packed, s_act, out_scale, bias, stride)``: a k x k
   depthwise convolution, k 3 or 5, stride 1 or 2, TF "SAME", C a multiple
   of 4, the weight packed by ``pack_depthwise`` as int8 (k*k, C).
 
-On a CUDA tensor each wrapper launches its hand-written kernel in
-``csrc/int8_conv.cu`` (Q1 ``int8_conv_kernel``, Q2
-``int8_depthwise_kernel``; no TPU kernel: the JAX program runs XLA's int8
+On a CUDA tensor each wrapper launches its hand-written kernels in
+``csrc/int8_conv.cu`` (no TPU kernel: the JAX program runs XLA's int8
 convolution) and adds one to its launch count; there is no fallback, and a
-shape the kernel does not take raises.  On a CPU tensor it computes the
-plain PyTorch version, ``int8_conv_reference``: the products exactly, by a
-float64 convolution of the codes rounded to int32, and the quantize and
-epilogue steps as the same float32 operations.  ``Int8Conv2d`` is the module
+shape the kernels do not take raises.  Q1 is two launches: the quantize
+pass ``int8_codes_kernel`` (``int8_codes``: the layer's input as int8 codes,
+once) and ``int8_conv_kernel``, a wgmma s8 implicit GEMM on them, whose
+instance ``q1_instance`` picks by shape.  Q2 is one,
+``int8_depthwise_kernel``.  On a CPU tensor each computes the plain PyTorch
+version, ``int8_conv_reference``: the products exactly, by a float64
+convolution of the codes rounded to int32, and the quantize and epilogue
+steps as the same float32 operations.  ``Int8Conv2d`` is the module
 ``ops.quantize.build_w8a8_forward`` puts in place of a calibrated conv.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -44,27 +50,44 @@ launch_counts = _counts.snapshot
 reset_launch_counts = _counts.reset
 _count = _counts.count
 
-K_ALIGN = 64  # Q1's k step: the packed weight's rows are padded to it
+CODE_ALIGN = 16  # the codes' channel stride: whole 16-byte runs for Q1's gather and TMA
+K_ALIGN = 128  # Q1's k step (one 128-byte swizzled row): the packed weight's rows pad to it
+# Q1's GEMM instances: consumer warpgroups, each an M tile of 64 rows, over
+# an N tile of Q1_BN output channels.
+Q1_WARPGROUPS = (2, 1)
+Q1_BN = 64
+
+
+def code_width(c_in: int) -> int:
+    """C_pad: the codes' channel stride, C_in rounded up to CODE_ALIGN."""
+    return -(-c_in // CODE_ALIGN) * CODE_ALIGN
 
 
 # --- packing ------------------------------------------------------------------
 
 
+def packed_width(c_in: int, kh: int, kw: int) -> int:
+    """K_pad: kh*kw*C_pad rounded up to K_ALIGN."""
+    return -(-kh * kw * code_width(c_in) // K_ALIGN) * K_ALIGN
+
+
 def pack_conv(q_w: torch.Tensor) -> torch.Tensor:
-    """OIHW int8 -> (C_out, K_pad) int8, k ordered (kh, kw, C_in), zero past K."""
+    """OIHW int8 -> (C_out, K_pad) int8, k ordered (kh, kw, C_pad), zero past
+    C_in and past K = kh*kw*C_pad."""
     c_out, c_in, kh, kw = q_w.shape
-    k = kh * kw * c_in
-    packed = torch.zeros((c_out, -(-k // K_ALIGN) * K_ALIGN), dtype=torch.int8,
+    taps = torch.zeros((c_out, kh, kw, code_width(c_in)), dtype=torch.int8, device=q_w.device)
+    taps[..., :c_in] = q_w.permute(0, 2, 3, 1)
+    packed = torch.zeros((c_out, packed_width(c_in, kh, kw)), dtype=torch.int8,
                          device=q_w.device)
-    packed[:, :k] = q_w.permute(0, 2, 3, 1).reshape(c_out, k)
+    packed[:, :taps[0].numel()] = taps.reshape(c_out, -1)
     return packed
 
 
 def unpack_conv(packed: torch.Tensor, c_in: int, kh: int, kw: int) -> torch.Tensor:
     """``pack_conv``'s inverse: OIHW int8."""
-    c_out = packed.shape[0]
-    k = kh * kw * c_in
-    return packed[:, :k].reshape(c_out, kh, kw, c_in).permute(0, 3, 1, 2).contiguous()
+    c_out, c_pad = packed.shape[0], code_width(c_in)
+    taps = packed[:, :kh * kw * c_pad].reshape(c_out, kh, kw, c_pad)[..., :c_in]
+    return taps.permute(0, 3, 1, 2).contiguous()
 
 
 def pack_depthwise(q_w: torch.Tensor) -> torch.Tensor:
@@ -180,35 +203,98 @@ def _bias_ptr(bias):
     return bias.data_ptr() if bias is not None else None
 
 
+@functools.cache
+def q1_instance(m: int, c_out: int, k_pad: int, kernel_size, sms: int) -> tuple[int, bool]:
+    """Q1's GEMM instance for a layer, by its shape: (warpgroups, TMA for
+    A).  A block streams k_pad bytes of each of its M and N rows and writes
+    its f32 tile; the busiest SM runs ceil(blocks / sms) of them, so the
+    warpgroups with the fewest such bytes win (two on a tie).  A 1x1 conv's
+    codes are an (M, C_pad) matrix (the quantize pass keeps only the pixels
+    it reads), read by TMA; a k x k conv's are gathered."""
+    def cost(warpgroups):
+        bm = 64 * warpgroups
+        blocks = -(-m // bm) * -(-c_out // Q1_BN)
+        return -(-blocks // sms) * (k_pad * (bm + Q1_BN) + bm * Q1_BN * 4)
+
+    return min(Q1_WARPGROUPS, key=cost), tuple(kernel_size) == (1, 1)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def int8_codes(x, s_act: float, sample=None):
+    """Q1's quantize pass: f32 NHWC -> int8 codes (N, H, W, C_pad), C_pad =
+    ``code_width(C)``, the channels past C code 0 (``quantize_input``'s
+    codes).  ``sample`` =
+    (stride, top, left, Ho, Wo): only the pixels a 1x1 conv of that stride
+    and top/left pads reads, codes[:, i, j] = q(x[:, i * stride - top, j *
+    stride - left]) (0 outside the image), (N, Ho, Wo, C_pad).  One launch
+    of ``int8_codes_kernel`` on a CUDA tensor (counted as part of Q1 by
+    ``int8_conv``, not here); the plain version on a CPU one."""
+    b, h, w, c = x.shape
+    _check_x(x, c)
+    c_pad = code_width(c)
+    stride, top, left, hc, wc = sample or (1, 0, 0, h, w)
+    if x.device.type == "cpu":
+        rows, cols = torch.arange(hc) * stride - top, torch.arange(wc) * stride - left
+        r_ok, c_ok = (rows >= 0) & (rows < h), (cols >= 0) & (cols < w)
+        q = quantize_input(x, s_act).to(torch.int8)[:, rows[r_ok]][:, :, cols[c_ok]]
+        codes = torch.zeros((b, hc, wc, c_pad), dtype=torch.int8)
+        codes[:, r_ok.nonzero()[:, 0, None], c_ok.nonzero()[:, 0], :c] = q
+        return codes
+    x = x.contiguous()
+    if x.numel() >= 2**31 or b * hc * wc * c_pad >= 2**31:
+        raise ValueError("the CUDA kernel takes < 2^31 elements a tensor")
+    codes = torch.empty((b, hc, wc, c_pad), dtype=torch.int8, device=x.device)
+    _check_cuda_tensors([x, codes])
+    from kubernetes_deep_learning_tpu_torch.ops import _build
+
+    lib = _build.load()
+    code = lib.kdlt_int8_codes(x.data_ptr(), codes.data_ptr(), float(s_act), b, h, w, c, c_pad,
+                               hc, wc, stride, top, left,
+                               torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "int8 codes")
+    return codes
+
+
 def int8_conv(x, packed, s_act: float, out_scale, kernel_size, stride: int = 1,
               padding="VALID", bias=None):
-    """Q1: one calibrated dense conv layer (see module doc); f32 NHWC in and out."""
+    """Q1: one calibrated dense conv layer (see module doc); f32 NHWC in and
+    out."""
     kh, kw = kernel_size
     c_out = packed.shape[0]
     c_in = x.shape[-1]
     _check_x(x, c_in)
-    if packed.dtype != torch.int8 or packed.shape[1] < kh * kw * c_in:
-        raise ValueError(f"packed must be int8 (C_out, >= {kh * kw * c_in}), got "
+    if packed.dtype != torch.int8 or packed.shape[1] != packed_width(c_in, kh, kw):
+        raise ValueError(f"packed must be int8 (C_out, {packed_width(c_in, kh, kw)}), got "
                          f"{tuple(packed.shape)} {packed.dtype}")
     if x.device.type == "cpu":
         return int8_conv_reference(x, unpack_conv(packed, c_in, kh, kw), s_act, out_scale,
                                    stride, padding, 1, bias)
     check_cuda_layer(c_in, c_out, kernel_size, stride, padding, 1)
-    x = x.contiguous()
     b, h, w, _ = x.shape
     ho, wo, top, left = _out_geometry(h, w, kh, kw, stride, padding)
-    if x.numel() >= 2**31 or b * ho * wo * c_out >= 2**31 or packed.shape[1] % K_ALIGN:
-        raise ValueError(f"the CUDA kernel takes < 2^31 elements a tensor and K_pad a "
-                         f"multiple of {K_ALIGN}")
+    if b * ho * wo * c_out >= 2**31:
+        raise ValueError("the CUDA kernel takes < 2^31 elements a tensor")
+    if (kh, kw) == (1, 1):  # the GEMM sees a 1x1/1 conv on the pixels it reads
+        codes = int8_codes(x, s_act, (stride, top, left, ho, wo))
+        h, w, stride, top, left = ho, wo, 1, 0, 0
+    else:
+        codes = int8_codes(x, s_act)
+    c_pad = codes.shape[-1]
     y = torch.empty((b, ho, wo, c_out), dtype=torch.float32, device=x.device)
-    _check_cuda_tensors([x, packed, out_scale, y] + ([bias] if bias is not None else []))
+    _check_cuda_tensors([packed, out_scale, y] + ([bias] if bias is not None else []))
     from kubernetes_deep_learning_tpu_torch.ops import _build
 
+    warpgroups, tma_a = q1_instance(b * ho * wo, c_out, packed.shape[1], (kh, kw),
+                                    _sm_count(x.device.index))
     lib = _build.load()
     code = lib.kdlt_int8_conv(
-        x.data_ptr(), packed.data_ptr(), out_scale.data_ptr(), _bias_ptr(bias), y.data_ptr(),
-        float(s_act), b, h, w, c_in, ho, wo, c_out, kh, kw, stride, top, left, packed.shape[1],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        codes.data_ptr(), packed.data_ptr(), out_scale.data_ptr(), _bias_ptr(bias), y.data_ptr(),
+        b, h, w, c_pad, ho, wo, c_out, kh, kw, stride, top, left, packed.shape[1], warpgroups,
+        int(tma_a), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, code, "int8 conv")
     _count("int8_conv")

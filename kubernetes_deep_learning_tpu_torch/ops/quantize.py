@@ -412,31 +412,42 @@ def build_w8a8_forward(spec, qvars: Any, device: str = "cuda", converted: tuple 
 
 # --- artifact build ----------------------------------------------------------
 
+# JAX's calibration file selection (kubernetes_deep_learning_tpu/ops/quantize.py).
+CALIB_IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+
 
 def representative_images(
     spec, n: int, seed: int = 0, image_dir: str | None = None
 ) -> np.ndarray:
     """N uint8 calibration images at the spec's input shape: real sample
-    images from ``image_dir`` (resized with the spec's filter, cycled; needs
-    PIL), else seeded uniform noise."""
+    images from ``image_dir``, else seeded uniform noise.
+
+    ``image_dir``: JAX's file selection (its extension set, sorted, cycled
+    if fewer than ``n``), each file decoded and resized with the spec's
+    filter by the gateway's host pipeline
+    (``ops.preprocess.preprocess_bytes``, pixel-equal to PIL for JPEG and
+    PNG; no PIL).  A BMP or WebP file, which JAX opens with PIL, raises a
+    ``ValueError`` naming it when it is read."""
     h, w, c = spec.input_shape
     if image_dir:
-        from PIL import Image
+        from kubernetes_deep_learning_tpu_torch.ops.preprocess import preprocess_bytes
 
-        resample = (
-            Image.NEAREST if spec.resize_filter == "nearest" else Image.BILINEAR
-        )
         files = sorted(
             os.path.join(image_dir, f)
             for f in os.listdir(image_dir)
-            if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp", ".webp"))
+            if f.lower().endswith(CALIB_IMAGE_EXTS)
         )
         if not files:
             raise FileNotFoundError(f"no images under {image_dir!r}")
         out = []
         for i in range(n):
-            img = Image.open(files[i % len(files)]).convert("RGB")
-            out.append(np.asarray(img.resize((w, h), resample), np.uint8))
+            path = files[i % len(files)]
+            ext = os.path.splitext(path)[1].lower()
+            if ext not in (".png", ".jpg", ".jpeg"):
+                raise ValueError(f"cannot read {path!r} ({ext} file): the port decodes "
+                                 f"JPEG and PNG only")
+            with open(path, "rb") as f:
+                out.append(preprocess_bytes(f.read(), (h, w), filter=spec.resize_filter))
         return np.stack(out)
     rng = np.random.default_rng(seed)
     return rng.integers(0, 256, size=(n, h, w, c), dtype=np.uint8)

@@ -30,6 +30,7 @@ from kubernetes_deep_learning_tpu_torch.serving.admission import deadline as por
 from kubernetes_deep_learning_tpu_torch.serving.admission import limiter as port_limiter
 from kubernetes_deep_learning_tpu_torch.serving.admission import shed as port_shed
 from kubernetes_deep_learning_tpu_torch.utils import metrics as port_metrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 PACKAGES = {
     "jax": SimpleNamespace(deadline=jax_deadline, limiter=jax_limiter, controller=jax_controller,

@@ -18,6 +18,7 @@ import torch
 
 from kubernetes_deep_learning_tpu.ops import attention as jax_attn
 from kubernetes_deep_learning_tpu_torch.ops import attention as attn
+from torch_threads import one_torch_thread  # noqa: F401
 
 _DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

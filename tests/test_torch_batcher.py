@@ -56,6 +56,7 @@ from kubernetes_deep_learning_tpu_torch.runtime.native_batcher import NativeBatc
 from kubernetes_deep_learning_tpu_torch.serving import protocol
 from kubernetes_deep_learning_tpu_torch.serving.model_server import build_server
 from kubernetes_deep_learning_tpu_torch.utils import metrics as port_metrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 PACKAGES = {
     "jax": SimpleNamespace(batcher=jax_batcher, engine=jax_engine, metrics=jax_metrics,
@@ -115,21 +116,28 @@ class ControlledEngine:
         self._fail_dispatch_at = set(fail_dispatch_at)
         self._fail_sync_at = set(fail_sync_at)
         self._lock = threading.Lock()
+        self._issued = 0
 
     def predict_async(self, images):
         with self._lock:
-            i = self.dispatches
-            self.dispatches += 1
-        if i in self._fail_dispatch_at:
-            raise ValueError(f"dispatch {i} rejected")
-        n = images.shape[0]
-        out = np.zeros((n, 3), np.float32)
-        out[:, 0] = i
-        out[:, 1] = np.arange(n)
-        out[:, 2] = images.reshape(n, -1).sum(axis=1)
-        h = _Handle(out, fail=i in self._fail_sync_at)
-        self.handles.append(h)
-        return h, n
+            i = self._issued
+            self._issued += 1
+        try:
+            if i in self._fail_dispatch_at:
+                raise ValueError(f"dispatch {i} rejected")
+            n = images.shape[0]
+            out = np.zeros((n, 3), np.float32)
+            out[:, 0] = i
+            out[:, 1] = np.arange(n)
+            out[:, 2] = images.reshape(n, -1).sum(axis=1)
+            h = _Handle(out, fail=i in self._fail_sync_at)
+            self.handles.append(h)
+            return h, n
+        finally:
+            # Counted once the handle is in ``handles``: tests poll this
+            # count, then take the handle.
+            with self._lock:
+                self.dispatches += 1
 
     def record_completed(self, n, seconds, device_s=None):
         self.completed.append(n)

@@ -43,6 +43,7 @@ from kubernetes_deep_learning_tpu_torch.serving.gateway import Gateway
 from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
 from kubernetes_deep_learning_tpu_torch.serving.wsgi import GatewayWSGI
 from kubernetes_deep_learning_tpu_torch.utils import trace
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPEC = ModelSpec(name="client-stub", family="xception", input_shape=(96, 96, 3),
                  labels=CLOTHING_MODEL.labels, preprocessing="tf", resize_filter="nearest")

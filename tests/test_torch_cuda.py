@@ -1226,8 +1226,12 @@ def test_cuda_device_trace_reads_the_records_as_torch_profiler_does(tmp_path):
 
 # Every (side, C_in, C_out, k, stride, padding) at which clothing-model's
 # w8a8 forward (299 px) launches Q1, and every (side, C) of Q2; then shapes
-# with a K tail (C_in 40: K = 40 and 360, neither a multiple of 64) and an N
-# tail (C_out 24 and 200).
+# with a K tail (C_in 40: K = 48 and 432 after the codes' 16-channel pad,
+# neither a multiple of 128) and an N tail (C_out 24 and 200).  Q1's routes:
+# 1x1/1 by 2-D TMA (the pointwise convs; C_in 34 pads to 48), a k x k
+# gather (block1_conv2, the stem, the 3x3s), 1x1/2 by TMA on its sampled
+# pixels (the residual convs), C_in 3 and 34 (not multiples of 16), M =
+# batch (the squeeze-excite convs), and C_out 728 and 200 (a part N tile).
 INT8_CONV_SHAPES = (
     (149, 32, 64, 3, 1, "VALID"),   # block1_conv2
     (147, 64, 128, 1, 2, "SAME"),   # residual convs, 1x1/2
@@ -1251,6 +1255,7 @@ INT8_CONV_SHAPES = (
     (56, 256, 512, 1, 2, "SAME"),
     (1, 34, 816, 1, 1, "SAME"),             # EfficientNet-B3's squeeze-excite convs
     (1, 816, 34, 1, 1, "SAME"),
+    (9, 34, 136, 1, 1, "VALID"),            # 1x1/1 by TMA on C_pad 48
     (17, 10, 40, 3, 2, "SAME"),             # a K chunk across two taps
     (12, 6, 20, 5, 1, ((2, 1), (0, 3))),    # asymmetric explicit pads
 )
@@ -1259,8 +1264,12 @@ INT8_CONV_SHAPES = (
 INT8_DEPTHWISE_SHAPES = (
     (37, 728, 3, 1), (19, 728, 3, 1), (10, 1024, 3, 1), (10, 1536, 3, 1), (9, 40, 3, 1),
     (75, 192, 5, 2), (19, 816, 5, 2), (20, 96, 5, 2), (19, 576, 5, 1), (16, 144, 3, 2),
-    (10, 1392, 3, 1),
+    (10, 1392, 3, 1), (150, 24, 3, 1),
 )
+INT8_BATCHES = (3, 1)  # not multiples of 8
+# Every Q1 GEMM instance (warpgroups, TMA for A), forced on a 1x1/1 shape
+# (either route) and a 3x3 one (the gather).
+INT8_INSTANCES = tuple((wg, tma) for wg in (1, 2) for tma in (True, False))
 
 
 def _int8_operands(rng, c_in, c_out, k, groups=1):
@@ -1273,17 +1282,19 @@ def _int8_operands(rng, c_in, c_out, k, groups=1):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", INT8_BATCHES)
 @pytest.mark.parametrize("shape", INT8_CONV_SHAPES, ids=str)
-def test_cuda_int8_conv_equals_its_plain_version(shape):
-    """Q1 at batch 3: max abs difference 0 against ``int8_conv_reference``
-    (the quantize-in and epilogue are the same f32 operations and the int
-    products exact), on inputs whose codes reach the clamp."""
+def test_cuda_int8_conv_equals_its_plain_version(shape, batch):
+    """Q1 (quantize pass, then the GEMM instance its shape takes): max abs
+    difference 0 against ``int8_conv_reference`` (the quantize-in and
+    epilogue are the same f32 operations and the int products exact), on
+    inputs whose codes reach the clamp."""
     _need_cuda()
     from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
 
     side, c_in, c_out, k, stride, padding = shape
-    rng = np.random.default_rng(side * c_out)
-    x = _t(rng, (3, side, side, c_in), std=2.0)
+    rng = np.random.default_rng(side * c_out + batch)
+    x = _t(rng, (batch, side, side, c_in), std=2.0)
     q, packed, scale = _int8_operands(rng, c_in, c_out, k)
     int8_ops.reset_launch_counts()
     got = int8_ops.int8_conv(x, packed, 0.0173, scale, (k, k), stride, padding)
@@ -1295,14 +1306,62 @@ def test_cuda_int8_conv_equals_its_plain_version(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 96, 208, 1, "VALID"), (9, 40, 208, 3, "SAME")], ids=str)
+@pytest.mark.parametrize("instance", INT8_INSTANCES, ids=str)
+def test_cuda_int8_conv_instances_equal_the_plain_version(instance, shape, monkeypatch):
+    """Each GEMM instance, forced in place of ``q1_instance``'s choice, with
+    a bias: bit-equal to the plain version (TMA for A only where the conv
+    is 1x1/1: else the launch is refused)."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+
+    side, c_in, c_out, k, padding = shape
+    rng = np.random.default_rng(side * c_out)
+    x = _t(rng, (3, side, side, c_in), std=2.0)
+    q, packed, scale = _int8_operands(rng, c_in, c_out, k)
+    bias = _t(rng, (c_out,), 0.5)
+    monkeypatch.setattr(int8_ops, "q1_instance", lambda *args: instance)
+    if instance[1] and k != 1:
+        with pytest.raises(RuntimeError, match="int8 conv launch failed"):
+            int8_ops.int8_conv(x, packed, 0.0173, scale, (k, k), 1, padding, bias)
+        return
+    got = int8_ops.int8_conv(x, packed, 0.0173, scale, (k, k), 1, padding, bias)
+    torch.cuda.synchronize()
+    want = int8_ops.int8_conv_reference(x, q, 0.0173, scale, 1, padding, bias=bias)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", [None, (2, 0, 0, 6, 4), (2, 1, 1, 7, 5)], ids=str)
+@pytest.mark.parametrize("c", [3, 34, 64, 728])
+def test_cuda_int8_codes_equal_the_plain_version(c, sample):
+    """Q1's quantize pass: ``quantize_input``'s codes bit for bit, the
+    channel stride padded to 16 with code 0; sampled as a 1x1 conv of
+    stride 2 reads them (top/left pads 0 and 1), code 0 outside."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
+
+    rng = np.random.default_rng(c)
+    x = _t(rng, (3, 11, 7, c), std=2.0)
+    codes = int8_ops.int8_codes(x, 0.0173, sample=sample)
+    torch.cuda.synchronize()
+    want = int8_ops.int8_codes(x.cpu(), 0.0173, sample=sample)
+    assert codes.dtype == torch.int8 and codes.shape[-1] == int8_ops.code_width(c)
+    assert torch.equal(codes.cpu(), want) and codes.abs().max().item() == 127
+    if sample is None:
+        assert torch.equal(codes[..., :c], int8_ops.quantize_input(x, 0.0173).to(torch.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", INT8_BATCHES)
 @pytest.mark.parametrize("shape", INT8_DEPTHWISE_SHAPES, ids=str)
-def test_cuda_int8_depthwise_equals_its_plain_version(shape):
+def test_cuda_int8_depthwise_equals_its_plain_version(shape, batch):
     _need_cuda()
     from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
 
     side, c, k, stride = shape
-    rng = np.random.default_rng(side * c)
-    x = _t(rng, (3, side, side, c), std=2.0)
+    rng = np.random.default_rng(side * c + batch)
+    x = _t(rng, (batch, side, side, c), std=2.0)
     q, packed, scale = _int8_operands(rng, c, c, k, groups=c)
     int8_ops.reset_launch_counts()
     got = int8_ops.int8_depthwise(x, packed, 0.0173, scale, stride=stride)

@@ -42,6 +42,7 @@ from kubernetes_deep_learning_tpu_torch.models.efficientnet_fast import block_ro
 from kubernetes_deep_learning_tpu_torch.ops import fused_mbconv
 from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
 from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables, to_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 _SPEC_KW = dict(name="torch-tiny-effnet-b0", family="efficientnet-b0", input_shape=(64, 64, 3),
                 labels=("a", "b", "c"), preprocessing="torch")

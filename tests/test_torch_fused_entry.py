@@ -34,6 +34,7 @@ from kubernetes_deep_learning_tpu_torch.ops import fused_entry as ops
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "exp"))
 import fused_entry as e4  # noqa: E402  (exp/fused_entry.py, the B6 prototype)
+from torch_threads import one_torch_thread  # noqa: F401
 
 _BF16_KEYS = ("conv2", "res", "pw1", "pw2")  # GEMM operands: bf16 in both kernels
 

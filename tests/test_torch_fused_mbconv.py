@@ -32,6 +32,7 @@ from kubernetes_deep_learning_tpu.models.efficientnet import MBConvBlock
 from kubernetes_deep_learning_tpu.ops import fused_mbconv as jax_ops
 from kubernetes_deep_learning_tpu_torch import weights
 from kubernetes_deep_learning_tpu_torch.ops import fused_mbconv as ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(got, want) -> float:

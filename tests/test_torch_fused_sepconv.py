@@ -19,6 +19,7 @@ import torch
 from kubernetes_deep_learning_tpu.ops import fused_sepconv as jax_ops
 from kubernetes_deep_learning_tpu_torch import weights
 from kubernetes_deep_learning_tpu_torch.ops import fused_sepconv as ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(got, want) -> float:

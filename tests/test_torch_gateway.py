@@ -60,6 +60,7 @@ from kubernetes_deep_learning_tpu_torch.runtime.stub import StubEngine, stub_log
 from kubernetes_deep_learning_tpu_torch.serving import protocol
 from kubernetes_deep_learning_tpu_torch.serving.gateway import Gateway
 from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+from torch_threads import one_torch_thread  # noqa: F401
 
 SPEC = ModelSpec(name="gw-stub", family="xception", input_shape=(96, 96, 3),
                  labels=CLOTHING_MODEL.labels, preprocessing="tf", resize_filter="nearest")

@@ -21,6 +21,7 @@ import pytest
 import chip_smoke
 from kubernetes_deep_learning_tpu.models.keras_import import read_keras_h5 as jax_read
 from kubernetes_deep_learning_tpu_torch import h5lite
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _assert_same(got: dict, want: dict) -> None:

@@ -43,6 +43,7 @@ from kubernetes_deep_learning_tpu.serving import protocol as jax_protocol
 from kubernetes_deep_learning_tpu_torch.ops import preprocess
 from kubernetes_deep_learning_tpu_torch.runtime.stub import StubEngine, stub_logits
 from kubernetes_deep_learning_tpu_torch.serving import protocol
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ingest_fixtures")
 SIZES = [(1, 1), (2, 3), (3, 3), (4, 5), (7, 9), (8, 8), (17, 33), (31, 47), (123, 77)]

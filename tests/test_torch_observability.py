@@ -54,6 +54,7 @@ from kubernetes_deep_learning_tpu_torch.utils import flightrecorder as port_reco
 from kubernetes_deep_learning_tpu_torch.utils import metrics as port_metrics
 from kubernetes_deep_learning_tpu_torch.utils import slo as port_slo
 from kubernetes_deep_learning_tpu_torch.utils import trace as port_trace
+from torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {
     "jax": SimpleNamespace(trace=jax_trace, slo=jax_slo, recorder=jax_recorder,

@@ -30,6 +30,7 @@ import dataclasses
 import json
 import os
 import shutil
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,7 @@ from kubernetes_deep_learning_tpu_torch.modelspec import CLOTHING_MODEL, ModelSp
 from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
 from kubernetes_deep_learning_tpu_torch.ops import quantize as tq
 from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 CALIB_RTOL = 1e-5
 MODEL_RTOL = 5e-2
@@ -199,6 +201,53 @@ def test_representative_images_match_jax(jspec, tspec, tmp_path):
         jq.representative_images(jspec, 4, image_dir=str(tmp_path)))
 
 
+# Committed JPEG and PNG fixtures (grey, 4:2:2, 4:4:4, palette, RGBA): a
+# calibration directory whose five files the seven images below cycle over.
+CALIB_FIXTURES = ("q75_422_64x47.jpg", "q80_grey_33x21.jpg", "q90_444_37x29.jpg",
+                  "palette_23x17.png", "rgba_19x25.png")
+FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "ingest_fixtures")
+
+
+def _calib_dir(tmp_path, extra=()) -> str:
+    for name in CALIB_FIXTURES:
+        shutil.copy(os.path.join(FIXTURE_DIR, name), tmp_path / name)
+    for name in extra:
+        shutil.copy(os.path.join(FIXTURE_DIR, CALIB_FIXTURES[0]), tmp_path / name)
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("resize_filter", ["bilinear", "nearest"])
+def test_representative_images_from_fixtures_match_jax(jspec, tspec, tmp_path, resize_filter):
+    """C8: the port's image directory branch (no PIL) gives JAX's array:
+    the same files in the same order, cycled, decoded and resized alike."""
+    root = _calib_dir(tmp_path)
+    got = tq.representative_images(dataclasses.replace(tspec, resize_filter=resize_filter), 7,
+                                   image_dir=root)
+    want = jq.representative_images(dataclasses.replace(jspec, resize_filter=resize_filter), 7,
+                                    image_dir=root)
+    assert got.shape == (7, 96, 96, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[5:], got[:2])
+
+
+def test_representative_images_need_no_pil(jspec, tspec, tmp_path, monkeypatch):
+    """The card's machine has no PIL: with it hidden, the same array."""
+    root = _calib_dir(tmp_path)
+    want = jq.representative_images(jspec, 7, image_dir=root)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    with pytest.raises(ImportError):
+        import PIL.Image  # noqa: F401
+    np.testing.assert_array_equal(tq.representative_images(tspec, 7, image_dir=root), want)
+
+
+@pytest.mark.parametrize("ext", [".bmp", ".webp"])
+def test_representative_images_refuse_what_the_port_does_not_decode(tspec, tmp_path, ext):
+    root = _calib_dir(tmp_path, extra=(f"zz{ext}",))
+    with pytest.raises(ValueError, match=f"zz\\{ext}"):
+        tq.representative_images(tspec, len(CALIB_FIXTURES) + 1, image_dir=root)
+
+
 # --- calibration ---------------------------------------------------------------
 
 
@@ -306,16 +355,56 @@ def test_int8_layer_equals_jax_interceptor_math(case):
 
 
 def test_packing_round_trips_and_pads_k_with_zeros():
+    """Q1's packing: taps (kh, kw, C_pad), C_pad = C_in rounded up to 16
+    (40 -> 48), K = 9 * 48 = 432 rounded up to 512; every pad is zero."""
     rng = np.random.default_rng(2)
     q = torch.from_numpy(rng.integers(-127, 128, (24, 40, 3, 3)).astype(np.int8))
     packed = int8_ops.pack_conv(q)
-    assert packed.shape == (24, 384) and not packed[:, 360:].any()
+    assert packed.shape == (24, 512) and not packed[:, 432:].any()
+    taps = packed[:, :432].reshape(24, 3, 3, 48)
+    assert not taps[..., 40:].any()
+    torch.testing.assert_close(taps[..., :40], q.permute(0, 2, 3, 1), rtol=0, atol=0)
     torch.testing.assert_close(int8_ops.unpack_conv(packed, 40, 3, 3), q, rtol=0, atol=0)
     for k in (3, 5):
         dw = torch.from_numpy(rng.integers(-127, 128, (40, 1, k, k)).astype(np.int8))
         assert int8_ops.pack_depthwise(dw).shape == (k * k, 40)
         torch.testing.assert_close(int8_ops.unpack_depthwise(int8_ops.pack_depthwise(dw)), dw,
                                    rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c", [3, 34, 48, 728])
+def test_int8_codes_are_quantize_input_padded_with_zero(c):
+    """Q1's quantize pass (its plain version here): ``quantize_input``'s
+    codes, the channel stride padded to a multiple of 16 with code 0; for
+    a 1x1 conv of stride 2 (top/left pads 1 here) only the pixels it
+    reads, code 0 outside the image."""
+    x = torch.from_numpy(np.random.default_rng(c).normal(0, 3, (2, 5, 6, c)).astype(np.float32))
+    want = int8_ops.quantize_input(x, 0.0173).to(torch.int8)
+    codes = int8_ops.int8_codes(x, 0.0173)
+    assert codes.dtype == torch.int8 and codes.shape == (2, 5, 6, int8_ops.code_width(c))
+    assert codes.shape[-1] % 16 == 0 and not codes[..., c:].any()
+    assert torch.equal(codes[..., :c], want)
+    assert codes.abs().max() == 127  # some codes reach the clamp
+    sampled = int8_ops.int8_codes(x, 0.0173, sample=(2, 1, 1, 4, 4))
+    assert sampled.shape == (2, 4, 4, int8_ops.code_width(c))
+    assert not sampled[:, 0].any() and not sampled[:, :, 0].any() and not sampled[:, 3].any()
+    assert torch.equal(sampled[:, 1:3, 1:, :c], want[:, 1::2, 1::2])
+
+
+# (M, C_out, K_pad, kernel) -> (warpgroups, TMA for A) on the H100's 132 SMs
+Q1_INSTANCES = {
+    "middle flow 19x19x728 batch 16": ((16 * 19 * 19, 728, 768, (1, 1)), (2, True)),
+    "block14 1536->2048 batch 16": ((16 * 10 * 10, 2048, 1536, (1, 1)), (2, True)),
+    "residual 1x1/2 (its pixels by TMA)": ((16 * 74 * 74, 128, 128, (1, 1)), (2, True)),
+    "ResNet50 stem 7x7/2 C_in 3": ((16 * 112 * 112, 64, 896, (7, 7)), (2, False)),
+    "SE reduce at M = batch": ((16, 58, 1408, (1, 1)), (1, True)),
+}
+
+
+@pytest.mark.parametrize("case", list(Q1_INSTANCES))
+def test_q1_instance_is_chosen_by_shape(case):
+    args, want = Q1_INSTANCES[case]
+    assert int8_ops.q1_instance(*args, 132) == want
 
 
 def test_int8_layer_refuses_what_no_kernel_takes():

@@ -43,6 +43,7 @@ from kubernetes_deep_learning_tpu_torch.models.layers import Conv2dNHWC
 from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
 from kubernetes_deep_learning_tpu_torch.ops import int8 as int8_ops
 from kubernetes_deep_learning_tpu_torch.ops import quantize as tq
+from torch_threads import one_torch_thread  # noqa: F401
 
 CALIB_RTOL = 1e-5
 MODEL_RTOL = 5e-2

@@ -22,6 +22,7 @@ import pytest
 
 from kubernetes_deep_learning_tpu.serving import registry as jax_registry
 from kubernetes_deep_learning_tpu_torch.serving import registry as port_registry
+from torch_threads import one_torch_thread  # noqa: F401
 
 _PKGS = {"jax": jax_registry, "port": port_registry}
 

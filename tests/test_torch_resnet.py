@@ -46,6 +46,7 @@ from kubernetes_deep_learning_tpu_torch.weights import (
     from_jax_variables,
     to_jax_variables,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 _SPEC_KW = dict(name="torch-tiny-resnet", family="resnet50", input_shape=(64, 64, 3),
                 labels=("a", "b", "c", "d"), preprocessing="caffe")

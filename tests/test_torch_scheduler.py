@@ -27,6 +27,7 @@ from kubernetes_deep_learning_tpu_torch.runtime import BatcherClosed, QueueFull
 from kubernetes_deep_learning_tpu_torch.runtime import scheduler as port_sched
 from kubernetes_deep_learning_tpu_torch.serving.admission import Deadline
 from kubernetes_deep_learning_tpu_torch.utils import metrics as port_metrics
+from torch_threads import one_torch_thread  # noqa: F401
 
 _SHAPE = (2, 2, 3)
 _PKGS = {"jax": (jax_sched, jax_metrics), "port": (port_sched, port_metrics)}

@@ -49,6 +49,7 @@ from kubernetes_deep_learning_tpu_torch.modelspec import CLOTHING_MODEL, ModelSp
 from kubernetes_deep_learning_tpu_torch.runtime import InferenceEngine
 from kubernetes_deep_learning_tpu_torch.serving import protocol
 from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -74,6 +74,7 @@ from kubernetes_deep_learning_tpu_torch.training import (
     synthetic_batches,
 )
 from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables, to_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _spec_kw(px: int) -> dict:

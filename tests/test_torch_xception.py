@@ -29,6 +29,7 @@ from kubernetes_deep_learning_tpu_torch.models import (
 from kubernetes_deep_learning_tpu_torch.models.layers import max_pool_same, same_pads
 from kubernetes_deep_learning_tpu_torch.ops.preprocess import normalize
 from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables, to_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 _SPEC_KW = dict(
     name="torch-tiny-xception",

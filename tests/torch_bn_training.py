@@ -36,7 +36,6 @@ them as the tensors whose float64 update is below 1e-12 of the largest.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import jax
@@ -60,6 +59,7 @@ from kubernetes_deep_learning_tpu_torch.training import (
     create_train_state,
 )
 from kubernetes_deep_learning_tpu_torch.weights import from_jax_variables
+from torch_threads import torch_threads  # noqa: F401  (the bn test files' fixture)
 
 PX = 32
 BATCH = 16
@@ -127,21 +127,6 @@ def sgd(lr=SGD_LR):
 
 def adam(lr=ADAM_LR):
     return functools.partial(torch.optim.Adam, lr=lr, eps=1e-8)
-
-
-@contextlib.contextmanager
-def torch_threads(n: int = 1):
-    """Run with ``n`` torch threads, then restore the count.  The suite runs
-    files in several processes at once; torch's default of a thread a core
-    in each, whose workers spin between the thousands of small operations
-    of a CPU train step, beside XLA's own pool, starves the other
-    processes (the port's share of these tests' work is small)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(n)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(before)
 
 
 # --- the JAX side ---
