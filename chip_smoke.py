@@ -342,7 +342,27 @@ flax).  Phases, each of which fails the run (non-zero exit) on error:
    f32 scores as the golden dict: the served one (bf16, ``fast="auto"``)
    within its 0.2 on 8 K1 + 2 K2 a forward.  One ``export`` JSON line
    with each step's seconds;
-26. with ``--profile``: the host time by op of a few bucket-16
+26. generate: the generative lane (``runtime.decode``, ``serving.generate``;
+   no hand kernel: JAX's decode lane reaches no Pallas kernel) for
+   ``gen-default`` at JAX's defaults (4 slots, 16-token pages, 8 pages a
+   sequence) on the card.  Its warmup captures 4 CUDA graphs (prefill
+   buckets 16, 32, 64 and the step at width 4); each graph against the
+   eager function on the same inputs, teacher-forced over 60 steps with
+   prompts in every bucket: the cache after every replay within 1e-5
+   relative of eager's (the trash page aside) and the same token wherever
+   eager's top-2 logit margin is above 1e-4 (the positions under it are
+   counted); JAX's five mixed-bucket, mixed-budget requests on the
+   continuous scheduler, then 16 staggered requests with
+   ``KDLT_DECODE_SLOTS=16``, every stream bit-identical to ``decode_solo``
+   through the same graphs, every page and slot back after each run; the
+   port's model server with ``decode=True`` (a stub image model beside the
+   lane) behind the port's gateway: the client's ``generate_stream`` equal
+   to the JSON answer and to ``decode_solo``, ``/generate/nope`` a 404, the
+   ``decode`` section of ``/debug/slo`` counting the generations; then,
+   printed and not gated, each graph's replay time and TTFT/TPOT p50/p99
+   and tokens/s of 32 requests on the continuous and the static scheduler,
+   in turns.  One ``generate`` JSON line with the phase's seconds;
+27. with ``--profile``: the host time by op of a few bucket-16
    ``predict_async`` dispatches of the batching phase's engine
    (``batching-host``); a ``torch.profiler`` trace of a few bucket-16
    forwards of each served model (and of B3's ``fast=False`` engine, and
@@ -5219,6 +5239,315 @@ def _export_phase(spec, seed: int, smi: str, *, per_forward: dict) -> dict:
     return out
 
 
+# The generative lane (ROADMAP A12).  JAX's five mixed-bucket, mixed-budget
+# requests (tests/test_decode.py), prompts for the teacher-forced graph
+# check (one in each prefill bucket, two in the largest), the churn run's
+# slots, and the timing arms' load.
+GEN_REQUESTS = (("short", 10), ("a much longer prompt string", 4), ("mid-size prompt", 8),
+                ("x", 12), ("long-ish prompt here", 6))
+GEN_FORCED_PROMPTS = ("short", "p" * 20, "q" * 40, "r" * 60)
+GEN_FORCED_STEPS = 60
+GEN_CACHE_TOL = 1e-5  # relative, a graph's cache against the eager function's
+GEN_MARGIN = 1e-4     # top-2 logit margin above which a graph's token must be eager's
+GEN_CHURN_SLOTS = 16
+GEN_CHURN_STAGGER_S = 0.003  # request i is submitted i x this after the first
+GEN_LOAD = 32
+GEN_ARMS = (True, False, False, True)  # continuous, static, in turns
+GEN_REPLAYS = 200
+
+
+def _gen_requests(n: int, seed: int) -> list[tuple[str, int]]:
+    """``n`` (prompt, max_new_tokens): 1-62 lowercase bytes (every prefill
+    bucket), budgets 4-40."""
+    rng = np.random.default_rng(seed)
+    return [("".join(map(chr, rng.integers(97, 123, int(rng.integers(1, 63))))),
+             int(rng.integers(4, 41))) for _ in range(n)]
+
+
+def _gen_pages_back(engine, where: str) -> None:
+    if (engine.pages_in_use or engine.active_slots or engine._slot_pages
+            or sorted(engine._free_pages) != list(range(1, engine.num_pages))
+            or sorted(engine._free_slots) != list(range(engine.max_slots))):
+        _fail(f"generate: pages or slots not all returned after {where}: "
+              f"{engine.pages_in_use} pages in use, {engine.active_slots} slots active")
+
+
+def _gen_graph_check(engine) -> dict:
+    """Every graph against the eager function on the same inputs, teacher-
+    forced: prompts in every bucket prefilled into all slots, then
+    ``GEN_FORCED_STEPS`` steps, each slot fed eager's greedy token.  After
+    every replay the cache (the trash page aside: duplicate writes land
+    there in no fixed order) within GEN_CACHE_TOL relative of the eager
+    cache, and the graph's token eager's wherever eager's top-2 margin is
+    above GEN_MARGIN."""
+    from kubernetes_deep_learning_tpu_torch.runtime.decode import STEP, encode_prompt
+
+    cache = engine.cache.clone()
+    out = {"worst_cache_rel": 0.0, "compared": 0, "under_margin": 0, "programs": set()}
+
+    def compare(key, packed: np.ndarray, dispatch, rows: list[int]) -> np.ndarray:
+        logits = engine.logits(key, torch.from_numpy(packed).to(engine.device), cache)
+        toks = np.atleast_1d(engine.materialize(dispatch()))
+        ref, got = cache[:, :, 1:], engine.cache[:, :, 1:]
+        rel = float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+        out["worst_cache_rel"] = max(out["worst_cache_rel"], rel)
+        if not rel <= GEN_CACHE_TOL:
+            _fail(f"generate: the {key} graph's cache is {rel:.3g} from eager's "
+                  f"(tolerance {GEN_CACHE_TOL})")
+        lg = logits.reshape(-1, logits.shape[-1])[rows]
+        top2 = lg.topk(2, dim=-1).values
+        wide = (top2[:, 0] - top2[:, 1]).cpu().numpy() > GEN_MARGIN
+        want = lg.argmax(dim=-1).cpu().numpy()
+        if (toks[rows][wide] != want[wide]).any():
+            _fail(f"generate: the {key} graph's tokens {toks[rows].tolist()} are not eager's "
+                  f"{want.tolist()} above the {GEN_MARGIN} margin")
+        out["compared"] += int(wide.sum())
+        out["under_margin"] += int((~wide).sum())
+        out["programs"].add(key)
+        return want
+
+    slots = []
+    for prompt in GEN_FORCED_PROMPTS:
+        tokens = encode_prompt(prompt)
+        slot = engine.acquire_slot(len(tokens) + GEN_FORCED_STEPS + 1)
+        bucket, packed = engine.prefill_inputs(slot, tokens)
+        first = compare(bucket, packed, lambda: engine.prefill(slot, tokens), [0])
+        engine.seed_token(slot, int(first[0]))
+        slots.append(slot)
+    for _ in range(GEN_FORCED_STEPS):
+        want = compare(STEP, engine.step_inputs(), engine.step_async, slots)
+        for slot, tok in zip(slots, want):
+            engine.seed_token(slot, int(tok))
+    for slot in slots:
+        engine.release_slot(slot)
+    if out["programs"] != {*engine.prompt_buckets, STEP}:
+        _fail(f"generate: the graph check ran {out['programs']}, not every program")
+    out["programs"] = len(out["programs"])
+    return out
+
+
+def _gen_batch_vs_solo(engine, requests, stagger_s: float) -> dict:
+    """``requests`` on the continuous scheduler, submitted ``stagger_s``
+    apart from threads of their own (so members join and retire around one
+    another), then each again alone through ``decode_solo``: every stream
+    bit-identical.  The most slots seen active at once is sampled."""
+    import threading
+
+    from kubernetes_deep_learning_tpu_torch.runtime.decode import DecodeScheduler
+    from kubernetes_deep_learning_tpu_torch.utils import metrics as metrics_lib
+
+    registry = metrics_lib.Registry()
+    sched = DecodeScheduler(engine, continuous=True, registry=registry)
+    sched.start()
+    streamed: dict[int, list[int]] = {}
+    busiest = [0]
+    running = True
+
+    def drive(i: int, prompt: str, budget: int) -> None:
+        time.sleep(i * stagger_s)
+        gen = sched.submit(prompt, budget, rid=f"gen-{i}")
+        streamed[i] = [ev[2] for ev in gen.iter_events(timeout_s=60.0) if ev[0] == "token"]
+
+    def sample() -> None:
+        while running:
+            busiest[0] = max(busiest[0], engine.active_slots)
+            time.sleep(0.0005)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    threads = [threading.Thread(target=drive, args=(i, p, n), daemon=True)
+               for i, (p, n) in enumerate(requests)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120.0)
+    wall = time.perf_counter() - t0
+    running = False
+    sampler.join(timeout=5.0)
+    sched.close()
+    if any(t.is_alive() for t in threads) or sorted(streamed) != list(range(len(requests))):
+        _fail(f"generate: {len(requests) - len(streamed)} of {len(requests)} streams on "
+              f"{engine.max_slots} slots never finished")
+    _gen_pages_back(engine, f"{len(requests)} requests on {engine.max_slots} slots")
+    diverged = [i for i, (p, n) in enumerate(requests) if streamed[i] != engine.decode_solo(p, n)]
+    if diverged:
+        _fail(f"generate: on {engine.max_slots} slots, streams {diverged} of {len(requests)} "
+              "are not bit-identical to decode_solo")
+    _gen_pages_back(engine, "decode_solo")
+    steps = metrics_lib.decode_metrics(registry, engine.model)["steps"].value
+    return {"requests": len(requests), "tokens": sum(map(len, streamed.values())),
+            "steps": int(steps), "max_active_slots": busiest[0], "seconds": wall,
+            "bit_identical_to_solo": True}
+
+
+def _gen_wire_check(root: str, prompt: str, budget: int, device: str) -> dict:
+    """The port's model server with the lane on (``decode=True`` on
+    ``device``; a stub image model beside it) behind the port's gateway,
+    read by the port's client."""
+    from kubernetes_deep_learning_tpu_torch.export import artifact as art
+    from kubernetes_deep_learning_tpu_torch.modelspec import CLOTHING_MODEL, ModelSpec
+    from kubernetes_deep_learning_tpu_torch.runtime.stub import StubEngine
+    from kubernetes_deep_learning_tpu_torch.serving import client as client_lib
+    from kubernetes_deep_learning_tpu_torch.serving.gateway import Gateway
+    from kubernetes_deep_learning_tpu_torch.serving.model_server import ModelServer
+
+    spec = ModelSpec(name="gen-stub", family="xception", input_shape=(96, 96, 3),
+                     labels=CLOTHING_MODEL.labels, preprocessing="tf", resize_filter="nearest")
+    art.save_artifact(art.version_dir(root, spec.name, 1), spec, {"params": {}}, {})
+    out: dict = {}
+    server = ModelServer(root, port=0, buckets=(1,), device=device, decode=True,
+                         engine_factory=lambda a, **k: StubEngine(a, **k))
+    try:
+        server.start()
+        t0 = time.perf_counter()
+        server.warmup()
+        out["server_warmup_s"] = time.perf_counter() - t0
+        lane = server.generate
+        if lane.engine.device.type != device or lane.engine.graphs_captured != 4:
+            _fail(f"generate: the server's lane is on {lane.engine.device} with "
+                  f"{lane.engine.graphs_captured} graphs, not on {device} with 4")
+        gw = Gateway(serving_host=f"127.0.0.1:{server.port}", model=spec.name, port=0)
+        gw.start()
+        try:
+            base = f"http://127.0.0.1:{gw.port}"
+            stats: dict = {}
+            t0 = time.perf_counter()
+            events = list(client_lib.generate_stream(base, prompt, max_new_tokens=budget,
+                                                     stats=stats))
+            out["stream_s"] = time.perf_counter() - t0
+            done = events[-1] if events else {}
+            if not done.get("done") or done.get("tokens") != len(events) - 1:
+                _fail(f"generate: the client's stream ended without its done event: {events[-2:]}")
+            reply = client_lib.request(
+                "POST", f"{base}/generate",
+                json.dumps({"prompt": prompt, "max_new_tokens": budget, "stream": False}).encode(),
+                {"Content-Type": "application/json"}, timeout=60)
+            if reply.status_code != 200 or reply.json()["text"] != done["text"]:
+                _fail(f"generate: the JSON answer ({reply.status_code}, {reply.content[:200]!r}) "
+                      f"is not the stream's text {done['text']!r}")
+            solo = lane.engine.decode_solo(prompt, budget)
+            if [e["token"] for e in events[:-1]] != solo:
+                _fail("generate: the stream through the gateway is not decode_solo's tokens")
+            nope = client_lib.request("POST", f"{base}/generate/nope", b'{"prompt": "x"}',
+                                      {"Content-Type": "application/json"}, timeout=60)
+            if nope.status_code != 404:
+                _fail(f"generate: /generate/nope answered {nope.status_code}, not 404")
+            slo = client_lib.fetch_slo(base)
+            gens = [body["decode"]["window"]["generations"]
+                    for body in slo.get("replicas", {}).values()
+                    if isinstance(body, dict) and isinstance(body.get("decode"), dict)]
+            if gens != [2]:
+                _fail(f"generate: /debug/slo's decode sections count {gens} generations, not [2]")
+            out.update(tokens=done["tokens"], ttft_ms=done["ttft_ms"], tpot_ms=done["tpot_ms"],
+                       request_id=stats.get("request_id"), slo_generations=gens[0],
+                       stream_equals_json=True, stream_equals_solo=True, nope_status=404)
+            print(client_lib.render_decode_slo(slo), flush=True)
+        finally:
+            gw.shutdown()
+    finally:
+        server.shutdown()
+    return out
+
+
+def _gen_load(engine, continuous: bool, requests) -> dict:
+    """``requests`` submitted at once to a scheduler (continuous or static)
+    on ``engine``: TTFT and TPOT p50/p99 (ms), tokens/s from the first
+    submission to the last token."""
+    from kubernetes_deep_learning_tpu_torch.runtime.decode import DecodeScheduler
+
+    sched = DecodeScheduler(engine, continuous=continuous)
+    sched.start()
+    t0 = time.perf_counter()
+    gens = [sched.submit(p, n, rid=f"load-{i}") for i, (p, n) in enumerate(requests)]
+    for gen in gens:
+        for _ in gen.iter_events(timeout_s=120.0):
+            pass
+    sched.close()
+    if any(g.finish_reason not in ("stop", "length") for g in gens):
+        _fail(f"generate: the {'continuous' if continuous else 'static'} load run finished "
+              f"{sorted({g.finish_reason for g in gens}, key=str)}")
+    _gen_pages_back(engine, "a load run")
+    wall = max(g.t_last for g in gens) - t0
+    tokens = sum(len(g.tokens) for g in gens)
+
+    def pct(xs) -> dict:
+        xs = np.asarray([x for x in xs if x is not None]) * 1e3
+        return {"p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99))}
+
+    return {"arm": "continuous" if continuous else "static", "requests": len(gens),
+            "tokens": tokens, "seconds": wall, "tokens_per_s": tokens / wall,
+            "ttft_ms": pct(g.ttft_s() for g in gens), "tpot_ms": pct(g.tpot_s() for g in gens)}
+
+
+def _gen_replay_ms(engine) -> dict:
+    """Each graph's device time a replay (CUDA events over GEN_REPLAYS
+    replays), on a placeholder input that writes the trash page only."""
+    from kubernetes_deep_learning_tpu_torch.runtime.decode import STEP
+
+    out = {}
+    for key, g in engine._graphs.items():
+        g.static_in.zero_()
+        if key != STEP:
+            g.static_in[key] = 1
+        g.graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GEN_REPLAYS):
+            g.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[str(key)] = start.elapsed_time(end) / GEN_REPLAYS
+    return out
+
+
+def _generate_phase(seed: int, smi: str, device: str = "cuda") -> dict:
+    """The generative lane on the card (ROADMAP A12); see the module
+    docstring, phase 26.  (``device="cpu"`` rehearses it without a card,
+    with the engine's graph count patched in.)"""
+    from kubernetes_deep_learning_tpu_torch.runtime import decode as decode_lib
+
+    t_phase = time.perf_counter()
+    out: dict = {"model": "gen-default", "card": smi}
+    engine = decode_lib.DecodeEngine("gen-default", device=device)
+    t0 = time.perf_counter()
+    report = engine.warmup()
+    out["warmup_s"] = time.perf_counter() - t0
+    programs = sorted(map(str, engine._graphs))
+    if engine.graphs_captured != len(engine.prompt_buckets) + 1 or report["graphs"] != 4:
+        _fail(f"generate: warmup captured {programs}, not the 3 prefill buckets and the step")
+    out["graphs"] = {"captured": engine.graphs_captured, "programs": programs,
+                     "slots": engine.max_slots, "page": engine.page_size,
+                     "pages_a_sequence": engine.max_pages_per_seq}
+    _gen_pages_back(engine, "warmup")
+    out["graph_vs_eager"] = _gen_graph_check(engine)
+    _gen_pages_back(engine, "the graph check")
+    out["batch_vs_solo"] = {"4": _gen_batch_vs_solo(engine, GEN_REQUESTS, 0.0)}
+    saved = os.environ.get(decode_lib.SLOTS_ENV)
+    os.environ[decode_lib.SLOTS_ENV] = str(GEN_CHURN_SLOTS)
+    try:
+        churn = decode_lib.DecodeEngine("gen-default", device=device)
+    finally:
+        if saved is None:
+            os.environ.pop(decode_lib.SLOTS_ENV)
+        else:
+            os.environ[decode_lib.SLOTS_ENV] = saved
+    if churn.max_slots != GEN_CHURN_SLOTS:
+        _fail(f"generate: {decode_lib.SLOTS_ENV}={GEN_CHURN_SLOTS} gave {churn.max_slots} slots")
+    churn.warmup()
+    out["batch_vs_solo"][str(GEN_CHURN_SLOTS)] = _gen_batch_vs_solo(
+        churn, _gen_requests(GEN_CHURN_SLOTS, seed), GEN_CHURN_STAGGER_S)
+    churn.close()
+    with tempfile.TemporaryDirectory() as root:
+        out["wire"] = _gen_wire_check(root, "hello from the card", 24, device)
+    out["replay_ms"] = _gen_replay_ms(engine)
+    load = _gen_requests(GEN_LOAD, seed + 1)
+    out["load"] = [_gen_load(engine, continuous, load) for continuous in GEN_ARMS]
+    engine.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def _print_server(summary: dict, buckets: list[dict], smi: str) -> None:
     """A served model's lines: the summary, each bucket graph against the
     eager forward, the traced replay's launches, the device memory the
@@ -5421,6 +5750,9 @@ def main(argv=None) -> int:
                            per_forward={"fused_sepconv_block": 8, "fused_sepconv_chain": 2})
     export["phase_s"] = time.perf_counter() - t0
     print("export:", json.dumps(export), flush=True)
+
+    # --- the generative lane: paged-KV decode on CUDA graphs, :generate on the wire ---
+    print("generate:", json.dumps(_generate_phase(args.seed, smi)), flush=True)
 
     print("smoke:", json.dumps({"seconds": time.perf_counter() - t_script, "card": smi}))
     print(f"card: {smi}")

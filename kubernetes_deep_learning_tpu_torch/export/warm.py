@@ -28,8 +28,11 @@ for a model that fails while the rest are warmed all the same.  The model
 pass only validates: the graphs it captures persist nothing.  A server
 booted with ``KDLT_TORCH_BUILD_DIR`` on the warmed directory runs no nvcc
 and no g++: its boot line and ``kdlt_native_builds`` on /metrics say 0.
-The generative lane's decode ladder (the JAX ``warm_decode``) waits for
-ROADMAP A12.
+With the generative lane on (``--decode`` or ``KDLT_DECODE=1``, the switch
+the servers read) the pass also runs the lane's decode ladder once
+(``warm_decode``: every prefill bucket's graph and the step's captured,
+then freed) and reports its grid; a failed ladder is an error entry, the
+image models are warmed all the same.
 """
 
 from __future__ import annotations
@@ -77,22 +80,51 @@ def build_libraries(names) -> dict:
         return dict(zip(names, pool.map(one, names)))
 
 
+def warm_decode(engine_factory=None, device: str = "cuda") -> dict:
+    """Run the generative lane's decode ladder once; returns its report.
+
+    The ladder is one prefill graph per prompt-length bucket plus the one
+    fixed-width step graph that serves every batch-slot composition: the
+    grid is buckets x slots wide but only buckets + 1 programs deep.  The
+    engine's device memory is given back afterwards.
+    ``engine_factory(model=, device=)`` swaps the engine class (tests)."""
+    from kubernetes_deep_learning_tpu_torch.serving.generate import decode_model
+
+    if engine_factory is None:
+        from kubernetes_deep_learning_tpu_torch.runtime.decode import DecodeEngine
+
+        engine_factory = DecodeEngine
+    engine = engine_factory(model=decode_model(), device=device)
+    try:
+        entry = dict(engine.warmup())
+    finally:
+        if hasattr(engine, "close"):
+            engine.close()
+    entry["grid"] = {"prompt_buckets": [int(b) for b in entry.get("buckets", {})],
+                     "slots": int(getattr(engine, "max_slots", 0))}
+    return entry
+
+
 def warm_models(model_root: str, buckets=None, build_dir: str | None = None,
-                device: str = "cuda", engine_factory=None, libraries=None) -> dict:
+                device: str = "cuda", engine_factory=None, libraries=None,
+                decode: bool | None = None, decode_engine_factory=None) -> dict:
     """Build the libraries (into ``build_dir``, default the build directory
     of ``$KDLT_TORCH_BUILD_DIR``), then warm every model under
-    ``model_root``; returns the report dict.  ``libraries`` (default: the
-    kernels' library on a CUDA device, and the host libraries) names what
-    to build; ``engine_factory(directory, buckets, device)`` swaps the
-    engine class (tests)."""
+    ``model_root``, and the decode ladder when ``decode`` (None =
+    ``$KDLT_DECODE``); returns the report dict.  ``libraries`` (default:
+    the kernels' library on a CUDA device, and the host libraries) names
+    what to build; ``engine_factory(directory, buckets, device)`` and
+    ``decode_engine_factory`` swap the engine classes (tests)."""
     from kubernetes_deep_learning_tpu_torch.ops import _build
 
+    args = (model_root, buckets, device, engine_factory, libraries, decode,
+            decode_engine_factory)
     if not build_dir:
-        return _warm(model_root, buckets, device, engine_factory, libraries)
+        return _warm(*args)
     saved = os.environ.get(_build.BUILD_DIR_ENV)
     os.environ[_build.BUILD_DIR_ENV] = build_dir
     try:
-        return _warm(model_root, buckets, device, engine_factory, libraries)
+        return _warm(*args)
     finally:
         if saved is None:
             os.environ.pop(_build.BUILD_DIR_ENV, None)
@@ -100,7 +132,8 @@ def warm_models(model_root: str, buckets=None, build_dir: str | None = None,
             os.environ[_build.BUILD_DIR_ENV] = saved
 
 
-def _warm(model_root: str, buckets, device: str, engine_factory, libraries) -> dict:
+def _warm(model_root: str, buckets, device: str, engine_factory, libraries, decode,
+          decode_engine_factory) -> dict:
     from kubernetes_deep_learning_tpu_torch.ops import _build, _native
     from kubernetes_deep_learning_tpu_torch.runtime.engine import DEFAULT_BUCKETS
     from kubernetes_deep_learning_tpu_torch.serving.registry import iter_latest_versions
@@ -131,6 +164,20 @@ def _warm(model_root: str, buckets, device: str, engine_factory, libraries) -> d
         report["models"][name] = entry
         print(f"kdlt-torch-warm: {name} v{version}: {entry['seconds']}s "
               f"({len(buckets)} bucket graphs captured)", file=sys.stderr)
+    from kubernetes_deep_learning_tpu_torch.serving.generate import decode_enabled
+
+    if decode_enabled(decode):
+        t0 = time.perf_counter()
+        try:
+            report["decode"] = warm_decode(decode_engine_factory, device)
+        except Exception as e:  # noqa: BLE001 - the image models are warmed all the same
+            report["decode"] = {"error": str(e)}
+            print(f"kdlt-torch-warm: decode ladder FAILED: {e}", file=sys.stderr)
+        else:
+            grid = report["decode"]["grid"]
+            print(f"kdlt-torch-warm: decode {report['decode'].get('model')}: "
+                  f"{round(time.perf_counter() - t0, 3)}s (prefill buckets "
+                  f"{grid['prompt_buckets']} x {grid['slots']} slots + step)", file=sys.stderr)
     report["built"] = _native.built()
     return report
 
@@ -156,6 +203,9 @@ def main(argv: list[str] | None = None) -> int:
                    help="comma-separated bucket ladder to warm (default: the serving "
                    "DEFAULT_BUCKETS)")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--decode", action="store_true", default=None,
+                   help="also warm the generative lane's decode ladder (every prompt-length "
+                   "bucket's prefill and the step; default $KDLT_DECODE=1)")
     p.add_argument("--json", action="store_true",
                    help="print the full warm report as JSON on stdout")
     args = p.parse_args(argv)
@@ -163,10 +213,12 @@ def main(argv: list[str] | None = None) -> int:
     if args.buckets:
         buckets = tuple(sorted({int(b) for b in args.buckets.split(",") if b.strip()}))
     report = warm_models(args.models, buckets=buckets, build_dir=args.build_dir,
-                         device=args.device)
+                         device=args.device, decode=args.decode)
     if args.json:
         print(json.dumps(report, indent=2))
     failed = [n for n, m in report["models"].items() if "error" in m]
+    if "error" in report.get("decode", {}):
+        failed.append("decode")
     if not report["models"]:
         print(f"kdlt-torch-warm: no models under {args.models}", file=sys.stderr)
         return 1

@@ -15,7 +15,7 @@ The port's copy of the JAX package's ``serving/admission/``:
   series, and graceful drain (SIGTERM flips /readyz, sheds new work and
   lets admitted work finish).
 
-The brownout controller comes with the generative lane (ROADMAP A12).
+The brownout controller comes with the brownout ladder (ROADMAP A12b).
 """
 
 from kubernetes_deep_learning_tpu_torch.serving.admission.breaker import CircuitBreaker

@@ -1,7 +1,7 @@
 """AdmissionController: the model tier's front door, and graceful drain.
 
 The port's copy of the JAX package's ``serving/admission/controller.py``
-(no brownout: that comes with the generative lane).  Per
+(no brownout: that comes with the brownout ladder, ROADMAP A12b).  Per
 request it applies, in order: drain refusal, deadline-exhausted rejection
 (504) and the adaptive concurrency limiter's bounded queue, raising a
 typed ``Shed`` for the transport to map to 503/504 + ``Retry-After``, and

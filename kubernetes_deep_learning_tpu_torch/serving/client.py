@@ -8,11 +8,12 @@ HTTP through ``http.client`` (the card's machine has no ``requests``): an
 HTTP error status raises :class:`HTTPError`, a refused or reset connection
 a ``ConnectionError`` or an ``http.client.HTTPException``.
 
-The generative lane's client half (``generate_stream``, ``--stream``) and
-the brownout view (``fetch_brownout``, ``render_classes``, the per-token
-``render_decode_slo``) wait for ROADMAP A12 and the brownout ladder: the
-CLI refuses ``--stream`` naming A12, as the port's gateway answers
-``/generate``.
+The generative lane's client half: ``generate_stream`` (``--stream
+PROMPT``, ``--max-new-tokens``) reads the gateway's ``/generate`` SSE frames
+one by one as they arrive, and ``render_decode_slo`` draws the per-token
+view of ``/debug/slo`` (``--slo``).  The brownout view (``fetch_brownout``,
+``render_classes``: ``/debug/brownout``, which the port's gateway does not
+serve) waits for the brownout ladder, ROADMAP A12b.
 """
 
 from __future__ import annotations
@@ -38,8 +39,6 @@ DEFAULT_IMAGE_URL = "http://bit.ly/mlbookcamp-pants"
 # and jitter decorrelates a thundering herd of retriers.
 RETRY_AFTER_CAP_S = 5.0
 DEFAULT_RETRY_BACKOFF_S = 0.05
-NOT_PORTED_A12 = ("the generative lane is not ported yet (ROADMAP A12): --stream and "
-                  "--max-new-tokens wait for it")
 
 # A refused, reset or half-answered connection: the request never completed
 # on the serving path, so resending is safe.
@@ -331,6 +330,120 @@ def render_slo(payload: dict) -> str:
     return "\n".join(lines)
 
 
+def generate_stream(
+    gateway_url: str,
+    prompt: str,
+    max_new_tokens: int = 16,
+    model: str | None = None,
+    deadline_ms: float | None = None,
+    priority: str | None = None,
+    timeout: float = 120.0,
+    stats: dict | None = None,
+):
+    """POST /generate and yield each SSE event dict AS IT ARRIVES.
+
+    One dict a token (index, token id, text); the terminal event carries
+    ``done: true`` and the server-measured TTFT/TPOT of the generation.
+    ``model`` routes to a non-default decode model (``/generate/<model>``);
+    ``deadline_ms`` and ``priority`` propagate as for /predict (a deadline
+    that expires mid-stream ends it with finish_reason "deadline").
+    Closing the generator early closes the connection, which cancels the
+    generation down to its decode slot.  ``timeout`` bounds each read.
+
+    No retries: a generation is not idempotent the way a predict is, so
+    the retry decision belongs to the caller.
+    """
+    from kubernetes_deep_learning_tpu_torch.serving.admission import DEADLINE_HEADER
+    from kubernetes_deep_learning_tpu_torch.serving.tracing import REQUEST_ID_HEADER
+
+    if stats is None:
+        stats = {}
+    headers = {"Content-Type": "application/json"}
+    if deadline_ms is not None:
+        headers[DEADLINE_HEADER] = f"{float(deadline_ms):.1f}"
+    if priority is not None:
+        headers[protocol.PRIORITY_HEADER] = priority
+    url = f"{gateway_url}{'/generate' if model is None else f'/generate/{model}'}"
+    parts = urllib.parse.urlsplit(url)
+    conn_cls = (http.client.HTTPSConnection if parts.scheme == "https"
+                else http.client.HTTPConnection)
+    conn = conn_cls(parts.hostname, parts.port, timeout=timeout)
+    try:
+        body = json.dumps({"prompt": prompt, "max_new_tokens": max_new_tokens}).encode()
+        conn.request("POST", parts.path, body=body, headers=headers)
+        r = conn.getresponse()
+        stats["request_id"] = r.headers.get(REQUEST_ID_HEADER, "")
+        if r.status >= 400:
+            raise HTTPError(r.status, r.read(), url)
+        buf = b""
+        while chunk := r.read1(65536):
+            buf += chunk
+            # Incremental SSE framing: complete ``data: ...\n\n`` frames
+            # yield at once; a partial tail waits for its next chunk.
+            while b"\n\n" in buf:
+                frame, buf = buf.split(b"\n\n", 1)
+                frame = frame.strip()
+                if not frame.startswith(b"data:"):
+                    continue
+                try:
+                    yield json.loads(frame[len(b"data:"):].strip())
+                except ValueError:
+                    continue
+    finally:
+        conn.close()
+
+
+def _fmt_ms(value) -> str:
+    return f"{value:>8.2f}" if isinstance(value, (int, float)) else f"{'-':>8s}"
+
+
+def render_decode_slo(payload: dict) -> str:
+    """ASCII rendering of the fleet's per-token decode view: one row per
+    replica carrying /debug/slo's ``decode`` section (TTFT/TPOT window
+    percentiles against the lane's budgets, slot and KV-page occupancy).
+    Takes the gateway's merged payload (rows keyed by replica host) or one
+    model server's own /debug/slo."""
+    replicas = payload.get("replicas")
+    if not isinstance(replicas, dict):
+        replicas = {"local": payload}
+    rows = [
+        (host, body["decode"])
+        for host, body in sorted(replicas.items())
+        if isinstance(body, dict) and isinstance(body.get("decode"), dict)
+    ]
+    if not rows:
+        return ("no decode lane on any replica "
+                "(start model servers with --decode / KDLT_DECODE=1)")
+    lines = [
+        "decode lane (per-token SLOs; ms; window = recent generations):",
+        f"{'replica':<22s} {'model':<14s} {'gens':>5s} {'ttft50':>8s} "
+        f"{'ttft99':>8s} {'tpot50':>8s} {'tpot99':>8s} {'slots':>7s} "
+        f"{'pages':>9s} {'queue':>5s}",
+    ]
+    for host, dec in rows:
+        w = dec.get("window") or {}
+        ttft = w.get("ttft_ms") or {}
+        tpot = w.get("tpot_ms") or {}
+        occ = dec.get("occupancy") or {}
+        lines.append(
+            f"{host:<22s} {dec.get('model', '?'):<14s} "
+            f"{int(w.get('generations', 0)):>5d} "
+            f"{_fmt_ms(ttft.get('p50'))} {_fmt_ms(ttft.get('p99'))} "
+            f"{_fmt_ms(tpot.get('p50'))} {_fmt_ms(tpot.get('p99'))} "
+            f"{occ.get('active_slots', 0):>3d}/{occ.get('max_slots', 0):<3d} "
+            f"{occ.get('pages_in_use', 0):>4d}/{occ.get('pages_total', 0):<4d} "
+            f"{int(occ.get('queue_depth', 0)):>5d}"
+        )
+        budgets = dec.get("budgets_ms") or {}
+        if budgets:
+            reasons = ", ".join(f"{k}={v}" for k, v in
+                                sorted((dec.get("finish_reasons") or {}).items()))
+            lines.append(
+                f"{'':<22s} # budgets: ttft <= {budgets.get('ttft', 0):g} ms, "
+                f"tpot <= {budgets.get('tpot', 0):g} ms; finish reasons: " + (reasons or "-"))
+    return "\n".join(lines)
+
+
 def predict_images(
     server_url: str, model: str, images: np.ndarray, timeout: float = 30.0
 ) -> tuple[np.ndarray, list[str]]:
@@ -389,18 +502,30 @@ def main(argv: list[str] | None = None) -> int:
         "--slo", action="store_true",
         help="INSTEAD of predicting: fetch the gateway's /debug/slo (its "
         "client-observed view merged with every model-tier replica's) and "
-        "render per-model goodput + 5m/1h burn rates",
+        "render per-model goodput + 5m/1h burn rates, plus the per-token "
+        "decode view (TTFT/TPOT percentiles) for replicas running the "
+        "generative lane",
     )
-    p.add_argument("--stream", default=None, metavar="PROMPT",
-                   help=f"refused: {NOT_PORTED_A12}")
-    p.add_argument("--max-new-tokens", type=int, default=None,
-                   help=f"refused: {NOT_PORTED_A12}")
+    p.add_argument(
+        "--stream", default=None, metavar="PROMPT",
+        help="INSTEAD of predicting: stream a generation for PROMPT from the "
+        "gateway's /generate route, printing each token as it arrives plus the "
+        "server-measured TTFT/TPOT from the done event; --model routes to a "
+        "non-default decode model",
+    )
+    p.add_argument(
+        "--max-new-tokens", type=int, default=16,
+        help="generation length cap for --stream (the server also stops at EOS "
+        "or the propagated deadline)",
+    )
     args = p.parse_args(argv)
-    if args.stream is not None or args.max_new_tokens is not None:
-        p.error(NOT_PORTED_A12)
     if args.slo:
-        print(render_slo(fetch_slo(args.gateway)))
+        payload = fetch_slo(args.gateway)
+        print(render_slo(payload))
+        print(render_decode_slo(payload))
         return 0
+    if args.stream is not None:
+        return _stream_main(args)
     stats: dict = {}
     scores = predict_url(
         args.gateway, args.image_url,
@@ -468,6 +593,39 @@ def main(argv: list[str] | None = None) -> int:
             file=sys.stderr,
         )
     return 0
+
+
+def _stream_main(args) -> int:
+    """--stream: the tokens as they arrive on stdout, the done event's
+    numbers on stderr; 1 when the stream ended without a done event or
+    past its deadline."""
+    stats: dict = {}
+    done = None
+    for ev in generate_stream(args.gateway, args.stream, max_new_tokens=args.max_new_tokens,
+                              model=args.model, deadline_ms=args.deadline_ms,
+                              priority=args.priority, stats=stats):
+        if ev.get("done"):
+            done = ev
+            continue
+        sys.stdout.write(ev.get("text", ""))
+        sys.stdout.flush()
+    print()
+    if done is None:
+        print("# stream ended without a done event (connection lost mid-generation)",
+              file=sys.stderr)
+        return 1
+    tpot = done.get("tpot_ms")
+    print(f"# {done.get('tokens', 0)} tokens, ttft {done.get('ttft_ms', 0):.1f} ms, "
+          f"tpot {tpot if tpot is not None else float('nan'):.2f} ms, "
+          f"finish={done.get('finish_reason', '?')}, "
+          f"request_id={stats.get('request_id') or '-'}", file=sys.stderr)
+    if args.stats:
+        # The fleet's per-token SLO posture right after this stream.
+        try:
+            print(render_decode_slo(fetch_slo(args.gateway)), file=sys.stderr)
+        except Exception as e:  # noqa: BLE001 - diagnostics only
+            print(f"# decode slo fetch failed: {e}", file=sys.stderr)
+    return 0 if done.get("finish_reason") != "deadline" else 1
 
 
 if __name__ == "__main__":

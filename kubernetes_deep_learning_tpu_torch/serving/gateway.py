@@ -1,16 +1,18 @@
 """The serving gateway: the IO tier, same public API as the reference.
 
 The port's copy of the JAX package's ``serving/gateway.py``: the same
-routes, wires, cache, replica pool, admission half and error replies, with
-three changes.  It talks to the model tier through ``http.client``
-(``serving.upstream.HttpClient``; the card's machine has no ``requests``);
-it decodes with the port's PIL-free decoder (``ops.preprocess``); and it
-has no brownout ladder and no generative lane, which come with ROADMAP
-A12: ``/generate`` and ``/generate/<model>`` answer 404 naming A12,
-hedging is never switched off and a TTL-expired cache entry never serves.
-Run it as its own process, as the reference deploys it:
-``kdlt-torch-gateway --serving-host HOST:PORT`` (JAX's flags, less the
-brownout ones).
+routes, wires, cache, replica pool, admission half, error replies and
+``/generate`` relay, with three changes.  It talks to the model tier
+through ``http.client`` (``serving.upstream.HttpClient``; the card's
+machine has no ``requests``); it decodes with the port's PIL-free decoder
+(``ops.preprocess``); and it has no brownout ladder, which comes with
+ROADMAP A12b: no class is shed by brownout stage (neither a /predict nor a
+/generate), hedging is never switched off and a TTL-expired cache entry
+never serves.  ``POST /generate`` (the decode model, ``$KDLT_DECODE_MODEL``)
+and ``/generate/<model>`` proxy the model tier's ``:generate`` token
+stream chunk by chunk, outside the cache, coalescing and hedging.  Run it
+as its own process, as the reference deploys it: ``kdlt-torch-gateway
+--serving-host HOST:PORT`` (JAX's flags, less the brownout ones).
 
 Reference behavior being reproduced (reference model_server.py:52-66):
 ``POST /predict`` with body ``{"url": "<image url>"}`` -> fetch the image,
@@ -53,7 +55,7 @@ from kubernetes_deep_learning_tpu_torch.modelspec import ModelSpec
 from kubernetes_deep_learning_tpu_torch.ops import preprocess
 from kubernetes_deep_learning_tpu_torch.runtime.errors import BatcherClosed, QueueFull
 from kubernetes_deep_learning_tpu_torch.serving import protocol
-from kubernetes_deep_learning_tpu_torch.serving.httpserver import ServingHTTPServer
+from kubernetes_deep_learning_tpu_torch.serving.httpserver import ServingHTTPServer, send_chunked
 from kubernetes_deep_learning_tpu_torch.serving.admission import (
     DEADLINE_HEADER,
     AdmissionController,
@@ -101,12 +103,17 @@ WSGI_PRIORITY_KEY = "HTTP_X_KDLT_PRIORITY"
 # Model names are path/label material: constrain them before they touch
 # URLs, metrics labels, or upstream requests.
 _MODEL_NAME_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
-# The generative lane (``/generate``) is not ported yet (ROADMAP A12): its
-# routes answer this 404 in the gateway's JSON error shape.
-GENERATE_NOT_PORTED = (
-    b'{"error": "/generate is not served by this gateway: the generative '
-    b'lane is not ported yet (ROADMAP A12)"}'
-)
+# Generative lane routing: ``POST /generate`` streams tokens from the
+# decode model (``/generate/<model>`` routes explicitly).  The default name
+# mirrors the model tier's lane ($KDLT_DECODE_MODEL); the gateway holds
+# only the NAME: the weights and the KV-cache live in the model tier.
+DECODE_MODEL_ENV = "KDLT_DECODE_MODEL"
+DEFAULT_DECODE_MODEL = "gen-default"
+# A token stream outlives any single-response deadline: connect fast, then
+# read with a generous idle timeout a chunk (each token resets it: it
+# bounds decode silence, not stream length).
+GENERATE_CONNECT_TIMEOUT_S = 5.0
+GENERATE_IDLE_TIMEOUT_S = 60.0
 PREDICT_TIMEOUT_S = 20.0     # reference's gRPC deadline (model_server.py:55)
 PER_IMAGE_TIMEOUT_S = 0.25   # extra upstream budget per batched image: a
                              # 256-image predict is one POST and must not be
@@ -214,6 +221,9 @@ class Gateway:
             SERVING_HOST_ENV, DEFAULT_SERVING_HOST
         )
         self.model = model or os.environ.get(MODEL_ENV, DEFAULT_MODEL)
+        # /generate's default route target (a name only: this tier proxies
+        # the token stream).
+        self.decode_model = os.environ.get(DECODE_MODEL_ENV, "").strip() or DEFAULT_DECODE_MODEL
         self._session_obj = None
         self._session_lock = threading.Lock()
         self._spec_lock = threading.Lock()
@@ -1542,7 +1552,7 @@ class Gateway:
         """
         key = self._cache_key(routed, str(req.get("url", "")), salt)
         w0 = trace_lib.now_s()
-        # Stale-while-revalidate serving is a brownout stage (ROADMAP A12);
+        # Stale-while-revalidate serving is a brownout stage (ROADMAP A12b);
         # without the ladder only fresh entries serve.
         cached = self.cache.lookup_swr(key, stale_ok=False)
         if cached is not None:
@@ -1743,6 +1753,165 @@ class Gateway:
             if ticket is not None:
                 ticket.release()
 
+    def handle_generate(
+        self,
+        body: bytes,
+        request_id: str | None = None,
+        deadline: Deadline | None = None,
+        model: str | None = None,
+        priority: str | None = None,
+    ):
+        """POST /generate -> (status, payload, content_type, extra_headers).
+
+        ``payload`` is complete bytes for every error and for a JSON-mode
+        answer; for a 200 event-stream it is an ITERATOR of the chunks the
+        model tier sent, relayed as they arrive (both transports write it
+        chunked, so tokens reach the client at decode speed).
+
+        Deliberately NOT on the cache, singleflight or hedging path: a token
+        stream is a live connection.  Caching one would replay a dead
+        transcript, coalescing would fan one client's generation out to
+        strangers, and a hedge would run the SAME generation twice.
+        Failover is connect-time only: once the stream has started, a
+        replica that dies truncates it (the client sees no done event).
+
+        Admission applies ahead of any upstream work, and the ticket is held
+        for the life of the stream.  The SLO is accounted at the stream's
+        end: a truncated stream, or a done event whose finish_reason is
+        "deadline", is deadline-exceeded.  (The JAX gateway first sheds a
+        generation by brownout class; that waits for the brownout ladder,
+        ROADMAP A12b.)
+        """
+        t0 = time.perf_counter()
+        rid = request_id or ensure_request_id(None)
+        routed = model or self.decode_model
+        priority = protocol.parse_priority(priority)
+        rt = self.tracer.request_trace(rid)
+        w_start = trace_lib.now_s()
+        self._m_requests.inc()
+        metrics_lib.model_request_counter(self.registry, routed).inc()
+
+        def account(status: int, *, deadline_exceeded: bool = False) -> None:
+            dt = time.perf_counter() - t0
+            self._m_latency.observe(
+                dt, exemplar=rid if metrics_lib.exemplars_enabled() else None)
+            late = deadline_exceeded or (deadline is not None and deadline.expired)
+            self.slo.record(routed, status, dt, deadline_exceeded=late)
+            self.tracer.record(rid, trace_lib.SPAN_GATEWAY_GENERATE, w_start,
+                               trace_lib.now_s() - w_start, span_id=rt.span_id, status=status)
+            self.tracer.classify(rid, trace_lib.retention_class(status, late, False))
+            if self.request_log or (status >= 500 and status not in (503, 504)):
+                log_request("gateway generate", rid, status=status, t0=t0, span_id=rt.span_id)
+
+        if deadline is None and self.admission.enabled:
+            deadline = Deadline.default()
+        try:
+            with rt.span(trace_lib.SPAN_GATEWAY_ADMISSION):
+                ticket = self.admission.admit(deadline, model=routed, priority=priority)
+        except Shed as e:
+            self.recorder.note_shed()
+            self._m_errors.inc()
+            account(e.http_status)
+            return e.http_status, json.dumps(
+                {"error": str(e), "shed_reason": e.reason}
+            ).encode(), "application/json", e.headers()
+
+        headers = {"Content-Type": protocol.JSON_CONTENT_TYPE, REQUEST_ID_HEADER: rid,
+                   PRIORITY_HEADER: priority}
+        read_timeout = GENERATE_IDLE_TIMEOUT_S
+        if deadline is not None:
+            headers[DEADLINE_HEADER] = deadline.header_value()
+            read_timeout = deadline.clamp(read_timeout)
+        tried: list = []
+        r = None
+        last_err: Exception | None = None
+        # Connect-time failover only: up to two replicas, the first answer
+        # wins.  Each pool.choose consumed a breaker allow(), so every pick
+        # is settled with record_success or record_failure.
+        for _ in range(2):
+            replica = self.pool.choose(exclude=tried)
+            if replica is None:
+                break
+            tried.append(replica)
+            sid = trace_lib.new_span_id()
+            headers[PARENT_SPAN_HEADER] = sid
+            w0 = trace_lib.now_s()
+            try:
+                r = self._session().stream(
+                    "POST", f"{replica.base}/v1/models/{routed}:generate", body, headers,
+                    timeout=(GENERATE_CONNECT_TIMEOUT_S, read_timeout))
+            except RequestException as e:
+                self.pool.record_failure(replica)
+                self.tracer.record(rid, trace_lib.SPAN_GATEWAY_UPSTREAM, w0,
+                                   trace_lib.now_s() - w0, parent_id=rt.span_id, span_id=sid,
+                                   replica=replica.host, role="generate", error=str(e)[:120])
+                last_err = e
+                continue
+            # Headers arrived: the replica is alive and answered (even a 4xx
+            # or a 503 is an answer; the breaker counts reachability).
+            self.pool.record_success(replica, trace_lib.now_s() - w0)
+            self.tracer.record(rid, trace_lib.SPAN_GATEWAY_UPSTREAM, w0, trace_lib.now_s() - w0,
+                               parent_id=rt.span_id, span_id=sid, replica=replica.host,
+                               role="generate", status=r.status_code)
+            break
+        if r is None:
+            ticket.release()
+            self._m_errors.inc()
+            account(502)
+            return 502, json.dumps(
+                {"error": f"no upstream replica reachable for generate: {last_err}"}
+            ).encode(), "application/json", retry_after_headers(self.pool.min_retry_after_s())
+        ctype = r.headers.get("Content-Type", "application/json")
+        if r.status_code != 200 or not ctype.startswith(protocol.EVENT_STREAM_CONTENT_TYPE):
+            # A complete answer (JSON mode, or any error): pass the
+            # upstream's status and body through verbatim.
+            try:
+                out = r.content
+            except RequestException as e:
+                out = json.dumps({"error": f"upstream generate reply lost: {e}"}).encode()
+            finally:
+                r.close()
+            extra = {}
+            if r.status_code == 503:
+                # The AIMD congestion signal before release: the tier below
+                # is saturated, so this tier's concurrency limit is high.
+                ticket.mark_overloaded()
+                extra = retry_after_headers(self.admission.retry_after_s())
+            ticket.release()
+            if r.status_code >= 400:
+                self._m_errors.inc()
+            account(r.status_code)
+            return r.status_code, out, ctype, extra
+
+        def stream():
+            """The chunk relay.  A small rolling tail keeps the terminal done
+            event parseable without buffering the stream; the finally closes
+            the upstream connection (which cancels the generation there when
+            the CLIENT went away), releases the ticket and closes the SLO
+            loop, whether the stream completed or was truncated."""
+            tail = b""
+            truncated = True
+            try:
+                for chunk in r.iter_content():
+                    tail = (tail + chunk)[-4096:]
+                    yield chunk
+                truncated = False
+            except RequestException:
+                pass  # the upstream died mid-stream: the client sees the truncation
+            finally:
+                r.close()
+                ticket.release()
+                done = None
+                for ev in protocol.parse_sse_events(tail):
+                    if ev.get("done"):
+                        done = ev
+                late = truncated or done is None or done.get("finish_reason") == "deadline"
+                if truncated:
+                    self._m_errors.inc()
+                account(200, deadline_exceeded=late)
+
+        return 200, stream(), protocol.EVENT_STREAM_CONTENT_TYPE, {"Cache-Control": "no-store"}
+
     def handle_predict(
         self,
         body: bytes,
@@ -1887,13 +2056,36 @@ class Gateway:
             def do_GET(self):
                 self._send(*gw.handle_get(self.path))
 
+            def _generate(self, path: str, rid: str):
+                """POST /generate[/<model>]: proxy one token stream."""
+                model = None
+                if path.startswith("/generate/"):
+                    model = path[len("/generate/"):]
+                    if not _MODEL_NAME_RE.match(model):
+                        return self._send(404, b'{"error": "malformed model name"}',
+                                          "application/json", rid)
+                length = int(self.headers.get("Content-Length", 0) or 0)
+                rejected = gw.reject_oversize(length)
+                if rejected is not None:
+                    self.close_connection = True
+                    return self._send(*rejected, rid)
+                deadline = (Deadline.from_header(self.headers.get(DEADLINE_HEADER))
+                            if gw.admission.enabled else None)
+                status, payload, ctype, extra = gw.handle_generate(
+                    self.rfile.read(length), rid, deadline, model=model,
+                    priority=self.headers.get(PRIORITY_HEADER))
+                if status == 200 and not isinstance(payload, (bytes, bytearray)):
+                    return send_chunked(self, 200, payload, ctype, {REQUEST_ID_HEADER: rid, **extra})
+                summary = gw.tracer.summary(rid)
+                if summary:
+                    extra = {**extra, TRACE_HEADER: summary}
+                self._send(status, payload, ctype, rid, extra)
+
             def do_POST(self):
                 rid = ensure_request_id(self.headers.get(REQUEST_ID_HEADER))
                 path = self.path.split("?", 1)[0]
                 if path == "/generate" or path.startswith("/generate/"):
-                    return self._send(
-                        404, GENERATE_NOT_PORTED, "application/json", rid
-                    )
+                    return self._generate(path, rid)
                 if path != "/predict" and not path.startswith("/predict/"):
                     return self._send(
                         404, b'{"error": "not found"}', "application/json", rid
@@ -2043,7 +2235,7 @@ def main(argv: list[str] | None = None) -> int:
         default=None,
         help="stale-while-revalidate window, as the JAX gateway takes it; "
         "stale entries serve only under a brownout stage, which this "
-        "gateway does not have yet (ROADMAP A12), so none serves",
+        "gateway does not have yet (ROADMAP A12b), so none serves",
     )
     args = p.parse_args(argv)
     gw = Gateway(

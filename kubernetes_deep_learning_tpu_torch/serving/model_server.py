@@ -79,13 +79,24 @@ private C++ queue and dispatcher per model.  Routes:
   so a reload's graph capture waits for those moments only; 409 while
   another capture, or a CUDA graph capture, runs;
   ``?audit=buckets``: each model's padding waste per bucket and FLOPs per
-  image) and ``GET /debug/`` (this list).
+  image) and ``GET /debug/`` (this list);
+- the generative lane (``--decode`` or ``KDLT_DECODE=1``; ``serving.generate``
+  over ``runtime.decode``): ``POST /v1/models/<m>:generate`` with a JSON
+  ``{"prompt", "max_new_tokens", "stream"}`` body, admitted like a predict;
+  a streamed 200 is a chunked ``text/event-stream`` of per-token SSE frames
+  written as the decode loop emits them (the admission ticket is held for
+  the stream's life; a client that goes away cancels its generation), else
+  one JSON document.  ``/debug/slo`` gains a ``decode`` section (TTFT/TPOT
+  percentiles, budgets, slot and page occupancy).  The lane's graphs (one
+  per prompt bucket, one step) are captured by ``warmup()`` on the image
+  engines' capture thread.
 
 Run it with ``kdlt-torch-model-server --model-root DIR --device cuda``
 (``--max-delay-ms``, ``--pipeline-depth``, ``--batcher``,
 ``--no-batching``, ``--no-admission``, ``--watch-interval``,
 ``--sched-policy``, ``--sched-weights``, ``--profile-dir``,
-``--no-profiling``, ``--no-request-log``, ``--no-slo``; the JAX server's
+``--no-profiling``, ``--no-request-log``, ``--no-slo``, ``--decode``,
+``--static-decode-batching``; the JAX server's
 ``KDLT_PROFILE_DIR``, ``KDLT_SLO*``, ``KDLT_INCIDENT*``, ``KDLT_MFU``,
 ``KDLT_LOG_FORMAT`` and ``KDLT_METRICS_EXEMPLARS``; ``--aot-warm`` runs
 ``export.warm``'s pass and exits).  The boot line and
@@ -139,8 +150,9 @@ from kubernetes_deep_learning_tpu_torch.runtime.scheduler import (
     resolve_weights,
 )
 from kubernetes_deep_learning_tpu_torch.serving import cache as cache_lib
+from kubernetes_deep_learning_tpu_torch.serving import generate as generate_lib
 from kubernetes_deep_learning_tpu_torch.serving import protocol
-from kubernetes_deep_learning_tpu_torch.serving.httpserver import ServingHTTPServer
+from kubernetes_deep_learning_tpu_torch.serving.httpserver import ServingHTTPServer, send_chunked
 from kubernetes_deep_learning_tpu_torch.serving.admission import (
     DEADLINE_HEADER,
     AdaptiveLimiter,
@@ -170,6 +182,7 @@ log = logging.getLogger(__name__)
 
 _PREFIX = "/v1/models"
 _STATUS_RE = re.compile(r"^/v1/models/([^/:]+):status$")
+_GENERATE_RE = re.compile(r"^/v1/models/([^/:]+):generate$")
 PROFILE_DIR_ENV = "KDLT_PROFILE_DIR"  # base dir for /debug/profile captures
 PROFILE_TOP_KERNELS = 20  # device kernels named in a /debug/profile reply
 # The bytes wire's image-count bound (the JAX server's).
@@ -491,6 +504,39 @@ class _Exchange:
             server.recorder.record("dispatch.stall", rid=self.rid, model=self.model)
 
 
+class _GenerateExchange(_Exchange):
+    """One :generate request's state, finished as the JAX server finishes a
+    generation: after the stream (the admission ticket is held for its
+    life), with the root span ``server.generate``; the SLO is recorded here
+    only for a request the lane never saw (a shed, an internal error): the
+    lane records the rest at the generation's end."""
+
+    __slots__ = ("lane_recorded",)
+
+    def finish(self) -> None:
+        server = self.server
+        self._record()
+        if self.ticket is not None:
+            self.ticket.release()
+        if self.status != 200:
+            server._m_errors.inc()
+        if self.model is None:
+            return
+        dt = time.perf_counter() - self.t0
+        server._m_latency.observe(dt, exemplar=self.rid if metrics_lib.exemplars_enabled() else None)
+        if not self.lane_recorded:
+            server.slo.record(self.model, self.status, dt, deadline_exceeded=False)
+        deadline_exceeded = self.deadline is not None and self.deadline.expired
+        server.tracer.record(self.rid, trace_lib.SPAN_SERVER_GENERATE, self.w_start,
+                             trace_lib.now_s() - self.w_start, parent_id=self.parent,
+                             span_id=self.rt.span_id, status=self.status)
+        server.tracer.classify(self.rid,
+                               trace_lib.retention_class(self.status, deadline_exceeded, False))
+        if server.request_log or (self.status >= 500 and self.status not in (503, 504)):
+            log_request("model-server generate", self.rid, status=self.status, t0=self.t0,
+                        span_id=self.rt.span_id, model=self.model)
+
+
 class ModelServer:
     def __init__(self, model_root: str, port: int = 8500, host: str = "127.0.0.1",
                  buckets: Sequence[int] = DEFAULT_BUCKETS, device: str = "cuda",
@@ -501,7 +547,8 @@ class ModelServer:
                  profile_base: str | None = "", request_log: bool = False,
                  slo: bool | None = None, incident_dir: str | None = None,
                  engine_factory=None, ingest: bool | None = None,
-                 decode_pool: int | None = None):
+                 decode_pool: int | None = None, decode: bool | None = None,
+                 decode_continuous: bool = True):
         """``admission``: None = ``$KDLT_ADMISSION`` (on by default); False
         turns deadline rejection and the concurrency limiter off (drain
         stays on).  ``sched_policy`` and ``sched_weights``: the scheduler's
@@ -516,7 +563,10 @@ class ModelServer:
         engine (``InferenceEngine``; ``runtime.stub.StubEngine`` takes the
         device out).  ``ingest``: None = ``$KDLT_INGEST`` (on): offer and
         accept the bytes wire, decoded by ``decode_pool`` threads (None =
-        ``$KDLT_DECODE_POOL`` or a core-scaled default)."""
+        ``$KDLT_DECODE_POOL`` or a core-scaled default).  ``decode``: None =
+        ``$KDLT_DECODE`` (off by default); on, the generative lane serves
+        ``:generate`` on ``device`` (``decode_continuous=False``: static
+        request-boundary batching, the A/B baseline)."""
         if profile_base == "":
             profile_base = (os.environ.get(PROFILE_DIR_ENV, "").strip()
                             or os.path.join(tempfile.gettempdir(), "kdlt-traces"))
@@ -601,15 +651,25 @@ class ModelServer:
                                             unloader=self._unload_model)
         self._watcher: threading.Thread | None = None
         self._watcher_stop = threading.Event()
+        self.generate: generate_lib.GenerateLane | None = None
         self.poll_versions()
-        if not self.models:
-            self._close_pipeline()
-            self.recorder.close()
-            self._ingest_decoder.close()
-            raise ValueError(f"no model versions found under {model_root!r}")
         try:
+            if not self.models:
+                raise ValueError(f"no model versions found under {model_root!r}")
             self._httpd = ServingHTTPServer((host, port), self._handler_class())
-        except OSError:
+            # The generative lane (serving.generate): continuous batching over
+            # a paged KV-cache, with this tier's registry, SLO engine, tracer
+            # and flight recorder, so decode and image burn read off the same
+            # dashboards.  Opt-in: the image path is the same with it off.
+            if generate_lib.decode_enabled(decode):
+                self.generate = generate_lib.GenerateLane(
+                    registry=self.registry, slo=self.slo, tracer=self.tracer,
+                    recorder=self.recorder, continuous=decode_continuous,
+                    engine_kwargs={"device": device})
+                self.recorder.add_snapshot_provider("decode", self.generate.debug_payload)
+        except BaseException:
+            if hasattr(self, "_httpd"):
+                self._httpd.server_close()
             self._close_pipeline()
             self.recorder.close()
             self._ingest_decoder.close()
@@ -643,6 +703,11 @@ class ModelServer:
         for name, model in self.models.items():
             model.warmup_s = model.engine.warmup()
             log.info("warmed %s in %.2f s", name, model.warmup_s)
+        if self.generate is not None:
+            rep = self.generate.warmup()
+            log.info("warmed decode %s in %.2f s (prefill buckets %s, one step; %d graphs)",
+                     rep["model"], sum(rep["buckets"].values()) + rep["step_s"],
+                     sorted(rep["buckets"], key=int), rep["graphs"])
         self._warm = True
 
     def start(self) -> None:
@@ -739,6 +804,8 @@ class ModelServer:
         self._watcher_stop.set()
         if self._watcher is not None:
             self._watcher.join(timeout=30)
+        if self.generate is not None:
+            self.generate.close()
         self._close_pipeline()
         self.recorder.close()
         self._ingest_decoder.close()
@@ -864,6 +931,59 @@ class ModelServer:
             return _json(e.http_status, {"error": str(e), "shed_reason": e.reason},
                          e.headers())
         return self._predict(model, body, content_type, deadline, priority, ex)
+
+    def serve_generate(self, name: str, body, headers=None
+                       ) -> tuple[tuple, _GenerateExchange]:
+        """A ``:generate`` request for model ``name`` -> ((status, payload,
+        content type, headers), its exchange), as the JAX server's route:
+        the same front door as ``:predict`` (admission before the body is
+        read, the deadline and the priority class), then the lane.  A 200
+        with ``stream`` carries an iterator of SSE frames the caller writes
+        chunked; the caller calls ``exchange.finish()`` once the reply (the
+        whole stream) went out.  ``body``: bytes, or a callable that reads
+        them."""
+        headers = headers if headers is not None else {}
+        ex = _GenerateExchange(self, headers)
+        ex.lane_recorded = False
+        self._m_requests.inc()
+        lane = self.generate
+        if lane is None:
+            ex.status = 404
+            return _error(404, "generative lane disabled (start the server with --decode or "
+                          f"{generate_lib.DECODE_ENV}=1)"), ex
+        if name != lane.model:
+            ex.status = 404
+            return _error(404, f"no generative model {name!r}"), ex
+        metrics_lib.model_request_counter(self.registry, name).inc()
+        ex.model = name
+        deadline = (Deadline.from_header(headers.get(DEADLINE_HEADER))
+                    if self.admission.enabled else None)
+        ex.deadline = deadline
+        priority = protocol.parse_priority(headers.get(protocol.PRIORITY_HEADER))
+        try:
+            with ex.stage(trace_lib.SPAN_SERVER_ADMISSION):
+                ex.ticket = self.admission.admit(deadline, model=name, priority=priority)
+            length = int(headers.get("Content-Length") or 0)
+            if length > generate_lib.MAX_GENERATE_BODY_BYTES:
+                raise ValueError(f"generate body {length} bytes exceeds the "
+                                 f"{generate_lib.MAX_GENERATE_BODY_BYTES}-byte limit")
+            with ex.stage(trace_lib.SPAN_SERVER_DECODE) as span:
+                raw = body() if callable(body) else body
+                span.tags["bytes"] = len(raw)
+            reply = lane.handle_generate(raw, rid=ex.rid, deadline=deadline, priority=priority)
+        except Shed as e:  # a refusal, not a fault: before the body is read
+            ex.status = e.http_status
+            return _json(e.http_status, {"error": str(e), "shed_reason": e.reason},
+                         e.headers()), ex
+        except ValueError as e:  # a malformed request
+            ex.status = 400
+            return _error(400, str(e)), ex
+        except Exception as e:  # noqa: BLE001 - a request must get an answer
+            log.exception("generate failed")
+            return _error(500, str(e)), ex
+        ex.lane_recorded = True  # the lane owns the SLO record from here on
+        ex.status = reply[0]
+        return reply, ex
 
     def _infer(self, model: ServedModel, images: np.ndarray, deadline: Deadline | None,
                priority: str, trace: trace_lib.RequestTrace | None = None
@@ -1004,7 +1124,8 @@ class ModelServer:
             "tier": "model-server",
             "routes": {
                 "/debug/slo": "per-model goodput and burn-rate windows as this replica "
-                "observed them",
+                "observed them (plus the decode lane's per-token TTFT/TPOT view when "
+                "--decode is on)",
                 "/debug/incidents": "flight-recorder bundles captured on this replica",
                 "/debug/incidents/<id>": "one full incident bundle (timeline, pinned traces, "
                 "snapshots, metrics delta)",
@@ -1024,7 +1145,12 @@ class ModelServer:
 
     def _handle_debug(self, path: str, query: dict) -> Reply:
         if path == "/debug/slo":
-            return _json(200, self.slo.debug_payload())
+            payload = self.slo.debug_payload()
+            if self.generate is not None:
+                # The per-token view beside the per-request windows: what
+                # kdlt-torch-client --slo renders as its decode table.
+                payload["decode"] = self.generate.debug_payload()
+            return _json(200, payload)
         if path in ("/debug", "/debug/"):
             return _json(200, self.debug_index())
         if path in ("/debug/incidents", "/debug/incidents/"):
@@ -1209,11 +1335,31 @@ class ModelServer:
                     return _error(400, str(e))
                 return server.handle_profile(req.get("seconds", 2.0))
 
+            def _generate(self, name: str) -> None:
+                reply, exchange = server.serve_generate(name, self._read_body, self.headers)
+                status, payload, ctype, headers = reply
+                try:
+                    if not self._body_read:  # a reply made before the body was read
+                        self._discard_body()
+                    headers = {**headers, **exchange.reply_headers()}
+                    if isinstance(payload, bytes):
+                        self._reply(status, payload, ctype, headers)
+                    else:
+                        send_chunked(self, status, payload, ctype, headers)
+                except ConnectionError:  # the client hung up
+                    self.close_connection = True
+                finally:
+                    exchange.finish()
+
             def do_POST(self):  # noqa: N802 - http.server API
                 self._body_read = False
                 path = self.path.split("?", 1)[0]
                 if path == "/debug/profile":
                     self._reply(*self._profile_request())
+                    return
+                found = _GENERATE_RE.match(path)
+                if found:
+                    self._generate(found.group(1))
                     return
                 exchange = None
                 try:
@@ -1296,6 +1442,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-slo", action="store_true",
                    help="disable the SLO engine (per-model goodput/burn-rate windows, "
                    "kdlt_slo_* gauges, /debug/slo); default $KDLT_SLO or enabled")
+    p.add_argument("--decode", action="store_true",
+                   help="ALSO serve the generative lane (/v1/models/<m>:generate): "
+                   "continuous-batching autoregressive decode over a paged KV-cache with "
+                   "streamed text/event-stream token responses and per-token TTFT/TPOT "
+                   "SLOs.  Default $KDLT_DECODE=1; the model name is $KDLT_DECODE_MODEL "
+                   "(gen-default)")
+    p.add_argument("--static-decode-batching", action="store_true",
+                   help="with --decode: replace continuous (token-boundary) batching with "
+                   "static request-boundary batching (the A/B baseline); never in production")
     p.add_argument("--aot-warm", action="store_true",
                    help="run the kdlt-torch-warm pass (build the kernels' and host "
                    "libraries into $KDLT_TORCH_BUILD_DIR, warm every model's latest "
@@ -1316,6 +1471,7 @@ def _server_from_args(args: argparse.Namespace) -> ModelServer:
                        else resolve_weights(args.sched_weights)),
         profile_base=None if args.no_profiling else args.profile_dir,
         request_log=not args.no_request_log, slo=False if args.no_slo else None,
+        decode=True if args.decode else None, decode_continuous=not args.static_decode_batching,
     )
 
 
@@ -1332,8 +1488,10 @@ def main(argv: Sequence[str] | None = None) -> int:
         from kubernetes_deep_learning_tpu_torch.export.warm import warm_models
 
         report = warm_models(args.model_root, buckets=[int(b) for b in args.buckets.split(",")],
-                             device=args.device)
+                             device=args.device, decode=True if args.decode else None)
         failed = [n for n, m in report["models"].items() if "error" in m]
+        if "error" in report.get("decode", {}):
+            failed.append("decode")
         return 1 if failed or report["failed_libraries"] or not report["models"] else 0
     server = _server_from_args(args)
     stopped = threading.Event()

@@ -13,7 +13,10 @@ third-party package.  Error replies are JSON ``{"error": ...}`` bodies, and
 a 503 carries ``Retry-After`` in the JAX admission package's format
 (``retry_after_headers``, re-exported by ``serving.admission``), which the
 gateway copies into its own reply.  The priority header and its bounded
-class set are the JAX protocol's.
+class set are the JAX protocol's, and so is the generative lane's wire: a
+JSON ``/generate`` body (``decode_generate_request``) answered by
+Server-Sent Events frames (``sse_token_event``, ``sse_done_event``,
+``parse_sse_events``), byte-equal to JAX's.
 """
 
 from __future__ import annotations
@@ -236,3 +239,72 @@ def decode_predict_response(body: bytes, content_type: str) -> tuple[np.ndarray,
     preds = json.loads(body)["predictions"]
     labels = list(preds[0].keys())
     return np.asarray([[p[k] for k in labels] for p in preds], np.float32), labels
+
+
+# --- the generative lane ------------------------------------------------------
+# A JSON request and a Server-Sent Events response, as the JAX protocol's:
+# prompts travel as text (the decode engine encodes them byte by byte), and
+# every knob has a server-side cap.
+
+GENERATE_MAX_NEW_TOKENS_CAP = 1024
+
+
+def decode_generate_request(body: bytes) -> dict[str, Any]:
+    """Parse and validate a /generate JSON body:
+    ``{"prompt": str, "max_new_tokens": int, "stream": bool}``.  Raises
+    ValueError on anything malformed (a 400)."""
+    try:
+        msg = json.loads(body)
+    except Exception as e:  # noqa: BLE001 - mapped to 400 by the caller
+        raise ValueError(f"invalid JSON body: {e}") from e
+    if not isinstance(msg, dict) or "prompt" not in msg:
+        raise ValueError('generate body must be a JSON object with "prompt"')
+    prompt = msg["prompt"]
+    if not isinstance(prompt, str) or not prompt:
+        raise ValueError('"prompt" must be a non-empty string')
+    raw_n = msg.get("max_new_tokens", 16)
+    try:
+        n = int(raw_n)
+    except (TypeError, ValueError) as e:
+        raise ValueError('"max_new_tokens" must be an integer') from e
+    if n < 1 or n > GENERATE_MAX_NEW_TOKENS_CAP:
+        raise ValueError(f'"max_new_tokens" must be in [1, {GENERATE_MAX_NEW_TOKENS_CAP}]')
+    return {"prompt": prompt, "max_new_tokens": n, "stream": bool(msg.get("stream", True))}
+
+
+def sse_event(payload: dict[str, Any]) -> bytes:
+    """One Server-Sent Events frame: ``data: <json>\\n\\n``."""
+    return b"data: " + json.dumps(payload, separators=(",", ":")).encode() + b"\n\n"
+
+
+def sse_token_event(index: int, token: int, text: str) -> bytes:
+    """A per-token event: position, token id, and its decoded text."""
+    return sse_event({"index": index, "token": token, "text": text})
+
+
+def sse_done_event(*, tokens: int, ttft_ms: float, tpot_ms: float, finish_reason: str,
+                   text: str) -> bytes:
+    """The terminal event: totals plus the per-token SLO observations."""
+    return sse_event({
+        "done": True,
+        "tokens": tokens,
+        "ttft_ms": round(ttft_ms, 3),
+        "tpot_ms": round(tpot_ms, 3),
+        "finish_reason": finish_reason,
+        "text": text,
+    })
+
+
+def parse_sse_events(raw: bytes) -> list[dict[str, Any]]:
+    """Split a complete SSE body back into its JSON payloads (tolerant of a
+    trailing partial frame)."""
+    events: list[dict[str, Any]] = []
+    for frame in raw.split(b"\n\n"):
+        frame = frame.strip()
+        if not frame.startswith(b"data:"):
+            continue
+        try:
+            events.append(json.loads(frame[len(b"data:"):].strip()))
+        except Exception:  # noqa: BLE001 - a partial tail frame
+            continue
+    return events

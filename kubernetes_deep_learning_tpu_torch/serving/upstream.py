@@ -217,6 +217,64 @@ class HttpClient:
             for conn in conns:
                 conn.close()
 
+    def stream(self, method: str, url: str, body: bytes | None = None,
+               headers: dict | None = None, timeout=None) -> "StreamResponse":
+        """A request whose reply body is read as it arrives (a token stream),
+        on a connection of its own that the reply's ``close()`` closes: a
+        stream is never pooled.  The read timeout bounds each read, not the
+        stream."""
+        parts = urllib.parse.urlsplit(url)
+        path = (parts.path or "/") + (f"?{parts.query}" if parts.query else "")
+        connect_s, read_s = timeout if isinstance(timeout, tuple) else (timeout, timeout)
+        conn = _Connection(parts.hostname or "localhost", parts.port or 80, timeout=connect_s)
+        try:
+            conn.connect()
+            conn.sock.settimeout(read_s)
+            conn.putrequest(method, path, skip_host=True, skip_accept_encoding=True)
+            for k, v in {"Host": parts.netloc, "Content-Length": str(len(body or b"")),
+                         **(headers or {})}.items():
+                conn.putheader(k, v)
+            conn.endheaders(message_body=body if body is not None else b"")
+            return StreamResponse(conn, conn.getresponse())
+        except (OSError, http.client.HTTPException) as e:
+            conn.close()
+            raise RequestException(f"{method} {url}: {e!r}") from e
+        except BaseException:
+            conn.close()
+            raise
+
+
+class StreamResponse:
+    """An upstream reply read as it arrives: ``status_code``, ``headers``,
+    ``iter_content()`` (the chunks as they come), ``content`` (the rest,
+    whole) and ``close()``, which closes its connection."""
+
+    def __init__(self, conn: _Connection, resp: http.client.HTTPResponse):
+        self._conn = conn
+        self._resp = resp
+        self.status_code = resp.status
+        self.headers = resp.headers
+
+    def iter_content(self, chunk_size: int = 65536):
+        while True:
+            try:
+                chunk = self._resp.read1(chunk_size)
+            except (OSError, http.client.HTTPException) as e:
+                raise RequestException(f"stream read: {e!r}") from e
+            if not chunk:
+                return
+            yield chunk
+
+    @property
+    def content(self) -> bytes:
+        try:
+            return self._resp.read()
+        except (OSError, http.client.HTTPException) as e:
+            raise RequestException(f"body read: {e!r}") from e
+
+    def close(self) -> None:
+        self._conn.close()
+
 
 def get_status(url: str, timeout: float) -> int | None:
     """One GET on a fresh connection: the reply's status, or None when the

@@ -15,8 +15,9 @@ upstream connection pool), mirroring the reference's per-worker module
 globals (reference model_server.py:13-18).  Routing, error mapping, and
 metrics live on Gateway.handle_get/handle_predict -- this module is pure
 transport translation, so the two server postures cannot diverge.
-``/generate`` answers the gateway's 404 naming ROADMAP A12, as the
-threaded transport does.
+``/generate`` streams: a 200 token stream is the gateway's iterator of SSE
+chunks, returned as the WSGI iterable with no Content-Length, so the
+server writes each chunk as it comes (gunicorn flushes a yielded chunk).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ class GatewayWSGI:
         )
         from kubernetes_deep_learning_tpu_torch.serving.cache import WSGI_CACHE_BUST_KEY
         from kubernetes_deep_learning_tpu_torch.serving.gateway import (
-            GENERATE_NOT_PORTED,
+            _MODEL_NAME_RE,
             WSGI_MODEL_KEY,
             WSGI_PRIORITY_KEY,
         )
@@ -62,7 +63,30 @@ class GatewayWSGI:
         if method == "GET":
             code, body, ctype = self.gateway.handle_get(path)
         elif method == "POST" and (path == "/generate" or path.startswith("/generate/")):
-            code, body, ctype = 404, GENERATE_NOT_PORTED, "application/json"
+            model = path[len("/generate/"):] if path.startswith("/generate/") else None
+            length = int(environ.get("CONTENT_LENGTH") or 0)
+            rejected = self.gateway.reject_oversize(length)
+            if model is not None and not _MODEL_NAME_RE.match(model):
+                code, body, ctype = (
+                    404, b'{"error": "malformed model name"}', "application/json"
+                )
+            elif rejected is not None:
+                code, body, ctype = rejected
+            else:
+                deadline = (
+                    Deadline.from_header(environ.get(WSGI_DEADLINE_KEY))
+                    if self.gateway.admission.enabled
+                    else None
+                )
+                code, body, ctype, extra = self.gateway.handle_generate(
+                    environ["wsgi.input"].read(length), rid, deadline, model=model,
+                    priority=environ.get(WSGI_PRIORITY_KEY),
+                )
+                if not isinstance(body, (bytes, bytearray)):
+                    # A token stream: no Content-Length, one chunk at a time.
+                    start_response(_status_line(code), [
+                        ("Content-Type", ctype), (REQUEST_ID_HEADER, rid), *extra.items()])
+                    return body
         elif method == "POST" and (path == "/predict" or path.startswith("/predict/")):
             # Same model routing as the threaded transport: path segment
             # first, X-Kdlt-Model header second, default model otherwise.

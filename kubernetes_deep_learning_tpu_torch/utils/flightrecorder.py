@@ -1,9 +1,10 @@
 """Incident flight recorder: a black box for the serving stack.
 
 The port's copy of the JAX package's ``utils/flightrecorder.py``, with the
-same closed event vocabulary, trigger rules and bundle format (the gateway,
-brownout and decode kinds stay in the vocabulary though this package emits
-none of them).  The serving path emits failure signals -- SLO burn
+same closed event vocabulary, trigger rules and bundle format (the
+brownout kinds stay in the vocabulary though this package emits none of
+them until ROADMAP A12b; the generative lane emits the decode kinds).  The
+serving path emits failure signals -- SLO burn
 (utils/slo.py), dispatch-stall watchdogs (runtime/engine.py), registry
 loads and unloads -- but each is transient: traces age out of the ring,
 /debug/* pages show only *current* state, and by the time an operator

@@ -208,6 +208,65 @@ def model_request_counter(registry: "Registry", model: str) -> "Counter":
         lambda c: c.counter("kdlt_model_requests_total", "predict requests by served model"))
 
 
+# --- the generative lane's series (runtime.decode) ---------------------------
+#
+# TTFT and TPOT distributions (the per-token SLO signals), token,
+# generation and step counts, and the continuous-batching occupancy gauges,
+# under the bounded ``model`` label; the JAX package's names and buckets.
+# TTFT spans a prefill up to queue-dominated seconds; TPOT is one decode
+# step amortized per token.
+DECODE_TTFT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+    5.0, 10.0,
+)
+DECODE_TPOT_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 1.0,
+)
+
+
+def decode_metrics(registry: "Registry", model: str) -> dict:
+    """One generative model's decode-lane series (memoized per child)."""
+
+    def mint(c: "Registry") -> dict:
+        return {
+            "ttft": c.histogram(
+                "kdlt_decode_ttft_seconds",
+                "time to first token: generation admitted -> first token "
+                "materialized (prefill + queue wait included)",
+                buckets=DECODE_TTFT_BUCKETS),
+            "tpot": c.histogram(
+                "kdlt_decode_tpot_seconds",
+                "time per output token after the first "
+                "((t_last - t_first) / (n - 1)) for each finished generation",
+                buckets=DECODE_TPOT_BUCKETS),
+            "tokens": c.counter("kdlt_decode_tokens_total", "output tokens emitted"),
+            "generations": c.counter("kdlt_decode_generations_total", "generations finished"),
+            "steps": c.counter(
+                "kdlt_decode_steps_total",
+                "batched decode steps executed (each advances every active slot by one token)"),
+            "step_seconds": c.histogram(
+                "kdlt_decode_step_seconds",
+                "wall time of one batched decode step (dispatch + materialize)",
+                buckets=PIPELINE_STAGE_BUCKETS),
+            "prefill_seconds": c.histogram(
+                "kdlt_decode_prefill_seconds",
+                "wall time of one prompt prefill (one graph per prompt bucket)",
+                buckets=PIPELINE_STAGE_BUCKETS),
+            "active_slots": c.gauge(
+                "kdlt_decode_active_slots",
+                "decode batch slots currently occupied by live generations"),
+            "queue_depth": c.gauge(
+                "kdlt_decode_queue_depth",
+                "admitted generations waiting for a free decode slot"),
+            "pages_in_use": c.gauge(
+                "kdlt_decode_kv_pages_in_use",
+                "KV-cache pages currently allocated to live generations"),
+        }
+
+    return _memo_on_child(model_registry(registry, model), "_kdlt_decode", mint)
+
+
 # --- the SLO engine's series (utils.slo) -------------------------------------
 #
 # Per-model sliding-window goodput and multi-window burn rates against

@@ -38,6 +38,10 @@ folded with the Keras epsilon into an f32 scale/shift, depthwise taps
 (k,k,C) f32, 1x1 kernels (C_in,C_out) bf16.  ``fold_bn`` takes another
 epsilon for a family that has its own (ResNet's 1.001e-5,
 ``models.resnet.RESNET_BN_EPS``).
+
+The JAX decode lane's parameter tree (``runtime/decode.py``'s
+``_build_params``) crosses as it is, through
+:func:`from_jax_decode_params`, into ``runtime.decode.DecodeEngine``.
 """
 
 from __future__ import annotations
@@ -148,6 +152,29 @@ def to_jax_variables(params: dict[str, torch.Tensor]) -> dict[str, Any]:
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(arr)
     return {k: v for k, v in tree.items() if v}
+
+
+DECODE_TOP = ("embed", "pos", "ln_f")
+DECODE_LAYER = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
+
+
+def from_jax_decode_params(params: dict) -> dict:
+    """The JAX decode lane's parameter tree (``runtime/decode.py``'s
+    ``_build_params``: ``embed``, ``pos``, ``ln_f`` and a list of layers,
+    numpy or jax arrays) as the port's ``runtime.decode.DecodeEngine``
+    takes it (``params=``): the same tree of float32 CPU tensors, every
+    matrix in JAX's (in, out) layout (the port multiplies ``x @ w`` too)."""
+
+    def leaf(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    missing = [k for k in DECODE_TOP if k not in params]
+    missing += [f"layers[{i}].{k}" for i, layer in enumerate(params.get("layers", ()))
+                for k in DECODE_LAYER if k not in layer]
+    if missing or not params.get("layers"):
+        raise ValueError(f"not a decode parameter tree: missing {missing or ['layers']}")
+    return {**{k: leaf(params[k]) for k in DECODE_TOP},
+            "layers": [{k: leaf(layer[k]) for k in DECODE_LAYER} for layer in params["layers"]]}
 
 
 def fold_bn(params: dict, name: str, eps: float = KERAS_BN_EPS):

@@ -9,9 +9,13 @@ package's.
   payloads, and the ``fetch_*`` ones the same payloads;
 - the retry budget on a 503 with ``Retry-After`` and on a reset
   connection: the same retries, stats and final errors as JAX's;
+- ``--stream`` (the generative lane's client half) prints what the JAX
+  client prints, from the port's gateway in front of a model server with
+  the lane on;
 - ``serving.wsgi`` under ``wsgiref``: the same reply as the threaded
   gateway, the health and metrics routes, an oversize body refused unread,
-  ``/generate`` a 404 naming ROADMAP A12;
+  ``/generate`` streamed as the threaded gateway streams it, and
+  ``/generate/nope`` a 404;
 - ``kdlt-torch-doctor``'s renders equal the JAX ``kdlt-doctor``'s for the
   same bundle and incident list.
 """
@@ -72,7 +76,7 @@ def stack(tmp_path_factory):
     image_base = _serve(files)
     root = tmp_path_factory.mktemp("models")
     art.save_artifact(art.version_dir(str(root), SPEC.name, 1), SPEC, {"params": {}}, {})
-    server = ModelServer(str(root), port=0, buckets=(1, 2, 4), device="cpu",
+    server = ModelServer(str(root), port=0, buckets=(1, 2, 4), device="cpu", decode=True,
                          engine_factory=lambda a, **k: StubEngine(a, **k))
     server.start()
     server.warmup()
@@ -125,15 +129,16 @@ def test_fetches_and_renders_equal_jax(stack, capsys):
     spans = client.fetch_trace(base, stats["request_id"])
     assert spans == jax_client.fetch_trace(base, stats["request_id"])
     assert trace.render_waterfall(spans) == jax_trace.render_waterfall(spans)
-    # --slo prints the same table (the JAX client adds its decode-lane footer).
+    # --slo prints the same table, and the decode lane's below it.
     assert client.main(["--gateway", base, "--slo"]) == 0
     got = capsys.readouterr().out
     assert got.startswith("SLO target") and "merged" in got
+    assert "decode lane (per-token SLOs" in got
 
 
 def test_stats_and_trace_modes_print_the_jax_tables(stack, capsys):
     """--stats and --trace: the JAX client's stderr, less its brownout
-    table (the port's gateway has no /debug/brownout, ROADMAP A12)."""
+    table (the port's gateway has no /debug/brownout, ROADMAP A12b)."""
     argv = ["--gateway", stack["gateway"], "--image-url", stack["image"](0), "--stats",
             "--trace", "--cache-bust"]
     assert client.main(argv) == 0
@@ -144,12 +149,17 @@ def test_stats_and_trace_modes_print_the_jax_tables(stack, capsys):
     assert not any("brownout" in ln or "failed" in ln for ln in got)
 
 
-def test_stream_is_refused_naming_a12(capsys):
-    for argv in (["--stream", "hello"], ["--max-new-tokens", "4"]):
-        with pytest.raises(SystemExit) as info:
-            client.main(argv)
-        assert info.value.code == 2
-        assert "A12" in capsys.readouterr().err
+def test_stream_flag_prints_what_the_jax_client_prints(stack, capsys):
+    """--stream and --max-new-tokens: the tokens on stdout as the JAX client
+    prints them, the done event's numbers on stderr (its timings aside)."""
+    argv = ["--gateway", stack["gateway"], "--stream", "a prompt", "--max-new-tokens", "4"]
+    assert client.main(argv) == 0
+    out, err = capsys.readouterr()
+    assert jax_client.main(argv) == 0
+    want_out, want_err = capsys.readouterr()
+    assert out == want_out and out.endswith("\n")
+    assert err.startswith("# ") and "finish=" in err and "request_id=" in err
+    assert err.split(" ttft")[0] == want_err.split(" ttft")[0]  # "# N tokens,"
 
 
 # --- the retry budget --------------------------------------------------------------
@@ -271,13 +281,30 @@ def test_wsgi_routes(wsgi):
     assert (health.status_code, health.content) == (200, b"ok")
     metrics = client.request("GET", f"{wsgi}/metrics")
     assert metrics.status_code == 200 and b"kdlt_gateway_requests_total" in metrics.content
-    for method, path, code, needle in (("POST", "/generate", 404, b"A12"),
-                                       ("POST", "/generate/m", 404, b"A12"),
+    for method, path, code, needle in (("POST", "/generate/nope", 404, b"no generative model"),
+                                       ("POST", "/generate/bad%20name!", 404, b"malformed"),
+                                       ("POST", "/generate", 400, b"prompt"),
                                        ("POST", "/predict/bad%20name!", 404, b"malformed"),
                                        ("POST", "/nowhere", 404, b"not found"),
                                        ("PUT", "/predict", 404, b"not found")):
         r = client.request(method, f"{wsgi}{path}", b"{}", {"Content-Type": "application/json"})
         assert (r.status_code, needle in r.content) == (code, True), path
+
+
+def test_wsgi_streams_generate_as_the_threaded_gateway(stack, wsgi):
+    """A streamed 200 through the WSGI adapter: the same events as the
+    threaded gateway's, and the JSON answer's text."""
+    streams = []
+    for base in (wsgi, stack["gateway"]):
+        events = list(client.generate_stream(base, "wsgi", max_new_tokens=5))
+        assert events[-1]["done"] and events[-1]["tokens"] == 5
+        streams.append([{k: v for k, v in e.items() if k not in ("ttft_ms", "tpot_ms")}
+                        for e in events])
+    assert streams[0] == streams[1]
+    r = client.request("POST", f"{wsgi}/generate",
+                       json.dumps({"prompt": "wsgi", "max_new_tokens": 5, "stream": False}).encode(),
+                       {"Content-Type": "application/json"})
+    assert r.status_code == 200 and r.json()["text"] == streams[0][-1]["text"]
 
 
 def test_wsgi_refuses_an_oversize_body_unread(stack):

@@ -60,7 +60,10 @@ and 4-component JPEG, 4:4:0, 4:1:1, 16-bit and Adam7 PNG) its PIL digest.
 Device-resize staging: the staged program's bucket graphs replay its eager
 form's bits with 8 K1 and 2 K2 launches, the resize captured in a graph
 stays within 1e-3 of its float64 products (no TF32), and closing a staged
-engine gives its memory back.
+engine gives its memory back.  The generative lane: a decode engine's
+prefill and step graphs replay the eager programs (the cache within 1e-5,
+the tokens above a 1e-4 top-2 margin), a continuous batch's streams equal
+``decode_solo``'s, and a closed engine gives its memory back.
 """
 
 from __future__ import annotations
@@ -1883,3 +1886,98 @@ def test_cuda_verify_golden_runs_both_checks_on_the_stage_kernels(tmp_path, monk
     assert code == 0, text
     assert ops.launch_counts() == {"fused_sepconv_block": 16, "fused_sepconv_chain": 4}
     assert "OK: served config (bf16, fast=auto) within atol=0.2" in text
+
+
+# --- the generative lane on the card -----------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_decode_graphs_replay_the_eager_programs():
+    """A 2-slot decode engine's warmup captures one graph per fitting
+    prefill bucket and one step; each graph, fed the eager function's
+    inputs, leaves the cache within 1e-5 of eager's (the trash page aside)
+    and returns eager's greedy tokens wherever the top-2 margin is above
+    1e-4; a closed engine gives its memory back (within 16 MiB)."""
+    _need_cuda()
+    from kubernetes_deep_learning_tpu_torch.runtime import decode
+
+    # A first engine, warmed and run eager on this thread, then closed: the
+    # cuBLAS workspaces of the capture stream and of this thread's stream
+    # live as long as the process.
+    first = decode.DecodeEngine("gen-cuda", max_slots=2, page_size=8, max_pages_per_seq=4)
+    first.warmup()
+    first.logits(decode.STEP, torch.from_numpy(first.step_inputs()).cuda(), first.cache.clone())
+    first.close()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine = decode.DecodeEngine("gen-cuda", max_slots=2, page_size=8, max_pages_per_seq=4)
+    assert engine.warmup()["graphs"] == engine.graphs_captured == 3  # buckets 16, 32 + step
+    cache = engine.cache.clone()
+    slots, wide = [], 0
+    for prompt in ("abc", "a prompt of twenty-one"):
+        tokens = decode.encode_prompt(prompt)
+        slot = engine.acquire_slot(len(tokens) + 6)
+        bucket, packed = engine.prefill_inputs(slot, tokens)
+        logits = engine.logits(bucket, torch.from_numpy(packed).cuda(), cache)
+        tok = int(engine.materialize(engine.prefill(slot, tokens)))
+        if float(logits.topk(2).values.diff().abs()) > 1e-4:
+            assert tok == int(logits.argmax())
+            wide += 1
+        engine.seed_token(slot, int(logits.argmax()))
+        slots.append(slot)
+    for _ in range(5):
+        logits = engine.logits(decode.STEP, torch.from_numpy(engine.step_inputs()).cuda(), cache)
+        toks = engine.materialize(engine.step_async())
+        rel = (engine.cache[:, :, 1:] - cache[:, :, 1:]).abs().max() / cache[:, :, 1:].abs().max()
+        assert float(rel) <= 1e-5
+        for slot in slots:
+            top2 = logits[slot].topk(2).values
+            if float(top2[0] - top2[1]) > 1e-4:
+                assert toks[slot] == int(logits[slot].argmax())
+                wide += 1
+            engine.seed_token(slot, int(logits[slot].argmax()))
+    assert wide >= 10
+    for slot in slots:
+        engine.release_slot(slot)
+    engine.close()
+    del cache, logits
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert abs(after - before) < 16 << 20, (before, after)
+    with pytest.raises(RuntimeError, match="closed"):
+        engine.step_async()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_continuous_batch_streams_equal_solo():
+    """JAX's five mixed-bucket, mixed-budget requests on the continuous
+    scheduler over the graphs: every stream bit-identical to the same
+    request's ``decode_solo``, every page back."""
+    _need_cuda()
+    import threading
+
+    from kubernetes_deep_learning_tpu_torch.runtime import decode
+
+    engine = decode.DecodeEngine("gen-cuda", max_slots=2, page_size=8, max_pages_per_seq=4)
+    engine.warmup()
+    requests = [("short", 10), ("a much longer prompt string", 4), ("mid-size prompt", 8),
+                ("x", 12), ("long-ish prompt here", 6)]
+    sched = decode.DecodeScheduler(engine, continuous=True)
+    sched.start()
+    streamed = {}
+
+    def drive(i, prompt, budget):
+        gen = sched.submit(prompt, budget)
+        streamed[i] = [ev[2] for ev in gen.iter_events(timeout_s=60.0) if ev[0] == "token"]
+
+    threads = [threading.Thread(target=drive, args=(i, *r)) for i, r in enumerate(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120.0)
+    sched.close()
+    assert not any(t.is_alive() for t in threads)
+    assert (engine.pages_in_use, engine.active_slots) == (0, 0)
+    for i, (prompt, budget) in enumerate(requests):
+        assert streamed[i] == engine.decode_solo(prompt, budget), i
+    engine.close()

@@ -25,6 +25,9 @@
   front of the same port server, lies within the fused path's 2e-2 of the
   JAX gateway and JAX server with the same weights (same top-1), and the
   tensor wire equals the bytes wire;
+- ``/generate`` and ``/generate/<model>`` relay a model server's token
+  stream (the lane on, ``decode=True``) with the JAX gateway's events, and
+  its JSON answers and refusals with the JAX gateway's statuses and bodies;
 - ``/debug/profile`` on the port's server holds ``capture_lock`` only while
   the profiler starts and stops, not for its window, and other requests
   complete meanwhile (ROADMAP C5).
@@ -510,14 +513,45 @@ def test_unreachable_tier_replies_match_the_jax_gateway_but_for_the_client_libra
     assert replies[0] == replies[1] and replies[0][0] == 502
 
 
-def test_generate_answers_a_404_naming_a12(tier):
-    gw = _gateway(Gateway, tier.port)
+def test_generate_streams_through_the_port_gateway_as_through_the_jax_gateway(tmp_path):
+    """``/generate`` and ``/generate/<model>`` relay the model tier's token
+    stream (a streamed 200, ``text/event-stream``, never cached: a second
+    identical request decodes again) with the JAX gateway's events; JSON
+    mode and the refusals (``/generate/nope``, a malformed name, a bad
+    body) pass through with the JAX gateway's statuses and bodies."""
+    server = _stub_server(tmp_path, decode=True)
+    gateways = [_gateway(cls, server.port) for cls in (Gateway, JaxGateway)]
     try:
-        for path in ("/generate", "/generate/gen-default"):
-            status, body, _ = _post(gw.port, {"prompt": "hi"}, path=path)
-            assert status == 404 and "A12" in json.loads(body)["error"]
+        streams = []
+        for gw in gateways:
+            for path in ("/generate", "/generate/gen-default"):
+                status, body, headers = _post(gw.port, {"prompt": "hi there", "max_new_tokens": 5},
+                                              path=path)
+                assert status == 200, body
+                assert headers["Content-Type"] == protocol.EVENT_STREAM_CONTENT_TYPE
+                assert headers["Cache-Control"] == "no-store"
+                events = protocol.parse_sse_events(body)
+                assert events[-1]["done"] and events[-1]["tokens"] == len(events) - 1 == 5
+                streams.append([{k: v for k, v in e.items() if k not in ("ttft_ms", "tpot_ms")}
+                                for e in events])
+        assert all(s == streams[0] for s in streams)
+        assert server.generate.debug_payload()["window"]["generations"] == 4
+        for body, path in (({"prompt": "hi there", "max_new_tokens": 5, "stream": False},
+                            "/generate"),
+                           ({"prompt": "x"}, "/generate/nope"),
+                           ({"prompt": "x"}, "/generate/bad%20name!"),
+                           ({"nope": 1}, "/generate")):
+            (s1, b1, _), (s2, b2, _) = (_post(gw.port, body, path=path) for gw in gateways)
+            assert s1 == s2, (path, s1, s2)
+            if s1 == 200:
+                assert json.loads(b1)["text"] == json.loads(b2)["text"] == streams[0][-1]["text"]
+            else:
+                assert json.loads(b1) == json.loads(b2), (b1, b2)
+        assert _post(gateways[0].port, {"prompt": "x"}, path="/generate/nope")[0] == 404
     finally:
-        gw.shutdown()
+        for gw in gateways:
+            gw.shutdown()
+        server.shutdown()
 
 
 # --- the full clothing-model -----------------------------------------------------------

@@ -390,11 +390,63 @@ def test_keep_alive_requests_do_not_stall_on_nagle(tmp_path):
 # --- import guard ---------------------------------------------------------------
 
 
+FORBIDDEN_IMPORTS = ("jax", "flax", "optax", "orbax", "msgpack", "PIL", "requests", "h5py",
+                     "kubernetes_deep_learning_tpu")
+ROOT_SCRIPTS = ("chip_smoke.py", "mbconv_ablation.py", "entry_ablation.py",
+                "observability_ab.py", "host_ab.py")
+
+
+def _forbidden_imports(path: str) -> list[str]:
+    """Every ``import`` and ``from ... import`` of a forbidden package in a
+    file, wherever it stands (module level, a function body, a branch),
+    as "line: name"; relative imports stay inside the port."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            if any(name == root or name.startswith(root + ".") for root in FORBIDDEN_IMPORTS):
+                found.append((node.lineno, name))
+    return [f"{line}: {name}" for line, name in sorted(found)]
+
+
+def test_port_source_imports_no_forbidden_package_even_inside_functions():
+    """The import test below imports modules, and never runs a function's
+    body: a lazy ``import requests`` would pass it and fail on the card.
+    So read every ``import`` statement of every port module and of the five
+    root scripts."""
+    files = [os.path.join(REPO, s) for s in ROOT_SCRIPTS]
+    pkg = os.path.join(REPO, "kubernetes_deep_learning_tpu_torch")
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
+    assert len(files) >= 60
+    bad = {os.path.relpath(f, REPO): hits for f in files if (hits := _forbidden_imports(f))}
+    assert not bad, bad
+
+
+def test_forbidden_import_scan_sees_function_bodies(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\nfrom . import x\nfrom kubernetes_deep_learning_tpu_torch import y\n"
+                   "def f():\n    import requests\n    if 1:\n        from PIL import Image\n"
+                   "    from kubernetes_deep_learning_tpu.serving import client\n")
+    assert _forbidden_imports(str(src)) == [
+        "5: requests", "7: PIL", "8: kubernetes_deep_learning_tpu.serving"]
+
+
 def test_port_imports_no_jax_flax_or_jax_package():
     """Every port module (and chip_smoke.py, mbconv_ablation.py,
     entry_ablation.py, observability_ab.py, host_ab.py) imports without jax, flax, optax,
     orbax, msgpack, PIL, requests, h5py or the JAX package: none of them is on the GPU
-    machine.
+    machine.  (``test_port_source_imports_no_forbidden_package_even_inside_functions``
+    reads the imports that only a function's call would run.)
     The port's own name starts with the JAX package's, so match the package name exactly
     or with a trailing dot."""
     code = """
@@ -437,6 +489,9 @@ lifecycle = {"kubernetes_deep_learning_tpu_torch." + m for m in (
     "h5lite", "models.keras_import", "export.exporter", "export.inspect", "export.warm",
     "golden", "serving.client", "serving.wsgi", "serving.doctor")}
 assert lifecycle <= set(sys.modules), lifecycle - set(sys.modules)
+generative = {"kubernetes_deep_learning_tpu_torch." + m for m in (
+    "runtime.decode", "serving.generate")}
+assert generative <= set(sys.modules), generative - set(sys.modules)
 print(len([k for k in sys.modules if k.startswith("kubernetes_deep_learning_tpu_torch.")]))
 assert not bad, bad
 """
